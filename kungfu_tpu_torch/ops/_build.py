@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``kungfu_tpu_torch/csrc/`` is compiled by ``nvcc``
+for Hopper (``sm_90a``) into a shared library with a plain C interface
+and loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds. Libraries land in ``build/torch_kernels/`` at the repo root
+(ignored by git through the ``/build/`` entry of ``.gitignore``), named
+by a hash of source and flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built at import: `load` builds on
+first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+#: kernel library -> (source, {C function: (restype, argtypes)})
+KERNELS = {
+    "paged_attn": ("paged_attn.cu", {
+        # scheme, dtype, q, k, v, tables, lengths, out, B, H, D, BT,
+        # max_blocks, block_base, n_pool_blocks, scale, smem bytes, stream
+        "k3_paged_attention": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _LL, _LL,
+                                    ctypes.c_float, _LL, _P]),
+    }),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else
+    the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(name: str) -> str:
+    """Compile library `name` unless it is built already, and return the
+    compiler's log (``-Xptxas -v``: registers, shared memory and spills
+    per kernel; empty for a library already built). The output goes to
+    a temporary file renamed into place, so a reader never loads half a
+    library. Raises RuntimeError with the compiler's output on failure."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"kernel build of {name} failed (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first when needed, with every C
+    function's argtypes/restype declared (pointers and the stream as
+    c_void_p, so ctypes never truncates them to 32 bits)."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (restype, argtypes) in KERNELS[name][1].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+    _loaded[name] = lib
+    return lib

@@ -65,10 +65,13 @@ setup(
         "Adaptive, elastic, decentralized distributed training on TPU "
         "(JAX/XLA data plane + C++ DCN control plane)"
     ),
-    packages=find_packages(include=["kungfu_tpu", "kungfu_tpu.*"]),
+    packages=find_packages(include=["kungfu_tpu", "kungfu_tpu.*",
+                                    "kungfu_tpu_torch", "kungfu_tpu_torch.*"]),
     package_data={
         "kungfu_tpu": ["native/libkf.so", "native/Makefile",
                        "native/include/*.h", "native/src/*"],
+        # the PyTorch/CUDA port's kernels, compiled by nvcc at first use
+        "kungfu_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.9",
     install_requires=["numpy", "jax", "flax", "optax"],
