@@ -3,32 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from the sources in this
-checkout (nvcc, sm_90a), then runs, failing on the first phase that
-fails:
+Builds every CUDA kernel of the serving and training paths from the
+sources in this checkout (nvcc, sm_90a; one nvcc per library, started
+together), then runs, failing on the first phase that fails:
 
 1. kernel — K3 (`paged_attn.resident`, `paged_attn.stream`) against its
    plain PyTorch version at the serving shapes (B=8, h=12, d=64, bt=16,
    max_blocks=64, a 12-layer pool viewed through block_base) in bf16
    and f32;
-2. serve — GPT-2-small at full width (bf16, random weights from a
+2. kernel-K2 — the four fused head+CE kernels (`fused_ce.fwd` with and
+   without the residual, `fused_ce.residual_d`, `fused_ce.dw`,
+   `fused_ce.dx`) against their plain versions at the GPT-2-small
+   training shape (N = 8 x 1023 rows, H=768, V=50257, padded to the
+   port's tiles), with rows whose target is -1 and rows whose target
+   is >= v_pad; loss, lse, tl, logits, d, db, dW and dx;
+3. serve — GPT-2-small at full width (bf16, random weights from a
    seed) behind `DecodeEngine` (max_batch 8, bt 16, max_len 1024,
    prefix sharing, 256-token prefill chunks) answering 12 requests;
    driven once with the default kernel ("auto", the plan's resident
    scheme) and once with kernel="stream", the launch counts zeroed just
    before each run and read just after;
-3. parity — a 2-layer f32 model at GPT-2-small width: the engine's
+4. parity — a 2-layer f32 model at GPT-2-small width: the engine's
    kernel paths give the same tokens as its functional oracle and as
    dense-cache `gpt_generate`;
-4. timing — each K3 scheme per launch at B=8 full 1023-token rows,
-   cycling through the 12 layers' pools, beside its bound, the plain
-   version and one library call (scaled_dot_product_attention on
-   pre-gathered K/V, timed here only — the port never calls it).
+5. train — `benchmarks.lm.measure_lm_rate` on GPT-2-small at full
+   width and depth (f32 master weights, bf16 compute, batch 8, seq
+   1024), once with the residual fused-CE backward and once with the
+   recompute one, the K2 launch counts zeroed just before each run and
+   read just after; the loss must be finite and fall (the batch is the
+   same every step);
+6. timing — each K3 scheme per launch at B=8 full 1023-token rows,
+   cycling through the 12 layers' pools, and each K2 kernel per launch
+   at the training shape, beside its bound, its plain version and the
+   library calls that do the same work (scaled_dot_product_attention on
+   pre-gathered K/V for K3, the cuBLAS products inside each K2 kernel;
+   timed here only — the port never calls them).
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
-package is missing.
+package is missing. Takes no arguments: every phase runs every time.
 """
 
 from __future__ import annotations
@@ -40,13 +54,16 @@ import sys
 import time
 import traceback
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
-#: f32 FLOP/s outside the tensor cores (K3's arithmetic is f32 FMA)
+#: the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s,
+#: f32 FLOP/s outside the tensor cores (K3's arithmetic, K2's
+#: elementwise work) and dense bf16 tensor-core FLOP/s (K2's products)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 BT, HEADS, HEAD_DIM, BATCH, MAX_LEN = 16, 12, 64, 8, 1024
 MAX_BLOCKS = MAX_LEN // BT
@@ -59,6 +76,32 @@ DEVICE = "cuda"
 TOL = {"bfloat16": (1e-3, 8e-3), "float32": (1e-5, 1e-5)}
 REPLACES = {"resident": "kungfu_tpu/ops/paged_attn.py:158",
             "stream": "kungfu_tpu/ops/paged_attn.py:195"}
+
+#: the GPT-2-small training shape of the fused head: B=8 x (T-1)=1023
+#: rows, H=768, V=50257
+K2_N, K2_H, K2_V = 8 * 1023, 768, 50257
+K2_REPLACES = {"fwd": "kungfu_tpu/ops/fused_ce.py:145",
+               "residual_d": "kungfu_tpu/ops/fused_ce.py:189",
+               "dw": "kungfu_tpu/ops/fused_ce.py:240",
+               "dx": "kungfu_tpu/ops/fused_ce.py:267"}
+#: K2 tolerances. f32 outputs (lse, tl, db, the loss): sums of the same
+#: f32 terms in another order — rtol 1e-5, atol 1e-5 * max|ref|. bf16
+#: outputs of short sums (logits: 768 terms; d: one value): both sides
+#: round an f32 value once, and sums in different orders may straddle a
+#: rounding boundary, so an element may differ by one bf16 ulp (<= 2**-7
+#: * |ref|): 99.9 % of elements within that, every element within
+#: 2**-7 * max|ref|. dW and dx sum n = 8192 (dW) or 50304 (dx) products
+#: with heavy cancellation (the one-hot term against the softmax mass),
+#: where the order of an f32 sum moves a small result by more than an
+#: ulp: every element within one ulp of |ref| plus twice the worst-case
+#: f32 summation error n * 2**-23 * sum|terms| (2**-23: the tensor
+#: cores' accumulation may truncate), and 99 % within one ulp.
+K2_F32_RTOL = 1e-5
+K2_BF16_ULP = 2.0 ** -7
+K2_BF16_OUTSIDE = 1e-3
+K2_SUM_OUTSIDE = 1e-2
+#: train phase: timed steps after the warmup steps, per CE variant
+TRAIN_WARMUP, TRAIN_ITERS = 2, 8
 
 
 def log(msg: str) -> None:
@@ -131,6 +174,237 @@ def phase_kernel(torch, pa):
                   f"{int(bad.sum())} elements outside tolerance")
         del kp, vp
     return errs
+
+
+def k2_inputs(torch, fc, seed=0):
+    """Padded fused-head operands at the training shape: x [8192, 768]
+    bf16 (rows past N zero), W [768, 50304] bf16 ~ N(0, 1/H), b f32
+    (padded columns _PAD_BIAS), t int32 with -1 on the pad rows and on
+    every 97th row, and a target >= v_pad on every 101st row (a valid
+    row whose target lies in another vocab shard); scale = 1/N_valid."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_pad = -(-K2_N // fc.ROW_MULTIPLE) * fc.ROW_MULTIPLE
+    v_pad = -(-K2_V // fc.COL_MULTIPLE) * fc.COL_MULTIPLE
+    x = torch.zeros(n_pad, K2_H, device=DEVICE, dtype=torch.bfloat16)
+    x[:K2_N] = torch.randn(K2_N, K2_H, generator=g, device=DEVICE)
+    w = torch.zeros(K2_H, v_pad, device=DEVICE, dtype=torch.bfloat16)
+    w[:, :K2_V] = torch.randn(K2_H, K2_V, generator=g, device=DEVICE) \
+        * K2_H ** -0.5
+    b = torch.full((1, v_pad), fc._PAD_BIAS, device=DEVICE)
+    b[0, :K2_V] = torch.randn(K2_V, generator=g, device=DEVICE) * 0.02
+    t = torch.full((n_pad, 1), -1, dtype=torch.int32, device=DEVICE)
+    t[:K2_N, 0] = torch.randint(0, K2_V, (K2_N,), generator=g,
+                                device=DEVICE, dtype=torch.int32)
+    t[0:K2_N:97, 0] = -1
+    t[5:K2_N:101, 0] = v_pad + 3
+    scale = (1.0 / (t >= 0).sum().float()).reshape(1, 1)
+    return x, w, b, t, scale
+
+
+def k2_check(torch, name, got, ref, n_sum=0, absum=None):
+    """Hold a K2 output against its plain version (tolerances above);
+    `absum` is sum|terms| of each element of a long sum of `n_sum`
+    products. Returns the max |got - ref|."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    top = float(ref.abs().max())
+    if absum is not None:
+        bound = K2_BF16_ULP * ref.abs() + 2 * n_sum * 2.0 ** -23 * absum
+        outside = float((err > K2_BF16_ULP * ref.abs()).float().mean())
+        log(f"kernel-K2 {name:6s} max_abs_err {float(err.max()):.3e} "
+            f"(max |ref| {top:.3e}); beyond one bf16 ulp: {outside:.2e} "
+            f"of elements (tolerance {K2_SUM_OUTSIDE:g}); max err / bound "
+            f"{float(torch.where(bound > 0, err / bound, err).max()):.3f}")
+        check(outside <= K2_SUM_OUTSIDE and not bool((err > bound).any()),
+              f"K2 {name} outside tolerance")
+    elif name in ("logits", "d"):
+        outside = float((err > K2_BF16_ULP * ref.abs()).float().mean())
+        log(f"kernel-K2 {name:6s} max_abs_err {float(err.max()):.3e} "
+            f"(max |ref| {top:.3e}); beyond one bf16 ulp: {outside:.2e} "
+            f"of elements (tolerance {K2_BF16_OUTSIDE:g}, and "
+            f"{K2_BF16_ULP:g}*max|ref|)")
+        check(outside <= K2_BF16_OUTSIDE
+              and float(err.max()) <= K2_BF16_ULP * top,
+              f"K2 {name} outside tolerance")
+    else:
+        bad = err > K2_F32_RTOL * (ref.abs() + top)
+        log(f"kernel-K2 {name:6s} max_abs_err {float(err.max()):.3e} "
+            f"(max |ref| {top:.3e}; tolerance {K2_F32_RTOL:g}*(|ref| + "
+            f"max|ref|))")
+        check(not bool(bad.any()), f"K2 {name}: {int(bad.sum())} elements "
+              f"outside tolerance")
+    check(bool(torch.isfinite(got).all()), f"K2 {name}: non-finite")
+    return float(err.max())
+
+
+def phase_kernel_k2(torch, fc):
+    """The four K2 kernels against their plain versions at the training
+    shape; returns {kernel: max_abs_err} (fwd: over lse, tl and the
+    logits residual)."""
+    x, w, b, t, scale = k2_inputs(torch, fc)
+    plan = fc.fused_ce_plan(x.shape[0], K2_H, w.shape[1])
+    log(f"kernel-K2 shape x {tuple(x.shape)} W {tuple(w.shape)}; plan "
+        f"{json.dumps(plan)}")
+    errs = {}
+    rl, rlse, rtl = fc.plain_fwd(x, w, b, t, True)
+    logits, lse, tl = fc.fused_ce_fwd(x, w, b, t, True)
+    _, lse2, tl2 = fc.fused_ce_fwd(x, w, b, t, False)
+    torch.cuda.synchronize()
+    errs["fwd"] = max(k2_check(torch, "lse", lse, rlse),
+                      k2_check(torch, "tl", tl, rtl),
+                      k2_check(torch, "lse-nr", lse2, rlse),
+                      k2_check(torch, "tl-nr", tl2, rtl),
+                      k2_check(torch, "logits", logits, rl))
+    check(float(tl[0]) == 0.0 and float(tl[5]) == 0.0,
+          "K2 fwd: a sentinel target hit a column")
+    loss, _ = fc._loss_from(lse, tl, t)
+    ref_loss, _ = fc._loss_from(rlse, rtl, t)
+    k2_check(torch, "loss", loss.reshape(1), ref_loss.reshape(1))
+    del logits
+    d, db = fc.fused_ce_residual_d(scale, rl.clone(), rlse, t)
+    rd, rdb = fc.plain_residual_d(scale, rl, rlse, t)
+    torch.cuda.synchronize()
+    errs["residual_d"] = k2_check(torch, "d", d, rd)
+    k2_check(torch, "db", db, rdb)
+    check(not bool(d[0].float().any()) and not bool(d[:, K2_V:].float()
+                                                     .any()),
+          "K2 residual_d: gradient on a dropped row or a padded column")
+    del d, rd, rl
+    torch.cuda.empty_cache()
+    dw, db = fc.fused_ce_dw(scale, x, w, b, t, rlse)
+    rdw, rdb = fc.plain_dw(scale, x, w, b, t, rlse)
+    # sum|terms| of each product element: |x|^T |bf16(d)| and |bf16(d)| |W|^T
+    ad = fc._d_f32(fc._logits_f32(x, w, b), rlse, t, scale).to(
+        torch.bfloat16).float().abs()
+    torch.cuda.synchronize()
+    errs["dw"] = k2_check(torch, "dW", dw, rdw, x.shape[0],
+                          x.float().abs().t() @ ad)
+    k2_check(torch, "db-dw", db, rdb)
+    del dw, rdw
+    torch.cuda.empty_cache()
+    dx = fc.fused_ce_dx(scale, x, w, b, t, rlse)
+    rdx = fc.plain_dx(scale, x, w, b, t, rlse)
+    torch.cuda.synchronize()
+    errs["dx"] = k2_check(torch, "dx", dx, rdx, w.shape[1],
+                          ad @ w.float().abs().t())
+    del ad
+    check(not bool(dx[0].float().any()), "K2 dx: gradient on a dropped row")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_train(torch, fc, variant):
+    """GPT-2-small training through the normal entry point; returns the
+    benchmark's meta with the K2 launch counts of this run."""
+    from kungfu_tpu_torch.benchmarks.lm import measure_lm_rate
+
+    torch.cuda.synchronize()
+    fc.reset_launches()                     # counts of THIS run only
+    rate, meta = measure_lm_rate("small", 8, 1024, ce_variant=variant,
+                                 iters=TRAIN_ITERS, warmup=TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    steps = TRAIN_WARMUP + TRAIN_ITERS
+    losses = meta["losses"]
+    check(len(losses) == steps and all(x == x and abs(x) < 1e9
+                                       for x in losses),
+          f"train {variant}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"train {variant}: the loss did not "
+          f"fall ({losses[0]} -> {losses[-1]})")
+    want = ({"fwd": steps, "residual_d": steps, "dw": 0, "dx": 0}
+            if variant == "residual" else
+            {"fwd": steps, "residual_d": 0, "dw": steps, "dx": steps})
+    got = {k: launches[k] for k in want}
+    check(got == want and launches["plain"] == 0,
+          f"train {variant}: K2 launches {launches}, expected {want} and "
+          f"no plain call")
+    meta.update(tokens_per_sec=rate, launches=launches)
+    log(f"train {variant}: {meta['step_time_ms']:.2f} ms/step, "
+        f"{rate:.1f} tok/s, MFU {meta['mfu']} (against 989e12 bf16), "
+        f"peak memory {meta['peak_mem_gb']:.2f} GB, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K2 launches {launches}")
+    log("train " + json.dumps(meta))
+    return meta
+
+
+def k2_bound(kernel, n_pad, h, v_pad):
+    """(bound_ms, bound_by, flops, bytes) of one K2 launch on these
+    padded operands: each input read once, each output written once;
+    flops are the logits products (2 n h v) plus dw's or dx's own
+    product, against the bf16 tensor-core peak; residual_d's
+    elementwise work (~6 f32 operations an element) against the f32
+    peak."""
+    nv = n_pad * v_pad
+    row = 4 * n_pad                                  # one f32/int32 a row
+    xw = 2 * n_pad * h + 2 * h * v_pad + 4 * v_pad + row   # x, W, b, t
+    if kernel == "fwd":
+        nbytes, flops, peak = xw + 2 * row + 2 * nv, 2 * n_pad * h * v_pad, \
+            PEAK_BF16_FLOPS
+    elif kernel == "residual_d":
+        nbytes, flops, peak = 2 * 2 * nv + 2 * row + 4 * v_pad + 4, 6 * nv, \
+            PEAK_F32_FLOPS
+    elif kernel == "dw":
+        nbytes, flops, peak = xw + row + 4 + 2 * h * v_pad + 4 * v_pad, \
+            4 * n_pad * h * v_pad, PEAK_BF16_FLOPS
+    else:
+        nbytes, flops, peak = xw + row + 4 + 2 * n_pad * h, \
+            4 * n_pad * h * v_pad, PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def phase_timing_k2(torch, fc):
+    """Each K2 kernel per launch at the training shape beside its bound,
+    its plain version and the cuBLAS products the same work contains
+    (timed only; the port never calls them in place of a kernel)."""
+    x, w, b, t, scale = k2_inputs(torch, fc)
+    n_pad, v_pad = x.shape[0], w.shape[1]
+    _, lse, _ = fc.plain_fwd(x, w, b, t, False)
+    logits, _, _ = fc.fused_ce_fwd(x, w, b, t, True)
+    out = {}
+    runs = {
+        "fwd": (lambda i: fc.fused_ce_fwd(x, w, b, t, True),
+                lambda i: fc.plain_fwd(x, w, b, t, True),
+                [lambda i: x @ w]),
+        # in place over the same buffer each launch: the bytes and the
+        # work are the same whatever the values
+        "residual_d": (lambda i: fc.fused_ce_residual_d(scale, logits, lse,
+                                                        t),
+                       lambda i: fc.plain_residual_d(scale, logits, lse, t),
+                       None),
+        "dw": (lambda i: fc.fused_ce_dw(scale, x, w, b, t, lse),
+               lambda i: fc.plain_dw(scale, x, w, b, t, lse),
+               [lambda i: x @ w, lambda i: x.t() @ logits]),
+        "dx": (lambda i: fc.fused_ce_dx(scale, x, w, b, t, lse),
+               lambda i: fc.plain_dx(scale, x, w, b, t, lse),
+               [lambda i: x @ w, lambda i: logits @ w.t()]),
+    }
+    fwd_nores = time_cuda(torch, lambda i: fc.fused_ce_fwd(x, w, b, t,
+                                                           False), 5)
+    for name, (kern, plain, lib) in runs.items():
+        ms = time_cuda(torch, kern, 5)
+        plain_ms = time_cuda(torch, plain, 2)
+        lib_ms = (sum(time_cuda(torch, f, 5) for f in lib)
+                  if lib is not None else None)
+        bound_ms, bound_by, flops, nbytes = k2_bound(name, n_pad, K2_H,
+                                                     v_pad)
+        out[name] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
+        log(f"timing K2 {name:10s} {ms:.4f} ms/launch; bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop); "
+            f"plain {plain_ms:.4f} ms; library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            f"{1e-12 * flops / (ms * 1e-3):.1f} TFLOP/s, "
+            f"{1e-9 * nbytes / (ms * 1e-3):.1f} GB/s achieved")
+    log(f"timing K2 fwd without the residual (recompute forward) "
+        f"{fwd_nores:.4f} ms/launch")
+    log("timing K2 library: fwd = x @ W (bf16 cuBLAS); dw = x @ W + x^T @ "
+        "d; dx = x @ W + d @ W^T; residual_d has no single PyTorch call "
+        "for softmax - onehot written over its input with column sums: "
+        "null")
+    del logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_requests(vocab, seed=7):
@@ -341,6 +615,22 @@ def phase_timing(torch, pa):
     return res, plain_ms, lib_ms, bound_ms, bound_by
 
 
+def build_all(_build, names):
+    """One nvcc per library, all started together; prints each build's
+    time and the compiler's register/shared-memory/spill lines."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        texts = dict(zip(names, pool.map(_build.build, names)))
+    log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(names)}, in "
+        f"parallel)")
+    for name, text in texts.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "error")):
+                log(f"  {name}: {line.strip()}")
+        _build.load(name)
+
+
 def main() -> int:
     import torch
 
@@ -349,22 +639,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from kungfu_tpu_torch.ops import _build
+    from kungfu_tpu_torch.ops import fused_ce as fc
     from kungfu_tpu_torch.ops import paged_attn as pa
     from kungfu_tpu_torch.serve import build_lm
 
     card = card_line()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    text = _build.build("paged_attn")
-    log(f"build: {time.perf_counter() - t0:.1f} s (paged_attn)")
-    for line in text.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill",
-                                   "error")):
-            log(f"  paged_attn: {line.strip()}")
-    _build.load("paged_attn")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions'
+    torch.backends.cudnn.allow_tf32 = False         # f32 products exact
+    build_all(_build, ["paged_attn", "fused_ce"])
 
     errs = phase_kernel(torch, pa)
+    k2_errs = phase_kernel_k2(torch, fc)
     model = build_lm("small", max_position=MAX_LEN, seed=0)
     log(f"model: GPT-2-small {model.config}")
     served = {}
@@ -379,9 +666,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_parity(torch)
-    times, plain_ms, lib_ms, bound_ms, bound_by = phase_timing(torch, pa)
+    trained = {}
+    for variant in ("residual", "recompute"):
+        trained[variant] = phase_train(torch, fc, variant)
+        torch.cuda.empty_cache()
+    k3_times = phase_timing(torch, pa)
+    k2_times = phase_timing_k2(torch, fc)
 
     kernels = []
+    times, plain_ms, lib_ms, bound_ms, bound_by = k3_times
     for scheme in ("resident", "stream"):
         kernels.append({
             "name": f"paged_attn.{scheme}", "route": "cuda",
@@ -393,6 +686,20 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    for name in ("fwd", "residual_d", "dw", "dx"):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = k2_times[name]
+        kernels.append({
+            "name": f"fused_ce.{name}", "route": "cuda",
+            "source": "kungfu_tpu_torch/csrc/fused_ce.cu",
+            "replaces": K2_REPLACES[name],
+            "launches": sum(m["launches"][name] for m in trained.values()),
+            "max_abs_err": k2_errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was not launched on its path: {kernels}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

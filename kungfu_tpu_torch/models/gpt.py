@@ -19,10 +19,22 @@ Numerics follow flax's modules exactly, one recipe per call site:
   AFTER the contraction, ``finfo(float32).min`` masking, f32 softmax;
 - tanh-approximate GELU (`jax.nn.gelu`'s default), f32 logits head.
 
-Storage: flax keeps every param in f32 and casts the kernels to the
-compute dtype at each use. The port stores the dense kernels, biases
-and embeddings in the compute dtype once (the same values the cast
-produces), and keeps the LayerNorm params and the ``lm_head`` in f32.
+Storage: flax keeps every param in f32 (``param_dtype``) and casts
+the kernels, biases and embeddings to the compute dtype at each use.
+`GPTConfig.param_dtype` is the same notion. Its default ``None`` stores
+them in the compute dtype once (the same values the cast produces) —
+the serving storage; ``torch.float32`` keeps f32 master weights and
+casts at each use, as flax does, so training updates are not rounded
+away and gradients come back in f32. The LayerNorm params and the
+``lm_head`` are f32 either way. One difference in bf16 training: the
+port gathers the f32 embedding rows and then casts (the same values),
+so the embedding gradient accumulates in f32 where flax's cast-then-
+gather accumulates in bf16.
+
+Training: ``GPTLM(..., return_hidden=True)`` returns the hidden state
+after the final LayerNorm, `gpt_loss` is the unfused next-token loss
+over the f32 logits, and `gpt_fused_loss` runs the head inside the
+fused cross-entropy kernels (`ops.fused_ce`).
 
 Only the plain ("local") causal mixer exists here; the flash, ring and
 ulysses mixers and the MoE FFN belong to later slices of the port.
@@ -48,6 +60,10 @@ class GPTConfig:
     intermediate_size: int = 3072
     max_position: int = 1024
     dtype: torch.dtype = torch.bfloat16
+    # storage dtype of the dense kernels, biases and embeddings; None =
+    # the compute dtype (serving), torch.float32 = flax's f32 master
+    # weights cast at each use (training)
+    param_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -57,6 +73,10 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
 
 class LayerNorm(nn.Module):
@@ -84,38 +104,42 @@ class LayerNorm(nn.Module):
 class DenseGeneral(nn.Module):
     """flax ``DenseGeneral``/``Dense``: kernel ``[*in_shape, *out_shape]``
     contracted over the trailing ``len(in_shape)`` axes of the input,
-    plus a bias ``[*out_shape]``; computed in `dtype`."""
+    plus a bias ``[*out_shape]``; stored in `param_dtype` (default
+    `dtype`), computed in `dtype`."""
 
     def __init__(self, in_shape, out_shape, dtype: torch.dtype,
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
         self.dtype = dtype
+        store = param_dtype or dtype
         self.kernel = nn.Parameter(torch.empty(
-            self.in_shape + self.out_shape, dtype=dtype, device=device))
+            self.in_shape + self.out_shape, dtype=store, device=device))
         self.bias = nn.Parameter(torch.zeros(
-            self.out_shape, dtype=dtype, device=device))
+            self.out_shape, dtype=store, device=device))
 
     def forward(self, x):
         n_in = math.prod(self.in_shape)
         lead = x.shape[:x.dim() - len(self.in_shape)]
-        y = x.reshape(*lead, n_in).to(self.dtype) @ self.kernel.reshape(
-            n_in, -1)
-        return y.reshape(*lead, *self.out_shape) + self.bias
+        y = x.reshape(*lead, n_in).to(self.dtype) @ self.kernel.to(
+            self.dtype).reshape(n_in, -1)
+        return y.reshape(*lead, *self.out_shape) + self.bias.to(self.dtype)
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed(num, features, dtype=dtype)``."""
+    """flax ``nn.Embed(num, features, dtype=dtype)``: the table stored in
+    `param_dtype` (default `dtype`), the gathered rows in `dtype`."""
 
     def __init__(self, num: int, features: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(
-            num, features, dtype=dtype, device=device))
+            num, features, dtype=param_dtype or dtype, device=device))
 
     def forward(self, ids):
-        return F.embedding(ids, self.embedding)
+        return F.embedding(ids, self.embedding).to(self.dtype)
 
 
 class KVCache:
@@ -162,8 +186,10 @@ class CausalSelfAttention(nn.Module):
         hd = (c.num_heads, c.head_dim)
         for name in ("query", "key", "value"):
             self.add_module(name, DenseGeneral((c.hidden_size,), hd,
-                                               c.dtype, device))
-        self.out = DenseGeneral(hd, (c.hidden_size,), c.dtype, device)
+                                               c.dtype, device,
+                                               c.param_dtype))
+        self.out = DenseGeneral(hd, (c.hidden_size,), c.dtype, device,
+                                c.param_dtype)
 
     def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0,
                 decode: bool = False, prefill: bool = False):
@@ -205,9 +231,11 @@ class Block(nn.Module):
         self.CausalSelfAttention_0 = CausalSelfAttention(c, device)
         self.LayerNorm_1 = LayerNorm(c.hidden_size, c.dtype, device=device)
         self.Dense_0 = DenseGeneral((c.hidden_size,),
-                                    (c.intermediate_size,), c.dtype, device)
+                                    (c.intermediate_size,), c.dtype, device,
+                                    c.param_dtype)
         self.Dense_1 = DenseGeneral((c.intermediate_size,),
-                                    (c.hidden_size,), c.dtype, device)
+                                    (c.hidden_size,), c.dtype, device,
+                                    c.param_dtype)
 
     def forward(self, x, cache=None, layer=0, decode=False, prefill=False):
         y = self.LayerNorm_0(x)
@@ -230,8 +258,10 @@ class GPTLM(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        self.wte = Embed(c.vocab_size, c.hidden_size, c.dtype, device)
-        self.wpe = Embed(c.max_position, c.hidden_size, c.dtype, device)
+        self.wte = Embed(c.vocab_size, c.hidden_size, c.dtype, device,
+                         c.param_dtype)
+        self.wpe = Embed(c.max_position, c.hidden_size, c.dtype, device,
+                         c.param_dtype)
         for i in range(c.num_layers):
             self.add_module(f"Block_{i}", Block(c, device))
         self.LayerNorm_0 = LayerNorm(c.hidden_size, c.dtype, device=device)
@@ -266,7 +296,11 @@ class GPTLM(nn.Module):
                 for i in range(self.config.num_layers)]
 
     def forward(self, token_ids, cache: Optional[KVCache] = None,
-                decode: bool = False, prefill: bool = False):
+                decode: bool = False, prefill: bool = False,
+                return_hidden: bool = False):
+        """Logits ``[B, T, vocab]`` f32; with `return_hidden`, the hidden
+        state ``[B, T, H]`` after the final LayerNorm instead (the
+        training fast path feeds it to the fused head+CE)."""
         c = self.config
         t = token_ids.shape[-1]
         if decode:
@@ -285,7 +319,42 @@ class GPTLM(nn.Module):
             x = block(x, cache, i, decode, prefill)
         if cache is not None:
             cache.index = cache.index + 1 if decode else t
-        return self.lm_head(self.LayerNorm_0(x))
+        x = self.LayerNorm_0(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x)
+
+
+def gpt_loss(logits, token_ids):
+    """Mean next-token cross entropy: ``logits[:, t]`` (as f32) predicts
+    ``token_ids[:, t + 1]``; the last position has no target."""
+    v = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].float().reshape(-1, v),
+                           token_ids[:, 1:].reshape(-1).long())
+
+
+def gpt_fused_loss(model: GPTLM, token_ids, residual: bool = True,
+                   mesh=None):
+    """`gpt_loss`, but through `ops.fused_ce.fused_cross_entropy`: the
+    trunk runs with ``return_hidden=True`` and the lm_head (f32 kernel
+    and bias) runs inside the fused kernels, so the ``[B, T, vocab]`` f32
+    logits never exist; the head's three products run bf16 with f32
+    accumulation. `residual` picks the backward scheme (bf16 logits
+    residual, or recompute). A `mesh` (the vocab-sharded head) raises
+    NotImplementedError: vocab sharding comes with a later slice of the
+    port (the parallel axes)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the vocab-sharded fused head (mesh=...) is not ported yet; it "
+            "comes with the parallel-axes slice")
+    from ..ops.fused_ce import fused_cross_entropy
+
+    hidden = model(token_ids, return_hidden=True)
+    b, t, h = hidden.shape
+    return fused_cross_entropy(hidden[:, :-1].reshape(b * (t - 1), h),
+                               model.lm_head.kernel, model.lm_head.bias,
+                               token_ids[:, 1:].reshape(-1),
+                               residual=residual)
 
 
 @torch.no_grad()

@@ -1,0 +1,490 @@
+"""K2: fused projection head + softmax cross-entropy for LM training —
+the wrappers of four hand-written CUDA kernels (`csrc/fused_ce.cu`),
+their plain PyTorch versions, the Hopper tile plan, the two autograd
+Functions and the entry point `fused_cross_entropy`.
+
+Replaces the Pallas TPU kernels of `kungfu_tpu/ops/fused_ce.py`:
+
+- ``fwd`` (`_fwd_common` / `_fwd_kernel_nores`, `_fwd_pallas`): logits
+  blocks ``x.W + b`` (bf16 in, f32 accumulation), the online row
+  logsumexp and the target-logit gather; with ``residual=True`` it also
+  writes the bf16 logits;
+- ``residual_d`` (`_bwd_kernel`, `_residual_d_pallas`): ``d = (softmax
+  - onehot) * g/N * valid`` in bf16 over the logits residual, in place,
+  and the bias gradient;
+- ``dw`` (`_dw_kernel`, `_dw_pallas`): rebuilds each logits block from
+  ``x.W``, forms d, accumulates ``dW = x^T d`` and the bias gradient;
+- ``dx`` (`_dx_kernel`, `_dx_pallas`): the same rebuild, accumulates
+  ``dx = d W^T``.
+
+Layouts are the JAX package's, so the vocab-sharded head of a later
+slice can drive the four functions one shard at a time: ``x [n_pad,
+h]`` bf16, ``w [h, v_pad]`` bf16, ``b [1, v_pad]`` f32, ``t [n_pad, 1]``
+int32, ``lse``/``tl [n_pad, 1]`` f32, ``scale [1, 1]`` f32. The target
+column carries two sentinels: ``-1`` marks a padded row (no hit, zero
+gradient, out of the mean) and any value ``>= v_pad`` a valid row whose
+target lies in another vocab shard (no hit, but it counts in N).
+Padded vocab columns carry the bias `_PAD_BIAS`, whose exp underflows
+to exactly 0.
+
+Dispatch: CPU tensors run the plain versions (`plain_fwd`,
+`plain_residual_d`, `plain_dw`, `plain_dx`), which follow the kernels'
+recipe — bf16 x and W, f32 accumulation, bf16 residual, d, dW and dx
+where the TPU kernel has them. CUDA tensors launch the kernels or
+raise: there is no fallback from the card to the plain versions.
+`LAUNCHES` counts kernel launches per kernel and plain calls.
+
+`fused_ce_plan` is the Hopper tile plan (it replaces the TPU-only
+`_pick_blocks`/`_VMEM_BUDGET`) and the one formula for each kernel's
+dynamic shared memory.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import _build
+
+#: bias of padded vocab columns: exp(x - m) underflows to exactly 0 for
+#: any finite row max m, and the value survives a bf16 round-trip
+_PAD_BIAS = -1e30
+
+#: dynamic shared memory a Hopper thread block may request
+SMEM_BUDGET = 227 * 1024
+#: rows and vocab columns are padded to these multiples; every kernel's
+#: tiles divide them
+ROW_MULTIPLE = 128
+COL_MULTIPLE = 128
+#: (rows, vocab columns) of one CTA's logits tile, per kernel; the
+#: kFwd*/kDw*/kDx* constants of the CUDA source
+FWD_TILE = (64, 32)
+DW_TILE = (64, 32)
+DX_TILE = (32, 64)
+#: SMs of an H100 SXM, the default for the forward's vocab split
+H100_SMS = 132
+
+#: launch counts since the last `reset_launches()`: one per kernel
+#: launch, and one per call of any plain version
+LAUNCHES: Dict[str, int] = {"fwd": 0, "residual_d": 0, "dw": 0, "dx": 0,
+                            "plain": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+# ---------------------------------------------------------------------------
+# the tile plan (the one copy of the shared-memory formula: the launcher
+# requests exactly these bytes and each kernel carves its buffers to match)
+# ---------------------------------------------------------------------------
+
+
+def _buf(nbytes: int) -> int:
+    """A shared-memory buffer's size rounded up to the 128-byte
+    alignment the kernels give each buffer."""
+    return _round_up(nbytes, 128)
+
+
+def smem_layout(kernel: str, h: int) -> Dict[str, int]:
+    """Byte offsets of the buffers one CTA of `kernel` carves out of its
+    dynamic shared memory at hidden size `h`, and their ``total``: the
+    x block ``[bm, h + 8]`` bf16 at offset 0 and the W tile ``[h, bv +
+    8]`` bf16 (whole H, rows padded by 16 bytes against bank
+    conflicts), the f32 logits tile ``[bm, bv + 4]``; dw and dx add the
+    bf16 d tile ``[bm, bv + 8]`` (they stage their output through the
+    logits tile). residual_d uses static shared memory only. The
+    launcher passes these offsets to the kernel."""
+    if kernel == "residual_d":
+        return {"total": 0}
+    bm, bv = {"fwd": FWD_TILE, "dw": DW_TILE, "dx": DX_TILE}[kernel]
+    out = {"w": _buf(2 * bm * (h + 8))}
+    out["s"] = out["w"] + _buf(2 * h * (bv + 8))
+    out["total"] = out["s"] + _buf(4 * bm * (bv + 4))
+    if kernel in ("dw", "dx"):
+        out["d"] = out["total"]
+        out["total"] = out["d"] + _buf(2 * bm * (bv + 8))
+    return out
+
+
+def smem_bytes(kernel: str, h: int) -> int:
+    """Dynamic shared memory one CTA of `kernel` requests (see
+    `smem_layout`)."""
+    return smem_layout(kernel, h)["total"]
+
+
+def _check_padded(n_pad: int, v_pad: int) -> None:
+    if n_pad % ROW_MULTIPLE or v_pad % COL_MULTIPLE or not n_pad \
+            or not v_pad:
+        raise ValueError(f"padded shape ({n_pad}, {v_pad}) must be "
+                         f"non-empty multiples of ({ROW_MULTIPLE}, "
+                         f"{COL_MULTIPLE})")
+
+
+def fused_ce_plan(n_pad: int, h: int, v_pad: int, sms: int = H100_SMS):
+    """The launch plan of the K2 kernels at padded shape (n_pad, h,
+    v_pad): each kernel's shared memory and the forward's vocab split.
+    The forward splits the vocab over ``gridDim.y`` so that about four
+    CTAs per SM are in flight; a combine pass merges the per-split
+    (max, sum-exp, target logit). The other grids follow from the
+    shapes alone (the CUDA launchers compute them). Raises ValueError
+    on a shape the kernels do not take: h not a multiple of 16, rows or
+    columns not padded to 128, or tiles over the shared-memory budget
+    (h above 1024)."""
+    if h % 16 or h <= 0:
+        raise ValueError(f"hidden size {h} must be a positive multiple of "
+                         f"16 for the fused-CE kernels")
+    _check_padded(n_pad, v_pad)
+    smem = {k: smem_bytes(k, h) for k in ("fwd", "residual_d", "dw", "dx")}
+    over = {k: b for k, b in smem.items() if b > SMEM_BUDGET}
+    if over:
+        raise ValueError(f"hidden size {h}: {over} B of shared memory, "
+                         f"over the {SMEM_BUDGET} B a block may use")
+    v_tiles = v_pad // FWD_TILE[1]
+    n_blocks = n_pad // FWD_TILE[0]
+    splits = max(1, min(v_tiles, -(-4 * sms // n_blocks)))
+    tiles_per_split = -(-v_tiles // splits)
+    splits = -(-v_tiles // tiles_per_split)     # no empty split
+    return {"smem": smem, "fwd_grid": (n_blocks, splits),
+            "fwd_tiles_per_split": tiles_per_split}
+
+
+# ---------------------------------------------------------------------------
+# the plain versions (the kernels' recipe in PyTorch ops)
+# ---------------------------------------------------------------------------
+
+
+def _logits_f32(x, w, b):
+    """x.W + b with bf16 operands and f32 accumulation: the bf16 values
+    widened to f32 multiply exactly, so an f32 product accumulates
+    them as the tensor cores do (TF32 must be off on the card)."""
+    return x.float() @ w.float() + b.float()
+
+
+def _d_f32(logits, lse, t, scale):
+    """(softmax - onehot) * scale * valid in f32 from f32 logits; the
+    target hits column t only when 0 <= t < v_pad."""
+    p = torch.exp(logits - lse)
+    cols = torch.arange(logits.shape[1], device=logits.device)
+    hit = (cols[None, :] == t).float()
+    valid = (t >= 0).float()
+    return (p - hit) * (scale * valid)
+
+
+def plain_fwd(x, w, b, t, residual: bool):
+    """The plain forward: ``(logits | None, lse, tl)`` — the bf16 logits
+    residual when `residual`, the f32 row logsumexp and target logit
+    ``[n_pad, 1]`` (0 for a row whose target hits no column)."""
+    LAUNCHES["plain"] += 1
+    logits = _logits_f32(x, w, b)
+    lse = torch.logsumexp(logits, dim=1, keepdim=True)
+    v_pad = logits.shape[1]
+    inside = (t >= 0) & (t < v_pad)
+    tl = torch.gather(logits, 1, torch.where(inside, t, 0).long())
+    tl = torch.where(inside, tl, 0.0)
+    res = logits.to(torch.bfloat16) if residual else None
+    return res, lse, tl
+
+
+def plain_residual_d(scale, logits, lse, t):
+    """The plain residual backward: ``(d, db)``, d written over the
+    bf16 `logits` buffer in place (the buffer is returned) and db the
+    f32 column sums of the f32 d."""
+    LAUNCHES["plain"] += 1
+    d = _d_f32(logits.float(), lse, t, scale)
+    logits.copy_(d)
+    return logits, d.sum(0, keepdim=True)
+
+
+def plain_dw(scale, x, w, b, t, lse):
+    """The plain recompute dW: ``(dw, db)`` — logits rebuilt from x.W,
+    ``dw = x^T bf16(d)`` with f32 accumulation stored in bf16, db the
+    f32 column sums of d."""
+    LAUNCHES["plain"] += 1
+    d = _d_f32(_logits_f32(x, w, b), lse, t, scale)
+    dw = x.float().t() @ d.to(torch.bfloat16).float()
+    return dw.to(w.dtype), d.sum(0, keepdim=True)
+
+
+def plain_dx(scale, x, w, b, t, lse):
+    """The plain recompute dx: ``dx = bf16(d) W^T`` with f32
+    accumulation, stored in x's dtype (bf16)."""
+    LAUNCHES["plain"] += 1
+    d = _d_f32(_logits_f32(x, w, b), lse, t, scale)
+    return (d.to(torch.bfloat16).float() @ w.float().t()).to(x.dtype)
+
+
+def reference_cross_entropy(hidden, kernel, bias, targets):
+    """The unfused numerics oracle of the JAX package: f32 logits of
+    ``hidden @ kernel + bias``, mean of ``lse - target logit`` over the
+    rows with target >= 0 (target -1 drops a row). Differentiable."""
+    logits = hidden.float() @ kernel.float() + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, 1, targets.clamp(min=0).long()[:, None])[:, 0]
+    valid = (targets >= 0).float()
+    return ((lse - tl) * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers (the `_*_pallas` counterparts)
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    return _build.load("fused_ce")
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _require(x, name, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)} != "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check(x, w, b, t, lse=None, scale=None):
+    """Validate the operands a kernel takes and return its plan."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no fused-CE kernel for {dev}")
+    n_pad, h = x.shape
+    v_pad = w.shape[1]
+    plan = fused_ce_plan(n_pad, h, v_pad, _sms(dev))
+    _require(x, "x", torch.bfloat16, (n_pad, h), dev)
+    _require(w, "w", torch.bfloat16, (h, v_pad), dev)
+    _require(b, "b", torch.float32, (1, v_pad), dev)
+    _require(t, "t", torch.int32, (n_pad, 1), dev)
+    if lse is not None:
+        _require(lse, "lse", torch.float32, (n_pad, 1), dev)
+    if scale is not None:
+        _require(scale, "scale", torch.float32, (1, 1), dev)
+    return plan
+
+
+def _launch(name, fn, *args):
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"fused_ce {name} launch failed: "
+                           f"cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def _smem_args(kernel, h):
+    """(total, offsets...) as the C launcher takes them."""
+    lay = smem_layout(kernel, h)
+    keys = ("w", "s") if kernel == "fwd" else ("w", "s", "d")
+    return (lay["total"],) + tuple(lay[k] for k in keys)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def fused_ce_fwd(x, w, b, t, residual: bool):
+    """`_fwd_pallas`: ``(logits | None, lse, tl)`` for padded operands.
+    CPU tensors run `plain_fwd`; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return plain_fwd(x, w, b, t, residual)
+    plan = _check(x, w, b, t)
+    n_pad, h = x.shape
+    v_pad = w.shape[1]
+    splits = plan["fwd_grid"][1]
+    logits = (torch.empty((n_pad, v_pad), dtype=torch.bfloat16,
+                          device=x.device) if residual else None)
+    part = torch.empty((splits, 3, n_pad), dtype=torch.float32,
+                       device=x.device)
+    lse = torch.empty((n_pad, 1), dtype=torch.float32, device=x.device)
+    tl = torch.empty_like(lse)
+    with torch.cuda.device(x.device):
+        _launch("fwd", _lib().k2_fwd, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), t.data_ptr(),
+                logits.data_ptr() if residual else None, part.data_ptr(),
+                lse.data_ptr(), tl.data_ptr(), n_pad, h, v_pad, splits,
+                plan["fwd_tiles_per_split"], *_smem_args("fwd", h),
+                _stream(x.device))
+    return logits, lse, tl
+
+
+def fused_ce_residual_d(scale, logits, lse, t):
+    """`_residual_d_pallas`: ``(d, db)``, d written over `logits` in
+    place (the same tensor is returned). CPU tensors run
+    `plain_residual_d`; CUDA tensors launch the kernel."""
+    if logits.device.type == "cpu":
+        return plain_residual_d(scale, logits, lse, t)
+    dev = logits.device
+    if dev.type != "cuda":
+        raise ValueError(f"no fused-CE kernel for {dev}")
+    n_pad, v_pad = logits.shape
+    _check_padded(n_pad, v_pad)
+    _require(logits, "logits", torch.bfloat16, (n_pad, v_pad), dev)
+    _require(lse, "lse", torch.float32, (n_pad, 1), dev)
+    _require(t, "t", torch.int32, (n_pad, 1), dev)
+    _require(scale, "scale", torch.float32, (1, 1), dev)
+    db = torch.empty((1, v_pad), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("residual_d", _lib().k2_residual_d, scale.data_ptr(),
+                logits.data_ptr(), lse.data_ptr(), t.data_ptr(),
+                db.data_ptr(), n_pad, v_pad, _stream(dev))
+    return logits, db
+
+
+def fused_ce_dw(scale, x, w, b, t, lse):
+    """`_dw_pallas`: ``(dw [h, v_pad] bf16, db [1, v_pad] f32)``. CPU
+    tensors run `plain_dw`; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return plain_dw(scale, x, w, b, t, lse)
+    plan = _check(x, w, b, t, lse, scale)
+    n_pad, h = x.shape
+    v_pad = w.shape[1]
+    dw = torch.empty((h, v_pad), dtype=torch.bfloat16, device=x.device)
+    db = torch.empty((1, v_pad), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("dw", _lib().k2_dw, scale.data_ptr(), x.data_ptr(),
+                w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), n_pad, h, v_pad,
+                *_smem_args("dw", h), _stream(x.device))
+    return dw, db
+
+
+def fused_ce_dx(scale, x, w, b, t, lse):
+    """`_dx_pallas`: ``dx [n_pad, h]`` bf16. CPU tensors run `plain_dx`;
+    CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return plain_dx(scale, x, w, b, t, lse)
+    plan = _check(x, w, b, t, lse, scale)
+    n_pad, h = x.shape
+    v_pad = w.shape[1]
+    dx = torch.empty((n_pad, h), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("dx", _lib().k2_dx, scale.data_ptr(), x.data_ptr(),
+                w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
+                dx.data_ptr(), n_pad, h, v_pad, *_smem_args("dx", h),
+                _stream(x.device))
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# autograd: the two schemes over padded operands
+# ---------------------------------------------------------------------------
+
+
+def _loss_from(lse, tl, t):
+    valid = (t >= 0).float()
+    num_valid = valid.sum().clamp(min=1.0)
+    return ((lse - tl) * valid).sum() / num_valid, num_valid
+
+
+def _bf16_product(a, b):
+    """a @ b for bf16 operands with f32 accumulation, stored in bf16:
+    one cuBLAS product on the card (outside any kernel, as XLA's on the
+    TPU); f32 arithmetic on the same values on the CPU."""
+    if a.device.type == "cuda":
+        return a @ b
+    return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+class _FusedCEResidual(torch.autograd.Function):
+    """Forward writes the bf16 logits residual; backward rebuilds d over
+    it in place (`fused_ce_residual_d`), then dW = x^T d and dx = d W^T
+    as two plain products. The residual is consumed by the backward,
+    so the graph can be differentiated once."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, t):
+        logits, lse, tl = fused_ce_fwd(x, w, b, t, residual=True)
+        loss, num_valid = _loss_from(lse, tl, t)
+        ctx.save_for_backward(x, w, lse, t, num_valid)
+        ctx.logits = logits
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, lse, t, num_valid = ctx.saved_tensors
+        logits = ctx.logits
+        if logits is None:
+            raise RuntimeError("the fused-CE residual was consumed by an "
+                               "earlier backward (retain_graph is not "
+                               "supported)")
+        ctx.logits = None
+        scale = (g / num_valid).float().reshape(1, 1)
+        d, db = fused_ce_residual_d(scale, logits, lse, t)
+        dw = _bf16_product(x.t(), d)
+        dx = _bf16_product(d, w.t())
+        return dx, dw, db, None
+
+
+class _FusedCERecompute(torch.autograd.Function):
+    """Forward keeps only the row logsumexp; backward rebuilds every
+    logits block from x.W inside the dw and dx kernels, so no [N, V]
+    array of any dtype exists."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, t):
+        _, lse, tl = fused_ce_fwd(x, w, b, t, residual=False)
+        loss, num_valid = _loss_from(lse, tl, t)
+        ctx.save_for_backward(x, w, b, lse, t, num_valid)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, lse, t, num_valid = ctx.saved_tensors
+        scale = (g / num_valid).float().reshape(1, 1)
+        dw, db = fused_ce_dw(scale, x, w, b, t, lse)
+        dx = fused_ce_dx(scale, x, w, b, t, lse)
+        return dx, dw, db, None
+
+
+def fused_cross_entropy(hidden, kernel, bias, targets,
+                        residual: bool = True):
+    """Mean softmax cross-entropy of ``hidden @ kernel + bias`` against
+    integer `targets` (-1 drops a row), differentiable in (hidden,
+    kernel, bias).
+
+    hidden ``[N, H]`` (any float dtype; the head runs bf16 with f32
+    accumulation), kernel ``[H, V]``, bias ``[V]``, targets ``[N]``.
+    Padding and casts happen once here, outside the autograd Function:
+    pad rows carry target -1, pad vocab columns bias `_PAD_BIAS`, and
+    callers get unpadded gradients — dx in hidden's dtype (bf16-rounded
+    values), dW bf16-rounded in kernel's dtype, db in f32 cast to
+    bias's dtype, as in the JAX package.
+
+    `residual=True` saves the bf16 logits and runs the residual
+    backward; `residual=False` the recompute backward. On CUDA tensors
+    the kernels run (H must be a multiple of 16, or this raises); on
+    the CPU the plain versions run, and for H not a multiple of 128 the
+    JAX package's fallback `reference_cross_entropy` (f32 logits), so
+    the CPU keeps its numbers for every H."""
+    n, h = hidden.shape
+    v = kernel.shape[1]
+    if hidden.device.type == "cpu" and h % 128:
+        return reference_cross_entropy(hidden, kernel, bias, targets)
+    n_pad, v_pad = _round_up(n, ROW_MULTIPLE), _round_up(v, COL_MULTIPLE)
+    if hidden.device.type == "cuda":
+        fused_ce_plan(n_pad, h, v_pad, _sms(hidden.device))
+    x = torch.nn.functional.pad(hidden.to(torch.bfloat16),
+                                (0, 0, 0, n_pad - n))
+    w = torch.nn.functional.pad(kernel.to(torch.bfloat16),
+                                (0, v_pad - v))
+    b = torch.nn.functional.pad(bias.float(), (0, v_pad - v),
+                                value=_PAD_BIAS)[None, :]
+    t = torch.nn.functional.pad(targets.detach().to(torch.int32),
+                                (0, n_pad - n), value=-1)[:, None]
+    fn = _FusedCEResidual if residual else _FusedCERecompute
+    return fn.apply(x.contiguous(), w.contiguous(), b.contiguous(),
+                    t.contiguous())

@@ -110,7 +110,7 @@ def decode_step(model: GPTLM, pool_k, pool_v, tables, lengths, tokens,
     # pool plus a block_base offset: no copy of the layer's pool
     kp = pool_k.view((cfg.num_layers * nbp1,) + pool_k.shape[2:])
     vp = pool_v.view((cfg.num_layers * nbp1,) + pool_v.shape[2:])
-    x = model.wte.embedding[tokens.long()] + model.wpe.embedding[lengths_l]
+    x = model.wte(tokens.long()) + model.wpe(lengths_l)
     for layer, block in enumerate(model.blocks()):
         y = _layernorm(block.LayerNorm_0, x, dtype)
         a = block.CausalSelfAttention_0
@@ -167,8 +167,8 @@ def prefill_chunk(model: GPTLM, pool_k, pool_v, table, start: int, tokens,
     # query i sees pool positions 0..pos[i] inclusive
     visible = (torch.arange(t, device=dev)[None, :] <= pos[:, None]) \
         & real[:, None]
-    x = model.wte.embedding[tokens.long()] \
-        + model.wpe.embedding[torch.clamp(pos, max=cfg.max_position - 1)]
+    x = model.wte(tokens.long()) \
+        + model.wpe(torch.clamp(pos, max=cfg.max_position - 1))
     for layer, block in enumerate(model.blocks()):
         y = _layernorm(block.LayerNorm_0, x, dtype)
         a = block.CausalSelfAttention_0

@@ -93,3 +93,118 @@ def test_engine_default_path_launches_k3_and_no_plain(cuda):
     launches, iters = runs["auto"][1], runs["auto"][2]
     assert launches["resident"] == model.config.num_layers * iters
     assert launches["plain"] == 0 and launches["stream"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused head + cross-entropy kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+from kungfu_tpu_torch.ops import fused_ce as fc  # noqa: E402
+
+ULP = 2.0 ** -7
+
+
+def _k2_inputs(device, n, h, v, seed=0):
+    """Padded operands with both target sentinels (row 3: -1; rows 5 and
+    6: targets >= v_pad) and the scale 1/N_valid."""
+    g = torch.Generator().manual_seed(seed)
+    n_pad, v_pad = -(-n // 128) * 128, -(-v // 128) * 128
+    x = torch.zeros(n_pad, h)
+    x[:n] = torch.randn(n, h, generator=g)
+    w = torch.zeros(h, v_pad)
+    w[:, :v] = torch.randn(h, v, generator=g) * 2 * h ** -0.5
+    b = torch.full((1, v_pad), fc._PAD_BIAS)
+    b[0, :v] = torch.randn(v, generator=g) * 0.1
+    t = torch.full((n_pad, 1), -1, dtype=torch.int32)
+    t[:n, 0] = torch.randint(0, v, (n,), generator=g).int()
+    t[3, 0], t[5, 0], t[6, 0] = -1, v_pad, v_pad + 9
+    scale = torch.tensor([[1.0 / int((t >= 0).sum())]])
+    return (x.bfloat16().to(device), w.bfloat16().to(device), b.to(device),
+            t.to(device), scale.to(device))
+
+
+def _close_bf16(got, ref):
+    """One bf16 ulp (2**-7 * |ref|) for 99.9 % of elements, and every
+    element within 2**-7 * max|ref|: both round an f32 sum, summed in
+    another order."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    assert float((err > ULP * ref.abs()).float().mean()) <= 1e-3
+    assert float(err.max()) <= ULP * float(ref.abs().max())
+
+
+def _close_f32(got, ref):
+    """f32 sums of the same terms in another order."""
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("h", [256, 1024])
+def test_k2_kernels_match_plain_versions(cuda, h):
+    x, w, b, t, scale = _k2_inputs(cuda, 300, h, 1000)
+    fc.reset_launches()
+    logits, lse, tl = fc.fused_ce_fwd(x, w, b, t, True)
+    _, lse2, tl2 = fc.fused_ce_fwd(x, w, b, t, False)
+    torch.cuda.synchronize()
+    rl, rlse, rtl = fc.plain_fwd(x, w, b, t, True)
+    _close_f32(lse, rlse)
+    _close_f32(tl, rtl)
+    _close_f32(lse2, rlse)
+    _close_bf16(logits, rl)
+    d, db = fc.fused_ce_residual_d(scale, rl.clone(), rlse, t)
+    rd, rdb = fc.plain_residual_d(scale, rl.clone(), rlse, t)
+    _close_bf16(d, rd)
+    _close_f32(db, rdb)
+    dw, db2 = fc.fused_ce_dw(scale, x, w, b, t, rlse)
+    rdw, rdb2 = fc.plain_dw(scale, x, w, b, t, rlse)
+    _close_bf16(dw, rdw)
+    _close_f32(db2, rdb2)
+    _close_bf16(fc.fused_ce_dx(scale, x, w, b, t, rlse),
+                fc.plain_dx(scale, x, w, b, t, rlse))
+    torch.cuda.synchronize()
+    assert {k: fc.LAUNCHES[k] for k in ("fwd", "residual_d", "dw", "dx")} \
+        == {"fwd": 2, "residual_d": 1, "dw": 1, "dx": 1}
+
+
+@pytest.mark.parametrize("residual", [True, False],
+                         ids=["residual", "recompute"])
+def test_fused_cross_entropy_on_the_card_launches_k2(cuda, residual):
+    g = torch.Generator().manual_seed(3)
+    hidden = torch.randn(200, 256, generator=g)
+    kernel = torch.randn(256, 700, generator=g) * 0.05
+    bias = torch.randn(700, generator=g) * 0.01
+    targets = torch.randint(0, 700, (200,), generator=g)
+    targets[:4] = -1
+    out = {}
+    for dev in ("cpu", cuda):
+        xs = [a.to(dev, copy=True).requires_grad_()
+              for a in (hidden, kernel, bias)]
+        fc.reset_launches()
+        loss = fc.fused_cross_entropy(*xs, targets.to(dev),
+                                      residual=residual)
+        loss.backward()
+        out[str(dev)] = (loss.detach().cpu(), [a.grad.cpu() for a in xs],
+                         dict(fc.LAUNCHES))
+    (l0, g0, n0), (l1, g1, n1) = out["cpu"], out[str(cuda)]
+    assert abs(float(l1) - float(l0)) <= 1e-4 * max(1.0, abs(float(l0)))
+    _close_bf16(g1[0], g0[0])
+    _close_bf16(g1[1], g0[1])
+    _close_f32(g1[2], g0[2])
+    want = ({"fwd": 1, "residual_d": 1, "dw": 0, "dx": 0, "plain": 0}
+            if residual else
+            {"fwd": 1, "residual_d": 0, "dw": 1, "dx": 1, "plain": 0})
+    assert n1 == want
+    assert n0["plain"] > 0
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    x, w, b, t, scale = _k2_inputs(cuda, 100, 128, 200)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fc.fused_ce_fwd(x[:, :100].contiguous(), w[:100].contiguous(), b,
+                        t, True)
+    with pytest.raises(ValueError, match="int32"):
+        fc.fused_ce_fwd(x, w, b, t.long(), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_ce_fwd(x, w.t().contiguous().t(), b, t, True)
+    with pytest.raises(ValueError, match="multiples"):
+        fc.fused_ce_dx(scale, x[:64], w, b, t[:64], t[:64].float())

@@ -22,7 +22,8 @@ def _forbidden(name: str) -> bool:
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_decode_profile.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_decode_profile.py",
+        ROOT / "scripts" / "torch_train_profile.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -57,5 +58,8 @@ def test_importing_every_module_loads_no_jax():
     mods, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"kungfu_tpu_torch.serve.engine", "kungfu_tpu_torch.ops.paged_attn",
             "kungfu_tpu_torch.ops._build", "kungfu_tpu_torch.convert",
-            "kungfu_tpu_torch.trace.metrics"} <= set(mods)
+            "kungfu_tpu_torch.trace.metrics", "kungfu_tpu_torch.ops.fused_ce",
+            "kungfu_tpu_torch.optimizers.adamw",
+            "kungfu_tpu_torch.parallel.train",
+            "kungfu_tpu_torch.benchmarks.lm"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
