@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the serving and training paths from the
-sources in this checkout (nvcc, sm_90a; one nvcc per library, started
-together), then runs, failing on the first phase that fails:
+sources in this checkout (nvcc, sm_90a; one nvcc per library, all three
+started together), then runs, failing on the first phase that fails:
 
 1. kernel — K3 (`paged_attn.resident`, `paged_attn.stream`) against its
    plain PyTorch version at the serving shapes (B=8, h=12, d=64, bt=16,
@@ -17,6 +17,14 @@ together), then runs, failing on the first phase that fails:
    training shape (N = 8 x 1023 rows, H=768, V=50257, padded to the
    port's tiles), with rows whose target is -1 and rows whose target
    is >= v_pad; loss, lse, tl, logits, d, db, dW and dx;
+2b. kernel-K1 — the three flash-attention kernels (`flash.fwd`,
+   `flash.dq`, `flash.dkv`) on bf16 inputs against their plain versions
+   run in f32 on the same values: o, lse, delta, dq, dk and dv at (a)
+   the training shape B=8, T=1024, h=12, d=64, causal; (b) B=2, T=4096,
+   causal, window 512; (c) B=2, T=1024, non-causal, d=128; (d) the ring
+   hop's contract: the global (o, lse) of a causal 2048-token sequence,
+   and `flash_bwd` of its second-half queries against each half of the
+   keys;
 3. serve — GPT-2-small at full width (bf16, random weights from a
    seed) behind `DecodeEngine` (max_batch 8, bt 16, max_len 1024,
    prefix sharing, 256-token prefill chunks) answering 12 requests;
@@ -31,13 +39,18 @@ together), then runs, failing on the first phase that fails:
    1024), once with the residual fused-CE backward and once with the
    recompute one, the K2 launch counts zeroed just before each run and
    read just after; the loss must be finite and fall (the batch is the
-   same every step);
+   same every step); then a third time with attention="flash" (residual
+   CE), where K1 must launch 12 times a step per kernel and its plain
+   versions never;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows,
    cycling through the 12 layers' pools, and each K2 kernel per launch
    at the training shape, beside its bound, its plain version and the
    library calls that do the same work (scaled_dot_product_attention on
    pre-gathered K/V for K3, the cuBLAS products inside each K2 kernel;
-   timed here only — the port never calls them).
+   timed here only — the port never calls them); and each K1 kernel per
+   launch at shapes (a) and (b), cycling over four input sets so L2
+   holds none of a launch's inputs, beside its bound, its plain version
+   and scaled_dot_product_attention's forward and backward.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -102,6 +115,20 @@ K2_BF16_OUTSIDE = 1e-3
 K2_SUM_OUTSIDE = 1e-2
 #: train phase: timed steps after the warmup steps, per CE variant
 TRAIN_WARMUP, TRAIN_ITERS = 2, 8
+
+#: K1's shapes: (B, T, h, d, causal, window); (a) is the training shape
+K1_SHAPES = {"a": (8, 1024, 12, 64, True, None),
+             "b": (2, 4096, 12, 64, True, 512),
+             "c": (2, 1024, 8, 128, False, None)}
+#: (d) the ring hop: (B, Ts, h, d), keys split in two halves of Ts
+K1_HOP = (4, 1024, 12, 64)
+K1_REPLACES = {
+    "fwd": "kungfu_tpu/ops/flash.py:437 (_fwd_res_kernel, resident), "
+           ":375 (_kernel, stream)",
+    "dq": "kungfu_tpu/ops/flash.py:477 (_dq_res_kernel, resident), "
+          ":801 (_bwd_dq_kernel, stream)",
+    "dkv": "kungfu_tpu/ops/flash.py:510 (_dkv_res_kernel, resident), "
+           ":845 (_bwd_dkv_kernel, stream)"}
 
 
 def log(msg: str) -> None:
@@ -293,36 +320,162 @@ def phase_kernel_k2(torch, fc):
     return errs
 
 
-def phase_train(torch, fc, variant):
+def k1_inputs(torch, b, t, h, d, seed):
+    """q, k, v, dO [B, T, h, d] bf16 ~ N(0, 1) from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(4)]
+
+
+def k1_check(torch, tag, name, got, ref, bound):
+    """Hold a K1 output against its plain version with the element-wise
+    tolerance of `ops.flash.kernel_error_bounds` (its docstring gives
+    the reasons): |got - ref| <= 2**-8 |ref| + bound for the bf16 o, dq,
+    dk and dv, <= bound for the f32 lse and delta. Returns max |err|."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if name in ("o", "dq", "dk", "dv"):
+        bound = bound + 2.0 ** -8 * ref.abs()
+    ratio = float((err / bound).max())
+    log(f"kernel-K1 {tag} {name:5s} max_abs_err {float(err.max()):.3e} (max "
+        f"|ref| {float(ref.abs().max()):.3e}); max err / tolerance "
+        f"{ratio:.3f}")
+    check(bool(torch.isfinite(got).all()), f"K1 {tag} {name}: non-finite")
+    check(ratio <= 1.0, f"K1 {tag} {name}: outside tolerance")
+    return float(err.max())
+
+
+def k1_case(torch, fl, tag, b, t, h, d, causal, window, seed=0):
+    """The three kernels on one shape against their plain versions on
+    the same inputs: dq and the plain dq get the forward kernel's (o,
+    lse), dkv and the plain dkv also the dq kernel's delta. Returns
+    {kernel: max_abs_err}."""
+    q, k, v, do = k1_inputs(torch, b, t, h, d, seed)
+    plan = fl.flash_plan(t, d, causal, window)
+    log(f"kernel-K1 ({tag}) B={b} T={t} h={h} d={d} causal={causal} "
+        f"window={window}; plan {json.dumps(plan)}")
+    o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+    dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+    dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None, window)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, do)]
+    ro, rlse = fl.plain_fwd(*f[:3], causal, None, window)
+    bound = fl.kernel_error_bounds(*f[:3], ro, rlse, f[3], causal, None,
+                                   window)
+    errs = {"fwd": max(k1_check(torch, tag, "o", o, ro, bound["o"]),
+                       k1_check(torch, tag, "lse", lse, rlse, bound["lse"]))}
+    del ro, rlse, bound
+    bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
+                                   window)
+    rdq, rdelta = fl.plain_dq(*f[:3], o.float(), lse, f[3], causal, None,
+                              window)
+    errs["dq"] = max(k1_check(torch, tag, "dq", dq, rdq, bound["dq"]),
+                     k1_check(torch, tag, "delta", delta, rdelta,
+                              bound["delta"]))
+    del rdq, rdelta
+    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None, window)
+    errs["dkv"] = max(k1_check(torch, tag, "dk", dk, rdk, bound["dk"]),
+                      k1_check(torch, tag, "dv", dv, rdv, bound["dv"]))
+    return errs
+
+
+def k1_hop(torch, fl, seed=5):
+    """(d) the ring hop: a causal sequence of 2 x 1024 tokens, B=4,
+    h=12, d=64; the global (o, lse) of its second half from the plain
+    forward over the whole sequence; `flash_bwd` of the second-half
+    queries against each half of the keys (off-diagonal non-causal,
+    diagonal causal) with that external (o, lse), against the plain hop
+    formula (plain_dq / plain_dkv, as sequence.py:213-226 computes it).
+    The two hops' dq must also sum to the whole sequence's dq rows."""
+    b, ts, h, d = K1_HOP
+    q, k, v, do = k1_inputs(torch, b, 2 * ts, h, d, seed)
+    f = [x.float() for x in (q, k, v, do)]
+    ro, rlse = fl.plain_fwd(*f[:3], True)
+    o_g = ro[:, ts:].to(torch.bfloat16).contiguous()
+    lse_g = rlse.reshape(b, h, 2 * ts)[..., ts:].reshape(b * h, ts) \
+        .contiguous()
+    q2, do2 = q[:, ts:].contiguous(), do[:, ts:].contiguous()
+    errs, dq_sum, dq_bound = {}, 0.0, 0.0
+    for half, causal in ((0, False), (1, True)):
+        kh = k[:, half * ts:(half + 1) * ts].contiguous()
+        vh = v[:, half * ts:(half + 1) * ts].contiguous()
+        dq, dk, dv = fl.flash_bwd(q2, kh, vh, o_g, lse_g, do2, causal)
+        torch.cuda.synchronize()
+        g = [x.float() for x in (q2, kh, vh, do2)]
+        rdq, rdelta = fl.plain_dq(*g[:3], o_g.float(), lse_g, g[3], causal)
+        rdk, rdv = fl.plain_dkv(*g[:3], g[3], lse_g, rdelta, causal)
+        bound = fl.kernel_error_bounds(*g[:3], o_g, lse_g, g[3], causal)
+        tag = f"(d) hop {half}"
+        errs[half] = max(k1_check(torch, tag, "dq", dq, rdq, bound["dq"]),
+                         k1_check(torch, tag, "dk", dk, rdk, bound["dk"]),
+                         k1_check(torch, tag, "dv", dv, rdv, bound["dv"]))
+        dq_sum = dq_sum + dq.float()
+        dq_bound = dq_bound + bound["dq"] + 2.0 ** -8 * rdq.abs()
+    # the hops' shares add up to the whole sequence's gradient (the
+    # plain backward over all 2048 tokens, second-half rows)
+    full_dq, _ = fl.plain_dq(*f[:3], ro.to(torch.bfloat16).float(), rlse,
+                             f[3], True)
+    err = (dq_sum - full_dq[:, ts:]).abs()
+    log(f"kernel-K1 (d) hop0 + hop1 dq vs the whole sequence's dq: "
+        f"max_abs_err {float(err.max()):.3e}; max err / tolerance "
+        f"{float((err / dq_bound).max()):.3f}")
+    check(bool((err <= dq_bound).all()), "K1 hop: dq shares do not add up")
+    return max(errs.values())
+
+
+def phase_kernel_k1(torch, fl):
+    """K1 against its plain versions at shapes (a)-(d); returns case
+    (a)'s {kernel: max_abs_err} (the training shape)."""
+    errs = {tag: k1_case(torch, fl, tag, *shape)
+            for tag, shape in K1_SHAPES.items()}
+    torch.cuda.empty_cache()
+    k1_hop(torch, fl)
+    torch.cuda.empty_cache()
+    return errs["a"]
+
+
+def phase_train(torch, fc, fl, variant, attention="local"):
     """GPT-2-small training through the normal entry point; returns the
-    benchmark's meta with the K2 launch counts of this run."""
+    benchmark's meta with the K2 and K1 launch counts of this run (K1's
+    without the launches of the flash efficiency probe that
+    `measure_lm_rate` runs after the training loop)."""
     from kungfu_tpu_torch.benchmarks.lm import measure_lm_rate
 
+    tag = f"{variant}/{attention}"
     torch.cuda.synchronize()
     fc.reset_launches()                     # counts of THIS run only
-    rate, meta = measure_lm_rate("small", 8, 1024, ce_variant=variant,
-                                 iters=TRAIN_ITERS, warmup=TRAIN_WARMUP)
+    fl.reset_launches()
+    rate, meta = measure_lm_rate("small", 8, 1024, attention=attention,
+                                 ce_variant=variant, iters=TRAIN_ITERS,
+                                 warmup=TRAIN_WARMUP)
     torch.cuda.synchronize()
     launches = dict(fc.LAUNCHES)
+    probe = meta.get("flash_kernel", {}).get("launches", {})
+    k1 = {n: c - probe.get(n, 0) for n, c in fl.LAUNCHES.items()}
     steps = TRAIN_WARMUP + TRAIN_ITERS
     losses = meta["losses"]
     check(len(losses) == steps and all(x == x and abs(x) < 1e9
                                        for x in losses),
-          f"train {variant}: non-finite losses {losses}")
-    check(losses[-1] < losses[0], f"train {variant}: the loss did not "
+          f"train {tag}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"train {tag}: the loss did not "
           f"fall ({losses[0]} -> {losses[-1]})")
     want = ({"fwd": steps, "residual_d": steps, "dw": 0, "dx": 0}
             if variant == "residual" else
             {"fwd": steps, "residual_d": 0, "dw": steps, "dx": steps})
     got = {k: launches[k] for k in want}
     check(got == want and launches["plain"] == 0,
-          f"train {variant}: K2 launches {launches}, expected {want} and "
+          f"train {tag}: K2 launches {launches}, expected {want} and "
           f"no plain call")
-    meta.update(tokens_per_sec=rate, launches=launches)
-    log(f"train {variant}: {meta['step_time_ms']:.2f} ms/step, "
+    n = LAYERS * steps if attention == "flash" else 0
+    want1 = {"fwd": n, "dq": n, "dkv": n, "plain": 0}
+    check(k1 == want1 and fl.LAUNCHES["plain"] == 0,
+          f"train {tag}: K1 launches {k1} (probe {probe}), expected {want1}")
+    meta.update(tokens_per_sec=rate, launches=launches, k1_launches=k1)
+    log(f"train {tag}: {meta['step_time_ms']:.2f} ms/step, "
         f"{rate:.1f} tok/s, MFU {meta['mfu']} (against 989e12 bf16), "
         f"peak memory {meta['peak_mem_gb']:.2f} GB, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K2 launches {launches}")
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K2 launches {launches}; "
+        f"K1 launches {k1}")
     log("train " + json.dumps(meta))
     return meta
 
@@ -404,6 +557,112 @@ def phase_timing_k2(torch, fc):
         "null")
     del logits
     torch.cuda.empty_cache()
+    return out
+
+
+def k1_bound(kernel, b, t, h, d, causal, window):
+    """(bound_ms, bound_by, flops, bytes) of one K1 launch: each input
+    read once and each output written once (bf16 [B, T, h, d] tensors,
+    f32 [B*h, T] lse and delta): fwd reads q, k, v and writes o and lse;
+    dq reads q, k, v, o, dO and lse and writes dq and delta; dkv reads
+    q, k, v, dO, lse and delta and writes dk and dv. Operations are the
+    products on the visible pairs (`flash_attention_flops`' count, 2 d
+    FLOPs a pair a product): fwd q.k^T and p.v; dq q.k^T, dO.v^T and
+    ds.k; dkv those two score products, p^T.dO and ds^T.q — against the
+    bf16 tensor-core peak."""
+    from kungfu_tpu_torch.ops.flash import flash_attention_flops
+
+    seq = 2 * b * t * h * d                     # one bf16 [B, T, h, d]
+    row = 4 * b * h * t                         # one f32 [B*h, T]
+    pair_product = flash_attention_flops(b, t, h, d, causal, window) // 2
+    nbytes, flops = {
+        "fwd": (4 * seq + row, 2 * pair_product),
+        "dq": (6 * seq + 2 * row, 3 * pair_product),
+        "dkv": (6 * seq + 2 * row, 4 * pair_product)}[kernel]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def phase_timing_k1(torch, fl):
+    """Each K1 kernel per launch at shapes (a) and (b), cycling over four
+    input sets (4 x 4 x 12.6 MB at (a): L2's 50 MB holds none of a
+    launch's inputs from its previous visit), beside its bound, its plain
+    version and the library yardstick scaled_dot_product_attention:
+    its forward, and its backward (fwd+bwd minus fwd) beside dq + dkv.
+    SDPA is timed only; the port never calls it. Returns {shape: {kernel:
+    (ms, plain_ms, bound_ms, bound_by)}, "sdpa": ...}."""
+    import torch.nn.functional as F
+
+    out = {}
+    for tag in ("a", "b"):
+        b, t, h, d, causal, window = K1_SHAPES[tag]
+        sets = []
+        for seed in range(4):
+            q, k, v, do = k1_inputs(torch, b, t, h, d, 10 + seed)
+            o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+            _, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+            sets.append((q, k, v, do, o, lse, delta))
+        runs = {
+            "fwd": (lambda x: fl.flash_fwd(x[0], x[1], x[2], causal, None,
+                                           window),
+                    lambda x: fl.plain_fwd(x[0], x[1], x[2], causal, None,
+                                           window)),
+            "dq": (lambda x: fl.flash_dq(x[0], x[1], x[2], x[4], x[5], x[3],
+                                         causal, None, window),
+                   lambda x: fl.plain_dq(x[0], x[1], x[2], x[4], x[5], x[3],
+                                         causal, None, window)),
+            "dkv": (lambda x: fl.flash_dkv(x[0], x[1], x[2], x[3], x[5],
+                                           x[6], causal, None, window),
+                    lambda x: fl.plain_dkv(x[0], x[1], x[2], x[3], x[5],
+                                           x[6], causal, None, window)),
+        }
+        res = {}
+        for name, (kern, plain) in runs.items():
+            ms = time_cuda(torch, lambda i: kern(sets[i % 4]), 40)
+            plain_ms = time_cuda(torch, lambda i: plain(sets[0]), 2)
+            bound_ms, bound_by, flops, nbytes = k1_bound(name, b, t, h, d,
+                                                         causal, window)
+            res[name] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"timing K1 ({tag}) {name:4s} {ms:.4f} ms/launch; bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop); "
+                f"plain {plain_ms:.4f} ms; {1e-12 * flops / (ms * 1e-3):.1f} "
+                f"TFLOP/s, {1e-9 * nbytes / (ms * 1e-3):.1f} GB/s achieved")
+        # SDPA on contiguous [B, h, T, d] copies of the same values (its
+        # own layout); the window as a boolean band mask (is_causal
+        # cannot express it)
+        mask = None
+        if window is not None:
+            pos = torch.arange(t, device=DEVICE)
+            mask = (pos[:, None] >= pos[None, :]) & \
+                (pos[:, None] - pos[None, :] <= window)
+        lib = [[x.transpose(1, 2).contiguous().requires_grad_()
+                for x in st[:4]] for st in sets]
+
+        def sdpa(x):
+            return F.scaled_dot_product_attention(
+                x[0], x[1], x[2], attn_mask=mask,
+                is_causal=causal and mask is None)
+
+        def sdpa_fwd(i):
+            with torch.no_grad():
+                return sdpa(lib[i % 4])
+
+        def sdpa_both(i):
+            x = lib[i % 4]
+            return torch.autograd.grad(sdpa(x), x[:3], x[3])
+
+        lib_fwd = time_cuda(torch, sdpa_fwd, 40)
+        lib_both = time_cuda(torch, sdpa_both, 40)
+        res["sdpa"] = (lib_fwd, lib_both - lib_fwd)
+        log(f"timing K1 ({tag}) library sdpa forward {lib_fwd:.4f} ms, "
+            f"backward (fwd+bwd {lib_both:.4f} - fwd) "
+            f"{lib_both - lib_fwd:.4f} ms against dq + dkv "
+            f"{res['dq'][0] + res['dkv'][0]:.4f} ms; mask "
+            f"{'band' if mask is not None else 'is_causal'}")
+        out[tag] = res
+        del sets, lib
+        torch.cuda.empty_cache()
     return out
 
 
@@ -639,6 +898,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from kungfu_tpu_torch.ops import _build
+    from kungfu_tpu_torch.ops import flash as fl
     from kungfu_tpu_torch.ops import fused_ce as fc
     from kungfu_tpu_torch.ops import paged_attn as pa
     from kungfu_tpu_torch.serve import build_lm
@@ -648,10 +908,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions'
     torch.backends.cudnn.allow_tf32 = False         # f32 products exact
-    build_all(_build, ["paged_attn", "fused_ce"])
+    build_all(_build, ["paged_attn", "fused_ce", "flash"])
 
     errs = phase_kernel(torch, pa)
     k2_errs = phase_kernel_k2(torch, fc)
+    k1_errs = phase_kernel_k1(torch, fl)
     model = build_lm("small", max_position=MAX_LEN, seed=0)
     log(f"model: GPT-2-small {model.config}")
     served = {}
@@ -667,11 +928,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity(torch)
     trained = {}
-    for variant in ("residual", "recompute"):
-        trained[variant] = phase_train(torch, fc, variant)
+    for variant, attention in (("residual", "local"),
+                               ("recompute", "local"),
+                               ("residual", "flash")):
+        trained[f"{variant}/{attention}"] = phase_train(
+            torch, fc, fl, variant, attention)
         torch.cuda.empty_cache()
+    local, flash = trained["residual/local"], trained["residual/flash"]
+    log(f"train local vs flash (residual CE, this call): "
+        f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
+        f"ms/step, {local['tokens_per_sec']:.1f} vs "
+        f"{flash['tokens_per_sec']:.1f} tok/s, MFU {local['mfu']} vs "
+        f"{flash['mfu']}, peak memory {local['peak_mem_gb']:.2f} vs "
+        f"{flash['peak_mem_gb']:.2f} GB; flash kernel efficiency "
+        f"{json.dumps(flash['flash_kernel'])}")
     k3_times = phase_timing(torch, pa)
     k2_times = phase_timing_k2(torch, fc)
+    k1_times = phase_timing_k1(torch, fl)
 
     kernels = []
     times, plain_ms, lib_ms, bound_ms, bound_by = k3_times
@@ -697,6 +970,21 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
+        })
+    for name in ("fwd", "dq", "dkv"):
+        # shape (a), the training shape. library_ms: SDPA's forward for
+        # fwd; no single PyTorch call computes dq or dk/dv alone (SDPA's
+        # backward, timed beside dq + dkv in the log, computes all three)
+        ms, plain_ms, bound_ms, bound_by = k1_times["a"][name]
+        kernels.append({
+            "name": f"flash.{name}", "route": "cuda",
+            "source": "kungfu_tpu_torch/csrc/flash.cu",
+            "replaces": K1_REPLACES[name],
+            "launches": trained["residual/flash"]["k1_launches"][name],
+            "max_abs_err": k1_errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": k1_times["a"]["sdpa"][0] if name == "fwd" else None,
         })
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")

@@ -6,7 +6,11 @@ Ported so far: the kfserve decode path — the paged KV pool
 (`serve.kv_cache`), the paged GPT forward (`serve.paged`), the
 continuous-batching engine (`serve.engine`) and the paged-attention
 decode kernel as hand-written CUDA (`ops.paged_attn`,
-`csrc/paged_attn.cu`). The peer, libkf and elastic runtime come with
+`csrc/paged_attn.cu`); single-card GPT training (`benchmarks.lm`)
+through the fused head + cross-entropy kernels (`ops.fused_ce`,
+`csrc/fused_ce.cu`) and, with ``attention="flash"``, the flash-attention
+kernels (`ops.flash`, `csrc/flash.cu`, and the ring hop's entry points
+in `parallel.sequence`). The peer, libkf and elastic runtime come with
 later slices.
 
 Entry points run on the CUDA card unless the caller asks for the CPU

@@ -2,18 +2,22 @@
 
 The port of `kungfu_tpu/benchmarks/lm.py::measure_lm_rate` for its
 single-chip dense configuration: GPT (`models.gpt`, f32 master weights,
-bf16 compute, the plain causal mixer) trained by
+bf16 compute, the plain causal mixer or, with ``attention="flash"``,
+the K1 flash-attention kernels) trained by
 `parallel.build_gspmd_train_step` over `gpt_fused_loss` — the head and
 its cross-entropy in the fused K2 kernels — with the benchmark's AdamW
 (`optimizers.lm_adamw`).
 
   python -m kungfu_tpu_torch.benchmarks.lm                 # gpt-small
   python -m kungfu_tpu_torch.benchmarks.lm --ce-variant recompute
+  python -m kungfu_tpu_torch.benchmarks.lm --attention flash
   python -m kungfu_tpu_torch.benchmarks.lm --device cpu    # smoke
 
-Prints one JSON line: tokens/sec, ms/step, MFU and the configuration.
-Flash attention, tp > 1, MoE experts, remat and the pipeline are later
-slices of the port and raise NotImplementedError.
+Prints one JSON line: tokens/sec, ms/step, MFU and the configuration;
+with flash attention on the card also the flash kernels' own efficiency
+at the run's attention shape (`flash_eff`). The ring and ulysses
+mixers, tp > 1, MoE experts, remat and the pipeline are later slices of
+the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -62,12 +66,13 @@ def _not_ported(what: str, slice_: str):
 
 
 def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
-                   device):
+                   device, attention: str = "local"):
     """The benchmark's training setup on `device`: ``(cfg, model, step,
     tokens)`` — GPT of size `size` (vocab 50257, f32 master weights,
-    bf16 compute) with random weights from seed 0, the train step over
-    `gpt_fused_loss` with `ce_variant`'s backward and `lm_adamw`, and
-    seeded uniform tokens ``[batch, seq]``."""
+    bf16 compute, the `attention` mixer) with random weights from seed
+    0, the train step over `gpt_fused_loss` with `ce_variant`'s
+    backward and `lm_adamw`, and seeded uniform tokens ``[batch,
+    seq]``."""
     if ce_variant not in ("residual", "recompute"):
         raise ValueError(f"unknown ce_variant {ce_variant!r}")
     if size not in SIZES:
@@ -78,7 +83,8 @@ def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
     cfg = GPTConfig(vocab_size=50257, hidden_size=hidden,
                     num_layers=layers, num_heads=heads,
                     intermediate_size=inter, max_position=max(1024, seq),
-                    dtype=torch.bfloat16, param_dtype=torch.float32)
+                    dtype=torch.bfloat16, param_dtype=torch.float32,
+                    attention=attention)
     model = GPTLM(cfg, device="cpu",
                   generator=torch.Generator().manual_seed(0)).to(device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
@@ -104,9 +110,13 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     seq 128, at most 3 timed steps) when ``device="cpu"``. Weights are
     random from seed 0; the tokens are seeded uniform over the vocab and
     reused every step. `meta["losses"]` holds every step's loss, warmup
-    included, read after the timed loop."""
-    if attention != "local":
-        _not_ported(f"attention={attention!r}", "K1 (flash attention)")
+    included, read after the timed loop. With ``attention="flash"`` on
+    the card, `meta["flash_kernel"]` holds the flash kernels' own
+    efficiency at the run's attention shape
+    (`flash_eff.measure_flash_efficiency`, run after the training loop;
+    its ``launches`` are the K1 launches it added)."""
+    if attention in ("ring", "ulysses"):
+        _not_ported(f"attention={attention!r}", "parallel-axes")
     if tp != 1:
         _not_ported("tp > 1", "parallel-axes")
     if experts:
@@ -120,7 +130,8 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     if dev.type == "cpu":  # smoke path
         size, batch, seq = "tiny", 2, 128
         iters, warmup = min(iters, 3), min(warmup, 1)
-    cfg, _, step, tokens = build_lm_train(size, batch, seq, ce_variant, dev)
+    cfg, _, step, tokens = build_lm_train(size, batch, seq, ce_variant, dev,
+                                          attention)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses = [step(tokens) for _ in range(max(warmup, 1))]
@@ -143,6 +154,13 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     }
     if dev.type == "cuda":
         meta["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        if attention == "flash":
+            from .flash_eff import measure_flash_efficiency
+
+            meta["flash_kernel"] = measure_flash_efficiency(
+                batch=batch, seq=seq, heads=cfg.num_heads,
+                head_dim=cfg.head_dim, causal=True, iters=min(iters, 10),
+                warmup=2, device=str(dev))
     return tokens_per_step / dt, meta
 
 

@@ -36,8 +36,15 @@ after the final LayerNorm, `gpt_loss` is the unfused next-token loss
 over the f32 logits, and `gpt_fused_loss` runs the head inside the
 fused cross-entropy kernels (`ops.fused_ce`).
 
-Only the plain ("local") causal mixer exists here; the flash, ring and
-ulysses mixers and the MoE FFN belong to later slices of the port.
+Mixers: ``GPTConfig.attention`` picks the training forward's causal
+mixer, as in the JAX package: ``"local"``, the plain
+`dot_product_attention` above, or ``"flash"``, the K1 kernels
+(`ops.flash.flash_attention`, O(T) device memory in both directions).
+The prefill and decode branches come first and do not change with the
+mode, so serving is the same in both. The ``"ring"`` and ``"ulysses"``
+sequence-parallel mixers (and ``use_flash``, which modifies them) and
+the MoE FFN belong to the parallel-axes slice of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_ATTN_MODES = ("local", "flash", "ring", "ulysses")
 
 
 @dataclass(frozen=True)
@@ -64,8 +74,21 @@ class GPTConfig:
     # the compute dtype (serving), torch.float32 = flax's f32 master
     # weights cast at each use (training)
     param_dtype: Optional[torch.dtype] = None
+    attention: str = "local"  # local | flash (ring | ulysses: later)
+    use_flash: bool = False   # the ring/ulysses mixers' flash step
 
     def __post_init__(self):
+        if self.attention not in _ATTN_MODES:
+            raise ValueError(
+                f"attention must be one of {_ATTN_MODES}, got "
+                f"{self.attention!r}")
+        if self.attention in ("ring", "ulysses") or self.use_flash:
+            what = (f"attention={self.attention!r}"
+                    if self.attention in ("ring", "ulysses")
+                    else "use_flash")
+            raise NotImplementedError(
+                f"{what} (the sequence-parallel mixers) is not ported yet; "
+                f"it comes with the parallel-axes slice of the port")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden {self.hidden_size} % heads {self.num_heads} != 0")
@@ -216,6 +239,10 @@ class CausalSelfAttention(nn.Module):
             w = torch.softmax(s, dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", w,
                                cv.float()).to(c.dtype)
+        elif c.attention == "flash":
+            from ..ops.flash import flash_attention
+
+            out = flash_attention(q, k, v, causal=True)
         else:
             out = dot_product_attention(q, k, v, c.dtype)
         return self.out(out)

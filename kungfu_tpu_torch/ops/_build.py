@@ -7,7 +7,8 @@ seconds. Libraries land in ``build/torch_kernels/`` at the repo root
 (ignored by git through the ``/build/`` entry of ``.gitignore``), named
 by a hash of source and flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing is built at import: `load` builds on
-first use.
+first use. `require` and `stream` are the wrappers' shared checks of an
+operand and their launch stream.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -52,6 +55,19 @@ KERNELS = {
         # scale, x, w, b, t, lse, dx, n_pad, h, v_pad, smem, off_w,
         # off_s, off_d, stream
         "k2_dx": (_I, [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_P]),
+    }),
+    "flash": ("flash.cu", {
+        # q, k, v, o, lse|NULL, B, T, H, D, scale, causal, window, stream
+        "k1_fwd": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
+                   + [_P]),
+        # q, k, v, o, do, lse, dq, delta, B, T, H, D, scale, causal,
+        # window, stream
+        "k1_dq": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
+                  + [_P]),
+        # q, k, v, do, lse, delta, dk, dv, B, T, H, D, scale, causal,
+        # window, stream
+        "k1_dkv": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
+                   + [_P]),
     }),
 }
 
@@ -93,6 +109,29 @@ def build(name: str) -> str:
                            f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
     return proc.stdout
+
+
+def require(x, name: str, dtype, shape, device) -> None:
+    """Raise ValueError unless tensor `x` is what a kernel reads through
+    a raw pointer: on `device`, of `dtype` and `shape`, contiguous and
+    16-byte aligned."""
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)} != "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on `device`, which
+    every kernel launches on."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

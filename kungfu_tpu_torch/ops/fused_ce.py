@@ -244,20 +244,6 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _require(x, name, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(x.shape)} != "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _check(x, w, b, t, lse=None, scale=None):
     """Validate the operands a kernel takes and return its plan."""
     dev = x.device
@@ -266,14 +252,14 @@ def _check(x, w, b, t, lse=None, scale=None):
     n_pad, h = x.shape
     v_pad = w.shape[1]
     plan = fused_ce_plan(n_pad, h, v_pad, _sms(dev))
-    _require(x, "x", torch.bfloat16, (n_pad, h), dev)
-    _require(w, "w", torch.bfloat16, (h, v_pad), dev)
-    _require(b, "b", torch.float32, (1, v_pad), dev)
-    _require(t, "t", torch.int32, (n_pad, 1), dev)
+    _build.require(x, "x", torch.bfloat16, (n_pad, h), dev)
+    _build.require(w, "w", torch.bfloat16, (h, v_pad), dev)
+    _build.require(b, "b", torch.float32, (1, v_pad), dev)
+    _build.require(t, "t", torch.int32, (n_pad, 1), dev)
     if lse is not None:
-        _require(lse, "lse", torch.float32, (n_pad, 1), dev)
+        _build.require(lse, "lse", torch.float32, (n_pad, 1), dev)
     if scale is not None:
-        _require(scale, "scale", torch.float32, (1, 1), dev)
+        _build.require(scale, "scale", torch.float32, (1, 1), dev)
     return plan
 
 
@@ -290,10 +276,6 @@ def _smem_args(kernel, h):
     lay = smem_layout(kernel, h)
     keys = ("w", "s") if kernel == "fwd" else ("w", "s", "d")
     return (lay["total"],) + tuple(lay[k] for k in keys)
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def fused_ce_fwd(x, w, b, t, residual: bool):
@@ -317,7 +299,7 @@ def fused_ce_fwd(x, w, b, t, residual: bool):
                 logits.data_ptr() if residual else None, part.data_ptr(),
                 lse.data_ptr(), tl.data_ptr(), n_pad, h, v_pad, splits,
                 plan["fwd_tiles_per_split"], *_smem_args("fwd", h),
-                _stream(x.device))
+                _build.stream(x.device))
     return logits, lse, tl
 
 
@@ -332,15 +314,15 @@ def fused_ce_residual_d(scale, logits, lse, t):
         raise ValueError(f"no fused-CE kernel for {dev}")
     n_pad, v_pad = logits.shape
     _check_padded(n_pad, v_pad)
-    _require(logits, "logits", torch.bfloat16, (n_pad, v_pad), dev)
-    _require(lse, "lse", torch.float32, (n_pad, 1), dev)
-    _require(t, "t", torch.int32, (n_pad, 1), dev)
-    _require(scale, "scale", torch.float32, (1, 1), dev)
+    _build.require(logits, "logits", torch.bfloat16, (n_pad, v_pad), dev)
+    _build.require(lse, "lse", torch.float32, (n_pad, 1), dev)
+    _build.require(t, "t", torch.int32, (n_pad, 1), dev)
+    _build.require(scale, "scale", torch.float32, (1, 1), dev)
     db = torch.empty((1, v_pad), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("residual_d", _lib().k2_residual_d, scale.data_ptr(),
                 logits.data_ptr(), lse.data_ptr(), t.data_ptr(),
-                db.data_ptr(), n_pad, v_pad, _stream(dev))
+                db.data_ptr(), n_pad, v_pad, _build.stream(dev))
     return logits, db
 
 
@@ -358,7 +340,7 @@ def fused_ce_dw(scale, x, w, b, t, lse):
         _launch("dw", _lib().k2_dw, scale.data_ptr(), x.data_ptr(),
                 w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
                 dw.data_ptr(), db.data_ptr(), n_pad, h, v_pad,
-                *_smem_args("dw", h), _stream(x.device))
+                *_smem_args("dw", h), _build.stream(x.device))
     return dw, db
 
 
@@ -375,7 +357,7 @@ def fused_ce_dx(scale, x, w, b, t, lse):
         _launch("dx", _lib().k2_dx, scale.data_ptr(), x.data_ptr(),
                 w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
                 dx.data_ptr(), n_pad, h, v_pad, *_smem_args("dx", h),
-                _stream(x.device))
+                _build.stream(x.device))
     return dx
 
 

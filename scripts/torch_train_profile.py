@@ -2,21 +2,23 @@
 """Where a training step's time goes on the card, for the PyTorch/CUDA port.
 
     python3 scripts/torch_train_profile.py [--ce-variant residual]
-        [--steps 5] [--batch 8] [--seq 1024] [--trace PATH]
+        [--attention local|flash] [--steps 5] [--batch 8] [--seq 1024]
+        [--trace PATH]
 
 GPT-2-small (f32 master weights, bf16 compute, random weights from a
 seed) trained by the LM benchmark's step (`benchmarks.lm.build_lm_train`:
-`gpt_fused_loss` with the K2 kernels, the benchmark's AdamW). After two
-warmup steps, `--steps` steps are timed without the profiler (host
+`gpt_fused_loss` with the K2 kernels, the benchmark's AdamW, the plain
+causal mixer or the K1 flash kernels). After two warmup steps,
+`--steps` steps are timed without the profiler (host
 wall, fenced by a loss read), then `--steps` more are traced with
 torch.profiler (CPU and CUDA activities). Prints the card's name and
 power limit, the torch and CUDA versions and, per step: both host
 walls, device busy time (the union of kernel intervals), the device's
 idle share against the unprofiled wall (the profiler's own host cost
 inflates the profiled wall, not the kernels), the number of kernels
-launched, device time by kernel (top 15), and the shares of K2, of the
-cuBLAS products and of the optimizer's multi-tensor kernels. `--trace`
-also writes the Chrome trace.
+launched, device time by kernel (top 15), and the shares of K1, of K2,
+of the cuBLAS products and of the optimizer's multi-tensor kernels.
+`--trace` also writes the Chrome trace.
 
 Needs one CUDA card; exits non-zero without one or when the profiler
 records no device activity.
@@ -45,8 +47,11 @@ def _union_us(intervals):
 
 
 def _group(name: str) -> str:
-    """A kernel's group: K2, cuBLAS products, the optimizer, or other."""
+    """A kernel's group: K1, K2, cuBLAS products, the optimizer, or
+    other."""
     low = name.lower()
+    if "k1_" in name:
+        return "k1"
     if "k2_" in name:
         return "k2"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
@@ -60,6 +65,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ce-variant", default="residual",
                     choices=("residual", "recompute"))
+    ap.add_argument("--attention", default="local",
+                    choices=("local", "flash"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
@@ -82,7 +89,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     _, _, step, tokens = build_lm_train("small", args.batch, args.seq,
-                                        args.ce_variant, "cuda")
+                                        args.ce_variant, "cuda",
+                                        args.attention)
     for _ in range(2):
         step(tokens)
     torch.cuda.synchronize()
@@ -118,8 +126,8 @@ def main() -> int:
     n = args.steps
     summary = {
         "card": card, "torch": torch.__version__,
-        "ce_variant": args.ce_variant, "batch": args.batch,
-        "seq": args.seq, "steps": n,
+        "ce_variant": args.ce_variant, "attention": args.attention,
+        "batch": args.batch, "seq": args.seq, "steps": n,
         "host_wall_ms_per_step": plain_wall_us / n / 1e3,
         "profiled_host_wall_ms_per_step": wall_us / n / 1e3,
         "device_busy_ms_per_step": busy_us / n / 1e3,

@@ -1,5 +1,6 @@
-"""K3 on the card: the CUDA kernel against its plain PyTorch version,
-and the engine's default path through it. Marked ``cuda``; every test
+"""The port's CUDA kernels on the card (K3 paged attention, K2 fused
+head + cross-entropy, K1 flash attention) against their plain PyTorch
+versions, and the default paths through them. Marked ``cuda``; every test
 skips without a card. The machine with the card has no JAX, so run
 these without the suite's conftest:
 
@@ -208,3 +209,89 @@ def test_k2_rejects_what_it_does_not_take(cuda):
         fc.fused_ce_fwd(x, w.t().contiguous().t(), b, t, True)
     with pytest.raises(ValueError, match="multiples"):
         fc.fused_ce_dx(scale, x[:64], w, b, t[:64], t[:64].float())
+
+
+# ---------------------------------------------------------------------------
+# K1: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+from kungfu_tpu_torch.ops import flash as fl  # noqa: E402
+
+
+def _k1_inputs(device, b, t, h, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g).to(device, torch.bfloat16)
+            for _ in range(4)]
+
+
+def _within(name, got, ref, bound):
+    """`fl.kernel_error_bounds`' element-wise tolerance (its docstring
+    gives the reasons): 2**-8 * |ref| + bound for bf16 outputs, bound
+    alone for the f32 lse and delta."""
+    err = (got.float() - ref.float()).abs()
+    if name in ("o", "dq", "dk", "dv"):
+        bound = bound + 2.0 ** -8 * ref.float().abs()
+    assert bool((err <= bound).all()), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("b,t,h,d,causal,window", [
+    (2, 100, 3, 64, True, None), (1, 257, 2, 64, True, 50),
+    (2, 130, 2, 128, False, None), (1, 64, 1, 128, True, 0)])
+def test_k1_kernels_match_plain_versions(cuda, b, t, h, d, causal, window):
+    q, k, v, do = _k1_inputs(cuda, b, t, h, d)
+    fl.reset_launches()
+    o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+    dq, dk, dv = fl.flash_bwd(q, k, v, o, lse, do, causal, None, window)
+    torch.cuda.synchronize()
+    assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv")} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    f = [x.float() for x in (q, k, v, do)]
+    ro, rlse = fl.plain_fwd(*f[:3], causal, None, window)
+    rdq, delta = fl.plain_dq(*f[:3], o.float(), lse, f[3], causal, None,
+                             window)
+    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None, window)
+    bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
+                                   window)
+    fwd_bound = fl.kernel_error_bounds(*f[:3], ro, rlse, f[3], causal,
+                                       None, window)
+    _within("o", o, ro, fwd_bound["o"])
+    _within("lse", lse, rlse, fwd_bound["lse"])
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        _within(name, got, ref, bound[name])
+
+
+def test_k1_autograd_on_the_card_launches_k1(cuda):
+    """`flash_attention`'s Function on the card: one launch per kernel
+    and none of the plain versions; its output is the forward kernel's,
+    and its gradients are the plain backward's from that (o, lse)."""
+    q, k, v, g = _k1_inputs(cuda, 2, 150, 2, 64, seed=1)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    fl.reset_launches()
+    out = fl.flash_attention(*xs, causal=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1, "plain": 0}
+    o, lse = fl.flash_fwd(q, k, v, True)
+    assert torch.equal(out.detach(), o)
+    f = [x.float() for x in (q, k, v, g)]
+    rdq, delta = fl.plain_dq(*f[:3], o.float(), lse, f[3], True)
+    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, True)
+    bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], True)
+    for name, x, ref in zip(("dq", "dk", "dv"), xs, (rdq, rdk, rdv)):
+        assert x.grad.dtype == torch.bfloat16
+        _within(name, x.grad, ref, bound[name])
+
+
+def test_k1_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _k1_inputs(cuda, 1, 64, 2, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fl.flash_fwd(q.float(), k.float(), v.float(), True)
+    q48 = torch.zeros(1, 64, 2, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fl.flash_attention(q48, q48, q48, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.flash_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                     True)
+    _, lse = fl.flash_fwd(q, k, v, True)
+    with pytest.raises(ValueError, match="lse"):
+        fl.flash_bwd(q, k, v, q, lse[:1], q, True)

@@ -61,5 +61,7 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.trace.metrics", "kungfu_tpu_torch.ops.fused_ce",
             "kungfu_tpu_torch.optimizers.adamw",
             "kungfu_tpu_torch.parallel.train",
-            "kungfu_tpu_torch.benchmarks.lm"} <= set(mods)
+            "kungfu_tpu_torch.benchmarks.lm", "kungfu_tpu_torch.ops.flash",
+            "kungfu_tpu_torch.parallel.sequence",
+            "kungfu_tpu_torch.benchmarks.flash_eff"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []

@@ -4,7 +4,10 @@ steps of the train step with the benchmark's AdamW, the data-parallel
 step over two gloo processes, and the benchmark entry point.
 
 The model is tiny with ``hidden_size=128``, so the JAX side really runs
-K2 (interpret mode) and not its H % 128 fallback; the trunk computes in
+K2 (interpret mode) and not its H % 128 fallback; with
+``attention="flash"`` it runs K1's Pallas kernels in interpret mode too
+(`pallas_interpret` aliases the TPU compiler parameters' old name on
+this JAX, as tests/test_torch_flash.py explains); the trunk computes in
 f32 (the head runs bf16 inside the fused loss on both sides). Weights
 are the flax init, converted; tokens come from numpy seeds.
 
@@ -70,6 +73,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from kungfu_tpu.models import GPTConfig as JConfig
 from kungfu_tpu.models import GPTLM as JGPT
@@ -78,7 +82,9 @@ from kungfu_tpu.models import gpt_loss as j_gpt_loss
 from kungfu_tpu.parallel import build_gspmd_train_step as j_build_step
 from kungfu_tpu_torch.benchmarks.lm import measure_lm_rate
 from kungfu_tpu_torch.convert import gpt_params_from_flax
-from kungfu_tpu_torch.models import GPTConfig, GPTLM, gpt_fused_loss, gpt_loss
+from kungfu_tpu_torch.models import (GPTConfig, GPTLM, gpt_fused_loss,
+                                     gpt_generate, gpt_loss)
+from kungfu_tpu_torch.ops import flash as fl
 from kungfu_tpu_torch.optimizers import lm_adamw
 from kungfu_tpu_torch.parallel import build_gspmd_train_step
 
@@ -86,6 +92,17 @@ ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=1000, hidden_size=128, num_layers=2, num_heads=4,
             intermediate_size=256, max_position=64)
 ULP = 2.0 ** -7
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Run the JAX package's Pallas kernels in interpret mode on a JAX
+    that has `pltpu.CompilerParams` but not `pltpu.TPUCompilerParams`
+    (the name ops/flash.py asks for), by aliasing the old name for the
+    test's duration."""
+    if not hasattr(pltpu, "TPUCompilerParams"):
+        monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                            raising=False)
 
 
 def _flat(tree, prefix=""):
@@ -307,6 +324,37 @@ def test_bf16_three_train_steps_match_jax(flax_pair_bf16):
     assert all((got[n] != init[n]).any() for n in ref)   # every leaf moved
 
 
+def test_flash_gpt_loss_and_grads_match_flax(pallas_interpret):
+    """The tiny model with attention="flash" on both sides — the JAX
+    package's Pallas flash kernels in interpret mode, the port's K1
+    plain versions — against each other: loss and every gradient of the
+    unfused `gpt_loss` at its f32 tolerances; and the prefill/decode
+    branches ignore the mode (greedy tokens equal the local model's)."""
+    cfg_kw = dict(TINY, attention="flash")
+    model = JGPT(JConfig(dtype=jnp.float32, **cfg_kw))
+    toks = _tokens(3)
+    params = jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    port = _port(params, GPTConfig(dtype=torch.float32, **cfg_kw))
+    ref_loss, ref = _jax_value_and_grads(
+        lambda p: j_gpt_loss(model.apply({"params": p}, jnp.asarray(toks)),
+                             jnp.asarray(toks)), params)
+    tt = torch.from_numpy(toks).long()
+    fl.reset_launches()
+    loss, got = _port_value_and_grads(port, lambda: gpt_loss(port(tt), tt))
+    assert fl.LAUNCHES["plain"] == 3 * TINY["num_layers"]  # fwd, dq, dkv
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    assert set(got) == set(ref)
+    scale = max(np.abs(r).max() for r in ref.values())
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), ref[name], rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=name)
+    local = _port(params, GPTConfig(dtype=torch.float32, **TINY))
+    prompt = tt[:2, :5]
+    assert torch.equal(gpt_generate(port, prompt, 6),
+                       gpt_generate(local, prompt, 6))
+
+
 def test_fused_loss_mesh_is_a_later_slice(flax_pair):
     _, params, cfg = flax_pair
     port = _port(params, cfg)
@@ -437,6 +485,21 @@ def test_measure_lm_rate_cpu_smoke():
     assert all(np.isfinite(meta["losses"]))
 
 
+def test_measure_lm_rate_flash_cpu_smoke():
+    """attention="flash" on the CPU: the tiny model trains through K1's
+    plain versions (no kernel launch) and its loss falls."""
+    fl.reset_launches()
+    rate, meta = measure_lm_rate(attention="flash", device="cpu", iters=2)
+    assert rate > 0 and meta["attention"] == "flash"
+    assert "flash_kernel" not in meta        # measured on the card only
+    losses = meta["losses"]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    assert fl.LAUNCHES["plain"] > 0
+    assert fl.LAUNCHES["fwd"] == fl.LAUNCHES["dq"] == fl.LAUNCHES["dkv"] \
+        == 0
+
+
 def test_measure_lm_rate_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default would run on it")
@@ -445,7 +508,7 @@ def test_measure_lm_rate_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"attention": "flash"}, "flash"), ({"tp": 2}, "parallel-axes"),
+    ({"attention": "ring"}, "parallel-axes"), ({"tp": 2}, "parallel-axes"),
     ({"experts": 4}, "parallel-axes"), ({"remat": True}, "remat")])
 def test_measure_lm_rate_names_the_slice_of_what_is_not_ported(kw, what):
     with pytest.raises(NotImplementedError, match=what):
