@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving and training paths from the
-sources in this checkout (nvcc, sm_90a; one nvcc per library, all three
-started together), then runs, failing on the first phase that fails:
+Builds every CUDA kernel of the serving, training and roofline paths
+from the sources in this checkout (nvcc, sm_90a; one nvcc per library,
+all four started together), then runs, failing on the first phase that
+fails:
 
 1. kernel — K3 (`paged_attn.resident`, `paged_attn.stream`) against its
    plain PyTorch version at the serving shapes (B=8, h=12, d=64, bt=16,
@@ -25,6 +26,11 @@ started together), then runs, failing on the first phase that fails:
    hop's contract: the global (o, lse) of a causal 2048-token sequence,
    and `flash_bwd` of its second-half queries against each half of the
    keys;
+2c. kernel-R1 — the HBM streaming probe (`stream.neg`, ``o = -x`` in
+   bf16) bitwise against its plain version, torch.neg: at the bandwidth
+   suite's shape [262144, 1024] (0.5 GiB), a ragged row count, an odd
+   length (the kernel's tail loop), and a tensor of +-0, +-inf, NaNs
+   of both signs, denormals and +-max;
 3. serve — GPT-2-small at full width (bf16, random weights from a
    seed) behind `DecodeEngine` (max_batch 8, bt 16, max_len 1024,
    prefix sharing, 256-token prefill chunks) answering 12 requests;
@@ -42,6 +48,20 @@ started together), then runs, failing on the first phase that fails:
    same every step); then a third time with attention="flash" (residual
    CE), where K1 must launch 12 times a step per kernel and its plain
    versions never;
+5b. resnet — `bench.py`'s headline through the port's entry point,
+   `benchmarks.throughput.measure_rate("resnet50", 1)`: ResNet-50 v1.5
+   at full size (space-to-depth stem, bf16 compute over f32 parameters
+   and BatchNorm statistics, batch 128 at 224x224, synthetic data),
+   sync_sgd(SGD(0.1, momentum 0.9)) under a one-rank NCCL group, 3
+   warmup and 20 timed steps; the loss must be finite and fall, the
+   BatchNorm running statistics finite and moved, and sync_sgd must
+   have issued its 161 gradient all-reduces a step; the group is gone
+   after it;
+5c. roofline — `benchmarks.roofline.roofline_report`, `main`'s path:
+   the bandwidth suite (f32 add, bf16 add, bf16 neg, R1) over 0.5 GiB
+   beside the card's 3.35 TB/s, and the ResNet-50 step; R1 must have
+   launched, its plain version never (R1's launch count is zeroed just
+   before and read just after);
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows,
    cycling through the 12 layers' pools, and each K2 kernel per launch
    at the training shape, beside its bound, its plain version and the
@@ -50,7 +70,9 @@ started together), then runs, failing on the first phase that fails:
    timed here only — the port never calls them); and each K1 kernel per
    launch at shapes (a) and (b), cycling over four input sets so L2
    holds none of a launch's inputs, beside its bound, its plain version
-   and scaled_dot_product_attention's forward and backward.
+   and scaled_dot_product_attention's forward and backward; and R1 per
+   launch at [262144, 1024] beside its byte bound and torch.neg (its
+   plain version and the library call at once).
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -129,6 +151,18 @@ K1_REPLACES = {
           ":801 (_bwd_dq_kernel, stream)",
     "dkv": "kungfu_tpu/ops/flash.py:510 (_dkv_res_kernel, resident), "
            ":845 (_bwd_dkv_kernel, stream)"}
+
+#: R1: the bandwidth suite's stream shape (0.5 GiB of bf16)
+R1_SHAPE = (262144, 1024)
+R1_REPLACES = "kungfu_tpu/benchmarks/roofline.py:237"
+#: bf16 bit patterns R1 must negate as torch.neg does: +-0, +-inf, quiet
+#: and signalling NaNs of both signs, +-smallest denormal, +-max, 1
+R1_SPECIALS = (0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81,
+               0xFF81, 0x7FFF, 0x0001, 0x8001, 0x7F7F, 0xFF7F, 0x3F80)
+#: the ResNet-50 S-SGD run: sync_sgd's gradient all-reduces a step (one
+#: per parameter leaf)
+RESNET_LEAVES = 161
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -432,6 +466,117 @@ def phase_kernel_k1(torch, fl):
     k1_hop(torch, fl)
     torch.cuda.empty_cache()
     return errs["a"]
+
+
+def phase_kernel_r1(torch, st):
+    """R1 bitwise against its plain version (torch.neg) on the same
+    inputs; returns the max |kernel - plain| over the finite values (0
+    when the bits agree)."""
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    specials = torch.tensor(R1_SPECIALS, dtype=torch.int32).to(torch.int16)
+    cases = {
+        f"suite {list(R1_SHAPE)}": torch.randn(R1_SHAPE, generator=g,
+                                               device=DEVICE),
+        "ragged rows [1000, 1024]": torch.randn(1000, 1024, generator=g,
+                                                device=DEVICE),
+        "odd length 1000003": torch.randn(1000003, generator=g,
+                                          device=DEVICE),
+    }
+    cases = {k: v.to(torch.bfloat16) for k, v in cases.items()}
+    # the specials repeated to 8 * 37 + 5 elements: vectors and the tail
+    cases["specials x301"] = specials.repeat(22)[:301].view(
+        torch.bfloat16).to(DEVICE)
+    err = 0.0
+    for name, x in cases.items():
+        got = st.stream_neg(x)
+        ref = st.plain_neg(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        finite = torch.isfinite(ref)
+        e = float((got.float() - ref.float())[finite].abs().max())
+        err = max(err, e)
+        log(f"kernel-R1 {name}: bitwise equal to torch.neg: {same}; "
+            f"max_abs_err {e:.3e}")
+        check(same, f"R1 {name}: bits differ from torch.neg")
+    def bits(t):
+        return [hex(v & 0xFFFF) for v in t.view(torch.int16).tolist()]
+
+    nan = cases["specials x301"][4:9].clone()    # 16-byte aligned
+    log(f"kernel-R1 NaNs {bits(nan)}: kernel {bits(st.stream_neg(nan))}, "
+        f"torch.neg {bits(torch.neg(nan))}")
+    return err
+
+
+def phase_resnet(torch):
+    """bench.py's ResNet-50 S-SGD run through `measure_rate` under a
+    one-rank NCCL group; returns its meta with images/s."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.benchmarks.throughput import measure_rate
+
+    rate, meta = measure_rate("resnet50", 1)
+    losses = meta["losses"]
+    check(meta["backend"] == "nccl" and meta["chips"] == 1
+          and meta["per_chip_batch"] == 128 and meta["image_size"] == 224,
+          f"resnet: not bench.py's configuration: {meta}")
+    check(all(x == x and abs(x) < 1e9 for x in losses),
+          f"resnet: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"resnet: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    check(meta["bn_stats_finite"] and meta["bn_stats_max_change"] > 0,
+          "resnet: BatchNorm running statistics non-finite or unmoved")
+    check(meta["grad_all_reduces_per_step"] == RESNET_LEAVES,
+          f"resnet: sync_sgd issued {meta['grad_all_reduces_per_step']} "
+          f"all-reduces a step, expected {RESNET_LEAVES}")
+    check(not dist.is_initialized(), "resnet: the process group outlived "
+          "the run")
+    meta["images_per_sec"] = rate
+    log(f"resnet ResNet-50 S-SGD (NCCL, one rank): {rate:.1f} images/s, "
+        f"{meta['step_time_ms']:.2f} ms/step, peak memory "
+        f"{meta['peak_mem_gb']:.2f} GB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {len(losses)} steps, BN stats moved "
+        f"{meta['bn_stats_max_change']:.3e}")
+    log("resnet " + json.dumps(meta))
+    return meta
+
+
+def phase_roofline(torch, st):
+    """The port's roofline main path: R1's launches zeroed just before,
+    read just after."""
+    from kungfu_tpu_torch.benchmarks.roofline import roofline_report
+
+    torch.cuda.synchronize()
+    st.reset_launches()
+    rep = roofline_report()
+    torch.cuda.synchronize()
+    launches = dict(st.LAUNCHES)
+    check(launches["neg"] > 0 and launches["neg"] ==
+          rep["stream_kernel_launches"] and launches["plain"] == 0,
+          f"roofline: R1 launches {launches}")
+    for name, gbs in rep["achieved_by_pattern_gb_per_s"].items():
+        log(f"roofline {name:13s} {gbs:9.1f} GB/s = "
+            f"{gbs / (PEAK_BYTES_S / 1e9):.3f} of {PEAK_BYTES_S / 1e12:.2f} "
+            f"TB/s")
+    log(f"roofline ResNet-50 step {rep['resnet50_step_ms']:.2f} ms; R1 "
+        f"launches {launches['neg']}")
+    log("roofline " + json.dumps(rep))
+    return launches["neg"]
+
+
+def phase_timing_r1(torch, st):
+    """R1 per launch at the suite's shape (0.5 GiB in, 0.5 GiB out: far
+    beyond L2), beside its byte bound and torch.neg — the plain version
+    and the library call are the same call here."""
+    x = torch.randn(R1_SHAPE, device=DEVICE).to(torch.bfloat16)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+    ms = time_cuda(torch, lambda i: st.stream_neg(x), 50)
+    plain_ms = time_cuda(torch, lambda i: st.plain_neg(x), 50)
+    log(f"timing R1 neg {ms:.4f} ms/launch; bound {bound_ms:.4f} ms (bytes: "
+        f"{nbytes} B); plain = library = torch.neg {plain_ms:.4f} ms; "
+        f"{1e-6 * nbytes / ms:.1f} GB/s achieved, torch.neg "
+        f"{1e-6 * nbytes / plain_ms:.1f} GB/s")
+    return ms, plain_ms, bound_ms
 
 
 def phase_train(torch, fc, fl, variant, attention="local"):
@@ -901,6 +1046,7 @@ def main() -> int:
     from kungfu_tpu_torch.ops import flash as fl
     from kungfu_tpu_torch.ops import fused_ce as fc
     from kungfu_tpu_torch.ops import paged_attn as pa
+    from kungfu_tpu_torch.ops import stream as st
     from kungfu_tpu_torch.serve import build_lm
 
     card = card_line()
@@ -908,11 +1054,13 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions'
     torch.backends.cudnn.allow_tf32 = False         # f32 products exact
-    build_all(_build, ["paged_attn", "fused_ce", "flash"])
+    build_all(_build, ["paged_attn", "fused_ce", "flash", "stream"])
 
     errs = phase_kernel(torch, pa)
     k2_errs = phase_kernel_k2(torch, fc)
     k1_errs = phase_kernel_k1(torch, fl)
+    r1_err = phase_kernel_r1(torch, st)
+    log(f"[{time.perf_counter() - T_START:.0f} s] kernel phases done")
     model = build_lm("small", max_position=MAX_LEN, seed=0)
     log(f"model: GPT-2-small {model.config}")
     served = {}
@@ -934,6 +1082,12 @@ def main() -> int:
         trained[f"{variant}/{attention}"] = phase_train(
             torch, fc, fl, variant, attention)
         torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T_START:.0f} s] train phases done")
+    resnet = phase_resnet(torch)
+    torch.cuda.empty_cache()
+    r1_launches = phase_roofline(torch, st)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T_START:.0f} s] resnet and roofline done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -945,6 +1099,8 @@ def main() -> int:
     k3_times = phase_timing(torch, pa)
     k2_times = phase_timing_k2(torch, fc)
     k1_times = phase_timing_k1(torch, fl)
+    r1_ms, r1_plain_ms, r1_bound_ms = phase_timing_r1(torch, st)
+    log(f"[{time.perf_counter() - T_START:.0f} s] timing done")
 
     kernels = []
     times, plain_ms, lib_ms, bound_ms, bound_by = k3_times
@@ -986,6 +1142,18 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": k1_times["a"]["sdpa"][0] if name == "fwd" else None,
         })
+    # torch.neg is R1's plain version and the one library call computing
+    # the same function: plain_ms and library_ms are the same timing
+    kernels.append({
+        "name": "stream.neg", "route": "cuda",
+        "source": "kungfu_tpu_torch/csrc/stream.cu",
+        "replaces": R1_REPLACES, "launches": r1_launches,
+        "max_abs_err": r1_err, "ms": r1_ms, "plain_ms": r1_plain_ms,
+        "bound_ms": r1_bound_ms, "bound_by": "bytes",
+        "library_ms": r1_plain_ms,
+    })
+    log(f"resnet50 S-SGD: {resnet['images_per_sec']:.1f} images/s, "
+        f"{resnet['step_time_ms']:.2f} ms/step (NCCL, one card)")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     log(card)

@@ -10,8 +10,13 @@ decode kernel as hand-written CUDA (`ops.paged_attn`,
 through the fused head + cross-entropy kernels (`ops.fused_ce`,
 `csrc/fused_ce.cu`) and, with ``attention="flash"``, the flash-attention
 kernels (`ops.flash`, `csrc/flash.cu`, and the ring hop's entry points
-in `parallel.sequence`). The peer, libkf and elastic runtime come with
-later slices.
+in `parallel.sequence`); and the S-SGD headline, ResNet-50 trained by
+`optimizers.sync_sgd` over a `torch.distributed` data mesh joined from
+the KF_* env (`models.resnet`, `parallel.bootstrap`, `parallel.mesh`,
+`benchmarks.throughput`), beside the roofline's bandwidth suite and its
+HBM streaming kernel (`benchmarks.roofline`, `ops.stream`,
+`csrc/stream.cu`). The peer, libkf and elastic runtime come with later
+slices.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`serve.build_lm(..., device="cpu")`, as the tests do).

@@ -2,7 +2,9 @@
 
 The port's modules carry the flax names, so a flax param tree
 flattened with ``"."`` is a `GPTLM` state dict; this module does the
-flattening and checks names and shapes against the config.
+flattening and checks names and shapes against the config. A ResNet's
+trees also need their kernels transposed to torch's layouts
+(`resnet_from_flax`, and back with `resnet_to_flax`).
 """
 
 from __future__ import annotations
@@ -48,3 +50,44 @@ def gpt_params_from_flax(tree: Mapping, cfg: GPTConfig
                              f"shape {tuple(ref.shape)}")
         out[name] = torch.tensor(arr, dtype=ref.dtype)
     return out
+
+
+def resnet_from_flax(params: Mapping, batch_stats: Mapping
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax `ResNet`'s ``params`` and ``batch_stats`` trees (nested
+    dicts of numpy arrays) -> a state dict for the port's `ResNet` of the
+    same configuration (``load_state_dict`` checks names and shapes).
+    Conv kernels go HWIO -> OIHW, the Dense kernel ``[in, out]`` ->
+    ``weight [out, in]``; BatchNorm `scale`/`bias` and `mean`/`var`
+    keep their names. Everything is f32."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in _flatten(params).items():
+        arr = np.asarray(v, dtype=np.float32)
+        if name.endswith(".kernel") and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif name.endswith(".kernel"):
+            name, arr = name[:-len("kernel")] + "weight", arr.T
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    for name, v in _flatten(batch_stats).items():
+        out[name] = torch.tensor(np.asarray(v, dtype=np.float32))
+    return out
+
+
+def resnet_to_flax(state: Mapping[str, torch.Tensor]):
+    """The inverse of `resnet_from_flax`: a port `ResNet` state dict ->
+    ``(params, batch_stats)`` nested dicts of f32 numpy arrays (copies,
+    which later in-place updates of the model leave alone)."""
+    params: Dict[str, Dict] = {}
+    stats: Dict[str, Dict] = {}
+    for name, t in state.items():
+        arr = t.detach().cpu().float().numpy()
+        *path, leaf = name.split(".")
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        tree = stats if leaf in ("mean", "var") else params
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = np.array(arr, order="C")          # a copy
+    return params, stats

@@ -69,6 +69,10 @@ KERNELS = {
         "k1_dkv": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
                    + [_P]),
     }),
+    "stream": ("stream.cu", {
+        # x, o, n, SM count, stream
+        "r1_neg_bf16": (_I, [_P, _P, _LL, _I, _P]),
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

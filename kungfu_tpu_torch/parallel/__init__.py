@@ -1,6 +1,17 @@
-"""Train steps of the port (`parallel.train`): single-process, and
-data-parallel over a `torch.distributed` process group."""
+"""Data parallelism of the port over a `torch.distributed` process group:
+the worker bootstrap (`parallel.bootstrap`), the data mesh
+(`parallel.mesh`) and the train steps (`parallel.train`)."""
 
-from .train import build_dp_replicated_train_step, build_gspmd_train_step
+from .bootstrap import (COORDINATOR_PORT_OFFSET, coordinator_address,
+                        init_distributed, shutdown_distributed)
+from .mesh import (DataMesh, axis_size, broadcast_params, data_mesh,
+                   replicate_to_workers, shard_batch)
+from .train import (build_dp_replicated_train_step, build_gspmd_train_step,
+                    build_train_step, build_train_step_with_state)
 
-__all__ = ["build_dp_replicated_train_step", "build_gspmd_train_step"]
+__all__ = ["COORDINATOR_PORT_OFFSET", "DataMesh", "axis_size",
+           "broadcast_params", "build_dp_replicated_train_step",
+           "build_gspmd_train_step", "build_train_step",
+           "build_train_step_with_state", "coordinator_address",
+           "data_mesh", "init_distributed", "replicate_to_workers",
+           "shard_batch", "shutdown_distributed"]

@@ -1,8 +1,11 @@
 """Train steps: forward + backward + update in one call.
 
-The port of the two builders of `kungfu_tpu/parallel/train.py` that the
-LM training benchmark uses. In the JAX package a step is a jitted pure
-function ``step(params, opt_state, batch) -> (params, opt_state,
+The port of the builders of `kungfu_tpu/parallel/train.py` that the LM
+training benchmark (`build_gspmd_train_step`, and
+`build_dp_replicated_train_step` for its fused loss under dp) and the
+image benchmarks (`build_train_step_with_state` with the BatchNorm
+statistics synced, `build_train_step`) use. In the JAX package a step
+is a jitted pure function ``step(params, opt_state, batch) -> (params, opt_state,
 loss)``; here the parameters live in the model and the optimizer holds
 its state, so a step is ``step(batch) -> loss`` and updates both in
 place. `loss_fn(batch)` returns the scalar loss of the model the
@@ -11,10 +14,12 @@ optimizer trains.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable
 
 import torch
-import torch.distributed as dist
+
+from ..ops.collective import all_reduce_mean
+from ..optimizers.sync_sgd import bucketed_all_reduce_mean
 
 
 def build_gspmd_train_step(loss_fn: Callable, optimizer):
@@ -34,21 +39,49 @@ def build_gspmd_train_step(loss_fn: Callable, optimizer):
     return step
 
 
-def _all_reduce_mean(tensors: List[torch.Tensor], world: int,
-                     group) -> None:
-    """Average `tensors` over the group in place: one flat all-reduce
-    (SUM, then a division — gloo has no AVG) per dtype."""
-    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
-    for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat /= world
-        off = 0
-        for t in ts:
-            t.copy_(flat[off:off + t.numel()].view_as(t))
-            off += t.numel()
+def build_train_step_with_state(loss_fn: Callable, optimizer, mesh,
+                                sync_state: bool = True):
+    """Data-parallel step for a model with non-trainable state (BatchNorm
+    running statistics): ``step(batch_shard) -> loss``, the port of
+    `build_train_step_with_state` (`train.py:137`).
+
+    ``loss_fn(batch_shard) -> (loss, state)`` runs this rank's forward;
+    `state` lists the tensors the forward updated in place (the model's
+    running statistics — flax's mutated ``batch_stats``). The step runs
+    the backward and ``optimizer.step()``, where `sync_sgd` averages the
+    gradients over the mesh. With `sync_state` (right for sync_sgd) the
+    state is averaged over the mesh too, so every rank carries the same
+    statistics; pass False for optimizers whose ranks diverge by design.
+    Returns the mesh-mean loss as a device tensor (the step does not
+    wait for the card). Each rank's shard must be of equal size and the
+    parameters equal on every rank at the start
+    (`mesh.replicate_to_workers`)."""
+
+    def step(batch_shard):
+        optimizer.zero_grad(set_to_none=True)
+        loss, state = loss_fn(batch_shard)
+        loss.backward()
+        optimizer.step()
+        loss = loss.detach().reshape(1).clone()
+        with torch.no_grad():
+            if sync_state:
+                # one all-reduce per bucket: the statistics of a ResNet-50
+                # (106 vectors, 213 KB) go as one collective; the values
+                # equal a per-tensor mean bit for bit
+                bucketed_all_reduce_mean(list(state), mesh)
+            all_reduce_mean([loss], mesh.group)
+        return loss[0]
+
+    return step
+
+
+def build_train_step(loss_fn: Callable, optimizer, mesh):
+    """Data-parallel step for a model without state:
+    ``step(batch_shard) -> loss`` with ``loss_fn(batch_shard) -> loss``.
+    A thin adapter over `build_train_step_with_state` with empty state,
+    as in the JAX package (`train.py:189`), so the two cannot drift."""
+    return build_train_step_with_state(lambda b: (loss_fn(b), []),
+                                       optimizer, mesh, sync_state=False)
 
 
 def build_dp_replicated_train_step(loss_fn: Callable, optimizer,
@@ -61,17 +94,16 @@ def build_dp_replicated_train_step(loss_fn: Callable, optimizer,
     (`train.py:151`), the home of the fused kernels under dp. Shards
     must be of equal size (so the mean of shard means is the global
     mean) and the parameters equal on every rank at the start."""
-    world = dist.get_world_size(group)
-
     def step(batch_shard):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch_shard)
         loss.backward()
         grads = [p.grad for g in optimizer.param_groups
                  for p in g["params"] if p.grad is not None]
-        loss = loss.detach().clone()
-        _all_reduce_mean(grads + [loss.reshape(1)], world, group)
+        loss = loss.detach().reshape(1).clone()
+        with torch.no_grad():
+            all_reduce_mean(grads + [loss], group)
         optimizer.step()
-        return loss
+        return loss[0]
 
     return step

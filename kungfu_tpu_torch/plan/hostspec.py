@@ -1,0 +1,125 @@
+"""Host capacity specs and peer/runner list generation.
+
+``-H ip:slots[:public_addr]`` parsing and deterministic rank assignment:
+peers fill hosts in declaration order, one port per slot drawn from the port
+range. On TPU hosts a "slot" is a worker process (which may own one or more
+TPU chips via the launcher's chip-assignment — see kungfu_tpu/run/job.py);
+the reference's GPU slots map 1:1. (Reference behavior:
+srcs/go/plan/hostspec.go:101-184.) A copy of
+`kungfu_tpu/plan/hostspec.py`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterable, List, Tuple
+
+from .addr import PeerID, format_ipv4, parse_ipv4
+from .peerlist import PeerList
+
+
+@dataclass(frozen=True)
+class PortRange:
+    begin: int
+    end: int  # inclusive
+
+    @classmethod
+    def parse(cls, s: str) -> "PortRange":
+        begin_s, _, end_s = s.partition("-")
+        begin, end = int(begin_s), int(end_s)
+        if end < begin:
+            raise ValueError(f"invalid port range: {s!r}")
+        return cls(begin, end)
+
+    @property
+    def cap(self) -> int:
+        return self.end - self.begin + 1
+
+    def __str__(self) -> str:
+        return f"{self.begin}-{self.end}"
+
+
+DEFAULT_PORT_RANGE = PortRange(10000, 11000)
+DEFAULT_RUNNER_PORT = 38080
+
+
+def split_host_entry(spec: str) -> "tuple[str, int, str]":
+    """'host[:slots[:public]]' -> (host, slots, public). The single
+    grammar for -H entries; `host` may still be a hostname here (the
+    runner's discovery layer resolves it, reference: discovery.go:195)."""
+    parts = spec.split(":")
+    if not parts or not parts[0] or len(parts) > 3:
+        raise ValueError(f"invalid host spec: {spec!r}")
+    host = parts[0]
+    slots = int(parts[1]) if len(parts) >= 2 else 1
+    public = parts[2] if len(parts) == 3 else host
+    return host, slots, public
+
+
+@dataclass(frozen=True)
+class HostSpec:
+    ipv4: int
+    slots: int
+    public_addr: str
+
+    @classmethod
+    def parse(cls, spec: str) -> "HostSpec":
+        host, slots, public = split_host_entry(spec)
+        return cls(parse_ipv4(host), slots, public)
+
+    def __str__(self) -> str:
+        return f"{format_ipv4(self.ipv4)}:{self.slots}:{self.public_addr}"
+
+
+class HostList(Tuple[HostSpec, ...]):
+    def __new__(cls, hosts: Iterable[HostSpec] = ()) -> "HostList":
+        return super().__new__(cls, tuple(hosts))
+
+    @classmethod
+    def parse(cls, s: str) -> "HostList":
+        if not s:
+            return cls()
+        return cls(HostSpec.parse(h) for h in s.split(","))
+
+    @classmethod
+    def single_host(cls, slots: int, host: str = "127.0.0.1") -> "HostList":
+        return cls([HostSpec(parse_ipv4(host), slots, host)])
+
+    @property
+    def cap(self) -> int:
+        return sum(h.slots for h in self)
+
+    def slots_of(self, ipv4: int) -> int:
+        for h in self:
+            if h.ipv4 == ipv4:
+                return h.slots
+        return 0
+
+    def gen_peer_list(
+        self, np: int, port_range: PortRange = DEFAULT_PORT_RANGE
+    ) -> PeerList:
+        """Assign np ranks across hosts in order; slot j gets port begin+j.
+
+        Raises if the host list or port range cannot hold np workers. The
+        result fixes the global rank order for the job.
+        """
+        if self.cap < np:
+            raise ValueError(f"not enough capacity: {self.cap} < {np}")
+        for h in self:
+            if port_range.cap < h.slots:
+                raise ValueError(
+                    f"port range {port_range} smaller than slots on {h}"
+                )
+        peers: List[PeerID] = []
+        for h in self:
+            for j in range(h.slots):
+                if len(peers) >= np:
+                    return PeerList(peers)
+                peers.append(PeerID(h.ipv4, port_range.begin + j))
+        return PeerList(peers)
+
+    def gen_runner_list(self, port: int = DEFAULT_RUNNER_PORT) -> PeerList:
+        return PeerList(PeerID(h.ipv4, port) for h in self)
+
+    def __str__(self) -> str:
+        return ",".join(str(h) for h in self)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (K3 paged attention, K2 fused
-head + cross-entropy, K1 flash attention) against their plain PyTorch
-versions, and the default paths through them. Marked ``cuda``; every test
+head + cross-entropy, K1 flash attention, R1 the HBM streaming probe)
+against their plain PyTorch versions, and the default paths through
+them (with a ResNet-50 S-SGD step under a one-rank NCCL group). Marked ``cuda``; every test
 skips without a card. The machine with the card has no JAX, so run
 these without the suite's conftest:
 
@@ -295,3 +296,82 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     _, lse = fl.flash_fwd(q, k, v, True)
     with pytest.raises(ValueError, match="lse"):
         fl.flash_bwd(q, k, v, q, lse[:1], q, True)
+
+
+# ---------------------------------------------------------------------------
+# R1: the streaming probe, bitwise torch.neg; the ResNet S-SGD step on NCCL
+# ---------------------------------------------------------------------------
+
+from kungfu_tpu_torch.ops import stream as st  # noqa: E402
+
+
+@pytest.mark.parametrize("n", [8, 13, 4096 * 1024 + 5])
+def test_r1_is_bitwise_torch_neg(cuda, n):
+    """Random values, and the specials (+-0, +-inf, NaNs of both signs,
+    denormals, +-max) at a length with a ragged tail."""
+    g = torch.Generator().manual_seed(n)
+    specials = torch.tensor([0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0,
+                             0xFFC0, 0x7F81, 0x0001, 0x8001, 0x7F7F],
+                            dtype=torch.int32).to(torch.int16)
+    x = torch.randn(n, generator=g).to(torch.bfloat16)
+    x[:min(n, 10)] = specials[:min(n, 10)].view(torch.bfloat16)
+    x = x.to(cuda)
+    st.reset_launches()
+    got = st.stream_neg(x)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == {"neg": 1, "plain": 0}
+    assert torch.equal(got.view(torch.int16),
+                       torch.neg(x).view(torch.int16))
+
+
+def test_r1_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(64, 1024, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        st.stream_neg(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        st.stream_neg(x.t())
+    with pytest.raises(ValueError, match="aligned"):
+        st.stream_neg(x.view(-1)[1:9])
+
+
+def test_resnet_sync_sgd_step_on_nccl(cuda):
+    """One S-SGD step of a small ResNet under a one-rank NCCL group:
+    sync_sgd issues one all-reduce per gradient, the BatchNorm running
+    statistics move and stay finite, and the group is left after."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from kungfu_tpu_torch.models import ResNet18
+    from kungfu_tpu_torch.optimizers import sync_sgd
+    from kungfu_tpu_torch.parallel import (build_train_step_with_state,
+                                           data_mesh, init_distributed,
+                                           replicate_to_workers,
+                                           shard_batch, shutdown_distributed)
+
+    assert init_distributed(device="cuda") == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = data_mesh(1)
+        model = ResNet18(num_classes=10, space_to_depth=True,
+                         generator=torch.Generator().manual_seed(0)).to(
+                             mesh.device)
+        replicate_to_workers(model, mesh)
+        stats0 = [b.clone() for b in model.buffers()]
+        opt = sync_sgd(torch.optim.SGD(model.parameters(), lr=0.1,
+                                       momentum=0.9), mesh)
+        step = build_train_step_with_state(
+            lambda b: (F.cross_entropy(model(b["x"]), b["y"]),
+                       list(model.buffers())), opt, mesh)
+        g = torch.Generator().manual_seed(1)
+        shard = shard_batch({"x": torch.randn(8, 64, 64, 3, generator=g),
+                             "y": torch.randint(0, 10, (8,), generator=g)},
+                            mesh)
+        loss = float(step(shard))
+    finally:
+        shutdown_distributed()
+    assert not dist.is_initialized()
+    assert np.isfinite(loss)
+    assert opt.all_reduces == len(list(model.parameters()))
+    assert all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    assert any(not torch.equal(b, b0) for b, b0 in
+               zip(model.buffers(), stats0))

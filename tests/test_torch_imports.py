@@ -23,7 +23,8 @@ def _forbidden(name: str) -> bool:
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_decode_profile.py",
-        ROOT / "scripts" / "torch_train_profile.py"]
+        ROOT / "scripts" / "torch_train_profile.py",
+        ROOT / "scripts" / "torch_resnet_profile.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -63,5 +64,14 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.parallel.train",
             "kungfu_tpu_torch.benchmarks.lm", "kungfu_tpu_torch.ops.flash",
             "kungfu_tpu_torch.parallel.sequence",
-            "kungfu_tpu_torch.benchmarks.flash_eff"} <= set(mods)
+            "kungfu_tpu_torch.benchmarks.flash_eff",
+            "kungfu_tpu_torch.plan.addr", "kungfu_tpu_torch.plan.peerlist",
+            "kungfu_tpu_torch.plan.hostspec", "kungfu_tpu_torch.env",
+            "kungfu_tpu_torch.ops.collective", "kungfu_tpu_torch.ops.stream",
+            "kungfu_tpu_torch.parallel.bootstrap",
+            "kungfu_tpu_torch.parallel.mesh",
+            "kungfu_tpu_torch.optimizers.sync_sgd",
+            "kungfu_tpu_torch.models.resnet",
+            "kungfu_tpu_torch.benchmarks.throughput",
+            "kungfu_tpu_torch.benchmarks.roofline"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
