@@ -45,13 +45,13 @@ KERNELS = {
     }),
     "fused_ce": ("fused_ce.cu", {
         # x, w, b, t, logits|NULL, part, lse, tl, n_pad, h, v_pad,
-        # splits, tiles_per_split, smem, off_w, off_s, stream
+        # grid, stages, smem, off_out, off_bar, stream
         "k2_fwd": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 3 + [_P]),
         # scale, logits (d in place), lse, t, db, n_pad, v_pad, stream
         "k2_residual_d": (_I, [_P] * 5 + [_I] * 2 + [_P]),
-        # scale, x, w, b, t, lse, dw, db, n_pad, h, v_pad, smem, off_w,
-        # off_s, off_d, stream
-        "k2_dw": (_I, [_P] * 8 + [_I] * 3 + [_LL] * 4 + [_P]),
+        # scale, x, w, b, t, lse, dw, db, n_pad, h, v_pad, stages,
+        # tiles_per_chunk, smem, off_d, off_ring, off_bar, stream
+        "k2_dw": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 4 + [_P]),
         # scale, x, w, b, t, lse, dx, n_pad, h, v_pad, smem, off_w,
         # off_s, off_d, stream
         "k2_dx": (_I, [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_P]),

@@ -34,9 +34,12 @@ where the TPU kernel has them. CUDA tensors launch the kernels or
 raise: there is no fallback from the card to the plain versions.
 `LAUNCHES` counts kernel launches per kernel and plain calls.
 
-`fused_ce_plan` is the Hopper tile plan (it replaces the TPU-only
-`_pick_blocks`/`_VMEM_BUDGET`) and the one formula for each kernel's
-dynamic shared memory.
+`fused_ce_plan` is the Hopper launch plan (it replaces the TPU-only
+`_pick_blocks`/`_VMEM_BUDGET`): grids, ring stages, the dw kernel's h
+chunks, and (`smem_layout`) the one formula for each kernel's dynamic
+shared memory. `fwd_work` and `dw_chunks` list the work the forward's
+persistent CTAs and the dw grid's h chunks take, as the CUDA source
+walks it.
 """
 
 from __future__ import annotations
@@ -58,11 +61,26 @@ SMEM_BUDGET = 227 * 1024
 ROW_MULTIPLE = 128
 COL_MULTIPLE = 128
 #: (rows, vocab columns) of one CTA's logits tile, per kernel; the
-#: kFwd*/kDw*/kDx* constants of the CUDA source
-FWD_TILE = (64, 32)
-DW_TILE = (64, 32)
+#: kBM/kFwdBN/kDwBN/kDx* constants of the CUDA source. fwd and dw are
+#: TMA/wgmma pipelines over K chunks of `K_CHUNK` hidden units; dx keeps
+#: the whole hidden size in shared memory
+FWD_TILE = (128, 128)
+DW_TILE = (128, 64)
 DX_TILE = (32, 64)
-#: SMs of an H100 SXM, the default for the forward's vocab split
+K_CHUNK = 64
+#: ring stages of the forward (x [128, 64] + W [64, 128] bf16: 32 KB
+#: each), and the most any pipeline takes (kMaxStages)
+FWD_STAGES = 4
+MAX_STAGES = 8
+#: 64-row h tiles one dw CTA accumulates dW over (kDwTilesMax: three a
+#: consumer warpgroup, 96 f32 accumulators a thread)
+DW_TILES_MAX = 6
+#: registers a consumer thread of the pipelines holds (setmaxnreg), and
+#: the part of them the accumulators may take: the rest holds addresses,
+#: indices and temporaries
+CONSUMER_REGS = 232
+ACC_REG_BUDGET = CONSUMER_REGS - 64
+#: SMs of an H100 SXM, the default for the forward's persistent grid
 H100_SMS = 132
 
 #: launch counts since the last `reset_launches()`: one per kernel
@@ -92,24 +110,71 @@ def _buf(nbytes: int) -> int:
     return _round_up(nbytes, 128)
 
 
+def _k_tiles(h: int) -> int:
+    """K chunks (64-wide) of the hidden size, the last zero-filled past
+    h by TMA."""
+    return -(-h // K_CHUNK)
+
+
+#: bytes of one x chunk [128, 64], one W box [64, 64] and one
+#: warpgroup's bf16 logits staging tile [64, 128] (kXChunk, kWBox,
+#: kOutTile)
+_X_CHUNK = 2 * FWD_TILE[0] * K_CHUNK
+_W_BOX = 2 * K_CHUNK * 64
+_OUT_TILE = 2 * 64 * FWD_TILE[1]
+#: slack for rounding the dynamic shared memory up to 1024 bytes, where
+#: the 128-byte swizzle pattern repeats
+_ALIGN_SLACK = 1024
+
+
+def dw_stages(h: int) -> int:
+    """Ring stages of the dw kernel at hidden size `h`: as many x
+    chunks as fit beside the resident W strip and the d tile, at most
+    `MAX_STAGES` (0 when even one does not fit)."""
+    fixed = _k_tiles(h) * _W_BOX + _X_CHUNK + _buf(8 * (2 * MAX_STAGES + 1))
+    return max(0, min(MAX_STAGES,
+                      (SMEM_BUDGET - _ALIGN_SLACK - fixed) // _X_CHUNK))
+
+
 def smem_layout(kernel: str, h: int) -> Dict[str, int]:
     """Byte offsets of the buffers one CTA of `kernel` carves out of its
-    dynamic shared memory at hidden size `h`, and their ``total``: the
-    x block ``[bm, h + 8]`` bf16 at offset 0 and the W tile ``[h, bv +
-    8]`` bf16 (whole H, rows padded by 16 bytes against bank
-    conflicts), the f32 logits tile ``[bm, bv + 4]``; dw and dx add the
-    bf16 d tile ``[bm, bv + 8]`` (they stage their output through the
-    logits tile). residual_d uses static shared memory only. The
-    launcher passes these offsets to the kernel."""
+    dynamic shared memory at hidden size `h`, and their ``total``.
+
+    fwd: the ring of `FWD_STAGES` stages (x chunk [128, 64] then two W
+    boxes [64 k, 64 v], ``stage`` bytes each) at 0, the two consumer
+    warpgroups' bf16 logits staging tiles at ``out``, the full and empty
+    mbarriers at ``bar``; dw: the resident W strip (one [64 k, 64 v] box
+    per K chunk) at 0, the bf16 d tile [128, 64] at ``d``, the ring of
+    ``stages`` x chunks at ``ring``, the mbarriers at ``bar``. Both
+    offsets count from the 1024-byte-aligned base, and the total holds
+    `_ALIGN_SLACK` for the rounding. dx: the x block ``[bm, h + 8]``
+    bf16 at offset 0, the W tile ``[h, bv + 8]`` bf16 at ``w`` (whole H,
+    rows padded by 16 bytes against bank conflicts), the f32 logits tile
+    ``[bm, bv + 4]`` at ``s``, the bf16 d tile ``[bm, bv + 8]`` at ``d``
+    (the output is staged through the logits tile). residual_d uses
+    static shared memory only. The launcher passes these offsets to the
+    kernel."""
     if kernel == "residual_d":
         return {"total": 0}
-    bm, bv = {"fwd": FWD_TILE, "dw": DW_TILE, "dx": DX_TILE}[kernel]
+    if kernel == "fwd":
+        stage = _X_CHUNK + 2 * _W_BOX
+        out = {"stage": stage, "out": FWD_STAGES * stage}
+        out["bar"] = out["out"] + 2 * _OUT_TILE
+        out["total"] = out["bar"] + _buf(8 * 2 * FWD_STAGES) + _ALIGN_SLACK
+        return out
+    if kernel == "dw":
+        stages = dw_stages(h)
+        out = {"stages": stages, "d": _k_tiles(h) * _W_BOX}
+        out["ring"] = out["d"] + _X_CHUNK
+        out["bar"] = out["ring"] + stages * _X_CHUNK
+        out["total"] = out["bar"] + _buf(8 * (2 * stages + 1)) \
+            + _ALIGN_SLACK
+        return out
+    bm, bv = DX_TILE
     out = {"w": _buf(2 * bm * (h + 8))}
     out["s"] = out["w"] + _buf(2 * h * (bv + 8))
-    out["total"] = out["s"] + _buf(4 * bm * (bv + 4))
-    if kernel in ("dw", "dx"):
-        out["d"] = out["total"]
-        out["total"] = out["d"] + _buf(2 * bm * (bv + 8))
+    out["d"] = out["s"] + _buf(4 * bm * (bv + 4))
+    out["total"] = out["d"] + _buf(2 * bm * (bv + 8))
     return out
 
 
@@ -127,32 +192,63 @@ def _check_padded(n_pad: int, v_pad: int) -> None:
                          f"{COL_MULTIPLE})")
 
 
+def fwd_work(n_pad: int, v_pad: int, grid: int, cta: int):
+    """The (row block, vocab tile) items CTA `cta` of the forward's
+    persistent grid of `grid` CTAs computes, in order: item i is row
+    block i % n_blocks and vocab tile i / n_blocks, and CTA c takes
+    items c, c + grid, ... — the row block runs fastest, so the CTAs in
+    flight share two or three W tiles through L2."""
+    n_blocks = n_pad // FWD_TILE[0]
+    n_items = n_blocks * (v_pad // FWD_TILE[1])
+    return [(i % n_blocks, i // n_blocks)
+            for i in range(cta, n_items, grid)]
+
+
+def dw_chunks(h: int, tiles_per_chunk: int):
+    """The [lo, hi) hidden rows of dW each ``gridDim.y`` index of the
+    dw kernel accumulates: chunks of `tiles_per_chunk` 64-row tiles, the
+    last cut at h."""
+    step = tiles_per_chunk * K_CHUNK
+    return [(lo, min(h, lo + step)) for lo in range(0, h, step)]
+
+
 def fused_ce_plan(n_pad: int, h: int, v_pad: int, sms: int = H100_SMS):
     """The launch plan of the K2 kernels at padded shape (n_pad, h,
-    v_pad): each kernel's shared memory and the forward's vocab split.
-    The forward splits the vocab over ``gridDim.y`` so that about four
-    CTAs per SM are in flight; a combine pass merges the per-split
-    (max, sum-exp, target logit). The other grids follow from the
-    shapes alone (the CUDA launchers compute them). Raises ValueError
-    on a shape the kernels do not take: h not a multiple of 16, rows or
-    columns not padded to 128, or tiles over the shared-memory budget
-    (h above 1024)."""
+    v_pad): each kernel's shared memory; the forward's persistent grid
+    (one CTA per SM, at most one per item) over its (row block, vocab
+    tile) items and its ring; dw's grid (64-column vocab strips x h
+    chunks), the 64-row tiles of a chunk and its ring (a stage more than
+    the chunk's tiles, which stay in the ring until the dW product has
+    read them); the f32 accumulators a consumer thread holds. Chunks
+    are as large as the ring and `DW_TILES_MAX` allow, split evenly. dx's
+    grid follows from the shapes alone (its launcher computes it).
+    Raises ValueError on a shape the kernels do not take: h not a
+    multiple of 16, rows or columns not padded to 128, or tiles over the
+    shared-memory budget (dx holds the whole hidden size: h above
+    1024)."""
     if h % 16 or h <= 0:
         raise ValueError(f"hidden size {h} must be a positive multiple of "
                          f"16 for the fused-CE kernels")
     _check_padded(n_pad, v_pad)
     smem = {k: smem_bytes(k, h) for k in ("fwd", "residual_d", "dw", "dx")}
     over = {k: b for k, b in smem.items() if b > SMEM_BUDGET}
-    if over:
-        raise ValueError(f"hidden size {h}: {over} B of shared memory, "
-                         f"over the {SMEM_BUDGET} B a block may use")
-    v_tiles = v_pad // FWD_TILE[1]
-    n_blocks = n_pad // FWD_TILE[0]
-    splits = max(1, min(v_tiles, -(-4 * sms // n_blocks)))
-    tiles_per_split = -(-v_tiles // splits)
-    splits = -(-v_tiles // tiles_per_split)     # no empty split
-    return {"smem": smem, "fwd_grid": (n_blocks, splits),
-            "fwd_tiles_per_split": tiles_per_split}
+    stages = dw_stages(h)
+    if over or stages < 2:
+        raise ValueError(f"hidden size {h}: {over or smem} B of shared "
+                         f"memory, over the {SMEM_BUDGET} B a block may use")
+    kt = _k_tiles(h)
+    cap = min(DW_TILES_MAX, stages - 1)
+    n_chunks = -(-kt // cap)
+    tiles = -(-kt // n_chunks)
+    n_items = (n_pad // FWD_TILE[0]) * (v_pad // FWD_TILE[1])
+    return {"smem": smem,
+            "fwd_grid": min(sms, n_items), "fwd_items": n_items,
+            "fwd_stages": FWD_STAGES,
+            "dw_grid": (v_pad // DW_TILE[1], n_chunks),
+            "dw_tiles_per_chunk": tiles, "dw_stages": stages,
+            "acc_regs": {"fwd": FWD_TILE[1] // 2,
+                         "dw": DW_TILE[1] // 2 + 16
+                         + (DW_TILE[1] // 2) * -(-tiles // 2)}}
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +286,35 @@ def plain_fwd(x, w, b, t, residual: bool):
     tl = torch.where(inside, tl, 0.0)
     res = logits.to(torch.bfloat16) if residual else None
     return res, lse, tl
+
+
+def tile_partials(logits, t, edges):
+    """The forward kernel's row state per vocab tile, in plain PyTorch:
+    for each column range ``[edges[i], edges[i + 1])`` of the f32
+    `logits` ``[n, v]``, each row's max, sum of exp(logit - max) and
+    target logit (0 where t misses the range), stacked as the kernel
+    writes its ``part`` scratch: ``[len(edges) - 1, 3, n]``."""
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    out = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        blk = logits[:, lo:hi]
+        m = blk.max(dim=1).values
+        s = torch.exp(blk - m[:, None]).sum(dim=1)
+        col = t[:, 0].long() - lo
+        inside = (col >= 0) & (col < hi - lo)
+        tl = torch.where(inside, blk[rows, col.clamp(0, hi - lo - 1)], 0.0)
+        out.append(torch.stack([m, s, tl]))
+    return torch.stack(out)
+
+
+def merge_partials(part):
+    """`k2_fwd_combine` in plain PyTorch: ``(lse, tl)`` ``[n, 1]`` from
+    the per-tile ``[splits, 3, n]`` row state — the largest max, the
+    sum-exps rescaled to it, the target logits summed (one tile at most
+    holds the target)."""
+    mx = part[:, 0].max(dim=0).values
+    s = (part[:, 1] * torch.exp(part[:, 0] - mx)).sum(dim=0)
+    return (mx + torch.log(s))[:, None], part[:, 2].sum(dim=0)[:, None]
 
 
 def plain_residual_d(scale, logits, lse, t):
@@ -266,15 +391,19 @@ def _check(x, w, b, t, lse=None, scale=None):
 def _launch(name, fn, *args):
     err = fn(*args)
     if err:
-        raise RuntimeError(f"fused_ce {name} launch failed: "
-                           f"cudaError_t {err}")
+        why = ("cuTensorMapEncodeTiled not found in libcuda"
+               if err == -1 else
+               f"tensor map refused (CUresult {-1000 - err})"
+               if err <= -1000 else f"cudaError_t {err}")
+        raise RuntimeError(f"fused_ce {name} launch failed: {why}")
     LAUNCHES[name] += 1
 
 
 def _smem_args(kernel, h):
     """(total, offsets...) as the C launcher takes them."""
     lay = smem_layout(kernel, h)
-    keys = ("w", "s") if kernel == "fwd" else ("w", "s", "d")
+    keys = {"fwd": ("out", "bar"), "dw": ("d", "ring", "bar"),
+            "dx": ("w", "s", "d")}[kernel]
     return (lay["total"],) + tuple(lay[k] for k in keys)
 
 
@@ -286,20 +415,19 @@ def fused_ce_fwd(x, w, b, t, residual: bool):
     plan = _check(x, w, b, t)
     n_pad, h = x.shape
     v_pad = w.shape[1]
-    splits = plan["fwd_grid"][1]
     logits = (torch.empty((n_pad, v_pad), dtype=torch.bfloat16,
                           device=x.device) if residual else None)
-    part = torch.empty((splits, 3, n_pad), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((v_pad // FWD_TILE[1], 3, n_pad),
+                       dtype=torch.float32, device=x.device)
     lse = torch.empty((n_pad, 1), dtype=torch.float32, device=x.device)
     tl = torch.empty_like(lse)
     with torch.cuda.device(x.device):
         _launch("fwd", _lib().k2_fwd, x.data_ptr(), w.data_ptr(),
                 b.data_ptr(), t.data_ptr(),
                 logits.data_ptr() if residual else None, part.data_ptr(),
-                lse.data_ptr(), tl.data_ptr(), n_pad, h, v_pad, splits,
-                plan["fwd_tiles_per_split"], *_smem_args("fwd", h),
-                _build.stream(x.device))
+                lse.data_ptr(), tl.data_ptr(), n_pad, h, v_pad,
+                plan["fwd_grid"], plan["fwd_stages"],
+                *_smem_args("fwd", h), _build.stream(x.device))
     return logits, lse, tl
 
 
@@ -340,6 +468,7 @@ def fused_ce_dw(scale, x, w, b, t, lse):
         _launch("dw", _lib().k2_dw, scale.data_ptr(), x.data_ptr(),
                 w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
                 dw.data_ptr(), db.data_ptr(), n_pad, h, v_pad,
+                plan["dw_stages"], plan["dw_tiles_per_chunk"],
                 *_smem_args("dw", h), _build.stream(x.device))
     return dw, db
 
@@ -349,7 +478,7 @@ def fused_ce_dx(scale, x, w, b, t, lse):
     CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return plain_dx(scale, x, w, b, t, lse)
-    plan = _check(x, w, b, t, lse, scale)
+    _check(x, w, b, t, lse, scale)
     n_pad, h = x.shape
     v_pad = w.shape[1]
     dx = torch.empty((n_pad, h), dtype=torch.bfloat16, device=x.device)

@@ -26,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from kungfu_tpu.ops import fused_ce as jfc
 from kungfu_tpu_torch.ops import fused_ce as fc
@@ -236,9 +238,15 @@ def test_residual_backward_runs_once():
 def test_plan_fits_gpt2_small_training_and_rejects_what_it_cannot_take():
     plan = fc.fused_ce_plan(8192, 768, 50304)
     assert all(b <= fc.SMEM_BUDGET for b in plan["smem"].values())
-    n_blocks, splits = plan["fwd_grid"]
-    assert n_blocks == 128 and splits * plan["fwd_tiles_per_split"] \
-        >= 50304 // fc.FWD_TILE[1]
+    # K2a: 128 x 128 tiles over 64 row blocks and 393 vocab tiles, one
+    # persistent CTA per SM; K2c: 64-column strips x two h chunks of six
+    # 64-row tiles, a ring of seven x chunks
+    assert fc.FWD_TILE == (128, 128) and fc.DW_TILE == (128, 64)
+    assert plan["fwd_items"] == 64 * 393 and plan["fwd_grid"] == 132
+    assert plan["fwd_stages"] == 4
+    assert plan["dw_grid"] == (786, 2) and plan["dw_tiles_per_chunk"] == 6
+    assert plan["dw_stages"] == 7
+    assert plan["acc_regs"] == {"fwd": 64, "dw": 144}
     medium = fc.fused_ce_plan(128, 1024, 128)     # GPT-2-medium's H
     assert max(medium["smem"].values()) <= fc.SMEM_BUDGET
     lay = fc.smem_layout("dx", 768)
@@ -250,6 +258,86 @@ def test_plan_fits_gpt2_small_training_and_rejects_what_it_cannot_take():
         fc.fused_ce_plan(100, 128, 128)
     with pytest.raises(ValueError, match="shared memory"):
         fc.fused_ce_plan(128, 4096, 128)
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("v_pad", [128, 1024, 12672, 50304])
+@pytest.mark.parametrize("n_pad", [128, 384, 8192])
+def test_fwd_work_walk_covers_every_tile_once(n_pad, v_pad, sms):
+    """K2a's persistent CTAs take every (row block, vocab tile) item of
+    the padded shape exactly once, and no CTA idles while another holds
+    two items more than it."""
+    plan = fc.fused_ce_plan(n_pad, 768, v_pad, sms)
+    grid = plan["fwd_grid"]
+    assert grid == min(sms, plan["fwd_items"])
+    walks = [fc.fwd_work(n_pad, v_pad, grid, c) for c in range(grid)]
+    items = [it for w in walks for it in w]
+    want = {(rb, vt) for rb in range(n_pad // 128)
+            for vt in range(v_pad // 128)}
+    assert len(items) == len(want) == plan["fwd_items"]
+    assert set(items) == want
+    sizes = [len(w) for w in walks]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("h", [16, 128, 256, 272, 768, 1008, 1024])
+def test_dw_h_chunks_cover_the_hidden_size_exactly(h):
+    plan = fc.fused_ce_plan(128, h, 128)
+    tiles = plan["dw_tiles_per_chunk"]
+    chunks = fc.dw_chunks(h, tiles)
+    assert len(chunks) == plan["dw_grid"][1]
+    assert chunks[0][0] == 0 and chunks[-1][1] == h
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < hi - lo <= tiles * fc.K_CHUNK for lo, hi in chunks)
+    # the ring holds a chunk's tiles and one stage more
+    assert 1 <= tiles <= fc.DW_TILES_MAX and plan["dw_stages"] > tiles
+
+
+@pytest.mark.parametrize("h", [128, 256, 272, 768, 1024])
+def test_pipelines_fit_shared_memory_and_registers(h):
+    plan = fc.fused_ce_plan(8192, h, 50304)
+    for kernel in ("fwd", "dw", "dx"):
+        assert plan["smem"][kernel] <= fc.SMEM_BUDGET, kernel
+    for kernel in ("fwd", "dw"):
+        lay = fc.smem_layout(kernel, h)
+        # swizzled operand buffers start on 1024-byte boundaries, the
+        # mbarriers on 8-byte ones, and all end before the total less
+        # the alignment slack
+        bufs = ("out",) if kernel == "fwd" else ("d", "ring")
+        assert all(lay[k] % 1024 == 0 for k in bufs)
+        stages = plan[f"{kernel}_stages"]
+        bars = 2 * stages + (kernel == "dw")
+        assert lay["bar"] % 8 == 0 and \
+            lay["bar"] + 8 * bars <= lay["total"] - 1024
+    assert plan["acc_regs"]["fwd"] <= fc.ACC_REG_BUDGET
+    assert plan["acc_regs"]["dw"] <= fc.ACC_REG_BUDGET
+    assert plan["dw_stages"] <= fc.MAX_STAGES
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.integers(1, 9), v=st.integers(1, 300),
+       cuts=st.lists(st.integers(1, 299), max_size=6),
+       seed=st.integers(0, 2 ** 16))
+def test_tile_partials_merge_to_logsumexp_and_target(n, v, cuts, seed):
+    """K2a's per-tile (max, sum-exp, target logit), merged as
+    k2_fwd_combine merges them, give torch.logsumexp and the target
+    gather for any split of the vocab, padded columns (_PAD_BIAS) and
+    both target sentinels included."""
+    rng = np.random.default_rng(seed)
+    pad = int(rng.integers(0, 4))
+    logits = torch.from_numpy(rng.standard_normal((n, v + pad)).astype(
+        np.float32) * 4)
+    logits[:, v:] = fc._PAD_BIAS
+    t = torch.from_numpy(rng.integers(-1, v + pad + 3, (n, 1)).astype(
+        np.int32))
+    edges = sorted({0, v + pad} | {c for c in cuts if c < v + pad})
+    lse, tl = fc.merge_partials(fc.tile_partials(logits, t, edges))
+    ref = torch.logsumexp(logits, dim=1, keepdim=True)
+    torch.testing.assert_close(lse, ref, rtol=1e-5, atol=1e-5)
+    inside = (t >= 0) & (t < v + pad)
+    want = torch.where(inside, torch.gather(
+        logits, 1, t.clamp(0, v + pad - 1).long()), 0.0)
+    assert torch.equal(tl, want)
 
 
 def test_a_device_without_kernels_raises():
