@@ -1,0 +1,169 @@
+"""Where K2d's and K1's forward time goes: each kernel timed beside
+copies of its own source with one part taken out.
+
+    python3 -m kungfu_tpu_torch.benchmarks.kernel_split
+
+Builds, from `csrc/fused_ce.cu` and `csrc/flash.cu` as they stand, the
+variants below into ``build/kernel_split/`` (one nvcc each, in parallel),
+and times each variant's launch at the training shapes of
+`chip_smoke.py` (K2d: n_pad 8192, h 768, v_pad 50304; K1: shapes (a) and
+(b)). The variants compute wrong results on purpose; they are only
+timed. Prints the card's name and power limit and one JSON line.
+
+- ``k2_dx``: the kernel; ``products_only``: the cluster exchange (the
+  barrier waits and their arming, the sums, d and the copies) removed —
+  what the two wgmma products and the ring cost alone.
+- ``k1_fwd``: the kernel; ``no_products``: S = Q K^T and O += P V
+  removed (the softmax, masks and pipeline stay); ``pipeline_only``:
+  also the softmax — the TMA ring with consumers that only wait and
+  release; ``no_copies``: also the K/V copies — launch, Q and epilogue.
+
+Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from ..ops import _build, flash as fl, fused_ce as fc
+
+OUT = _build.BUILD_DIR.parent / "kernel_split"
+
+
+def _cut(src, a, b=""):
+    """`src` with text `a` replaced by `b`; raises if `a` is missing (the
+    kernel source changed under the variant)."""
+    if a not in src:
+        raise RuntimeError(f"kernel_split: {a!r} not in the source")
+    return src.replace(a, b)
+
+
+def _span(src, start, end, new=""):
+    """`src` with the text from `start` up to (not including) `end`
+    replaced by `new`."""
+    i = src.index(start)
+    return src[:i] + new + src[src.index(end, i):]
+
+
+def _products_only(s):
+    for a in ("      mbar_wait(pready, j & 1);\n",
+              "      mbar_wait(dready, j & 1);\n",
+              "if (j + 1 < nv) mbar_expect_tx(pready, p_bytes);",
+              "if (threadIdx.x == 0) mbar_expect_tx(dready, d_bytes);"):
+        s = _cut(s, a)
+    s = _cut(s, "e < (e_hi - e_lo) * (kDxBV / 4);", "e < 0;")
+    return _cut(s, '#include "hopper.cuh"\n',
+                '#include "hopper.cuh"\n#define dsmem_copy(...) ((void)0)\n')
+
+
+def _no_products(s):
+    s = _cut(s, "wgmma_n64<0, 0>(sc, dq + off, dk + off, kk);",
+             "if (kk == 0) sc[0] = 0.f;")
+    return _cut(s, "pv_step<D>(acc, pa[kc], dv + 128 * kc);",
+                "acc[kc] += __uint_as_float(pa[kc][0]);")
+
+
+def _pipeline_only(s):
+    return _span(s, "      const unsigned char* s = ring + st * 2 * kTileB;",
+                 "      if (lane == 0) mbar_arrive(&empty[st]);")
+
+
+def _no_copies(s):
+    return _span(_pipeline_only(s),
+                 "        mbar_expect_tx(&full[st], 2 * kTileB);",
+                 "        if (++st == stages) { st = 0; ph ^= 1; }",
+                 "        mbar_arrive(&full[st]);\n")
+
+
+VARIANTS = {
+    "fused_ce": {"k2_dx": None, "products_only": _products_only},
+    "flash": {"k1_fwd": None, "no_products": _no_products,
+              "pipeline_only": _pipeline_only, "no_copies": _no_copies},
+}
+
+
+def _build_variant(lib, name, edit):
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / _build.KERNELS[lib][0]).read_text()
+    (d / _build.KERNELS[lib][0]).write_text(edit(src) if edit else src)
+    for f in _build.sources(lib)[1:]:
+        (d / f.name).write_text(f.read_text())
+    so = d / f"lib{lib}.so"
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                           str(d / _build.KERNELS[lib][0])],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"build of {name} failed:\n{proc.stdout}")
+    fn_name = "k2_dx" if lib == "fused_ce" else "k1_fwd"
+    fn = getattr(ctypes.CDLL(str(so)), fn_name)
+    fn.restype, fn.argtypes = _build.KERNELS[lib][1][fn_name]
+    return name, fn
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_split: no CUDA device", file=sys.stderr)
+        return 2
+    root = str(_build.BUILD_DIR.parents[1])
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
+    print(f"card: {card.stdout.strip()}", flush=True)
+    jobs = [(lib, name, edit) for lib, v in VARIANTS.items()
+            for name, edit in v.items()]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        fns = dict(pool.map(lambda j: _build_variant(*j), jobs))
+    out = {}
+    x, w, b, t, scale = cs.k2_inputs(torch, fc)
+    _, lse, _ = fc.plain_fwd(x, w, b, t, False)
+    n_pad, h = x.shape
+    v_pad = w.shape[1]
+    plan = fc.fused_ce_plan(n_pad, h, v_pad)
+    dx = torch.empty((n_pad, h), dtype=torch.bfloat16, device="cuda")
+    for name in VARIANTS["fused_ce"]:
+        def go(i, fn=fns[name]):
+            err = fn(scale.data_ptr(), x.data_ptr(), w.data_ptr(),
+                     b.data_ptr(), t.data_ptr(), lse.data_ptr(),
+                     dx.data_ptr(), n_pad, h, v_pad, plan["dx_cluster"],
+                     plan["dx_tiles_per_chunk"], plan["dx_stages"],
+                     *fc._smem_args("dx", h), _build.stream(x.device))
+            if err:
+                raise RuntimeError(f"{name}: launch error {err}")
+        out[name] = cs.time_cuda(torch, go, 5)
+    del x, w, b, t, lse, dx
+    for tag in ("a", "b"):
+        bb, tt, hh, d, causal, window = cs.K1_SHAPES[tag]
+        sets = [cs.k1_inputs(torch, bb, tt, hh, d, 10 + s)[:3]
+                for s in range(4)]
+        o = torch.empty_like(sets[0][0])
+        lse = torch.empty((bb * hh, tt), device="cuda")
+        for name in VARIANTS["flash"]:
+            def go(i, fn=fns[name]):
+                q, k, v = sets[i % 4]
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(), bb, tt, hh, d,
+                         d ** -0.5, int(causal),
+                         -1 if window is None else window, fl.FWD_STAGES,
+                         fl.fwd_smem(d), _build.stream(q.device))
+                if err:
+                    raise RuntimeError(f"{name}: launch error {err}")
+            out[f"{name} ({tag})"] = cs.time_cuda(torch, go, 40)
+    for k, v in out.items():
+        print(f"{k:24s} {v:.4f} ms/launch", flush=True)
+    print(json.dumps({"card": card.stdout.strip(), "ms": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,16 +32,27 @@
 // of the scores or probabilities reaches device memory) and skips every
 // fully masked tile.
 //
-// Design (right and simple first; TMA/wgmma pipelines are later work):
-// - FlashAttention-2 tiling: one CTA of 4 warps per (64-row tile, b*h);
-//   each warp owns 16 rows of that tile. The other side streams through
-//   shared memory in 64-row tiles, staged by 16-byte loads (rows padded
-//   by 16 bytes against bank conflicts), with no overlap of loads and
-//   products;
-// - products are bf16 mma.sync.m16n8k16 with f32 accumulation. The
-//   score accumulator's register layout is the A operand's, so p (and
-//   ds) become the next product's A fragments in registers without a
-//   trip through shared memory;
+// Design:
+// - fwd (K1a/K1b): a TMA-fed wgmma kernel, FlashAttention-3's shape
+//   simplified (kernel comment below). The parent design it replaces ran
+//   4-warp CTAs on one 64-row query tile each, staged K and V with
+//   synchronous 16-byte loads between two __syncthreads (no copy
+//   overlapping a product) and multiplied with mma.sync, in launch
+//   order; here a producer warp keeps K and V tiles in flight through an
+//   mbarrier ring while three consumer warpgroups at D = 64, two at
+//   D = 128 (a query tile each) run wgmma, P goes from the score
+//   accumulators to the second product in registers, and the longest
+//   causal spans launch first;
+// - dq and dkv (the parent design, right and simple first; their TMA/
+//   wgmma redesign is later work): FlashAttention-2 tiling, one CTA of 4
+//   warps per (64-row tile, b*h); each warp owns 16 rows of that tile.
+//   The other side streams through shared memory in 64-row tiles,
+//   staged by 16-byte loads (rows padded by 16 bytes against bank
+//   conflicts), with no overlap of loads and products; products are
+//   bf16 mma.sync.m16n8k16 with f32 accumulation. The score
+//   accumulator's register layout is the A operand's, so p and ds
+//   become the next product's A fragments in registers without a trip
+//   through shared memory;
 // - fwd and dq loop only over the key tiles [lo, hi) of `_k_span`
 //   (kungfu_tpu/ops/flash.py:260), dkv over the query tiles of
 //   `_q_span` (:276): causal attention visits about half the tiles and a
@@ -57,21 +68,31 @@
 //   after dq on the same stream. No atomics: the result is
 //   deterministic.
 //
+// The PTX building blocks (mbarriers, TMA, wgmma) are in hopper.cuh,
+// shared with fused_ce.cu.
+//
 // C interface (bound with ctypes): every function launches on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
-// D must be 64 or 128.
+// caller's stream, allocates nothing and returns cudaGetLastError(), or
+// a negative code when a tensor map cannot be encoded (-1: the encoder
+// was not found; -1000 - CUresult: it refused the operand). D must be 64
+// or 128.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows
+constexpr int kThreads = 128;  // dq, dkv: 4 warps x 16 rows
 constexpr int kTile = 64;      // query rows and key rows of a tile
+constexpr int kBox = kTile * 64 * 2;  // [64 rows, 64 of D] bf16: 8 KB
+constexpr int kFwdStagesMax = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -82,6 +103,24 @@ __host__ __device__ constexpr int ld_of() { return D + 8; }
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return kTile * ld_of<D>() * 2;
+}
+
+// a fwd [64, D] tile in shared memory: D / 64 swizzled boxes of 8 KB
+template <int D>
+__host__ __device__ constexpr int fwd_tile_bytes() {
+  return (D / 64) * kBox;
+}
+
+// fwd: query tiles a CTA, one consumer warpgroup each, beside a producer
+// warpgroup. At D = 64 (32 accumulators for O and 32 for S a thread)
+// three fit: setmaxnreg 160 for 3 x 128 consumer threads and 32 for the
+// producers fill the 64K registers; at D = 128 (64 for O) two, at 232
+// and 40
+template <int D>
+__host__ __device__ constexpr int fwd_q_tiles() { return D == 64 ? 3 : 2; }
+template <int D>
+__host__ __device__ constexpr int fwd_threads() {
+  return (fwd_q_tiles<D>() + 1) * 128;
 }
 
 // D += A . B for one m16n8k16 bf16 product with f32 accumulators, in the
@@ -101,16 +140,6 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -264,81 +293,214 @@ __device__ __forceinline__ void q_span(int jk, int nq, int causal, int window,
   if (window >= 0) *hi = min((jk * kTile + kTile - 1 + window) / kTile + 1, nq);
 }
 
+// O[64, D] += P[64, 16 keys] . V[16 keys, D]: P from registers, V the
+// ring's [64, D] tile (N-major: the transpose bit) at descriptor dv
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    k1_fwd_kernel(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                  float* lse, int t, int h, float scale, int causal,
-                  int window) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * ld_of<D>();
-  bf16* sV = sK + kTile * ld_of<D>();
-  const int iq = blockIdx.x, bh = blockIdx.y;
-  const long long ld = (long long)h * D;
-  const size_t base = (size_t)(bh / h) * t * ld + (size_t)(bh % h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = iq * kTile + warp * 16 + (lane >> 2);  // and row + 8
-  const float sl2 = scale * kLog2e;
-  stage<D>(sQ, q + base, ld, iq * kTile, t);
-  int lo, hi;
-  k_span(iq, (t + kTile - 1) / kTile, causal, window, &lo, &hi);
+__device__ __forceinline__ void pv_step(float (&o)[D / 2],
+                                        const uint32_t (&a)[4], uint64_t dv) {
+  if constexpr (D == 64)
+    wgmma_n64_ra<1>(o, a, dv);
+  else
+    wgmma_n128_ra<1>(o, a, dv);
+}
 
-  float acc[D / 8][4];
+// One CTA: warpgroups 0 .. QT - 1 consume (QT = fwd_q_tiles<D>()), each
+// owning one 64-row query tile of the group (QT p, ..., QT p + QT - 1)
+// of one (b, h); warpgroup QT produces (one thread issues every copy).
+// The producer loads the group's query tiles once (past the last tile
+// it loads tile nq - 1 again: those warpgroups' rows are all past T and
+// are never stored), then streams the key and value tiles of the union
+// of the warpgroups' `_k_span`s, [lo, hi), through a ring of `stages`
+// stages (K and V [64, D] each, 128-byte swizzled boxes of 64 columns:
+// two per tile at D = 128), each guarded by a full and an empty
+// mbarrier. TMA
+// reads [B, T, H, D] in place through 4-D tensor maps and zero-fills
+// rows past T. Every warpgroup walks the whole union, so every wgmma
+// runs the same number of times in all (none in a divergent branch); a
+// tile outside a warpgroup's own span is masked out entirely and adds
+// nothing. Per key tile, a warpgroup:
+//   1. S[64, 64] = Q K^T: wgmma m64n64k16 over D, both operands K-major;
+//   2. masks S only on a tile that holds keys past T, the causal
+//      diagonal or the window's edge, and runs the online softmax on the
+//      accumulators (base 2, the scale folded in, f32 running max and
+//      sum; a row lives on the 4 lanes of a quad);
+//   3. O += P V: P rounded to bf16 in registers (the S accumulator
+//      layout is wgmma's register-A fragment layout, so P never touches
+//      shared memory), V from the ring (N-major, transpose bit),
+//      m64nDk16;
+//   4. releases the stage once both products have retired.
+// CTAs are numbered so that the last groups, whose causal spans are the
+// longest, launch first.
+template <int D>
+__global__ void __launch_bounds__(fwd_threads<D>(), 1)
+    k1_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, bf16* o,
+                  float* lse, int t, int h, float scale, int causal,
+                  int window, int stages) {
+  constexpr int kTileB = fwd_tile_bytes<D>();
+  constexpr int kQT = fwd_q_tiles<D>();
+  constexpr int kConsumers = kQT * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sq = smem;                   // the group's query tiles
+  unsigned char* ring = smem + kQT * kTileB;  // stages x (K tile, V tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * 2 * kTileB);
+  uint64_t* empty = full + stages;
+  uint64_t* qfull = empty + stages;
+  const int nq = (t + kTile - 1) / kTile;
+  const int ngroups = (nq + kQT - 1) / kQT;
+  const int bhn = gridDim.x / ngroups;
+  const int grp = ngroups - 1 - (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo = nq, hi = 0;
+  for (int g = 0; g < kQT; ++g) {
+    int a, b;
+    k_span(kQT * grp + g, nq, causal, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // ------------------------ producer
+    setmaxnreg_dec<kQT == 3 ? 32 : 40>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qfull, kQT * kTileB);
+      for (int g = 0; g < kQT; ++g)
+        for (int p = 0; p < D / 64; ++p)
+          tma_load_4d(sq + g * kTileB + p * kBox, &tm_q, p * 64, hd,
+                      min(kQT * grp + g, nq - 1) * kTile, bi, qfull);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int jk = lo; jk < hi; ++jk) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * 2 * kTileB;
+        mbar_expect_tx(&full[st], 2 * kTileB);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(s + p * kBox, &tm_k, p * 64, hd, jk * kTile, bi,
+                      &full[st]);
+          tma_load_4d(s + kTileB + p * kBox, &tm_v, p * 64, hd, jk * kTile,
+                      bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    setmaxnreg_inc<kQT == 3 ? 160 : 232>();
+    const int g = threadIdx.x >> 7;
+    const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int iq = kQT * grp + g;
+    const int row = iq * kTile + wq * 16 + (lane >> 2);  // and row + 8
+    const float sl2 = scale * kLog2e;
+    float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  for (int jk = lo; jk < hi; ++jk) {
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(sK, k + base, ld, jk * kTile, t);
-    stage<D>(sV, v + base, ld, jk * kTile, t);
-    __syncthreads();
-    float s[8][4];
-    scores<D>(s, sQ, warp * 16, sK);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    const uint64_t dq = sw128_desc(sq + g * kTileB, 16);
+    mbar_wait(qfull, 0);
+    int st = 0;
+    uint32_t ph = 0;
+    for (int jk = lo; jk < hi; ++jk) {
+      mbar_wait(&full[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * 2 * kTileB;
+      const uint64_t dk = sw128_desc(s, 16);
+      const uint64_t dv = sw128_desc(s + kTileB, kBox);
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
+        wgmma_n64<0, 0>(sc, dq + off, dk + off, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      // register 4i + 2 half + c: row `row` + 8 half, key 8 i + 2 (lane % 4)
+      // + c of the tile
+      const bool edge =
+          (jk + 1) * kTile > t ||
+          (causal && (jk >= iq || (window >= 0 && (iq - jk) * kTile +
+                                                          kTile - 1 >
+                                                      window)));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = jk * kTile + 8 * i + 2 * (lane & 3) + c;
+            float& x = sc[4 * i + 2 * half + c];
+            x = !edge || visible(r, key, t, causal, window) ? x * sl2
+                                                            : -CUDART_INF_F;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[half], quad_max(mx));
+        const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;  // none visible yet
+        const float alpha = exp2f(m[half] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * i + 2 * half + c];
+            x = exp2f(x - m_use);
+            sum += x;
+          }
+        l[half] = l[half] * alpha + sum;  // this thread's columns only
+        m[half] = m_new;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          acc[4 * i + 2 * half] *= alpha;
+          acc[4 * i + 2 * half + 1] *= alpha;
+        }
+      }
+      // P as wgmma's A fragments: 16-key step kc is accumulator columns
+      // 8 (2 kc) .. 8 (2 kc + 1) + 7
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kc][e] = pack_bf16(sc[8 * kc + 2 * e], sc[8 * kc + 2 * e + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(acc, pa[kc], dv + 128 * kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    const long long ld = (long long)h * D;
+    bf16* ob = o + (size_t)bi * t * ld + (size_t)hd * D;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = row + 8 * half;
-      float mx = -CUDART_INF_F;
+      l[half] = quad_sum(l[half]);
+      const float inv = l[half] == 0.f ? 1.f : 1.f / l[half];
+      if (r >= t) continue;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * t + r] = m[half] * kLn2 + logf(l[half]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = jk * kTile + j * 8 + 2 * (lane & 3) + e;
-          float& x = s[j][2 * half + e];
-          x = visible(r, key, t, causal, window) ? x * sl2 : -CUDART_INF_F;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[half], quad_max(mx));
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;  // no visible key yet
-      const float alpha = exp2f(m[half] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * half + e];
-          x = exp2f(x - m_use);
-          sum += x;
-        }
-      l[half] = l[half] * alpha + sum;  // this thread's columns only
-      m[half] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * half] *= alpha;
-        acc[n][2 * half + 1] *= alpha;
-      }
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)r * ld + 8 * i +
+                                     2 * (lane & 3)) =
+            pack_bf16(acc[4 * i + 2 * half] * inv,
+                      acc[4 * i + 2 * half + 1] * inv);
     }
-    accumulate<D>(acc, s, sV);
   }
-  float inv[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    l[half] = quad_sum(l[half]);
-    inv[half] = l[half] == 0.f ? 1.f : 1.f / l[half];
-    const int r = row + 8 * half;
-    if (lse != nullptr && (lane & 3) == 0 && r < t)
-      lse[(size_t)bh * t + r] = m[half] * kLn2 + logf(l[half]);
-  }
-  store_rows<D>(o + base, ld, row, t, acc, inv[0], inv[1]);
 }
 
 template <int D>
@@ -502,15 +664,51 @@ dim3 grid_of(int b, int t, int h) {
   return dim3((t + kTile - 1) / kTile, b * h);
 }
 
+// a [B, T, H, D] bf16 tensor read in boxes of (64 of D, 1 head, 64
+// rows, 1 batch), 128-byte swizzled, rows past T read as zeros; 0, or
+// the negative code of the C interface
+int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dim[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
+                             (cuuint64_t)b};
+  const cuuint64_t stride[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                (cuuint64_t)t * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(p), dim, stride, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int b, int t, int h, float scale, int causal, int window,
-        void* stream) {
-  return launch(k1_fwd_kernel<D>, grid_of(b, t, h), 3 * tile_bytes<D>(),
-                stream, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<bf16*>(o), static_cast<float*>(lse), t, h, scale,
-                causal, window);
+        int b, int t, int h, float scale, int causal, int window, int stages,
+        long long smem, void* stream) {
+  constexpr int kTileB = fwd_tile_bytes<D>();
+  constexpr int kQT = fwd_q_tiles<D>();
+  if (stages < 2 || stages > kFwdStagesMax ||
+      smem < kQT * kTileB + stages * 2 * kTileB + 8 * (2 * stages + 1) + 1024)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int e = seq_map(&tq, q, b, t, h, D);
+  if (!e) e = seq_map(&tk, k, b, t, h, D);
+  if (!e) e = seq_map(&tv, v, b, t, h, D);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(k1_fwd_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  if (e) return e;
+  const int nq = (t + kTile - 1) / kTile;
+  k1_fwd_kernel<D><<<(nq + kQT - 1) / kQT * b * h, fwd_threads<D>(), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), t, h,
+      scale, causal, window, stages);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -544,13 +742,19 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // o [B, T, H, D] bf16 and, unless lse is null, lse [B*H, T] f32.
-// window < 0: no window
+// window < 0: no window. A CTA per group of query tiles of each (b, h)
+// (three at D = 64, two at D = 128), each a ring of `stages` K/V stages
+// in `smem` bytes of dynamic shared memory (`flash_plan`'s fwd_cta)
 int k1_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int t, int h, int d, float scale, int causal, int window,
-           void* stream) {
+           int stages, long long smem, void* stream) {
   if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
-  if (d == 64) return fwd<64>(q, k, v, o, lse, b, t, h, scale, causal, window, stream);
-  if (d == 128) return fwd<128>(q, k, v, o, lse, b, t, h, scale, causal, window, stream);
+  if (d == 64)
+    return fwd<64>(q, k, v, o, lse, b, t, h, scale, causal, window, stages,
+                   smem, stream);
+  if (d == 128)
+    return fwd<128>(q, k, v, o, lse, b, t, h, scale, causal, window, stages,
+                    smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,7 +26,7 @@
 // bytes-bound (it reads and writes the [n_pad, v_pad] bf16 residual
 // once: 2 x 824 MB).
 //
-// fwd and dw: TMA-fed wgmma pipelines. One CTA is three warpgroups:
+// fwd, dw and dx: TMA-fed wgmma pipelines. One CTA is three warpgroups:
 // warpgroups 0 and 1 consume (setmaxnreg 232), warpgroup 2 produces
 // (setmaxnreg 40; one thread issues every copy). Operands move only by
 // TMA (cp.async.bulk.tensor, 128-byte swizzle, a CUtensorMap per
@@ -110,16 +110,30 @@
 //   loads and stores, four rows in flight per thread; d goes back over
 //   the residual in place (no second [n_pad, v_pad] buffer), db is the
 //   CTA's column sums (deterministic, no atomics);
-// - dx (wmma, the parent design): one CTA owns 32 rows and walks all
-//   64-column W tiles, rebuilding each logits tile with `logits_tile`
-//   over the whole hidden size staged in shared memory (rows padded by
-//   16 bytes against bank conflicts); the [32, 768] f32 dx accumulator
-//   lives in registers (12 wmma fragments per warp, 8 warps). A larger h
-//   splits it over gridDim.y (chunks of 768 columns). Its row strides are
-//   h + 8 (x), bv + 8 (W, d) and bv + 4 (f32 logits tile); it stages its
-//   output through the f32 logits tile once the sweep is done.
+// - dx (K2d): a cluster split-K pipeline (kernel comment below). dx for
+//   a 128-row block at h 768 is [128, 768] f32, 384 KB, more than an SM's
+//   registers, and keeping that x block resident beside a ring does not
+//   fit shared memory either; so the h chunks of one row block (at most
+//   three 64-wide tiles each: 96 dx accumulators a thread beside the 32
+//   of the partial logits) form a thread-block cluster. Each CTA
+//   multiplies its resident x chunk by a W tile [chunk, 64] from the ring
+//   into partial logits; the cluster sums the partials in distributed
+//   shared memory, each CTA forming d on its share of the rows and
+//   sending bf16 d to every CTA; the same W tile then serves as B of
+//   dx += d W^T. The tensor work is the bound's 2 x 2 n h v (no logits
+//   are recomputed), and W passes through each CTA once (64 x 77 MB =
+//   4.9 GB of L2 traffic at the training shape). The parent, a wmma
+//   kernel with one CTA per 32 rows, restaged the whole W tile with
+//   synchronous loads every vocab step (19.8 GB) and ran four
+//   __syncthreads-separated phases with no overlap. What costs time now
+//   is the exchange: 32 KB of partials and 16 KB of d cross the cluster
+//   per CTA and vocab step, behind two cluster round trips
+//   (`benchmarks/kernel_split.py` times the kernel without it).
 // - padded vocab columns: their bias -1e30 makes exp(logit - lse) exactly
 //   0, so they add nothing to the sums, d or db's meaning.
+//
+// The PTX building blocks (mbarriers, TMA, wgmma, clusters) are in
+// hopper.cuh, shared with flash.cu.
 //
 // Shared memory: the wrapper passes the byte offsets of each buffer and
 // the total from the Python plan (`smem_layout`, the one formula). The
@@ -129,8 +143,7 @@
 // of slack.
 //
 // libcuda's cuTensorMapEncodeTiled is looked up once through the runtime
-// (cudaGetDriverEntryPointByVersion, or cudaGetDriverEntryPoint before
-// CUDA 12.5), so the library needs no -lcuda.
+// (hopper.cuh `encoder`), so the library needs no -lcuda.
 //
 // C interface (bound with ctypes): every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
@@ -140,23 +153,19 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kDxBM = 32, kDxBV = 64;
-constexpr int kHChunk = 768;   // gradient cols a dx CTA holds
-constexpr int kFragMax = 12;   // accumulator fragments per warp
 constexpr int kRdCols = 128;   // vocab columns of one residual_d CTA
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 
-// the TMA/wgmma pipelines (fwd, dw)
+// the TMA/wgmma pipelines (fwd, dw, dx)
 constexpr int kConsumers = 256;          // two consumer warpgroups
 constexpr int kPipeThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr int kConsumerWarps = kConsumers / 32;
@@ -165,313 +174,15 @@ constexpr int kKC = 64;                  // K chunk: one 128-byte swizzle row
 constexpr int kFwdBN = 128;              // vocab columns of a fwd tile
 constexpr int kDwBN = 64;                // vocab columns of a dw strip
 constexpr int kDwTilesMax = 6;           // 64-row h tiles of a dw chunk
+constexpr int kDxBV = 64;                // vocab columns of a dx step
+constexpr int kDxTilesMax = 3;           // 64-wide h tiles of a dx chunk
+constexpr int kDxClusterMax = 8;         // CTAs of a dx cluster (portable)
 constexpr int kXChunk = kBM * kKC * 2;   // x [128, 64] bf16: 16 KB
 constexpr int kWBox = kKC * 64 * 2;      // W [64, 64] bf16: 8 KB
 constexpr int kFwdStage = kXChunk + 2 * kWBox;  // 32 KB
 constexpr int kOutTile = 2 * 64 * 64 * 2;       // a warpgroup's bf16 logits
+constexpr int kDTile = kBM * kDxBV * 2;  // a bf16 d tile [128, 64]: 16 KB
 constexpr int kMaxStages = 8;
-constexpr uint32_t kSpinLimit = 1u << 26;  // mbarrier polls before a trap
-
-static_assert((kDxBM / 16) * (kHChunk / 16) == kFragMax * kWarps,
-              "dx accumulator tiles must fill kFragMax per warp");
-static_assert(kDxBM * (kDxBV + 4) >= kWarps * 256,
-              "the logits tile must hold the eight warps' output tiles");
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows x cols bf16 (cols a multiple of 8) from global memory (row stride
-// lds) into shared memory (row stride ldd), 16 bytes a thread
-__device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src,
-                                      long long lds, int rows, int cols) {
-  const int vpr = cols >> 3;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr;
-    const int c = (i - r * vpr) << 3;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
-  }
-}
-
-// sS[BM][BV] (f32, row stride lds) = sX[BM][h] . sW[h][BV], one 16x16
-// output tile per warp at a time, its k sweep split over two independent
-// accumulators (even and odd 16-wide k steps) so consecutive mma_syncs
-// do not wait on each other; the bias is added by the caller
-template <int BM, int BV>
-__device__ __forceinline__ void logits_tile(const bf16* sX, int ldx,
-                                            const bf16* sW, int ldw, int h,
-                                            float* sS, int lds) {
-  constexpr int kTc = BV / 16;
-  constexpr int kTiles = (BM / 16) * kTc;
-  const int warp = threadIdx.x >> 5;
-  for (int tile = warp; tile < kTiles; tile += kWarps) {
-    const int tr = tile / kTc;
-    const int tc = tile - tr * kTc;
-    FragC acc0, acc1;
-    wmma::fill_fragment(acc0, 0.f);
-    wmma::fill_fragment(acc1, 0.f);
-    const bf16* a = sX + (size_t)tr * 16 * ldx;
-    const bf16* bm = sW + tc * 16;
-    int k = 0;
-    for (; k + 32 <= h; k += 32) {
-      FragA fa0, fa1;
-      FragB fb0, fb1;
-      wmma::load_matrix_sync(fa0, a + k, ldx);
-      wmma::load_matrix_sync(fb0, bm + (size_t)k * ldw, ldw);
-      wmma::load_matrix_sync(fa1, a + k + 16, ldx);
-      wmma::load_matrix_sync(fb1, bm + (size_t)(k + 16) * ldw, ldw);
-      wmma::mma_sync(acc0, fa0, fb0, acc0);
-      wmma::mma_sync(acc1, fa1, fb1, acc1);
-    }
-    if (k < h) {  // h / 16 odd: one step left
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, a + k, ldx);
-      wmma::load_matrix_sync(fb, bm + (size_t)k * ldw, ldw);
-      wmma::mma_sync(acc0, fa, fb, acc0);
-    }
-#pragma unroll
-    for (int i = 0; i < acc0.num_elements; ++i) acc0.x[i] += acc1.x[i];
-    wmma::store_matrix_sync(sS + (size_t)tr * 16 * lds + tc * 16, acc0, lds,
-                            wmma::mem_row_major);
-  }
-}
-
-// d over the [BM, BV] logits tile in sS (bias not yet added) at rows
-// n0.., vocab columns v0..: f32 d back into sS, bf16 d into sD
-template <int BM, int BV>
-__device__ __forceinline__ void form_d(float* sS, int lds, bf16* sD, int ldd,
-                                       const float* b, const int* t,
-                                       const float* lse, float g, int n0,
-                                       int v0) {
-  for (int e = threadIdx.x; e < BM * BV; e += kThreads) {
-    const int r = e / BV;
-    const int c = e - r * BV;
-    const int tr = t[n0 + r];
-    const float p = expf(sS[r * lds + c] + b[v0 + c] - lse[n0 + r]);
-    const float d = (p - (tr == v0 + c ? 1.f : 0.f)) * (tr >= 0 ? g : 0.f);
-    sS[r * lds + c] = d;
-    sD[r * ldd + c] = __float2bfloat16(d);
-  }
-}
-
-// ------------------------------------------- Hopper primitives (PTX)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// waits until the phase of parity `parity` has completed; a pipeline that
-// stops (a lost arrival) traps after kSpinLimit polls instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == kSpinLimit) __trap();
-  }
-}
-
-// the 2-D box at (c0 innermost, c1) of `map` into shared memory at dst
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// the committed TMA stores have finished reading shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// generic-proxy shared-memory writes become visible to TMA and wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at p
-// (1024-byte-aligned atoms): start address, leading and stride byte
-// offsets in 16-byte units, layout type 1 (128B swizzle). K-major: the
-// stride is 1024 bytes between 8-row groups (the leading offset is not
-// read). M/N-major: the stride is 1024 bytes between 8-row K groups and
-// the leading offset the distance between 64-column blocks. Adding n to
-// the descriptor moves the start by 16 n bytes: +2 per 16-deep K step
-// inside a K-major swizzle row, +128 per 16 K rows of an M/N-major tile.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p,
-                                               uint32_t lead_bytes) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lead_bytes >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// byte offset of bf16 element (r, c) in a [rows, 64] tile with 128-byte
-// rows under the 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B):
-// 16-byte chunk c / 8 of row r sits at chunk (c / 8) ^ (r % 8)
-__device__ __forceinline__ int sw128_off(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// D[64, 128] (+)= A[64, 16] . B[16, 128], bf16 in, f32 accumulators
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// D[64, 64] (+)= A[64, 16] . B[16, 64], bf16 in, f32 accumulators
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// pins accumulator registers after wgmma_wait: the compiler may not move
-// their reads above it
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // ---------------------------------------------------------------- K2a
 // Persistent CTAs walk (row block, vocab tile) items: item i is row block
@@ -701,18 +412,6 @@ k2_residual_d_kernel(const float* __restrict__ scale, bf16* logits,
   }
 }
 
-// write one warp's 16x16 f32 accumulator tile as bf16 at out (row stride
-// ld), through the warp's 256-float scratch
-__device__ __forceinline__ void store_bf16_tile(const FragC& acc, float* scr,
-                                                bf16* out, long long ld) {
-  const int lane = threadIdx.x & 31;
-  wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32)
-    out[(size_t)(e >> 4) * ld + (e & 15)] = __float2bfloat16(scr[e]);
-  __syncwarp();
-}
-
 // ---------------------------------------------------------------- K2c
 // CTA (blockIdx.x, blockIdx.y) owns vocab strip [64 x, 64 x + 64) and the
 // h tiles [y tpc, min(kt, (y + 1) tpc)) of 64 rows (`dw_chunks` in the
@@ -907,64 +606,294 @@ k2_dw_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 // ---------------------------------------------------------------- K2d
-__global__ void __launch_bounds__(kThreads, 1)
-k2_dx_kernel(const float* __restrict__ scale, const bf16* __restrict__ x,
-             const bf16* __restrict__ w, const float* __restrict__ b,
-             const int* __restrict__ t, const float* __restrict__ lse,
-             bf16* __restrict__ dx, int n_pad, int h, int v_pad,
-             long long off_w, long long off_s, long long off_d) {
-  constexpr int BM = kDxBM, BV = kDxBV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sW = reinterpret_cast<bf16*>(smem + off_w);
-  float* sS = reinterpret_cast<float*>(smem + off_s);
-  bf16* sD = reinterpret_cast<bf16*>(smem + off_d);
-  const int ldx = h + 8, ldw = BV + 8, lds = BV + 4, ldd = BV + 8;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * BM;
-  const int h_lo = blockIdx.y * kHChunk;
-  const int th_n = min(kHChunk, h - h_lo) / 16;  // hidden tiles of this CTA
-  const int n_tiles = (BM / 16) * th_n;
-  const float g = *scale;
+// x[rows of warpgroup g, chunk] . W[chunk, one vocab step]: the partial
+// logits [64, 64] over the CTA's kh h tiles (x resident, W in the ring
+// stage at wst), committed as one wgmma group. kh is uniform over the
+// CTA, so no wgmma sits in a divergent branch
+__device__ __forceinline__ void dx_partial(float (&acc)[32],
+                                           const unsigned char* xres,
+                                           const unsigned char* wst, int g,
+                                           int kh) {
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < kDxTilesMax; ++q)
+    if (q < kh) {
+      const uint64_t da =
+          sw128_desc(xres + q * kXChunk + g * (kXChunk / 2), 16);
+      const uint64_t db = sw128_desc(wst + q * kWBox, 16);
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk)
+        wgmma_n64<0, 1>(acc, da + 2 * kk, db + 128 * kk, q | kk);
+    }
+  wgmma_commit();
+}
 
-  stage(sX, ldx, x + (size_t)n0 * h, h, BM, h);  // resident for the sweep
-  FragC acc[kFragMax];
+// f32 column c of partial-logits row r sits at c ^ 8 (r % 4) of the row
+// (64 floats): the 8 rows a warp's accumulators store at once fall in
+// distinct banks, and a 4-column group stays contiguous
+__device__ __forceinline__ int dx_col(int r, int c) {
+  return c ^ ((r & 3) << 3);
+}
+
+// the warpgroup's accumulator rows into the partials [128, 64]
+// (register 4i + 2j + c: row r + 8 j, column 8 i + 2 (lane % 4) + c)
+__device__ __forceinline__ void dx_store_partial(float* part,
+                                                 const float (&acc)[32],
+                                                 int r, int lane) {
 #pragma unroll
-  for (int i = 0; i < kFragMax; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int v0 = 0; v0 < v_pad; v0 += BV) {
-    __syncthreads();  // the previous tile's sW, sS and sD are consumed
-    stage(sW, ldw, w + v0, v_pad, h, BV);
-    __syncthreads();
-    logits_tile<BM, BV>(sX, ldx, sW, ldw, h, sS, lds);
-    __syncthreads();
-    form_d<BM, BV>(sS, lds, sD, ldd, b, t, lse, g, n0, v0);
-    __syncthreads();
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < kFragMax; ++i) {
-      const int tile = warp + i * kWarps;
-      if (tile < n_tiles) {
-        const int tr = tile / th_n, tc = tile - (tile / th_n) * th_n;
-#pragma unroll
-        for (int k = 0; k < BV; k += 16) {
-          FragA fa;
-          FragBT fb;  // W^T: element (v, h) at sW[h * ldw + v]
-          wmma::load_matrix_sync(fa, sD + (size_t)tr * 16 * ldd + k, ldd);
-          wmma::load_matrix_sync(fb, sW + (size_t)(h_lo + tc * 16) * ldw + k, ldw);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
+    for (int j = 0; j < 2; ++j) {
+      const int row = r + 8 * j;
+      *reinterpret_cast<float2*>(part + row * kDxBV +
+                                 dx_col(row, 8 * i + 2 * (lane & 3))) =
+          make_float2(acc[4 * i + 2 * j], acc[4 * i + 2 * j + 1]);
+    }
+}
+
+// Grid (n_pad / 128, cluster): one cluster of `cluster` (C) CTAs per
+// 128-row block. The CTA of rank r owns the h tiles [r tpc, min(kt, (r +
+// 1) tpc)) (`dx_chunks` in the Python plan), keeps its x chunk [128, kh
+// 64] resident and streams the matching W rows [kh 64, 64] of every
+// vocab step through the ring; in the exchange it owns rows [r 128 / C,
+// (r + 1) 128 / C). Every transfer between CTAs is an async bulk copy
+// into the other CTA's shared memory that completes bytes on that CTA's
+// mbarrier (cp.async.bulk.shared::cluster): no remote loads, and no
+// cluster-scope release (which compiles to a GPU-wide memory barrier).
+// Per vocab step j (columns v0 = 64 j):
+//   1. partial logits [128, 64] over the CTA's h chunk (wgmma, x K-major,
+//      W N-major), written f32 into the CTA's `part` buffer;
+//   2. one thread copies each owner's rows of `part` into slice r of that
+//      owner's `recv` buffer, completing on its `pready`;
+//   3. when `pready` holds all C slices of its rows, the CTA sums them
+//      (in rank order 0, 1, ..., so the sum is the same on every launch),
+//      adds the bias, forms d = (exp(l - lse) - onehot) g/N (0 on pad
+//      rows) and writes bf16 d into its own d tile j % 2, under the
+//      128-byte swizzle of a wgmma K-major operand;
+//   4. one thread copies those d rows into d tile j % 2 of every other
+//      CTA, completing on its `dready`; past `dready` every row of d is
+//      in place and every copy out of `part` of step j has landed;
+//   5. dx[128, chunk] += d[128, 64] . W[chunk, v0:v0+64]^T (wgmma, A = d
+//      K-major, B = the same W stage read K-major: no transpose).
+// The consumers issue step j + 1's partial product before step j's
+// exchange and retire it (wait_group 1) after issuing step j's dx
+// product, so the tensor cores run while the cluster exchanges. Each
+// exchange barrier is armed (arrive.expect_tx) for the bytes of its next
+// phase by the thread that issues this CTA's copies, after every local
+// waiter has passed the current phase and before this CTA sends what
+// lets another CTA answer it. Reuse: `part` is rewritten only past
+// `dready` of the step it held; `recv` only after the CTA has summed it
+// and sent its d rows; d tile j % 2 is written for step j + 2 only after
+// every CTA has sent its step j + 2 partials, which each sends after its
+// dx product of step j has retired; a ring stage is released when the dx
+// product that read it retires. d rows written here by generic stores
+// are fenced to the async proxy before they are copied or read by
+// wgmma. A cluster barrier after the mbarrier set-up and another before
+// exit keep every CTA's shared memory alive while the others use it.
+__global__ void __launch_bounds__(kPipeThreads, 1)
+k2_dx_kernel(const __grid_constant__ CUtensorMap tm_x,
+             const __grid_constant__ CUtensorMap tm_w,
+             const float* __restrict__ scale, const float* __restrict__ b,
+             const int* __restrict__ t, const float* __restrict__ lse,
+             bf16* __restrict__ dx, int n_pad, int h, int v_pad, int stages,
+             int tiles_per_chunk, long long off_p, long long off_r,
+             long long off_d, long long off_ring, long long off_bar) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* xres = smem;
+  float* part = reinterpret_cast<float*>(smem + off_p);
+  float* recv = reinterpret_cast<float*>(smem + off_r);
+  unsigned char* dtile = smem + off_d;
+  unsigned char* ring = smem + off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + off_bar);
+  uint64_t* empty = full + stages;
+  uint64_t* xfull = empty + stages;
+  uint64_t* pready = xfull + 1;
+  uint64_t* dready = pready + 1;
+  const int csize = gridDim.y;           // the cluster spans gridDim.y
+  const int rank = (int)cluster_rank();
+  const int kt = (h + kKC - 1) / kKC;
+  const int c_lo = blockIdx.y * tiles_per_chunk;
+  const int kh = min(kt, c_lo + tiles_per_chunk) - c_lo;
+  const int rb = blockIdx.x;
+  const int nv = v_pad / kDxBV;
+  const int stage_bytes = tiles_per_chunk * kWBox;
+  // the exchange: rank o owns rows [o 128 / C, (o + 1) 128 / C); `recv`
+  // holds C slices of rmax rows; the bytes each barrier phase receives
+  const int e_lo = rank * kBM / csize, e_hi = (rank + 1) * kBM / csize;
+  const int rmax = (kBM + csize - 1) / csize;
+  const uint32_t p_bytes = csize * (e_hi - e_lo) * kDxBV * 4;
+  const uint32_t d_bytes = (kBM - (e_hi - e_lo)) * kDxBV * 2;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(xfull, 1);
+    mbar_init(pready, 1);
+    mbar_init(dready, 1);
+    mbar_expect_tx(pready, p_bytes);  // armed for step 0
+    mbar_expect_tx(dready, d_bytes);
+    mbar_init_fence();
+  }
+  cluster_sync();  // every CTA's mbarriers exist before a remote copy
+
+  if (threadIdx.x >= kConsumers) {  // ------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(xfull, kh * kXChunk);
+      for (int q = 0; q < kh; ++q)
+        tma_load(xres + q * kXChunk, &tm_x, (c_lo + q) * kKC, rb * kBM,
+                 xfull);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int j = 0; j < nv; ++j) {
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], kh * kWBox);
+        for (int q = 0; q < kh; ++q)
+          tma_load(ring + st * stage_bytes + q * kWBox, &tm_w, j * kDxBV,
+                   (c_lo + q) * kKC, &full[st]);
+        if (++st == stages) { st = 0; ph ^= 1; }
       }
     }
-  }
-  __syncthreads();  // sS becomes the output staging
+  } else {  // ------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int g = threadIdx.x >> 7;
+    const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int rl = g * 64 + wq * 16 + (lane >> 2);  // rows rl, rl + 8
+    const float gs = *scale;
+    float pacc[32], dacc[kDxTilesMax][32];
 #pragma unroll
-  for (int i = 0; i < kFragMax; ++i) {
-    const int tile = warp + i * kWarps;
-    if (tile < n_tiles) {
-      const int tr = tile / th_n, tc = tile - (tile / th_n) * th_n;
-      store_bf16_tile(acc[i], sS + warp * 256,
-                      dx + (size_t)(n0 + tr * 16) * h + h_lo + tc * 16, h);
+    for (int q = 0; q < kDxTilesMax; ++q)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dacc[q][i] = 0.f;
+    // 2. every owner's rows of `part` into its `recv` slice `rank`
+    auto send_partials = [&]() {
+      fence_proxy_async();
+      named_bar(1, kConsumers);
+      if (threadIdx.x == 0)
+        for (int o = 0; o < csize; ++o) {
+          const int lo = o * kBM / csize, hi = (o + 1) * kBM / csize;
+          dsmem_copy(recv + rank * rmax * kDxBV, part + lo * kDxBV,
+                     (hi - lo) * kDxBV * 4, pready, o);
+        }
+    };
+    mbar_wait(xfull, 0);
+    mbar_wait(&full[0], 0);
+    __syncwarp();
+    dx_partial(pacc, xres, ring, g, kh);
+    wgmma_wait<0>();
+    fence_acc(pacc);
+    dx_store_partial(part, pacc, rl, lane);
+    send_partials();
+
+    int st = 0, pst = 0;  // ring stages of steps j and j - 1
+    uint32_t ph = 0;
+    for (int j = 0; j < nv; ++j) {
+      const int v0 = j * kDxBV;
+      int nst = st + 1;
+      uint32_t nph = ph;
+      if (nst == stages) { nst = 0; nph ^= 1; }
+      if (j + 1 < nv) {  // step j + 1's partial product, in flight below
+        mbar_wait(&full[nst], nph);
+        __syncwarp();
+        dx_partial(pacc, xres, ring + nst * stage_bytes, g, kh);
+      }
+      // 3. this CTA's rows of d, summed over the cluster's partials
+      mbar_wait(pready, j & 1);
+      unsigned char* dj = dtile + (j & 1) * kDTile;
+      for (int e = threadIdx.x; e < (e_hi - e_lo) * (kDxBV / 4);
+           e += kConsumers) {
+        const int rr = e / (kDxBV / 4), r = e_lo + rr;
+        const int c = 4 * (e % (kDxBV / 4));
+        const float* src = recv + rr * kDxBV + dx_col(r, c);
+        float4 s = *reinterpret_cast<const float4*>(src);
+        for (int k = 1; k < csize; ++k) {
+          const float4 o =
+              *reinterpret_cast<const float4*>(src + k * rmax * kDxBV);
+          s.x += o.x;
+          s.y += o.y;
+          s.z += o.z;
+          s.w += o.w;
+        }
+        const int row = rb * kBM + r;
+        const int tt = __ldg(t + row);
+        const float l = __ldg(lse + row), f = tt >= 0 ? gs : 0.f;
+        const float4 bb = __ldg(reinterpret_cast<const float4*>(b + v0 + c));
+        const int hit = tt - v0 - c;  // -1 and targets >= v_pad never hit
+        __nv_bfloat162 dv[2];
+        dv[0] = __floats2bfloat162_rn(
+            (__expf(s.x + bb.x - l) - (hit == 0 ? 1.f : 0.f)) * f,
+            (__expf(s.y + bb.y - l) - (hit == 1 ? 1.f : 0.f)) * f);
+        dv[1] = __floats2bfloat162_rn(
+            (__expf(s.z + bb.z - l) - (hit == 2 ? 1.f : 0.f)) * f,
+            (__expf(s.w + bb.w - l) - (hit == 3 ? 1.f : 0.f)) * f);
+        *reinterpret_cast<uint2*>(dj + sw128_off(r, c)) =
+            *reinterpret_cast<const uint2*>(dv);
+      }
+      fence_proxy_async();
+      named_bar(1, kConsumers);
+      // 4. this CTA's d rows to every other CTA; `pready` armed for the
+      // next step first (every local waiter has passed this one)
+      if (threadIdx.x == 0) {
+        if (j + 1 < nv) mbar_expect_tx(pready, p_bytes);
+        for (int o = 0; o < csize; ++o)
+          if (o != rank)
+            dsmem_copy(dj + e_lo * 128, dj + e_lo * 128,
+                       (e_hi - e_lo) * 128, dready, o);
+      }
+      mbar_wait(dready, j & 1);
+      __syncwarp();
+      // 5. dx += d . W^T over the ring stage of step j
+      wgmma_fence();
+      const uint64_t dd = sw128_desc(dj + g * (kDTile / 2), 16);
+#pragma unroll
+      for (int q = 0; q < kDxTilesMax; ++q)
+        if (q < kh) {
+          const uint64_t dw =
+              sw128_desc(ring + st * stage_bytes + q * kWBox, 16);
+#pragma unroll
+          for (int kk = 0; kk < kDxBV / 16; ++kk)
+            wgmma_n64<0, 0>(dacc[q], dd + 2 * kk, dw + 2 * kk, 1);
+        }
+      wgmma_commit();
+      if (j + 1 < nv) {
+        // retires step j - 1's dx product and step j + 1's partials
+        wgmma_wait<1>();
+        fence_acc(pacc);
+        if (j > 0 && lane == 0) mbar_arrive(&empty[pst]);
+        dx_store_partial(part, pacc, rl, lane);
+        named_bar(1, kConsumers);  // every local waiter has passed dready
+        if (threadIdx.x == 0) mbar_expect_tx(dready, d_bytes);
+        send_partials();
+      } else {
+        wgmma_wait<0>();
+      }
+      pst = st;
+      st = nst;
+      ph = nph;
     }
+#pragma unroll
+    for (int q = 0; q < kDxTilesMax; ++q) fence_acc(dacc[q]);
+    const int row = rb * kBM + rl;
+#pragma unroll
+    for (int q = 0; q < kDxTilesMax; ++q)
+      if (q < kh)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = (c_lo + q) * kKC + 8 * i + 2 * (lane & 3);
+          if (col < h) {
+            bf16* o = dx + (size_t)row * h + col;
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(dacc[q][4 * i], dacc[q][4 * i + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(o + 8 * (size_t)h) =
+                __floats2bfloat162_rn(dacc[q][4 * i + 2], dacc[q][4 * i + 3]);
+          }
+        }
   }
+  __syncwarp();
+  cluster_sync();  // no CTA leaves while another may still use it
 }
 
 template <typename K>
@@ -980,33 +909,6 @@ bool shape_ok(int n_pad, int h, int v_pad) {
 }
 
 // ------------------------------------------------ tensor maps (host)
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#endif
-  }
-  return fn;
-}
 
 // a bf16 row-major [rows, cols] tensor read or written in boxes of
 // [box_rows, 64] (64 bf16 = one 128-byte swizzle row), out-of-bounds
@@ -1105,20 +1007,45 @@ int k2_dw(const void* scale, const void* x, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// dx [n_pad, h] bf16 of the recompute scheme
+// dx [n_pad, h] bf16 of the recompute scheme: a grid of (n_pad / 128,
+// cluster) launched as clusters of `cluster` CTAs along y, each CTA
+// tiles_per_chunk 64-wide h tiles (the last CTA's chunk may be shorter),
+// a ring of `stages` (at least 3: steps j - 1, j and j + 1 are held)
 int k2_dx(const void* scale, const void* x, const void* w, const void* b,
           const void* t, const void* lse, void* dx, int n_pad, int h,
-          int v_pad, long long smem, long long off_w, long long off_s,
-          long long off_d, void* stream) {
-  if (!shape_ok(n_pad, h, v_pad)) return (int)cudaErrorInvalidValue;
-  const int e = set_smem(k2_dx_kernel, smem);
+          int v_pad, int cluster, int tiles_per_chunk, int stages,
+          long long smem, long long off_p, long long off_r, long long off_d,
+          long long off_ring, long long off_bar, void* stream) {
+  const int kt = (h + kKC - 1) / kKC;
+  if (!shape_ok(n_pad, h, v_pad) || tiles_per_chunk <= 0 ||
+      tiles_per_chunk > kDxTilesMax || cluster <= 0 ||
+      cluster > kDxClusterMax || (cluster - 1) * tiles_per_chunk >= kt ||
+      cluster * tiles_per_chunk < kt || stages < 3 || stages > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_x, tm_w;
+  int e = tensor_map(&tm_x, x, n_pad, h, kBM);
+  if (!e) e = tensor_map(&tm_w, w, h, v_pad, kKC);
   if (e) return e;
-  const dim3 grid(n_pad / kDxBM, (h + kHChunk - 1) / kHChunk);
-  k2_dx_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scale), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<const int*>(t), static_cast<const float*>(lse),
-      static_cast<bf16*>(dx), n_pad, h, v_pad, off_w, off_s, off_d);
+  e = set_smem(k2_dx_kernel, smem);
+  if (e) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_pad / kBM, cluster);
+  cfg.blockDim = dim3(kPipeThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(
+      &cfg, k2_dx_kernel, tm_x, tm_w, static_cast<const float*>(scale),
+      static_cast<const float*>(b), static_cast<const int*>(t),
+      static_cast<const float*>(lse), static_cast<bf16*>(dx), n_pad, h, v_pad,
+      stages, tiles_per_chunk, off_p, off_r, off_d, off_ring, off_bar);
+  if (e) return e;
   return (int)cudaGetLastError();
 }
 

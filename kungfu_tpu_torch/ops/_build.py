@@ -5,8 +5,9 @@ for Hopper (``sm_90a``) into a shared library with a plain C interface
 and loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds. Libraries land in ``build/torch_kernels/`` at the repo root
 (ignored by git through the ``/build/`` entry of ``.gitignore``), named
-by a hash of source and flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built at import: `load` builds on
+by a hash of the source, the local headers it includes (``csrc/
+hopper.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. Nothing is built at import: `load` builds on
 first use. `require` and `stream` are the wrappers' shared checks of an
 operand and their launch stream.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -52,14 +54,16 @@ KERNELS = {
         # scale, x, w, b, t, lse, dw, db, n_pad, h, v_pad, stages,
         # tiles_per_chunk, smem, off_d, off_ring, off_bar, stream
         "k2_dw": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 4 + [_P]),
-        # scale, x, w, b, t, lse, dx, n_pad, h, v_pad, smem, off_w,
-        # off_s, off_d, stream
-        "k2_dx": (_I, [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_P]),
+        # scale, x, w, b, t, lse, dx, n_pad, h, v_pad, cluster,
+        # tiles_per_chunk, stages, smem, off_p, off_r, off_d, off_ring,
+        # off_bar, stream
+        "k2_dx": (_I, [_P] * 7 + [_I] * 6 + [_LL] * 6 + [_P]),
     }),
     "flash": ("flash.cu", {
-        # q, k, v, o, lse|NULL, B, T, H, D, scale, causal, window, stream
-        "k1_fwd": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
-                   + [_P]),
+        # q, k, v, o, lse|NULL, B, T, H, D, scale, causal, window,
+        # stages, smem, stream
+        "k1_fwd": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_I] * 3
+                   + [_LL, _P]),
         # q, k, v, o, do, lse, dq, delta, B, T, H, D, scale, causal,
         # window, stream
         "k1_dq": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
@@ -87,9 +91,31 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str):
+    """The files library `name` is built from: its source and every
+    local header it includes (``#include "..."``, followed through the
+    headers, resolved beside the including file), in a fixed order."""
+    todo, seen = [CSRC / KERNELS[name][0]], []
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / m.decode() for m in
+                 _INCLUDE.findall(f.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes())
+    """Where library `name` is built: named by a hash of its source,
+    the local headers it includes and the compiler flags, so an edit to
+    any of them builds a new library."""
+    h = hashlib.sha256()
+    for f in sources(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

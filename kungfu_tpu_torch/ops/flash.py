@@ -42,6 +42,15 @@ from . import _build
 BLOCK_Q = BLOCK_K = 64
 #: head dims the kernels are compiled for
 HEAD_DIMS = (64, 128)
+#: the forward's CTA (k1_fwd_kernel): by head dim, its consumer
+#: warpgroups, each one 64-row query tile of a group, beside a producer
+#: warpgroup; key/value tiles stream through a ring of FWD_STAGES stages
+#: (fwd_q_tiles and the launcher's checks in the CUDA source)
+FWD_Q_TILES = {64: 3, 128: 2}
+FWD_STAGES = 4
+#: one [64, 64] bf16 box under the 128-byte swizzle (kBox); a [64, D]
+#: tile is D / 64 of them
+_BOX = BLOCK_Q * 64 * 2
 
 #: launch counts since the last `reset_launches()`: one per kernel
 #: launch, and one per call of any plain version
@@ -109,12 +118,49 @@ def flash_attention_flops(b, t, h, d, causal=False, window=None,
     return flops
 
 
+def fwd_smem(d: int, stages: int = FWD_STAGES) -> int:
+    """Dynamic shared memory of one forward CTA at head dim `d`: its
+    query tiles, `stages` (K, V) tile pairs, the full/empty mbarriers
+    and the query tiles' (rounded to 128 bytes), and 1 KB of slack for
+    rounding the base up to the swizzle's 1024-byte period."""
+    tile = d // 64 * _BOX
+    bars = 8 * (2 * stages + 1)
+    return FWD_Q_TILES[d] * tile + stages * 2 * tile \
+        + -(-bars // 128) * 128 + 1024
+
+
+def fwd_groups(t: int, d: int, causal: bool = False,
+               window: Optional[int] = None):
+    """The forward's CTAs for one (b, h) at head dim `d`, in launch
+    order: ``(tiles, (lo, hi))`` — the query tiles of the group (g p, ...,
+    g p + g - 1), g = FWD_Q_TILES[d], ``None`` past the last tile, and
+    the key tiles the producer streams, the union of the tiles'
+    `_k_span`s, which every warpgroup walks. The last groups, whose
+    causal spans are the longest, come first: CTA i of the grid is group
+    ngroups - 1 - i // (B H) of head i % (B H)."""
+    _check_window(causal, window)
+    g = FWD_Q_TILES[d]
+    nq = -(-t // BLOCK_Q)
+    span = dict(causal=causal, window=window, block_q=BLOCK_Q,
+                block_k=BLOCK_K)
+    out = []
+    for p in reversed(range(-(-nq // g))):
+        idx = range(g * p, g * p + g)
+        spans = [_k_span(i, nq, **span) for i in idx]
+        out.append((tuple(i if i < nq else None for i in idx),
+                    (min(a for a, _ in spans), max(b for _, b in spans))))
+    return out
+
+
 def flash_plan(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The port's tiles at length `t` and head dim `d`, and the tiles
     each kernel visits (from `_k_span` / `_q_span`, the loop bounds the
-    kernels use) beside the unskipped grid. One scheme per kernel: the
-    TPU's resident/stream choice has no counterpart here."""
+    kernels use) beside the unskipped grid, and the forward's CTA: its
+    query tiles, key tile, threads, ring stages, shared memory and CTAs
+    per (b, h) (`fwd_groups`; None where `d` is not in HEAD_DIMS). One scheme per kernel: the TPU's
+    resident/stream choice has no counterpart here. The forward's grid
+    is ctas_per_head x B x H."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
     span = dict(causal=causal, window=window, block_q=BLOCK_Q,
@@ -127,6 +173,13 @@ def flash_plan(t: int, d: int, causal: bool = False,
             "head_dim_supported": d in HEAD_DIMS}
     for name, visited in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
         plan[name] = {"visited_blocks": visited, "grid_blocks": nq * nk}
+    cta = {"q_tiles": None, "key_tile": BLOCK_K, "threads": None,
+           "stages": FWD_STAGES, "smem": None, "ctas_per_head": None}
+    if d in HEAD_DIMS:
+        g = FWD_Q_TILES[d]
+        cta.update(q_tiles=g, threads=(g + 1) * 128, smem=fwd_smem(d),
+                   ctas_per_head=-(-nq // g))
+    plan["fwd_cta"] = cta
     return plan
 
 
@@ -315,7 +368,11 @@ def _check(q, seqs, rows=None):
 def _launch(name, fn, *args):
     err = fn(*args)
     if err:
-        raise RuntimeError(f"flash {name} launch failed: cudaError_t {err}")
+        why = ("cuTensorMapEncodeTiled not found in libcuda"
+               if err == -1 else
+               f"tensor map refused (CUresult {-1000 - err})"
+               if err <= -1000 else f"cudaError_t {err}")
+        raise RuntimeError(f"flash {name} launch failed: {why}")
     LAUNCHES[name] += 1
 
 
@@ -343,7 +400,8 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
         _launch("fwd", _lib().k1_fwd, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(),
                 lse.data_ptr() if save_lse else None, b, t, h, d,
-                *_common(q, causal, scale, window), _build.stream(q.device))
+                *_common(q, causal, scale, window), FWD_STAGES,
+                fwd_smem(d), _build.stream(q.device))
     return o, lse
 
 

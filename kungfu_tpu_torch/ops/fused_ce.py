@@ -36,10 +36,11 @@ raise: there is no fallback from the card to the plain versions.
 
 `fused_ce_plan` is the Hopper launch plan (it replaces the TPU-only
 `_pick_blocks`/`_VMEM_BUDGET`): grids, ring stages, the dw kernel's h
-chunks, and (`smem_layout`) the one formula for each kernel's dynamic
-shared memory. `fwd_work` and `dw_chunks` list the work the forward's
-persistent CTAs and the dw grid's h chunks take, as the CUDA source
-walks it.
+and dx kernels' h chunks (`dx_split`: dx's chunks form a thread-block
+cluster), and (`smem_layout`) the one formula for each kernel's dynamic
+shared memory. `fwd_work`, `dw_chunks` and `dx_chunks` list the work
+the forward's persistent CTAs and the dw grid's and dx clusters' h
+chunks take, as the CUDA source walks it.
 """
 
 from __future__ import annotations
@@ -61,12 +62,11 @@ SMEM_BUDGET = 227 * 1024
 ROW_MULTIPLE = 128
 COL_MULTIPLE = 128
 #: (rows, vocab columns) of one CTA's logits tile, per kernel; the
-#: kBM/kFwdBN/kDwBN/kDx* constants of the CUDA source. fwd and dw are
-#: TMA/wgmma pipelines over K chunks of `K_CHUNK` hidden units; dx keeps
-#: the whole hidden size in shared memory
+#: kBM/kFwdBN/kDwBN/kDxBV constants of the CUDA source. All three are
+#: TMA/wgmma pipelines over K chunks of `K_CHUNK` hidden units
 FWD_TILE = (128, 128)
 DW_TILE = (128, 64)
-DX_TILE = (32, 64)
+DX_TILE = (128, 64)
 K_CHUNK = 64
 #: ring stages of the forward (x [128, 64] + W [64, 128] bf16: 32 KB
 #: each), and the most any pipeline takes (kMaxStages)
@@ -75,6 +75,12 @@ MAX_STAGES = 8
 #: 64-row h tiles one dw CTA accumulates dW over (kDwTilesMax: three a
 #: consumer warpgroup, 96 f32 accumulators a thread)
 DW_TILES_MAX = 6
+#: 64-wide h tiles one dx CTA holds (kDxTilesMax: 96 f32 dx accumulators
+#: a consumer thread beside the 32 of the partial logits), and the most
+#: CTAs of a dx cluster (kDxClusterMax, the portable cluster size): dx
+#: takes h up to 8 x 3 x 64 = 1536
+DX_TILES_MAX = 3
+DX_CLUSTER_MAX = 8
 #: registers a consumer thread of the pipelines holds (setmaxnreg), and
 #: the part of them the accumulators may take: the rest holds addresses,
 #: indices and temporaries
@@ -122,6 +128,8 @@ def _k_tiles(h: int) -> int:
 _X_CHUNK = 2 * FWD_TILE[0] * K_CHUNK
 _W_BOX = 2 * K_CHUNK * 64
 _OUT_TILE = 2 * 64 * FWD_TILE[1]
+#: bytes of one bf16 d tile [128, 64] of dx (kDTile)
+_D_TILE = 2 * DX_TILE[0] * DX_TILE[1]
 #: slack for rounding the dynamic shared memory up to 1024 bytes, where
 #: the 128-byte swizzle pattern repeats
 _ALIGN_SLACK = 1024
@@ -136,6 +144,51 @@ def dw_stages(h: int) -> int:
                       (SMEM_BUDGET - _ALIGN_SLACK - fixed) // _X_CHUNK))
 
 
+def dx_split(h: int):
+    """(cluster, tiles_per_chunk) of the dx kernel at hidden size `h`:
+    the 64-wide h tiles split evenly over as few CTAs as hold at most
+    `DX_TILES_MAX` each. Raises ValueError past `DX_CLUSTER_MAX` CTAs
+    (h above 1536)."""
+    kt = _k_tiles(h)
+    cluster = -(-kt // DX_TILES_MAX)
+    if cluster > DX_CLUSTER_MAX:
+        raise ValueError(
+            f"hidden size {h}: dx needs a cluster of {cluster} CTAs, over "
+            f"the {DX_CLUSTER_MAX} it takes (h <= "
+            f"{DX_CLUSTER_MAX * DX_TILES_MAX * K_CHUNK})")
+    return cluster, -(-kt // cluster)
+
+
+def dx_chunks(h: int):
+    """The [lo, hi) hidden columns of dx each CTA of a dx cluster (rank
+    = ``blockIdx.y``) computes."""
+    return dw_chunks(h, dx_split(h)[1])
+
+
+def dx_stages(h: int) -> int:
+    """Ring stages of the dx kernel: as many W tiles [chunk, 64] as fit
+    beside the resident x chunk, the f32 partials and the two d tiles,
+    at most `MAX_STAGES`."""
+    tiles = dx_split(h)[1]
+    fixed = tiles * _X_CHUNK + _dx_part_bytes() + _dx_recv_bytes(h) \
+        + 2 * _D_TILE + _buf(8 * (2 * MAX_STAGES + 3))
+    return max(0, min(MAX_STAGES, (SMEM_BUDGET - _ALIGN_SLACK - fixed)
+                      // (tiles * _W_BOX)))
+
+
+def _dx_part_bytes() -> int:
+    """dx's f32 partial logits [128, 64]."""
+    return 4 * DX_TILE[0] * DX_TILE[1]
+
+
+def _dx_recv_bytes(h: int) -> int:
+    """dx's receive buffer: C slices of ceil(128 / C) partial rows, in
+    whole KB (the d tiles after it stay 1024-aligned)."""
+    cluster = dx_split(h)[0]
+    rows = cluster * -(-DX_TILE[0] // cluster)
+    return _round_up(4 * rows * DX_TILE[1], 1024)
+
+
 def smem_layout(kernel: str, h: int) -> Dict[str, int]:
     """Byte offsets of the buffers one CTA of `kernel` carves out of its
     dynamic shared memory at hidden size `h`, and their ``total``.
@@ -147,13 +200,14 @@ def smem_layout(kernel: str, h: int) -> Dict[str, int]:
     per K chunk) at 0, the bf16 d tile [128, 64] at ``d``, the ring of
     ``stages`` x chunks at ``ring``, the mbarriers at ``bar``. Both
     offsets count from the 1024-byte-aligned base, and the total holds
-    `_ALIGN_SLACK` for the rounding. dx: the x block ``[bm, h + 8]``
-    bf16 at offset 0, the W tile ``[h, bv + 8]`` bf16 at ``w`` (whole H,
-    rows padded by 16 bytes against bank conflicts), the f32 logits tile
-    ``[bm, bv + 4]`` at ``s``, the bf16 d tile ``[bm, bv + 8]`` at ``d``
-    (the output is staged through the logits tile). residual_d uses
-    static shared memory only. The launcher passes these offsets to the
-    kernel."""
+    `_ALIGN_SLACK` for the rounding. dx: the resident x chunk (one [128,
+    64] box per h tile of a chunk) at 0, the f32 partial logits [128,
+    64] at ``p``, the receive buffer (C slices of ceil(128 / C) partial
+    rows) at ``r``, two bf16 d tiles [128, 64] at ``d``, the ring of
+    ``stages`` W tiles (one [64 k, 64 v] box per h tile) at ``ring``,
+    the full/empty mbarriers, the x chunk's and the two exchange
+    barriers at ``bar``. residual_d uses static shared memory only. The
+    launcher passes these offsets to the kernel."""
     if kernel == "residual_d":
         return {"total": 0}
     if kernel == "fwd":
@@ -170,11 +224,13 @@ def smem_layout(kernel: str, h: int) -> Dict[str, int]:
         out["total"] = out["bar"] + _buf(8 * (2 * stages + 1)) \
             + _ALIGN_SLACK
         return out
-    bm, bv = DX_TILE
-    out = {"w": _buf(2 * bm * (h + 8))}
-    out["s"] = out["w"] + _buf(2 * h * (bv + 8))
-    out["d"] = out["s"] + _buf(4 * bm * (bv + 4))
-    out["total"] = out["d"] + _buf(2 * bm * (bv + 8))
+    tiles, stages = dx_split(h)[1], dx_stages(h)
+    out = {"stages": stages, "p": tiles * _X_CHUNK}
+    out["r"] = out["p"] + _dx_part_bytes()
+    out["d"] = out["r"] + _dx_recv_bytes(h)
+    out["ring"] = out["d"] + 2 * _D_TILE
+    out["bar"] = out["ring"] + stages * tiles * _W_BOX
+    out["total"] = out["bar"] + _buf(8 * (2 * stages + 3)) + _ALIGN_SLACK
     return out
 
 
@@ -220,22 +276,26 @@ def fused_ce_plan(n_pad: int, h: int, v_pad: int, sms: int = H100_SMS):
     chunks), the 64-row tiles of a chunk and its ring (a stage more than
     the chunk's tiles, which stay in the ring until the dW product has
     read them); the f32 accumulators a consumer thread holds. Chunks
-    are as large as the ring and `DW_TILES_MAX` allow, split evenly. dx's
-    grid follows from the shapes alone (its launcher computes it).
-    Raises ValueError on a shape the kernels do not take: h not a
-    multiple of 16, rows or columns not padded to 128, or tiles over the
-    shared-memory budget (dx holds the whole hidden size: h above
-    1024)."""
+    are as large as the ring and `DW_TILES_MAX` allow, split evenly; dx's
+    grid (128-row blocks x the h chunks of `dx_split`, launched as one
+    cluster per row block), its chunk and its ring (at least three
+    stages). Raises ValueError on a shape the kernels do not take: h not
+    a multiple of 16, rows or columns not padded to 128, tiles over the
+    shared-memory budget (dw's resident W strip: h above 1408) or a dx
+    cluster over `DX_CLUSTER_MAX`."""
     if h % 16 or h <= 0:
         raise ValueError(f"hidden size {h} must be a positive multiple of "
                          f"16 for the fused-CE kernels")
     _check_padded(n_pad, v_pad)
-    smem = {k: smem_bytes(k, h) for k in ("fwd", "residual_d", "dw", "dx")}
-    over = {k: b for k, b in smem.items() if b > SMEM_BUDGET}
+    smem = {k: smem_bytes(k, h) for k in ("fwd", "residual_d", "dw")}
     stages = dw_stages(h)
-    if over or stages < 2:
+    if stages >= 2:  # past dw's limit, report shared memory first
+        smem["dx"] = smem_bytes("dx", h)
+    over = {k: b for k, b in smem.items() if b > SMEM_BUDGET}
+    if over or stages < 2 or dx_stages(h) < 3:
         raise ValueError(f"hidden size {h}: {over or smem} B of shared "
                          f"memory, over the {SMEM_BUDGET} B a block may use")
+    cluster, dx_tiles = dx_split(h)
     kt = _k_tiles(h)
     cap = min(DW_TILES_MAX, stages - 1)
     n_chunks = -(-kt // cap)
@@ -246,9 +306,13 @@ def fused_ce_plan(n_pad: int, h: int, v_pad: int, sms: int = H100_SMS):
             "fwd_stages": FWD_STAGES,
             "dw_grid": (v_pad // DW_TILE[1], n_chunks),
             "dw_tiles_per_chunk": tiles, "dw_stages": stages,
+            "dx_grid": (n_pad // DX_TILE[0], cluster), "dx_cluster": cluster,
+            "dx_tiles_per_chunk": dx_tiles, "dx_stages": dx_stages(h),
             "acc_regs": {"fwd": FWD_TILE[1] // 2,
                          "dw": DW_TILE[1] // 2 + 16
-                         + (DW_TILE[1] // 2) * -(-tiles // 2)}}
+                         + (DW_TILE[1] // 2) * -(-tiles // 2),
+                         "dx": DX_TILE[1] // 2
+                         + (DX_TILE[1] // 2) * DX_TILES_MAX}}
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +467,7 @@ def _smem_args(kernel, h):
     """(total, offsets...) as the C launcher takes them."""
     lay = smem_layout(kernel, h)
     keys = {"fwd": ("out", "bar"), "dw": ("d", "ring", "bar"),
-            "dx": ("w", "s", "d")}[kernel]
+            "dx": ("p", "r", "d", "ring", "bar")}[kernel]
     return (lay["total"],) + tuple(lay[k] for k in keys)
 
 
@@ -478,15 +542,16 @@ def fused_ce_dx(scale, x, w, b, t, lse):
     CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return plain_dx(scale, x, w, b, t, lse)
-    _check(x, w, b, t, lse, scale)
+    plan = _check(x, w, b, t, lse, scale)
     n_pad, h = x.shape
     v_pad = w.shape[1]
     dx = torch.empty((n_pad, h), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         _launch("dx", _lib().k2_dx, scale.data_ptr(), x.data_ptr(),
                 w.data_ptr(), b.data_ptr(), t.data_ptr(), lse.data_ptr(),
-                dx.data_ptr(), n_pad, h, v_pad, *_smem_args("dx", h),
-                _build.stream(x.device))
+                dx.data_ptr(), n_pad, h, v_pad, plan["dx_cluster"],
+                plan["dx_tiles_per_chunk"], plan["dx_stages"],
+                *_smem_args("dx", h), _build.stream(x.device))
     return dx
 
 

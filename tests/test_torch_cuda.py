@@ -200,13 +200,23 @@ def _close_f32(got, ref):
 
 
 @pytest.mark.parametrize("n,h,v", [(300, 256, 1000), (300, 1024, 1000),
-                                   (300, 272, 1000), (128, 768, 50257)],
+                                   (300, 272, 1000), (128, 768, 50257),
+                                   (300, 128, 1000), (300, 512, 1000),
+                                   (300, 832, 1000), (300, 1216, 1000),
+                                   (300, 1408, 1000)],
                          ids=["h256", "h1024", "h272-k-tail",
-                              "gpt2-vocab-tail"])
+                              "gpt2-vocab-tail", "h128-dx-alone",
+                              "h512-dx-3", "h832-dx-5", "h1216-dx-7",
+                              "h1408-dx-8"])
 def test_k2_kernels_match_plain_versions(cuda, n, h, v):
     """Every kernel against its plain version: h = 272 leaves a K chunk
-    of 16 (TMA zero-fills the rest), v = 50257 the real vocab tail; K2a
-    and K2c give bitwise the same outputs on a second launch."""
+    of 16 (TMA zero-fills the rest) and splits dx over a 2-CTA cluster,
+    h = 1024 makes dx a 6-CTA cluster whose last CTA holds one h tile, v
+    = 50257 the real vocab tail; h = 128 runs dx as a lone CTA (no
+    exchange), 512, 832, 1216 and 1408 as clusters of 3, 5, 7 and 8 (128
+    rows split unevenly over 3, 5 and 7; 8 near-full CTAs in one GPC);
+    K2a, K2c and K2d give bitwise the same outputs on a second launch
+    (K2d sums its cluster's partials in rank order)."""
     x, w, b, t, scale = _k2_inputs(cuda, n, h, v)
     fc.reset_launches()
     logits, lse, tl = fc.fused_ce_fwd(x, w, b, t, True)
@@ -231,11 +241,14 @@ def test_k2_kernels_match_plain_versions(cuda, n, h, v):
     _close_sum(dw, rdw, x.shape[0], *dw_bounds)
     _close_f32(db2, rdb2)
     assert torch.equal(dw, dw_again) and torch.equal(db2, db2_again)
-    _close_sum(fc.fused_ce_dx(scale, x, w, b, t, rlse),
-               fc.plain_dx(scale, x, w, b, t, rlse), w.shape[1], *dx_bounds)
+    dx = fc.fused_ce_dx(scale, x, w, b, t, rlse)
+    dx_again = fc.fused_ce_dx(scale, x, w, b, t, rlse)
+    _close_sum(dx, fc.plain_dx(scale, x, w, b, t, rlse), w.shape[1],
+               *dx_bounds)
+    assert torch.equal(dx, dx_again)
     torch.cuda.synchronize()
     assert {k: fc.LAUNCHES[k] for k in ("fwd", "residual_d", "dw", "dx")} \
-        == {"fwd": 3, "residual_d": 1, "dw": 2, "dx": 1}
+        == {"fwd": 3, "residual_d": 1, "dw": 2, "dx": 2}
 
 
 @pytest.mark.parametrize("residual", [True, False],
@@ -338,6 +351,35 @@ def test_k1_kernels_match_plain_versions(cuda, b, t, h, d, causal, window):
     _within("lse", lse, rlse, fwd_bound["lse"])
     for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         _within(name, got, ref, bound[name])
+
+
+@pytest.mark.parametrize("t", [960, 1000, 1088],
+                         ids=["15-tiles", "ragged", "17-tiles"])
+@pytest.mark.parametrize("d,window", [(64, None), (128, 200)],
+                         ids=["d64-causal", "d128-window"])
+def test_k1_forward_groups_and_tails(cuda, t, d, window):
+    """The forward's CTA takes a group of query tiles (three at d 64, a
+    pair at d 128): 15 tiles leave the last d-128 CTA one live
+    warpgroup, 16 (T = 1000, its last tile ragged: TMA zero-fills its
+    rows) the last d-64 CTA one, 17 the last d-64 CTA two and the last
+    d-128 CTA one. o and lse within the plain version's bound, the
+    no-lse launch's o equal to the lse launch's, and a second launch
+    bitwise equal."""
+    q, k, v, _ = _k1_inputs(cuda, 2, t, 3, d, seed=t + d)
+    fl.reset_launches()
+    o, lse = fl.flash_fwd(q, k, v, True, None, window)
+    o2, lse2 = fl.flash_fwd(q, k, v, True, None, window)
+    o3, none = fl.flash_fwd(q, k, v, True, None, window, save_lse=False)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 3, "dq": 0, "dkv": 0, "plain": 0}
+    assert none is None
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o3)
+    f = [x.float() for x in (q, k, v)]
+    ro, rlse = fl.plain_fwd(*f, True, None, window)
+    bound = fl.kernel_error_bounds(*f, ro, rlse, f[0], True, None, window)
+    _within("o", o, ro, bound["o"])
+    _within("lse", lse, rlse, bound["lse"])
 
 
 def test_k1_autograd_on_the_card_launches_k1(cuda):

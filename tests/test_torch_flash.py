@@ -206,6 +206,47 @@ def test_plan_visits_exactly_the_tiles_with_a_visible_pair(t, causal,
         assert tiles == 136           # the lower triangle of 16 x 16
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,causal,window", [(64, True, None),
+                                             (200, False, None),
+                                             (960, True, None),
+                                             (1000, True, None),
+                                             (1000, True, 200),
+                                             (300, True, 70), (257, True, 0)])
+def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
+        t, causal, window, d):
+    """The forward kernel's CTA takes g consecutive query tiles (g = 3 at
+    d 64, 2 at d 128): every tile once (a count that g does not divide
+    leaves the last CTA fewer), the last groups (the longest causal
+    spans) first, and a key walk that is the union of the tiles' spans —
+    at most g - 1 tiles longer than any one's, so the visited-tile count
+    of the plan stays each tile's own."""
+    plan = fl.flash_plan(t, d, causal=causal, window=window)
+    nq, g = plan["nq"], fl.FWD_Q_TILES[d]
+    ctas = fl.fwd_groups(t, d, causal, window)
+    assert plan["fwd_cta"]["ctas_per_head"] == len(ctas) == -(-nq // g)
+    assert all(len(group) == g for group, _ in ctas)
+    tiles = [i for group, _ in ctas for i in group if i is not None]
+    assert sorted(tiles) == list(range(nq))
+    assert sum(i is None for i in ctas[0][0]) == -nq % g  # launched first
+    assert [group[0] for group, _ in ctas] == sorted(
+        (group[0] for group, _ in ctas), reverse=True)
+    lengths = [hi - lo for _, (lo, hi) in ctas]
+    if causal and window is None:
+        assert lengths == sorted(lengths, reverse=True)
+    span = dict(causal=causal, window=window, block_q=64, block_k=64)
+    for group, (lo, hi) in ctas:
+        for i in group:
+            if i is None:
+                continue
+            a, b = fl._k_span(i, nq, **span)
+            assert lo <= a and b <= hi and (hi - lo) - (b - a) <= g - 1
+    cta = plan["fwd_cta"]
+    assert (cta["q_tiles"], cta["key_tile"], cta["threads"]) == \
+        (g, 64, 128 * (g + 1))
+    assert cta["smem"] == fl.fwd_smem(d, cta["stages"]) <= 227 * 1024
+
+
 def test_window_contract():
     q, k, v = _t(*_inputs(7, (1, 16, 1, 8), n=3))
     for fn in (lambda: fl.flash_attention(q, k, v, causal=False, window=4),

@@ -240,18 +240,29 @@ def test_plan_fits_gpt2_small_training_and_rejects_what_it_cannot_take():
     assert all(b <= fc.SMEM_BUDGET for b in plan["smem"].values())
     # K2a: 128 x 128 tiles over 64 row blocks and 393 vocab tiles, one
     # persistent CTA per SM; K2c: 64-column strips x two h chunks of six
-    # 64-row tiles, a ring of seven x chunks
-    assert fc.FWD_TILE == (128, 128) and fc.DW_TILE == (128, 64)
+    # 64-row tiles, a ring of seven x chunks; K2d: 64 row blocks, each a
+    # cluster of four CTAs of three 64-wide h tiles, a ring of three W
+    # tiles, 32 + 96 accumulators a thread
+    assert fc.FWD_TILE == (128, 128) and fc.DW_TILE == (128, 64) \
+        and fc.DX_TILE == (128, 64)
     assert plan["fwd_items"] == 64 * 393 and plan["fwd_grid"] == 132
     assert plan["fwd_stages"] == 4
     assert plan["dw_grid"] == (786, 2) and plan["dw_tiles_per_chunk"] == 6
     assert plan["dw_stages"] == 7
-    assert plan["acc_regs"] == {"fwd": 64, "dw": 144}
+    assert plan["dx_grid"] == (64, 4) and plan["dx_cluster"] == 4
+    assert plan["dx_tiles_per_chunk"] == 3 and plan["dx_stages"] == 3
+    assert plan["acc_regs"] == {"fwd": 64, "dw": 144, "dx": 128}
     medium = fc.fused_ce_plan(128, 1024, 128)     # GPT-2-medium's H
     assert max(medium["smem"].values()) <= fc.SMEM_BUDGET
+    assert medium["dx_grid"] == (1, 6) and medium["dx_cluster"] == 6
     lay = fc.smem_layout("dx", 768)
-    assert lay["w"] % 128 == 0 and lay["s"] % 128 == 0 \
-        and lay["d"] + 2 * 32 * 72 == lay["total"]
+    # x chunk [128, 192], f32 partials [128, 64], the receive buffer (4
+    # slices of 32 rows), two bf16 d tiles, three W tiles [192, 64],
+    # 2 * 3 + 3 mbarriers, the alignment slack
+    assert (lay["p"], lay["r"], lay["d"], lay["ring"], lay["bar"]) == (
+        49152, 49152 + 32768, 49152 + 2 * 32768, 49152 + 3 * 32768,
+        49152 + 3 * 32768 + 3 * 3 * 8192)
+    assert lay["total"] == lay["bar"] + 128 + 1024
     with pytest.raises(ValueError, match="multiple of 16"):
         fc.fused_ce_plan(128, 100, 128)
     with pytest.raises(ValueError, match="multiples"):
@@ -293,25 +304,53 @@ def test_dw_h_chunks_cover_the_hidden_size_exactly(h):
     assert 1 <= tiles <= fc.DW_TILES_MAX and plan["dw_stages"] > tiles
 
 
+@pytest.mark.parametrize("h", [16, 272, 768, 1024, 1536])
+def test_dx_chunks_cover_the_hidden_size_exactly(h):
+    """K2d's cluster: its CTAs' h chunks tile [0, h) in order, none
+    empty, none over three 64-wide tiles; at most eight CTAs; the
+    chunk's buffers fit one CTA's shared memory with a ring of three
+    stages or more."""
+    cluster, tiles = fc.dx_split(h)
+    chunks = fc.dx_chunks(h)
+    assert len(chunks) == cluster <= fc.DX_CLUSTER_MAX
+    assert chunks[0][0] == 0 and chunks[-1][1] == h
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < hi - lo <= tiles * fc.K_CHUNK for lo, hi in chunks)
+    assert 1 <= tiles <= fc.DX_TILES_MAX
+    assert fc.dx_stages(h) >= 3
+    assert fc.smem_bytes("dx", h) <= fc.SMEM_BUDGET
+    want = {16: 1, 272: 2, 768: 4, 1024: 6, 1536: 8}[h]
+    assert cluster == want
+
+
+def test_dx_cluster_past_eight_ctas_raises():
+    with pytest.raises(ValueError, match="cluster of 9"):
+        fc.dx_split(1552)
+
+
 @pytest.mark.parametrize("h", [128, 256, 272, 768, 1024])
 def test_pipelines_fit_shared_memory_and_registers(h):
     plan = fc.fused_ce_plan(8192, h, 50304)
     for kernel in ("fwd", "dw", "dx"):
         assert plan["smem"][kernel] <= fc.SMEM_BUDGET, kernel
-    for kernel in ("fwd", "dw"):
+    for kernel in ("fwd", "dw", "dx"):
         lay = fc.smem_layout(kernel, h)
         # swizzled operand buffers start on 1024-byte boundaries, the
         # mbarriers on 8-byte ones, and all end before the total less
         # the alignment slack
-        bufs = ("out",) if kernel == "fwd" else ("d", "ring")
+        bufs = {"fwd": ("out",), "dw": ("d", "ring"),
+                "dx": ("p", "r", "d", "ring")}[kernel]
         assert all(lay[k] % 1024 == 0 for k in bufs)
         stages = plan[f"{kernel}_stages"]
-        bars = 2 * stages + (kernel == "dw")
+        bars = 2 * stages + {"fwd": 0, "dw": 1, "dx": 3}[kernel]
         assert lay["bar"] % 8 == 0 and \
             lay["bar"] + 8 * bars <= lay["total"] - 1024
     assert plan["acc_regs"]["fwd"] <= fc.ACC_REG_BUDGET
     assert plan["acc_regs"]["dw"] <= fc.ACC_REG_BUDGET
+    assert plan["acc_regs"]["dx"] <= fc.ACC_REG_BUDGET
     assert plan["dw_stages"] <= fc.MAX_STAGES
+    # dx holds steps j - 1, j and j + 1 of its ring at once
+    assert 3 <= plan["dx_stages"] <= fc.MAX_STAGES
 
 
 @settings(max_examples=40, deadline=None)
