@@ -11,7 +11,7 @@ fails:
 1. kernel — K3 (`paged_attn.resident`, `paged_attn.stream`) against its
    plain PyTorch version at the serving shapes (B=8, h=12, d=64, bt=16,
    max_blocks=64, a 12-layer pool viewed through block_base) in bf16
-   and f32;
+   and f32, and a second launch bitwise equal to the first;
 2. kernel-K2 — the four fused head+CE kernels (`fused_ce.fwd` with and
    without the residual, `fused_ce.residual_d`, `fused_ce.dw`,
    `fused_ce.dx`) against their plain versions at the GPT-2-small
@@ -62,12 +62,14 @@ fails:
    beside the card's 3.35 TB/s, and the ResNet-50 step; R1 must have
    launched, its plain version never (R1's launch count is zeroed just
    before and read just after);
-6. timing — each K3 scheme per launch at B=8 full 1023-token rows,
-   cycling through the 12 layers' pools, and each K2 kernel per launch
-   at the training shape, beside its bound, its plain version and the
-   library calls that do the same work (scaled_dot_product_attention on
-   pre-gathered K/V for K3, the cuBLAS products inside each K2 kernel;
-   timed here only — the port never calls them); and each K1 kernel per
+6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
+   at the serve run's mixed lengths (32..576), cycling through the 12
+   layers' pools, and each K2 kernel per launch at the training shape,
+   beside its bound, its plain version and the library calls that do
+   the same work (scaled_dot_product_attention on pre-gathered K/V for
+   K3, with and without the mask, with the backend it took; the cuBLAS
+   products inside each K2 kernel; timed here only — the port never
+   calls them); and each K1 kernel per
    launch at shapes (a) and (b), cycling over four input sets so L2
    holds none of a launch's inputs, beside its bound, its plain version
    and scaled_dot_product_attention's forward and backward; and R1 per
@@ -216,21 +218,28 @@ def phase_kernel(torch, pa):
         base = (LAYERS // 2) * nbp1         # a middle layer of the pool
         ref = pa.paged_attention_reference(q, kp, vp, tables, lens,
                                            block_base=base)
+        plan = pa.paged_plan(MAX_BLOCKS, BT, HEADS, HEAD_DIM, dtype=dtype)
         for scheme in ("resident", "stream"):
-            smem = pa.smem_bytes(scheme, MAX_BLOCKS, BT, HEAD_DIM,
-                                 q.element_size())
             got = pa.paged_attention(q, kp, vp, tables, lens,
                                      block_base=base, scheme=scheme)
+            again = pa.paged_attention(q, kp, vp, tables, lens,
+                                       block_base=base, scheme=scheme)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got.float()).all()),
                   f"{scheme} {name}: non-finite output")
+            check(torch.equal(got, again),
+                  f"{scheme} {name}: a second launch gave other bits")
             err = (got.float() - ref.float()).abs()
             atol, rtol = TOL[name]
             bad = err > atol + rtol * ref.float().abs()
             errs[(scheme, name)] = float(err.max())
             log(f"kernel {scheme:8s} {name:8s} max_abs_err "
                 f"{errs[(scheme, name)]:.3e} (tolerance {atol:g} + "
-                f"{rtol:g}*|ref|) smem {smem} B")
+                f"{rtol:g}*|ref|), second launch bitwise equal; "
+                f"{plan['splits']} splits of {plan['split_blocks']} blocks "
+                f"(grid {plan['splits']} x {HEADS} x {BATCH}), tiles of "
+                f"{plan['tile_blocks']} blocks, smem {plan[scheme + '_bytes']}"
+                f" B")
             check(not bool(bad.any()), f"{scheme} {name}: "
                   f"{int(bad.sum())} elements outside tolerance")
         del kp, vp
@@ -971,52 +980,151 @@ def time_cuda(torch, fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def time_device(torch, fn, iters):
+    """Device time per call of `fn`: the union of the intervals of the
+    kernels its `iters` calls launch (CUPTI through torch.profiler),
+    over `iters`. Unlike `time_cuda` it leaves out the card's idle gaps
+    while the host prepares the next call, which dominate a kernel of a
+    few microseconds launched from Python."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(spans, "the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / iters / 1e3
+
+
+def sdpa_backends(torch, fn):
+    """The backend SDPA's dispatch picks for `fn`'s inputs and each
+    backend's ms per call when forced (None where it refuses them):
+    ``(picked, {backend: ms})``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, mask = fn.inputs
+    names = {int(b.value): n for n, b in SDPBackend.__members__.items()}
+    try:
+        picked = names.get(int(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False)), "unknown")
+    except (AttributeError, RuntimeError, TypeError):
+        picked = "unknown"
+    forced = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                forced[name] = time_device(torch, fn, 4 * LAYERS)
+        except RuntimeError:
+            forced[name] = None
+    return picked, forced
+
+
+#: K3's timing shapes (8 rows each): full 1023-token rows (decode at
+#: max_len) and the serve phase's mixed lengths (prompts of 32..512
+#: tokens plus up to 64 new ones: 32..576)
+K3_SHAPES = {"full": [MAX_LEN - 1] * BATCH,
+             "mixed": [32, 109, 187, 265, 343, 420, 498, 576]}
+
+
 def phase_timing(torch, pa):
-    """K3 per launch at B=8 full rows (decode at max_len), cycling over
-    the 12 layers' pools (~300 MB, so L2 holds none of a launch's
-    K/V from the previous visit)."""
+    """K3 per launch at each of `K3_SHAPES`, cycling over the 12
+    layers' pools (~300 MB, so L2 holds none of a launch's K/V from the
+    previous visit), beside the byte bound of the blocks this run's
+    lengths make visible, the plain version and the library yardstick:
+    scaled_dot_product_attention on K/V gathered beforehand (up to the
+    longest row), with the boolean mask and, at full rows, where the
+    mask is all true, without it; each with the backend SDPA's dispatch
+    picks and every backend's time when forced. Every time is device
+    time per call (`time_device`); the kernels' back-to-back times with
+    the host's gaps (`time_cuda`) are kept as "<scheme>_wall". Uses only
+    `paged_attention`, `paged_attention_reference` and
+    `paged_traffic_bytes`, so `benchmarks/kernel_ab.py` can time an
+    older checkout's K3 with it. Returns {shape: {"resident": ms,
+    "stream": ms, "resident_wall": ms, "stream_wall": ms, "plain": ms,
+    "sdpa_mask": ms, "sdpa_nomask": ms or None, "sdpa_backend": {...},
+    "bound_ms": ms, "bound_by": str}}."""
     import torch.nn.functional as F
 
     dtype = torch.bfloat16
-    lengths = [MAX_LEN - 1] * BATCH
-    tables, lens = tables_for(torch, lengths)
     kp, vp, nbp1 = pools(torch, dtype)
     g = torch.Generator(device=DEVICE).manual_seed(4)
     q = torch.randn(BATCH, HEADS, HEAD_DIM, generator=g,
                     device=DEVICE).to(dtype)
     isz = q.element_size()
-    nbytes = (pa.paged_traffic_bytes(lengths, BT, HEADS, HEAD_DIM, isz)
-              + 2 * q.numel() * isz + tables.numel() * 4 + lens.numel() * 4)
-    visible = sum(n + 1 for n in lengths)
-    flops = 4 * visible * HEADS * HEAD_DIM
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    res = {}
-    for scheme in ("resident", "stream"):
-        res[scheme] = time_cuda(torch, lambda i, s=scheme: pa.paged_attention(
-            q, kp, vp, tables, lens, block_base=(i % LAYERS) * nbp1,
-            scheme=s), 20 * LAYERS)
-    plain_ms = time_cuda(torch, lambda i: pa.paged_attention_reference(
-        q, kp, vp, tables, lens, block_base=(i % LAYERS) * nbp1),
-        2 * LAYERS)
-    # the library yardstick: SDPA over K/V gathered beforehand
-    idx = tables.long()
-    kk = [kp[idx + l * nbp1].reshape(BATCH, MAX_LEN, HEADS, HEAD_DIM)
-          .transpose(1, 2).contiguous() for l in range(LAYERS)]
-    vv = [vp[idx + l * nbp1].reshape(BATCH, MAX_LEN, HEADS, HEAD_DIM)
-          .transpose(1, 2).contiguous() for l in range(LAYERS)]
-    mask = (torch.arange(MAX_LEN, device=DEVICE)[None, :]
-            <= lens.long()[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib_ms = time_cuda(torch, lambda i: F.scaled_dot_product_attention(
-        q4, kk[i % LAYERS], vv[i % LAYERS], attn_mask=mask), 20 * LAYERS)
-    for scheme, ms in res.items():
-        log(f"timing {scheme:8s} {ms:.4f} ms/launch; bound {bound_ms:.4f} ms "
-            f"({bound_by}: {nbytes} B, {flops} flop); plain {plain_ms:.4f} "
-            f"ms; library sdpa {lib_ms:.4f} ms; {1e-6 * nbytes / ms:.1f} "
-            f"GB/s achieved")
-    return res, plain_ms, lib_ms, bound_ms, bound_by
+    out = {}
+    for shape, lengths in K3_SHAPES.items():
+        tables, lens = tables_for(torch, lengths)
+        nbytes = (pa.paged_traffic_bytes(lengths, BT, HEADS, HEAD_DIM, isz)
+                  + 2 * q.numel() * isz + tables.numel() * 4
+                  + lens.numel() * 4)
+        flops = 4 * sum(n + 1 for n in lengths) * HEADS * HEAD_DIM
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+        res = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        for scheme in ("resident", "stream"):
+            def k3(i, s=scheme):
+                return pa.paged_attention(
+                    q, kp, vp, tables, lens, block_base=(i % LAYERS) * nbp1,
+                    scheme=s)
+            res[scheme] = time_device(torch, k3, 20 * LAYERS)
+            res[f"{scheme}_wall"] = time_cuda(torch, k3, 20 * LAYERS)
+        res["plain"] = time_device(
+            torch, lambda i: pa.paged_attention_reference(
+                q, kp, vp, tables, lens, block_base=(i % LAYERS) * nbp1),
+            2 * LAYERS)
+        # the library yardstick: SDPA over K/V gathered beforehand
+        nblk = max(lengths) // BT + 1
+        t = nblk * BT
+        idx = tables.long()[:, :nblk]
+        kk = [kp[idx + l * nbp1].reshape(BATCH, t, HEADS, HEAD_DIM)
+              .transpose(1, 2).contiguous() for l in range(LAYERS)]
+        vv = [vp[idx + l * nbp1].reshape(BATCH, t, HEADS, HEAD_DIM)
+              .transpose(1, 2).contiguous() for l in range(LAYERS)]
+        mask = (torch.arange(t, device=DEVICE)[None, :]
+                <= lens.long()[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        variants = {"sdpa_mask": mask}
+        if bool(mask.all()):
+            variants["sdpa_nomask"] = None
+        res["sdpa_nomask"] = None
+        res["sdpa_backend"] = {}
+        for name, m in variants.items():
+            def sdpa(i, m=m):
+                return F.scaled_dot_product_attention(
+                    q4, kk[i % LAYERS], vv[i % LAYERS], attn_mask=m)
+            sdpa.inputs = (q4, kk[0], vv[0], m)
+            res[name] = time_device(torch, sdpa, 20 * LAYERS)
+            picked, forced = sdpa_backends(torch, sdpa)
+            res["sdpa_backend"][name] = {"picked": picked, "forced": forced}
+        for scheme in ("resident", "stream"):
+            log(f"timing K3 ({shape}) {scheme:8s} {res[scheme]:.4f} ms/launch"
+                f" on the device ({res[scheme + '_wall']:.4f} back to back "
+                f"from the host); bound {res['bound_ms']:.4f} ms "
+                f"({res['bound_by']}: {nbytes} B, {flops} flop); plain "
+                f"{res['plain']:.4f} ms; {1e-6 * nbytes / res[scheme]:.1f} "
+                f"GB/s achieved")
+        for name in variants:
+            log(f"timing K3 ({shape}) library {name} {res[name]:.4f} ms on "
+                f"{t} gathered positions; backends "
+                f"{json.dumps(res['sdpa_backend'][name])}")
+        out[shape] = res
+        del kk, vv
+    del kp, vp
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_all(_build, names):
@@ -1103,7 +1211,9 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] timing done")
 
     kernels = []
-    times, plain_ms, lib_ms, bound_ms, bound_by = k3_times
+    # full rows; library: SDPA without the mask (all true at full rows:
+    # the same function), the masked call and the mixed shape in the log
+    full = k3_times["full"]
     for scheme in ("resident", "stream"):
         kernels.append({
             "name": f"paged_attn.{scheme}", "route": "cuda",
@@ -1111,9 +1221,9 @@ def main() -> int:
             "replaces": REPLACES[scheme],
             "launches": served[scheme][1]["launches"],
             "max_abs_err": errs[(scheme, "bfloat16")],
-            "ms": times[scheme], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms,
+            "ms": full[scheme], "plain_ms": full["plain"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": full["sdpa_nomask"],
         })
     for name in ("fwd", "residual_d", "dw", "dx"):
         ms, plain_ms, lib_ms, bound_ms, bound_by = k2_times[name]

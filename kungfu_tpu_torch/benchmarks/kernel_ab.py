@@ -1,19 +1,26 @@
-"""Time the K2 and K1 kernels of two checkouts in turns on one card.
+"""Time the K3, K2, K1 and R1 kernels of two checkouts in turns on one
+card.
 
     python3 -m kungfu_tpu_torch.benchmarks.kernel_ab BEFORE_DIR AFTER_DIR
-        [--phases k2,k1]
+        [--phases k3,k2,k1,r1]
 
-Each turn is a process of its own that imports the checkout's own
-`chip_smoke.py` and kernels (built from that checkout's sources into its
-own `build/`), and runs `chip_smoke.phase_timing_k2` (every K2 kernel
-per launch at the GPT-2-small training shape) and/or
+Each turn is a process of its own that imports the checkout's kernels
+(built from that checkout's sources into its own `build/`) and times
+them: K2 with the checkout's own `chip_smoke.phase_timing_k2` (every K2
+kernel per launch at the GPT-2-small training shape), K1 with its
 `chip_smoke.phase_timing_k1` (every K1 kernel per launch at shapes (a)
-and (b)). The four turns run before, after, after, before, so a
-drift of the card over the call shows as a difference between the two
-turns of one checkout. Prints the card's name and power limit, one JSON
-line per turn (``{"turn", "tree", "k2": {kernel: [ms, plain_ms,
-library_ms, bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}}``) and a
-table of each kernel's ms per turn. Needs one CUDA card.
+and (b)), and K3 with THIS checkout's `chip_smoke.phase_timing` run on
+the other checkout's `ops.paged_attn` (both schemes per launch at full
+1023-token rows and at the serve run's mixed lengths, so both trees are
+timed by the same code, whichever has the newer shapes), and R1 with
+its `chip_smoke.phase_timing_r1`. The four turns
+run before, after, after, before, so a drift of the card over the call
+shows as a difference between the two turns of one checkout. Prints the
+card's name and power limit, one JSON line per turn (``{"turn",
+"tree", "k3": {shape: {...}}, "k2": {kernel: [ms, plain_ms, library_ms,
+bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}, "r1": [ms, plain_ms,
+bound_ms]}``) and a table of
+each kernel's ms per turn. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -24,25 +31,41 @@ import os
 import subprocess
 import sys
 
+#: this checkout's chip_smoke.py, whose K3 timing every turn runs
+RUNNER = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "chip_smoke.py")
+
 TURN = r"""
-import json, sys, torch
+import importlib.util, json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from kungfu_tpu_torch.ops import _build, flash as fl, fused_ce as fc
+from kungfu_tpu_torch.ops import paged_attn as pa, stream as st
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-cs.build_all(_build, ["fused_ce", "flash"])
+names = {"k3": "paged_attn", "k2": "fused_ce", "k1": "flash",
+         "r1": "stream"}
+cs.build_all(_build, [n for k, n in names.items() if k in sys.argv[1]])
 out = {}
+if "k3" in sys.argv[1]:
+    spec = importlib.util.spec_from_file_location("runner_smoke",
+                                                  sys.argv[2])
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    out["k3"] = runner.phase_timing(torch, pa)
 if "k2" in sys.argv[1]:
     out["k2"] = cs.phase_timing_k2(torch, fc)
 if "k1" in sys.argv[1]:
     out["k1"] = cs.phase_timing_k1(torch, fl)
+if "r1" in sys.argv[1]:
+    out["r1"] = cs.phase_timing_r1(torch, st)
 print("AB_RESULT " + json.dumps(out))
 """
 
 
 def turn(tree: str, phases: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", TURN, phases], cwd=tree,
+    proc = subprocess.run([sys.executable, "-c", TURN, phases, RUNNER],
+                          cwd=tree,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     lines = proc.stdout.splitlines()
@@ -59,7 +82,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("before")
     ap.add_argument("after")
-    ap.add_argument("--phases", default="k2,k1")
+    ap.add_argument("--phases", default="k3,k2,k1,r1")
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,15 +94,20 @@ def main() -> int:
         res = turn(os.path.abspath(tree), args.phases)
         print(json.dumps({"turn": i, "tree": os.path.abspath(tree), **res}),
               flush=True)
+        for shape, r in res.get("k3", {}).items():
+            for name in ("resident", "stream"):
+                rows.setdefault(f"K3 ({shape}) {name}", []).append(r[name])
         for name, v in res.get("k2", {}).items():
             rows.setdefault(f"K2 {name}", []).append(v[0])
         for shape, kern in res.get("k1", {}).items():
             for name, v in kern.items():
                 if name != "sdpa":
                     rows.setdefault(f"K1 ({shape}) {name}", []).append(v[0])
+        if "r1" in res:
+            rows.setdefault("R1 neg", []).append(res["r1"][0])
     print("ms/launch by turn: before, after, after, before")
     for name, vals in rows.items():
-        print(f"{name:16s} " + " ".join(f"{ms:10.4f}" for ms in vals))
+        print(f"{name:20s} " + " ".join(f"{ms:10.4f}" for ms in vals))
     return 0
 
 

@@ -1,14 +1,16 @@
-"""Where K2d's and K1's forward time goes: each kernel timed beside
+"""Where K2d's, K1's forward and K3's time goes: each kernel timed beside
 copies of its own source with one part taken out.
 
-    python3 -m kungfu_tpu_torch.benchmarks.kernel_split
+    python3 -m kungfu_tpu_torch.benchmarks.kernel_split [--kernels k2,k1,k3]
 
-Builds, from `csrc/fused_ce.cu` and `csrc/flash.cu` as they stand, the
-variants below into ``build/kernel_split/`` (one nvcc each, in parallel),
-and times each variant's launch at the training shapes of
+Builds, from `csrc/fused_ce.cu`, `csrc/flash.cu` and `csrc/paged_attn.cu`
+as they stand, the variants below into ``build/kernel_split/`` (one nvcc
+each, in parallel), and times each variant's launch at the shapes of
 `chip_smoke.py` (K2d: n_pad 8192, h 768, v_pad 50304; K1: shapes (a) and
-(b)). The variants compute wrong results on purpose; they are only
-timed. Prints the card's name and power limit and one JSON line.
+(b); K3: both schemes at `K3_SHAPES`, as device time per launch, since a
+K3 launch is shorter than the host's time to issue it). The variants
+compute wrong results on purpose; they are only timed. Prints the
+card's name and power limit and one JSON line.
 
 - ``k2_dx``: the kernel; ``products_only``: the cluster exchange (the
   barrier waits and their arming, the sums, d and the copies) removed —
@@ -17,12 +19,19 @@ timed. Prints the card's name and power limit and one JSON line.
   removed (the softmax, masks and pipeline stay); ``pipeline_only``:
   also the softmax — the TMA ring with consumers that only wait and
   release; ``no_copies``: also the K/V copies — launch, Q and epilogue.
+- ``k3``: the kernel; ``no_compute``: the score dot products and the
+  weighted sum of V removed (copies, waits, softmax and exchange stay);
+  ``no_loads``: no tile at all — launch, q, length and table reads, the
+  cluster exchange and the combine; ``no_exchange``: also the cluster
+  barriers and remote reads (CTA barriers and local reads instead);
+  ``launch_only``: every CTA returns at once.
 
 Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -31,7 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..ops import _build, flash as fl, fused_ce as fc
+from ..ops import _build, flash as fl, fused_ce as fc, paged_attn as pa
 
 OUT = _build.BUILD_DIR.parent / "kernel_split"
 
@@ -74,6 +83,31 @@ def _pipeline_only(s):
                  "      if (lane == 0) mbar_arrive(&empty[st]);")
 
 
+def _k3_no_compute(s):
+    s = _cut(s, "p0 + pos <= length ? score(k, pos) : kNegInf",
+             "p0 + pos <= length ? 0.f : kNegInf")
+    return _cut(s, "    if (g >= groups) return;\n    int rot = rot0;",
+                "    return;\n    int rot = rot0;")
+
+
+def _k3_no_loads(s):
+    return _cut(s, "const int ntiles = (nblk + a.tile_blocks - 1) / "
+                "a.tile_blocks;", "const int ntiles = 0;")
+
+
+def _k3_no_exchange(s):
+    s = _k3_no_loads(s).replace("cluster_sync();", "__syncthreads();")
+    return _cut(s, '  asm volatile("ld.shared::cluster.f32 %0, [%1];"\n'
+                '               : "=f"(v)\n'
+                '               : "r"(dsmem_addr(p, rank)));', "  v = *p;")
+
+
+def _k3_launch_only(s):
+    return _cut(s, "  constexpr int VEC = 16 / sizeof(T);\n  extern",
+                "  constexpr int VEC = 16 / sizeof(T);\n"
+                "  if (gridDim.x > 0) return;\n  extern")
+
+
 def _no_copies(s):
     return _span(_pipeline_only(s),
                  "        mbar_expect_tx(&full[st], 2 * kTileB);",
@@ -85,7 +119,16 @@ VARIANTS = {
     "fused_ce": {"k2_dx": None, "products_only": _products_only},
     "flash": {"k1_fwd": None, "no_products": _no_products,
               "pipeline_only": _pipeline_only, "no_copies": _no_copies},
+    "paged_attn": {"k3": None, "no_compute": _k3_no_compute,
+                   "no_loads": _k3_no_loads,
+                   "no_exchange": _k3_no_exchange,
+                   "launch_only": _k3_launch_only},
 }
+#: --kernels names -> library
+KERNEL_LIBS = {"k2": "fused_ce", "k1": "flash", "k3": "paged_attn"}
+#: library -> its C entry point
+ENTRY = {"fused_ce": "k2_dx", "flash": "k1_fwd",
+         "paged_attn": "k3_paged_attention"}
 
 
 def _build_variant(lib, name, edit):
@@ -102,13 +145,46 @@ def _build_variant(lib, name, edit):
                           text=True)
     if proc.returncode:
         raise RuntimeError(f"build of {name} failed:\n{proc.stdout}")
-    fn_name = "k2_dx" if lib == "fused_ce" else "k1_fwd"
+    fn_name = ENTRY[lib]
     fn = getattr(ctypes.CDLL(str(so)), fn_name)
     fn.restype, fn.argtypes = _build.KERNELS[lib][1][fn_name]
     return name, fn
 
 
+def _time_k3(cs, fns, out):
+    """Every K3 variant, both schemes, at `chip_smoke.K3_SHAPES` (bf16,
+    the 12 layers' pools cycled), by device time per launch."""
+    kp, vp, nbp1 = cs.pools(torch, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(cs.BATCH, cs.HEADS, cs.HEAD_DIM, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    o = torch.empty_like(q)
+    plan = pa.paged_plan(cs.MAX_BLOCKS, cs.BT, cs.HEADS, cs.HEAD_DIM,
+                         dtype=torch.bfloat16)
+    for shape, lengths in cs.K3_SHAPES.items():
+        tables, lens = cs.tables_for(torch, lengths)
+        for scheme in ("resident", "stream"):
+            for name in VARIANTS["paged_attn"]:
+                def go(i, fn=fns[name]):
+                    err = fn(pa._SCHEME_ID[scheme], 1, q.data_ptr(),
+                             kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+                             lens.data_ptr(), o.data_ptr(), cs.BATCH,
+                             cs.HEADS, cs.HEAD_DIM, cs.BT, cs.MAX_BLOCKS,
+                             plan["splits"], plan["split_blocks"],
+                             plan["tile_blocks"], plan["ring"],
+                             (i % cs.LAYERS) * nbp1, kp.shape[0],
+                             cs.HEAD_DIM ** -0.5, plan[f"{scheme}_bytes"],
+                             _build.stream(q.device))
+                    if err:
+                        raise RuntimeError(f"{name}: launch error {err}")
+                out[f"{name} {scheme} ({shape})"] = cs.time_device(
+                    torch, go, 20 * cs.LAYERS)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="k2,k1,k3")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device", file=sys.stderr)
         return 2
@@ -120,11 +196,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
+    libs = {KERNEL_LIBS[k] for k in args.kernels.split(",")}
     jobs = [(lib, name, edit) for lib, v in VARIANTS.items()
-            for name, edit in v.items()]
+            for name, edit in v.items() if lib in libs]
     with ThreadPoolExecutor(len(jobs)) as pool:
         fns = dict(pool.map(lambda j: _build_variant(*j), jobs))
     out = {}
+    if "paged_attn" in libs:
+        _time_k3(cs, fns, out)
+    if "fused_ce" in libs:
+        _time_k2(cs, fns, out)
+    if "flash" in libs:
+        _time_k1(cs, fns, out)
+    for k, v in out.items():
+        print(f"{k:32s} {v:.4f} ms/launch", flush=True)
+    print(json.dumps({"card": card.stdout.strip(), "ms": out}))
+    return 0
+
+
+def _time_k2(cs, fns, out):
     x, w, b, t, scale = cs.k2_inputs(torch, fc)
     _, lse, _ = fc.plain_fwd(x, w, b, t, False)
     n_pad, h = x.shape
@@ -141,7 +231,9 @@ def main() -> int:
             if err:
                 raise RuntimeError(f"{name}: launch error {err}")
         out[name] = cs.time_cuda(torch, go, 5)
-    del x, w, b, t, lse, dx
+
+
+def _time_k1(cs, fns, out):
     for tag in ("a", "b"):
         bb, tt, hh, d, causal, window = cs.K1_SHAPES[tag]
         sets = [cs.k1_inputs(torch, bb, tt, hh, d, 10 + s)[:3]
@@ -159,10 +251,6 @@ def main() -> int:
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")
             out[f"{name} ({tag})"] = cs.time_cuda(torch, go, 40)
-    for k, v in out.items():
-        print(f"{k:24s} {v:.4f} ms/launch", flush=True)
-    print(json.dumps({"card": card.stdout.strip(), "ms": out}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -40,10 +40,10 @@ _LL = ctypes.c_longlong
 KERNELS = {
     "paged_attn": ("paged_attn.cu", {
         # scheme, dtype, q, k, v, tables, lengths, out, B, H, D, BT,
-        # max_blocks, block_base, n_pool_blocks, scale, smem bytes, stream
-        "k3_paged_attention": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _LL, _LL,
-                                    ctypes.c_float, _LL, _P]),
+        # max_blocks, splits, split_blocks, tile_blocks, ring,
+        # block_base, n_pool_blocks, scale, smem bytes, stream
+        "k3_paged_attention": (_I, [_I, _I] + [_P] * 6 + [_I] * 9
+                               + [_LL, _LL, ctypes.c_float, _LL, _P]),
     }),
     "fused_ce": ("fused_ce.cu", {
         # x, w, b, t, logits|NULL, part, lse, tl, n_pad, h, v_pad,

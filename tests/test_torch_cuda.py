@@ -62,6 +62,76 @@ def test_kernel_matches_plain_version(cuda, scheme, dtype):
                                rtol=rtol)
 
 
+def _k3_twice_against_plain(q, kp, vp, tables, lengths, base, scheme):
+    """Two launches of `scheme`: the second bitwise equal to the first,
+    the first within TOL of the plain version."""
+    pa.reset_launches()
+    got = pa.paged_attention(q, kp, vp, tables, lengths, block_base=base,
+                             scheme=scheme)
+    again = pa.paged_attention(q, kp, vp, tables, lengths, block_base=base,
+                               scheme=scheme)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[scheme] == 2 and pa.LAUNCHES["plain"] == 0
+    assert torch.equal(got, again)
+    ref = pa.paged_attention_reference(q, kp, vp, tables, lengths,
+                                       block_base=base)
+    atol, rtol = TOL[q.dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["resident", "stream"])
+@pytest.mark.parametrize("max_blocks", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_k3_every_cluster_size(cuda, scheme, dtype, max_blocks):
+    """At h 12 the plan gives each of max_blocks <= 8 blocks its own CTA:
+    clusters of 1..8, with lengths at the block (= split) boundaries and
+    a pad row of length 0."""
+    bt = 16
+    t = max_blocks * bt
+    lengths = sorted({0, 1, bt - 1, bt, min(bt + 1, t - 1), t // 2,
+                      max(t - bt - 1, 0), t - 1})
+    plan = pa.paged_plan(max_blocks, bt, 12, 64, dtype=dtype)
+    assert (plan["splits"], plan["split_blocks"]) == (max_blocks, 1)
+    q, kp, vp, tables, lens, nbp1 = _inputs(cuda, dtype, lengths, bt=bt,
+                                            max_blocks=max_blocks, seed=3)
+    _k3_twice_against_plain(q, kp, vp, tables, lens, nbp1, scheme)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["resident", "stream"])
+@pytest.mark.parametrize("bt,d", [(2, 64), (16, 64), (32, 64), (2, 128),
+                                  (16, 128), (32, 128)])
+def test_k3_split_and_block_boundaries(cuda, scheme, dtype, bt, d):
+    """max_len 512 in 8 splits of several blocks (and, at bt 2, tiles of
+    several blocks): lengths just before, at and after split and block
+    boundaries, a full row and a pad row of length 0."""
+    max_blocks = 512 // bt
+    plan = pa.paged_plan(max_blocks, bt, 12, d, dtype=dtype)
+    span = plan["split_blocks"] * bt               # positions a split
+    assert plan["splits"] == 8
+    lengths = [0, span - 1, span, span + 1, 3 * span + bt - 1,
+               5 * span + bt, 511, 7 * span - 1]
+    q, kp, vp, tables, lens, nbp1 = _inputs(cuda, dtype, lengths, bt=bt,
+                                            d=d, max_blocks=max_blocks,
+                                            seed=bt + d)
+    _k3_twice_against_plain(q, kp, vp, tables, lens, nbp1, scheme)
+
+
+def test_k3_stream_long_rows_many_tiles(cuda):
+    """The stream scheme past what resident holds: 30,000 blocks of 16
+    tokens in 8 splits of 3,750 blocks walked in tiles; rows of
+    different lengths, one of them full."""
+    max_blocks, bt = 30_000, 16
+    plan = pa.paged_plan(max_blocks, bt, 2, 64, dtype=torch.bfloat16)
+    assert plan["scheme"] == "stream" and plan["splits"] == 8
+    lengths = [max_blocks * bt - 1, 70_001, 0, 3_750 * bt]
+    q, kp, vp, tables, lens, nbp1 = _inputs(
+        cuda, torch.bfloat16, lengths, bt=bt, h=2, layers=1,
+        max_blocks=max_blocks, seed=7)
+    _k3_twice_against_plain(q, kp, vp, tables, lens, 0, "stream")
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, kp, vp, tables, lengths, _ = _inputs(cuda, torch.float32, [3, 4])
     with pytest.raises(ValueError, match="int32"):

@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from kungfu_tpu.ops import paged_attn as jax_pa
 from kungfu_tpu_torch.ops import paged_attn as pa
@@ -150,12 +152,13 @@ def test_wrapper_rejects_functional_and_unknown_schemes():
 
 
 def test_wrapper_rejects_a_scheme_over_the_shared_memory_budget():
-    # 60,000 blocks of 1 token: the resident score buffer alone is 240 KB
+    # 600,000 blocks of 1 token in 8 splits: each split's resident score
+    # buffer alone is 300 KB
     q = torch.zeros(1, 2, 8)
     pool = torch.zeros(2, 1, 2, 8)
-    tables = torch.zeros(1, 60_000, dtype=torch.int32)
+    tables = torch.zeros(1, 600_000, dtype=torch.int32)
     lengths = torch.zeros(1, dtype=torch.int32)
-    assert pa.paged_plan(60_000, 1, 2, 8)["scheme"] == "stream"
+    assert pa.paged_plan(600_000, 1, 2, 8)["scheme"] == "stream"
     pa.reset_launches()
     with pytest.raises(ValueError, match="resident needs"):
         pa.paged_attention(q, pool, pool, tables, lengths, scheme="resident")
@@ -185,6 +188,21 @@ def test_paged_plan_decisions():
     assert f32["resident_bytes"] < plan["resident_bytes"]
     with pytest.raises(ValueError):
         pa.paged_plan(64, 16, 12, 60, dtype=torch.bfloat16)  # d % 8
+    # the split: 8 CTAs of 8 blocks a row and head (a cluster of 8), so
+    # 8 rows x 12 heads launch 768 CTAs on the card's 132 SMs; tiles of
+    # 4 blocks (8 KB of bf16 K) through a ring of 2
+    assert (plan["splits"], plan["split_blocks"]) == (8, 8)
+    assert (plan["tile_blocks"], plan["ring"]) == (4, 2)
+    assert 8 * 12 * plan["splits"] == 768 > 4 * pa.SM_COUNT
+    assert (f32["splits"], f32["split_blocks"], f32["tile_blocks"]) == (8, 8, 2)
+    # the 1.6M-token row: still 8 splits, of 12,500 blocks
+    assert (long["splits"], long["split_blocks"]) == (8, 12_500)
+    # fewer blocks than a cluster holds: one block a split
+    assert (pa.paged_plan(5, 16, 12, 64)["splits"],
+            pa.paged_plan(5, 16, 12, 64)["split_blocks"]) == (5, 1)
+    # many heads cover the SMs with fewer splits (h * splits >= 132)
+    wide = pa.paged_plan(64, 16, 48, 64)
+    assert (wide["splits"], wide["split_blocks"]) == (3, 22)
 
 
 @pytest.mark.parametrize("lengths,bt,itemsize,layers", [
@@ -215,3 +233,117 @@ def test_kernel_library_is_named_by_source_hash():
     assert path.name.startswith("libpaged_attn-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert (_build.CSRC / "paged_attn.cu").exists()
+
+
+# ---------------------------------------------------------------------------
+# the split walk and the cluster's combine, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bt", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("max_len", [128, 256, 512, 1024])
+@pytest.mark.parametrize("heads", [1, 12, 48])
+def test_split_plan_covers_visible_blocks_once(bt, max_len, heads):
+    """Every row's visible blocks ``[0, length // bt + 1)`` fall in
+    exactly one split's range, whatever the length; no split is empty
+    at full length; at most a portable cluster of 8."""
+    max_blocks = max_len // bt
+    plan = pa.paged_plan(max_blocks, bt, heads, 64, dtype=torch.bfloat16)
+    n, sb = plan["splits"], plan["split_blocks"]
+    assert 1 <= n <= pa.MAX_SPLITS and n * sb >= max_blocks
+    assert (n - 1) * sb < max_blocks
+    lengths = torch.arange(max_len, dtype=torch.int32)
+    rng = pa.split_ranges(lengths, max_blocks, bt, n, sb)
+    counts = torch.zeros(max_len, max_blocks, dtype=torch.int64)
+    for s in range(n):
+        j0, j1 = rng[:, s, 0], rng[:, s, 1]
+        blk = torch.arange(max_blocks)
+        counts += ((blk[None] >= j0[:, None]) & (blk[None] < j1[:, None]))
+    visible = (torch.arange(max_blocks)[None]
+               <= (lengths.long() // bt)[:, None]).long()
+    assert torch.equal(counts, visible)
+    assert bool((rng[-1, :, 1] > rng[-1, :, 0]).all())   # full rows
+
+
+@pytest.mark.parametrize("bt", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("max_len", [128, 256, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_plan_shared_memory_fits(bt, head_dim, max_len, dtype):
+    """Both schemes fit the 227 KB a Hopper block may use at every
+    serving shape, and the plan keeps resident there."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    plan = pa.paged_plan(max_len // bt, bt, 12, head_dim, dtype=dtype)
+    assert plan["scheme"] == "resident"
+    for scheme in ("resident", "stream"):
+        assert plan[f"{scheme}_bytes"] <= pa.SMEM_BUDGET
+        assert plan[f"{scheme}_bytes"] == pa.smem_bytes(
+            scheme, max_len // bt, bt, head_dim, isz, 12)
+
+
+@st.composite
+def _split_case(draw):
+    """A pool shape, a split count and lengths at block and split
+    boundaries (0 among them)."""
+    bt = draw(st.sampled_from([2, 4, 16]))
+    max_blocks = draw(st.integers(1, 12))
+    splits = draw(st.integers(1, 8))
+    _, sb = pa.split_count(max_blocks, splits=splits)
+    edges = sorted({j * bt for j in range(max_blocks)}
+                   | {j * sb * bt for j in range(max_blocks // sb + 1)})
+    cand = sorted({0} | {e + o for e in edges for o in (-1, 0, 1)
+                         if 0 <= e + o < max_blocks * bt})
+    lengths = draw(st.lists(st.sampled_from(cand), min_size=1, max_size=4))
+    return bt, max_blocks, splits, lengths, draw(st.integers(0, 2 ** 16))
+
+
+@settings(max_examples=20, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(case=_split_case())
+def test_split_merge_matches_functional_and_pallas(pallas_interpret, case):
+    """The merge of any split, in both schemes, equals the JAX
+    functional oracle and the Pallas kernel of the same scheme (interpret
+    mode) within the file's f32 tolerance."""
+    bt, max_blocks, splits, lengths, seed = case
+    rng = np.random.default_rng(seed)
+    h, d, layers = 2, 8, 2
+    lengths = np.array(lengths, np.int32)
+    nb = len(lengths) * max_blocks
+    shape = (layers, nb + 1, bt, h, d)
+    pk = rng.standard_normal(shape, dtype=np.float32)
+    pv = rng.standard_normal(shape, dtype=np.float32)
+    q = rng.standard_normal((len(lengths), h, d), dtype=np.float32)
+    tables = rng.permutation(np.arange(1, nb + 1)).reshape(
+        len(lengths), max_blocks).astype(np.int32)
+    tables[lengths == 0] = 0
+    oracle = np.asarray(_functional_oracle(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(tables), jnp.asarray(lengths), 1))
+    flat = (layers * (nb + 1),) + shape[2:]
+    for scheme in ("resident", "stream"):
+        part = _port(q, pk, pv, tables, lengths, 1, fn=pa.split_partials,
+                     scheme=scheme, splits=splits)
+        assert part[2].shape[1] == pa.split_count(max_blocks,
+                                                  splits=splits)[0]
+        got = pa.merge_partials(scheme, part).numpy()
+        np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=RTOL)
+        kernel = jax_pa.paged_attention(
+            jnp.asarray(q), jnp.asarray(pk.reshape(flat)),
+            jnp.asarray(pv.reshape(flat)), jnp.asarray(tables),
+            jnp.asarray(lengths), block_base=nb + 1, scheme=scheme,
+            interpret=True)
+        np.testing.assert_allclose(got, np.asarray(kernel), atol=ATOL,
+                                   rtol=RTOL)
+
+
+def test_split_partials_of_an_empty_split_are_neutral():
+    """A split past a row's visible blocks holds (finfo.min, 0, 0) in the
+    stream scheme and contributes nothing to either merge."""
+    q, pk, pv, tables, lengths = _inputs(5, 4, max_blocks=8)
+    for scheme in ("resident", "stream"):
+        m, l, acc = _port(q, pk, pv, tables, lengths, 0,
+                          fn=pa.split_partials, scheme=scheme, splits=8)
+        # lengths[0] = bt - 1: only split 0 sees a block
+        assert float(l[0, 1:].abs().max()) == 0.0
+        assert float(acc[0, 1:].abs().max()) == 0.0
+        assert bool((m[0, 1:] == pa.NEG_INF).all())
