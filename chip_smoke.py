@@ -69,10 +69,13 @@ fails:
    the same work (scaled_dot_product_attention on pre-gathered K/V for
    K3, with and without the mask, with the backend it took; the cuBLAS
    products inside each K2 kernel; timed here only — the port never
-   calls them); and each K1 kernel per
-   launch at shapes (a) and (b), cycling over four input sets so L2
-   holds none of a launch's inputs, beside its bound, its plain version
-   and scaled_dot_product_attention's forward and backward; and R1 per
+   calls them); and each K1 kernel per launch at shapes (a) and (b) by
+   device time, cycling over four input sets so L2 holds none of a
+   launch's inputs, beside its bound, its plain version and
+   scaled_dot_product_attention's forward and its backward alone (the
+   one call that computes dq, dk and dv: the library time of the pair
+   dq + dkv), with the backends SDPA picks and each one's time when
+   forced; and R1 per
    launch at [262144, 1024] beside its byte bound and torch.neg (its
    plain version and the library call at once).
 
@@ -742,10 +745,18 @@ def phase_timing_k1(torch, fl):
     """Each K1 kernel per launch at shapes (a) and (b), cycling over four
     input sets (4 x 4 x 12.6 MB at (a): L2's 50 MB holds none of a
     launch's inputs from its previous visit), beside its bound, its plain
-    version and the library yardstick scaled_dot_product_attention:
-    its forward, and its backward (fwd+bwd minus fwd) beside dq + dkv.
-    SDPA is timed only; the port never calls it. Returns {shape: {kernel:
-    (ms, plain_ms, bound_ms, bound_by)}, "sdpa": ...}."""
+    version and the library yardstick scaled_dot_product_attention: its
+    forward, and its backward alone (the graph is built outside the
+    profiled window and kept with retain_graph), which computes dq, dk
+    and dv together and so stands beside dq + dkv. Every time is device
+    time per call (`time_device`). SDPA's backend is named as its
+    dispatch picks it (and as the backward's autograd node names it),
+    with every backend's time when forced. SDPA is timed only; the port
+    never calls it. Uses only the wrappers and plain versions of
+    `ops.flash`, so `benchmarks/kernel_ab.py` can time an older
+    checkout's K1 with it. Returns {shape: {kernel: (ms, plain_ms,
+    bound_ms, bound_by), "sdpa": {"fwd": ms, "bwd": ms, "bwd_node":
+    str, "fwd_backend": {...}, "bwd_backend": {...}}}}."""
     import torch.nn.functional as F
 
     out = {}
@@ -773,15 +784,16 @@ def phase_timing_k1(torch, fl):
         }
         res = {}
         for name, (kern, plain) in runs.items():
-            ms = time_cuda(torch, lambda i: kern(sets[i % 4]), 40)
-            plain_ms = time_cuda(torch, lambda i: plain(sets[0]), 2)
+            ms = time_device(torch, lambda i: kern(sets[i % 4]), 40)
+            plain_ms = time_device(torch, lambda i: plain(sets[0]), 2)
             bound_ms, bound_by, flops, nbytes = k1_bound(name, b, t, h, d,
                                                          causal, window)
             res[name] = (ms, plain_ms, bound_ms, bound_by)
-            log(f"timing K1 ({tag}) {name:4s} {ms:.4f} ms/launch; bound "
-                f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop); "
-                f"plain {plain_ms:.4f} ms; {1e-12 * flops / (ms * 1e-3):.1f} "
-                f"TFLOP/s, {1e-9 * nbytes / (ms * 1e-3):.1f} GB/s achieved")
+            log(f"timing K1 ({tag}) {name:4s} {ms:.4f} ms/launch on the "
+                f"device; bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+                f"{flops} flop); plain {plain_ms:.4f} ms; "
+                f"{1e-12 * flops / (ms * 1e-3):.1f} TFLOP/s, "
+                f"{1e-9 * nbytes / (ms * 1e-3):.1f} GB/s achieved")
         # SDPA on contiguous [B, h, T, d] copies of the same values (its
         # own layout); the window as a boolean band mask (is_causal
         # cannot express it)
@@ -792,28 +804,47 @@ def phase_timing_k1(torch, fl):
                 (pos[:, None] - pos[None, :] <= window)
         lib = [[x.transpose(1, 2).contiguous().requires_grad_()
                 for x in st[:4]] for st in sets]
+        is_causal = causal and mask is None
 
         def sdpa(x):
             return F.scaled_dot_product_attention(
-                x[0], x[1], x[2], attn_mask=mask,
-                is_causal=causal and mask is None)
+                x[0], x[1], x[2], attn_mask=mask, is_causal=is_causal)
 
         def sdpa_fwd(i):
             with torch.no_grad():
                 return sdpa(lib[i % 4])
 
-        def sdpa_both(i):
-            x = lib[i % 4]
-            return torch.autograd.grad(sdpa(x), x[:3], x[3])
+        def sdpa_bwd():
+            """The backward alone: the four graphs are built here, under
+            whatever backend the caller forces, outside the window."""
+            outs = [sdpa(x) for x in lib]
 
-        lib_fwd = time_cuda(torch, sdpa_fwd, 40)
-        lib_both = time_cuda(torch, sdpa_both, 40)
-        res["sdpa"] = (lib_fwd, lib_both - lib_fwd)
+            def bwd(i):
+                x = lib[i % 4]
+                return torch.autograd.grad(outs[i % 4], x[:3], x[3],
+                                           retain_graph=True)
+            bwd.node = outs[0].grad_fn.name()
+            return bwd
+
+        sdpa_fwd.inputs = tuple(x.detach() for x in lib[0][:3]) + (
+            mask, is_causal)
+        lib_fwd = time_device(torch, sdpa_fwd, 40)
+        bwd = sdpa_bwd()
+        lib_bwd, node = time_device(torch, bwd, 40), bwd.node
+        del bwd
+        res["sdpa"] = {"fwd": lib_fwd, "bwd": lib_bwd, "bwd_node": node}
+        for key, fn, make, inputs in (
+                ("fwd_backend", sdpa_fwd, None, None),
+                ("bwd_backend", None, sdpa_bwd,
+                 tuple(lib[0][:3]) + (mask, is_causal))):
+            picked, forced = sdpa_backends(torch, fn, make, inputs)
+            res["sdpa"][key] = {"picked": picked, "forced": forced}
+        pair = res["dq"][0] + res["dkv"][0]
         log(f"timing K1 ({tag}) library sdpa forward {lib_fwd:.4f} ms, "
-            f"backward (fwd+bwd {lib_both:.4f} - fwd) "
-            f"{lib_both - lib_fwd:.4f} ms against dq + dkv "
-            f"{res['dq'][0] + res['dkv'][0]:.4f} ms; mask "
-            f"{'band' if mask is not None else 'is_causal'}")
+            f"backward alone {lib_bwd:.4f} ms ({res['sdpa']['bwd_node']}) "
+            f"against dq + dkv {pair:.4f} ms ({pair / lib_bwd:.2f}x); mask "
+            f"{'band' if mask is not None else 'is_causal'}; backends "
+            f"{json.dumps({k: v for k, v in res['sdpa'].items() if 'backend' in k})}")
         out[tag] = res
         del sets, lib
         torch.cuda.empty_cache()
@@ -991,14 +1022,20 @@ def time_device(torch, fn, iters):
     for _ in range(3):
         fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    # on the H100 a session has come back without device events where the
+    # same calls, in the same order of phases, recorded them: such a
+    # session runs again, at most three times in all
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
     check(spans, "the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     for a, b in spans:
@@ -1008,17 +1045,21 @@ def time_device(torch, fn, iters):
     return busy / iters / 1e3
 
 
-def sdpa_backends(torch, fn):
-    """The backend SDPA's dispatch picks for `fn`'s inputs and each
+def sdpa_backends(torch, fn, make=None, inputs=None):
+    """The backend SDPA's dispatch picks for `inputs` (default
+    `fn.inputs`: q, k, v, mask and, optionally, is_causal) and each
     backend's ms per call when forced (None where it refuses them):
-    ``(picked, {backend: ms})``."""
+    ``(picked, {backend: ms})``. With `make`, the function timed under
+    each forced backend is ``make()``, called inside the forcing (a
+    backward's graphs are built there, so the forced backend is the one
+    the graph records)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q, k, v, mask = fn.inputs
+    q, k, v, mask, *rest = fn.inputs if inputs is None else inputs
     names = {int(b.value): n for n, b in SDPBackend.__members__.items()}
     try:
         picked = names.get(int(torch._fused_sdp_choice(
-            q, k, v, mask, 0.0, False)), "unknown")
+            q, k, v, mask, 0.0, bool(rest and rest[0]))), "unknown")
     except (AttributeError, RuntimeError, TypeError):
         picked = "unknown"
     forced = {}
@@ -1026,7 +1067,8 @@ def sdpa_backends(torch, fn):
                  "MATH"):
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]):
-                forced[name] = time_device(torch, fn, 4 * LAYERS)
+                forced[name] = time_device(
+                    torch, make() if make is not None else fn, 4 * LAYERS)
         except RuntimeError:
             forced[name] = None
     return picked, forced
@@ -1129,7 +1171,7 @@ def phase_timing(torch, pa):
 
 def build_all(_build, names):
     """One nvcc per library, all started together; prints each build's
-    time and the compiler's register/shared-memory/spill lines."""
+    time and the compiler's register, spill and warning lines."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         texts = dict(zip(names, pool.map(_build.build, names)))
@@ -1138,7 +1180,7 @@ def build_all(_build, names):
     for name, text in texts.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill", "error")):
+                                       "spill", "error", "warning")):
                 log(f"  {name}: {line.strip()}")
         _build.load(name)
 
@@ -1237,12 +1279,14 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    sdpa = k1_times["a"]["sdpa"]
     for name in ("fwd", "dq", "dkv"):
         # shape (a), the training shape. library_ms: SDPA's forward for
-        # fwd; no single PyTorch call computes dq or dk/dv alone (SDPA's
-        # backward, timed beside dq + dkv in the log, computes all three)
+        # fwd; for dq and dkv SDPA's backward, the one PyTorch call that
+        # computes their function: it returns dq, dk and dv together, so
+        # its time stands on both rows as the time of the pair
         ms, plain_ms, bound_ms, bound_by = k1_times["a"][name]
-        kernels.append({
+        row = {
             "name": f"flash.{name}", "route": "cuda",
             "source": "kungfu_tpu_torch/csrc/flash.cu",
             "replaces": K1_REPLACES[name],
@@ -1250,8 +1294,14 @@ def main() -> int:
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": k1_times["a"]["sdpa"][0] if name == "fwd" else None,
-        })
+            "library_ms": sdpa["fwd"] if name == "fwd" else sdpa["bwd"],
+            "library_call": "scaled_dot_product_attention " + (
+                f"forward ({sdpa['fwd_backend']['picked']})" if name == "fwd"
+                else f"backward ({sdpa['bwd_node']})"),
+        }
+        if name != "fwd":
+            row["library_ms_is_pair"] = "flash.dq + flash.dkv"
+        kernels.append(row)
     # torch.neg is R1's plain version and the one library call computing
     # the same function: plain_ms and library_ms are the same timing
     kernels.append({

@@ -7,13 +7,14 @@ card.
 Each turn is a process of its own that imports the checkout's kernels
 (built from that checkout's sources into its own `build/`) and times
 them: K2 with the checkout's own `chip_smoke.phase_timing_k2` (every K2
-kernel per launch at the GPT-2-small training shape), K1 with its
-`chip_smoke.phase_timing_k1` (every K1 kernel per launch at shapes (a)
-and (b)), and K3 with THIS checkout's `chip_smoke.phase_timing` run on
-the other checkout's `ops.paged_attn` (both schemes per launch at full
-1023-token rows and at the serve run's mixed lengths, so both trees are
-timed by the same code, whichever has the newer shapes), and R1 with
-its `chip_smoke.phase_timing_r1`. The four turns
+kernel per launch at the GPT-2-small training shape), K3 and K1 with
+THIS checkout's `chip_smoke.phase_timing` and `phase_timing_k1` run on
+the other checkout's `ops.paged_attn` and `ops.flash` (K3: both schemes
+per launch at full 1023-token rows and at the serve run's mixed
+lengths; K1: every kernel per launch at shapes (a) and (b) by device
+time, beside SDPA's forward and backward; so both trees are timed by
+the same code, whichever has the newer yardstick), and R1 with its
+`chip_smoke.phase_timing_r1`. The four turns
 run before, after, after, before, so a drift of the card over the call
 shows as a difference between the two turns of one checkout. Prints the
 card's name and power limit, one JSON line per turn (``{"turn",
@@ -31,7 +32,7 @@ import os
 import subprocess
 import sys
 
-#: this checkout's chip_smoke.py, whose K3 timing every turn runs
+#: this checkout's chip_smoke.py, whose K3 and K1 timing every turn runs
 RUNNER = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "chip_smoke.py")
 
@@ -47,16 +48,15 @@ names = {"k3": "paged_attn", "k2": "fused_ce", "k1": "flash",
          "r1": "stream"}
 cs.build_all(_build, [n for k, n in names.items() if k in sys.argv[1]])
 out = {}
+spec = importlib.util.spec_from_file_location("runner_smoke", sys.argv[2])
+runner = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(runner)
 if "k3" in sys.argv[1]:
-    spec = importlib.util.spec_from_file_location("runner_smoke",
-                                                  sys.argv[2])
-    runner = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(runner)
     out["k3"] = runner.phase_timing(torch, pa)
 if "k2" in sys.argv[1]:
     out["k2"] = cs.phase_timing_k2(torch, fc)
 if "k1" in sys.argv[1]:
-    out["k1"] = cs.phase_timing_k1(torch, fl)
+    out["k1"] = runner.phase_timing_k1(torch, fl)
 if "r1" in sys.argv[1]:
     out["r1"] = cs.phase_timing_r1(torch, st)
 print("AB_RESULT " + json.dumps(out))
@@ -103,6 +103,9 @@ def main() -> int:
             for name, v in kern.items():
                 if name != "sdpa":
                     rows.setdefault(f"K1 ({shape}) {name}", []).append(v[0])
+            for name in ("fwd", "bwd"):
+                rows.setdefault(f"K1 ({shape}) sdpa {name}", []).append(
+                    kern["sdpa"][name])
         if "r1" in res:
             rows.setdefault("R1 neg", []).append(res["r1"][0])
     print("ms/launch by turn: before, after, after, before")

@@ -1,14 +1,16 @@
-"""Where K2d's, K1's forward and K3's time goes: each kernel timed beside
-copies of its own source with one part taken out.
+"""Where K2d's, K1's and K3's time goes: each kernel timed beside copies
+of its own source with one part taken out.
 
-    python3 -m kungfu_tpu_torch.benchmarks.kernel_split [--kernels k2,k1,k3]
+    python3 -m kungfu_tpu_torch.benchmarks.kernel_split
+        [--kernels k2,k1,k1_dq,k1_dkv,k3]
 
 Builds, from `csrc/fused_ce.cu`, `csrc/flash.cu` and `csrc/paged_attn.cu`
 as they stand, the variants below into ``build/kernel_split/`` (one nvcc
 each, in parallel), and times each variant's launch at the shapes of
 `chip_smoke.py` (K2d: n_pad 8192, h 768, v_pad 50304; K1: shapes (a) and
-(b); K3: both schemes at `K3_SHAPES`, as device time per launch, since a
-K3 launch is shorter than the host's time to issue it). The variants
+(b), device time per launch; K3: both schemes at `K3_SHAPES`, as device
+time per launch, since a K3 launch is shorter than the host's time to
+issue it). The variants
 compute wrong results on purpose; they are only timed. Prints the
 card's name and power limit and one JSON line.
 
@@ -19,6 +21,13 @@ card's name and power limit and one JSON line.
   removed (the softmax, masks and pipeline stay); ``pipeline_only``:
   also the softmax — the TMA ring with consumers that only wait and
   release; ``no_copies``: also the K/V copies — launch, Q and epilogue.
+- ``k1_dq``: the kernel; ``dq_no_products``: S, dP and dQ += dS K
+  removed (the delta prologue, exponents, masks, dS and the pipeline
+  stay); ``dq_pipeline_only``: also the per-tile arithmetic — the delta
+  prologue, the TMA ring and the epilogue.
+- ``k1_dkv``: the kernel; ``dkv_no_products``: S^T, dP^T, dV += P^T dO
+  and dK += dS^T Q removed; ``dkv_pipeline_only``: also the per-tile
+  arithmetic — the ring of (Q, dO, lse, delta) stages and the epilogue.
 - ``k3``: the kernel; ``no_compute``: the score dot products and the
   weighted sum of V removed (copies, waits, softmax and exchange stay);
   ``no_loads``: no tile at all — launch, q, length and table reads, the
@@ -108,6 +117,47 @@ def _k3_launch_only(s):
                 "  if (gridDim.x > 0) return;\n  extern")
 
 
+def _filled(name, n):
+    """`name`[0 .. n) set to values the compiler cannot fold away."""
+    return (f"for (int i = 0; i < {n}; ++i) {name}[i] = "
+            f"__int_as_float(0x3c000000 + i + (int)(uintptr_t)s);")
+
+
+def _bwd_no_products(s, kernel):
+    """The dq (or dkv) kernel with its wgmma products replaced by fills
+    of the accumulators and a sum of the A fragments, so the exponents,
+    masks and packs stay live."""
+    if kernel == "dq":
+        s = _cut(s, "scores<D>(sc, dqd, sw128_desc(s, 16));", _filled("sc", 32))
+        s = _cut(s, "scores<D>(dp, dod, sw128_desc(s + kTileB, 16));",
+                 _filled("dp", 32))
+        return _cut(s, "for (int kc = 0; kc < 4; ++kc) pv_step<D>(acc, da[kc], "
+                    "dkn + 128 * kc);",
+                    "for (int kc = 0; kc < 16; ++kc) acc[kc % (D / 2)] += "
+                    "__uint_as_float(da[kc / 4][kc % 4]);")
+    s = _cut(s, "scores<D>(sc, kd, sw128_desc(s, 16));", _filled("sc", 32))
+    s = _cut(s, "scores<D>(dp, vd, sw128_desc(s + kTileB, 16));",
+             _filled("dp", 32))
+    s = _cut(s, "for (int kc = 0; kc < 4; ++kc) pv_step<D>(gv, pa[kc], don + "
+             "128 * kc);", "for (int kc = 0; kc < 16; ++kc) gv[kc % (D / 2)] "
+             "+= __uint_as_float(pa[kc / 4][kc % 4]);")
+    return _cut(s, "for (int kc = 0; kc < 4; ++kc) pv_step<D>(gk, da[kc], qn + "
+                "128 * kc);", "for (int kc = 0; kc < 16; ++kc) gk[kc % (D / 2)]"
+                " += __uint_as_float(da[kc / 4][kc % 4]);")
+
+
+def _bwd_pipeline_only(s, kernel):
+    """The dq (or dkv) kernel whose consumers only wait for each stage
+    and release it."""
+    if kernel == "dq":
+        return _span(s, "      const unsigned char* s = ring + st * 2 * "
+                     "kTileB;\n      float sc[32], dp[32];", "      prev = st;",
+                     "      if (lane == 0) mbar_arrive(&empty[st]);\n")
+    return _span(s, "      const unsigned char* s = ring + st * 2 * kTileB;"
+                 "\n      const float* lr",
+                 "      if (lane == 0) mbar_arrive(&empty[st]);")
+
+
 def _no_copies(s):
     return _span(_pipeline_only(s),
                  "        mbar_expect_tx(&full[st], 2 * kTileB);",
@@ -115,23 +165,28 @@ def _no_copies(s):
                  "        mbar_arrive(&full[st]);\n")
 
 
+#: --kernels name -> (library, C entry point, {variant: source edit})
 VARIANTS = {
-    "fused_ce": {"k2_dx": None, "products_only": _products_only},
-    "flash": {"k1_fwd": None, "no_products": _no_products,
-              "pipeline_only": _pipeline_only, "no_copies": _no_copies},
-    "paged_attn": {"k3": None, "no_compute": _k3_no_compute,
-                   "no_loads": _k3_no_loads,
-                   "no_exchange": _k3_no_exchange,
-                   "launch_only": _k3_launch_only},
+    "k2": ("fused_ce", "k2_dx", {"k2_dx": None,
+                                 "products_only": _products_only}),
+    "k1": ("flash", "k1_fwd", {"k1_fwd": None, "no_products": _no_products,
+                               "pipeline_only": _pipeline_only,
+                               "no_copies": _no_copies}),
+    "k1_dq": ("flash", "k1_dq", {
+        "k1_dq": None,
+        "dq_no_products": lambda s: _bwd_no_products(s, "dq"),
+        "dq_pipeline_only": lambda s: _bwd_pipeline_only(s, "dq")}),
+    "k1_dkv": ("flash", "k1_dkv", {
+        "k1_dkv": None,
+        "dkv_no_products": lambda s: _bwd_no_products(s, "dkv"),
+        "dkv_pipeline_only": lambda s: _bwd_pipeline_only(s, "dkv")}),
+    "k3": ("paged_attn", "k3_paged_attention", {
+        "k3": None, "no_compute": _k3_no_compute, "no_loads": _k3_no_loads,
+        "no_exchange": _k3_no_exchange, "launch_only": _k3_launch_only}),
 }
-#: --kernels names -> library
-KERNEL_LIBS = {"k2": "fused_ce", "k1": "flash", "k3": "paged_attn"}
-#: library -> its C entry point
-ENTRY = {"fused_ce": "k2_dx", "flash": "k1_fwd",
-         "paged_attn": "k3_paged_attention"}
 
 
-def _build_variant(lib, name, edit):
+def _build_variant(lib, fn_name, name, edit):
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC / _build.KERNELS[lib][0]).read_text()
@@ -145,7 +200,6 @@ def _build_variant(lib, name, edit):
                           text=True)
     if proc.returncode:
         raise RuntimeError(f"build of {name} failed:\n{proc.stdout}")
-    fn_name = ENTRY[lib]
     fn = getattr(ctypes.CDLL(str(so)), fn_name)
     fn.restype, fn.argtypes = _build.KERNELS[lib][1][fn_name]
     return name, fn
@@ -164,7 +218,7 @@ def _time_k3(cs, fns, out):
     for shape, lengths in cs.K3_SHAPES.items():
         tables, lens = cs.tables_for(torch, lengths)
         for scheme in ("resident", "stream"):
-            for name in VARIANTS["paged_attn"]:
+            for name in VARIANTS["k3"][2]:
                 def go(i, fn=fns[name]):
                     err = fn(pa._SCHEME_ID[scheme], 1, q.data_ptr(),
                              kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
@@ -183,7 +237,7 @@ def _time_k3(cs, fns, out):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="k2,k1,k3")
+    ap.add_argument("--kernels", default="k2,k1,k1_dq,k1_dkv,k3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device", file=sys.stderr)
@@ -196,18 +250,21 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
     print(f"card: {card.stdout.strip()}", flush=True)
-    libs = {KERNEL_LIBS[k] for k in args.kernels.split(",")}
-    jobs = [(lib, name, edit) for lib, v in VARIANTS.items()
-            for name, edit in v.items() if lib in libs]
+    kernels = args.kernels.split(",")
+    jobs = [(lib, entry, name, edit) for k in kernels
+            for lib, entry, v in [VARIANTS[k]] for name, edit in v.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:
         fns = dict(pool.map(lambda j: _build_variant(*j), jobs))
     out = {}
-    if "paged_attn" in libs:
+    if "k3" in kernels:
         _time_k3(cs, fns, out)
-    if "fused_ce" in libs:
+    if "k2" in kernels:
         _time_k2(cs, fns, out)
-    if "flash" in libs:
+    if "k1" in kernels:
         _time_k1(cs, fns, out)
+    for k in ("k1_dq", "k1_dkv"):
+        if k in kernels:
+            _time_k1_bwd(cs, fns, out, k)
     for k, v in out.items():
         print(f"{k:32s} {v:.4f} ms/launch", flush=True)
     print(json.dumps({"card": card.stdout.strip(), "ms": out}))
@@ -221,7 +278,7 @@ def _time_k2(cs, fns, out):
     v_pad = w.shape[1]
     plan = fc.fused_ce_plan(n_pad, h, v_pad)
     dx = torch.empty((n_pad, h), dtype=torch.bfloat16, device="cuda")
-    for name in VARIANTS["fused_ce"]:
+    for name in VARIANTS["k2"][2]:
         def go(i, fn=fns[name]):
             err = fn(scale.data_ptr(), x.data_ptr(), w.data_ptr(),
                      b.data_ptr(), t.data_ptr(), lse.data_ptr(),
@@ -240,7 +297,7 @@ def _time_k1(cs, fns, out):
                 for s in range(4)]
         o = torch.empty_like(sets[0][0])
         lse = torch.empty((bb * hh, tt), device="cuda")
-        for name in VARIANTS["flash"]:
+        for name in VARIANTS["k1"][2]:
             def go(i, fn=fns[name]):
                 q, k, v = sets[i % 4]
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -250,7 +307,39 @@ def _time_k1(cs, fns, out):
                          fl.fwd_smem(d), _build.stream(q.device))
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")
-            out[f"{name} ({tag})"] = cs.time_cuda(torch, go, 40)
+            out[f"{name} ({tag})"] = cs.time_device(torch, go, 40)
+
+
+def _time_k1_bwd(cs, fns, out, kernel):
+    """Every variant of the dq (or dkv) kernel at shapes (a) and (b),
+    four input sets cycled, by device time per launch; (o, lse, delta)
+    from the kernels as built."""
+    for tag in ("a", "b"):
+        bb, tt, hh, d, causal, window = cs.K1_SHAPES[tag]
+        sets = []
+        for s in range(4):
+            q, k, v, do = cs.k1_inputs(torch, bb, tt, hh, d, 10 + s)
+            o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+            _, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+            sets.append((q, k, v, do, o, lse, delta))
+        outs = [torch.empty_like(sets[0][0]) for _ in range(2)]
+        delta_out = torch.empty_like(sets[0][6])
+        common = (bb, tt, hh, d, d ** -0.5, int(causal),
+                  -1 if window is None else window, fl.BWD_STAGES)
+        for name in VARIANTS[kernel][2]:
+            def go(i, fn=fns[name]):
+                q, k, v, do, o, lse, delta = (x.data_ptr() for x in sets[i % 4])
+                if kernel == "k1_dq":
+                    err = fn(q, k, v, o, do, lse, outs[0].data_ptr(),
+                             delta_out.data_ptr(), *common, fl.dq_smem(d),
+                             _build.stream(sets[0][0].device))
+                else:
+                    err = fn(q, k, v, do, lse, delta, outs[0].data_ptr(),
+                             outs[1].data_ptr(), *common, fl.dkv_smem(d),
+                             _build.stream(sets[0][0].device))
+                if err:
+                    raise RuntimeError(f"{name}: launch error {err}")
+            out[f"{name} ({tag})"] = cs.time_device(torch, go, 40)
 
 
 if __name__ == "__main__":

@@ -32,50 +32,52 @@
 // of the scores or probabilities reaches device memory) and skips every
 // fully masked tile.
 //
-// Design:
-// - fwd (K1a/K1b): a TMA-fed wgmma kernel, FlashAttention-3's shape
-//   simplified (kernel comment below). The parent design it replaces ran
-//   4-warp CTAs on one 64-row query tile each, staged K and V with
-//   synchronous 16-byte loads between two __syncthreads (no copy
-//   overlapping a product) and multiplied with mma.sync, in launch
-//   order; here a producer warp keeps K and V tiles in flight through an
-//   mbarrier ring while three consumer warpgroups at D = 64, two at
-//   D = 128 (a query tile each) run wgmma, P goes from the score
-//   accumulators to the second product in registers, and the longest
-//   causal spans launch first;
-// - dq and dkv (the parent design, right and simple first; their TMA/
-//   wgmma redesign is later work): FlashAttention-2 tiling, one CTA of 4
-//   warps per (64-row tile, b*h); each warp owns 16 rows of that tile.
-//   The other side streams through shared memory in 64-row tiles,
-//   staged by 16-byte loads (rows padded by 16 bytes against bank
-//   conflicts), with no overlap of loads and products; products are
-//   bf16 mma.sync.m16n8k16 with f32 accumulation. The score
-//   accumulator's register layout is the A operand's, so p and ds
-//   become the next product's A fragments in registers without a trip
-//   through shared memory;
-// - fwd and dq loop only over the key tiles [lo, hi) of `_k_span`
-//   (kungfu_tpu/ops/flash.py:260), dkv over the query tiles of
-//   `_q_span` (:276): causal attention visits about half the tiles and a
-//   sliding window O(window / 64) of them. Partial tiles and a ragged T
-//   are masked element by element, so any T runs on the kernels;
+// Design: all three kernels are TMA-fed wgmma pipelines of one shape
+// (FlashAttention-3's, simplified; the kernel comments below give the
+// details). A CTA is G consumer warpgroups, each owning one 64-row tile
+// of the side that stays resident (query tiles for fwd and dq, key
+// tiles for dkv), loaded once by TMA, beside a producer warpgroup that
+// streams the other side's tiles (one thread issues every TMA copy)
+// through a ring of stages guarded by full/empty mbarriers. TMA reads
+// [B, T, H, D] in place
+// through 4-D tensor maps (128-byte swizzle, rows past T zero-filled);
+// the consumers run wgmma m64nNk16 straight from the swizzled tiles, and
+// a probability or score gradient goes from the accumulators to the next
+// product as its register A operand, so no [64, 64] tile of p or ds ever
+// touches shared memory. Every warpgroup of a CTA walks the union of
+// its tiles' spans (`_k_span`, kungfu_tpu/ops/flash.py:260, for fwd and
+// dq; `_q_span`, :276, for dkv), so every wgmma runs the same number of
+// times (none in a divergent branch) and causal attention visits about
+// half the tiles, a sliding window O(window / 64) of them; a tile
+// outside a warpgroup's own span is masked out whole and adds nothing.
+// Partial tiles and a ragged T are masked element by element, so any T
+// runs on the kernels. CTAs with the longest causal spans launch first.
 // - fwd keeps the running max and sum in f32 registers (base-2
 //   exponent, scale folded in) and writes o in bf16 and, when asked, lse;
-// - dq computes delta for its rows first and writes it (the precompute
-//   folded in, as flash.py:34-38 does on the TPU), then rebuilds p from
-//   lse for each key tile;
-// - dkv works in the transposed score space (keys on rows), so dk and dv
-//   accumulate in f32 registers of the warp that owns the keys; it runs
-//   after dq on the same stream. No atomics: the result is
-//   deterministic.
+// - dq computes delta for its rows first, from its resident dO tile and
+//   a TMA-loaded o tile, and writes it (the precompute folded in, as
+//   flash.py:34-38 does on the TPU); then per key tile S = Q K^T and
+//   dP = dO V^T, p = exp2(S scale log2e - lse log2e), ds = p (dP -
+//   delta), dQ += ds K;
+// - dkv works in the transposed score space (keys on rows): per query
+//   tile S^T = K Q^T and dP^T = V dO^T, p^T from the lse row that the
+//   producer streams with the tile, dV += p^T dO, ds^T = p^T (dP^T -
+//   delta), dK += ds^T Q; dk and dv accumulate in f32 registers of the
+//   warpgroup that owns the keys. It runs after dq on the same stream.
+// p and ds are rounded to bf16 before their products
+// (`ops.flash.kernel_error_bounds` gives the tolerance). No atomics:
+// every result is deterministic.
 //
 // The PTX building blocks (mbarriers, TMA, wgmma) are in hopper.cuh,
-// shared with fused_ce.cu.
+// shared with fused_ce.cu and paged_attn.cu.
 //
 // C interface (bound with ctypes): every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
 // a negative code when a tensor map cannot be encoded (-1: the encoder
 // was not found; -1000 - CUresult: it refused the operand). D must be 64
-// or 128.
+// or 128. `stages` and `smem` are the ring's depth and the dynamic
+// shared memory in bytes (`flash_plan`'s fwd_cta, dq_cta and dkv_cta);
+// a launcher refuses a byte count below what its layout needs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,25 +91,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // dq, dkv: 4 warps x 16 rows
-constexpr int kTile = 64;      // query rows and key rows of a tile
+constexpr int kTile = 64;             // query rows and key rows of a tile
 constexpr int kBox = kTile * 64 * 2;  // [64 rows, 64 of D] bf16: 8 KB
-constexpr int kFwdStagesMax = 8;
+constexpr int kRowsB = 2 * kTile * 4; // dkv: a stage's lse and delta rows
+constexpr int kStagesMax = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// shared-memory row stride of a staged [64, D] bf16 tile
-template <int D>
-__host__ __device__ constexpr int ld_of() { return D + 8; }
-
+// a [64, D] tile in shared memory: D / 64 swizzled boxes of 8 KB
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return kTile * ld_of<D>() * 2;
-}
-
-// a fwd [64, D] tile in shared memory: D / 64 swizzled boxes of 8 KB
-template <int D>
-__host__ __device__ constexpr int fwd_tile_bytes() {
   return (D / 64) * kBox;
 }
 
@@ -123,18 +116,32 @@ __host__ __device__ constexpr int fwd_threads() {
   return (fwd_q_tiles<D>() + 1) * 128;
 }
 
-// D += A . B for one m16n8k16 bf16 product with f32 accumulators, in the
-// register layouts of the PTX ISA: lane = 4 g + t holds A rows g and
-// g + 8 at columns 2t, 2t+1 (regs 0, 1) and 2t+8, 2t+9 (regs 2, 3); B
-// column g at rows 2t, 2t+1 (reg 0) and 2t+8, 2t+9 (reg 1); C/D rows g
-// (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2t, 2t+1
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// dq: query tiles a CTA, two at either head dim (dQ, S and dP: 96
+// accumulator registers a thread at D = 64, 128 at D = 128). Three at
+// D = 64, at setmaxnreg 160, spilled and were slower at the training
+// shape on the H100
+template <int D>
+__host__ __device__ constexpr int dq_q_tiles() { return 2; }
+
+// dkv: key tiles a CTA. dK, dV, S^T and dP^T take 128 accumulator
+// registers a thread at D = 64: two warpgroups beside the producer (three,
+// at setmaxnreg 160, spilled and were no faster); at D = 128 they take
+// 192, so one warpgroup, which may use 255
+template <int D>
+__host__ __device__ constexpr int dkv_k_tiles() { return D == 64 ? 2 : 1; }
+
+// the backward's CTAs: G consumer warpgroups and a producer. With three
+// warpgroups the producer gives registers to the consumers (2 x 128 x
+// 232 + 128 x 40 = 64,512 of the 65,536; ptxas allocates the consumers'
+// code to the raised count, though -v reports the launch's 168); with
+// two no thread needs more than the 255 it has
+template <int G>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (G == 2) setmaxnreg_dec<40>();
+}
+template <int G>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (G == 2) setmaxnreg_inc<232>();
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -142,135 +149,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [r0, r0 + 64) of one head's [T, D] slice (row stride ld elements)
-// into shared memory, 16 bytes a thread; rows past T are zero
-template <int D>
-__device__ __forceinline__ void stage(bf16* s, const bf16* g, long long ld,
-                                      int r0, int t) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i - r * kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = *reinterpret_cast<const uint4*>(g + (size_t)(r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(s + r * ld_of<D>() + c) = val;
-  }
-}
-
-// A fragment: rows [r0, r0 + 16), columns [k0, k0 + 16) of a row-major
-// shared tile
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int ld,
-                                       int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8) from a tile stored [n][k]: B[k][n] = s[n0 + n][k0 + k]
-// (k^T in q.k^T, for example)
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* s, int ld,
-                                          int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8) from a tile stored [k][n]: B[k][n] = s[k0 + k][n0 + n]
-// (v in p.v, for example)
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* s, int ld,
-                                          int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(
-      s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2));
-  b[0] = (uint32_t)p[0] | ((uint32_t)p[ld] << 16);
-  b[1] = (uint32_t)p[8 * ld] | ((uint32_t)p[9 * ld] << 16);
-}
-
-// the A fragment of k-chunk kc (16 columns) from a 16 x 64 f32
-// accumulator in the C layout, rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4],
-                                         int kc) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-}
-
-// acc[j] (+)= rows [r0, r0 + 16) of sa . (columns of sb), over D: the
-// 16 x 64 scores of one warp against a 64-row tile stored [n][k]
-template <int D>
-__device__ __forceinline__ void scores(float (*acc)[4], const bf16* sa,
-                                       int r0, const bf16* sb) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    load_a(a, sa, ld_of<D>(), r0, kc * 16);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      load_b_nk(b, sb, ld_of<D>(), j * 8, kc * 16);
-      mma_16816(acc[j], a, b);
-    }
-  }
-}
-
-// out[n] += (bf16 of the 16 x 64 accumulator p) . sb, sb a 64 x D tile
-// stored [k][n]
-template <int D>
-__device__ __forceinline__ void accumulate(float (*out)[4],
-                                           const float (*p)[4],
-                                           const bf16* sb) {
-#pragma unroll
-  for (int kc = 0; kc < kTile / 16; ++kc) {
-    uint32_t a[4];
-    acc_to_a(a, p, kc);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t b[2];
-      load_b_kn(b, sb, ld_of<D>(), kc * 16, n * 8);
-      mma_16816(out[n], a, b);
-    }
-  }
-}
-
 __device__ __forceinline__ bool visible(int q, int k, int t, int causal,
                                         int window) {
   if (q >= t || k >= t) return false;
   if (!causal) return true;
   return q >= k && (window < 0 || q - k <= window);
-}
-
-// rows r and r + 8 of a warp's 16 x D accumulator, times `mul`, as bf16
-// into [T, D] rows of stride ld (rows past T are dropped)
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* g, long long ld, int row,
-                                           int t, const float (*acc)[4],
-                                           float mul0, float mul1) {
-  const int c = 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + 8 * half;
-    if (r >= t) continue;
-    const float mul = half ? mul1 : mul0;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(g + (size_t)r * ld + n * 8 + c) =
-          pack_bf16(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-  }
 }
 
 // `_k_span`: the key tiles [lo, hi) that query tile iq can see
@@ -291,6 +174,67 @@ __device__ __forceinline__ void q_span(int jk, int nq, int causal, int window,
   if (!causal) return;
   *lo = (jk * kTile) / kTile;
   if (window >= 0) *hi = min((jk * kTile + kTile - 1 + window) / kTile + 1, nq);
+}
+
+// a tile holds a pair that must be masked: a query or key past T, the
+// causal diagonal (or a tile past it) or the window's edge. k1_fwd keeps
+// its own copies of this test and of `scores`: built on these two
+// helpers its launch took 0.129 ms against 0.114 at the training shape
+// on the H100 (benchmarks/kernel_split.py)
+__device__ __forceinline__ bool edge_tile(int iq, int jk, int t, int causal,
+                                          int window) {
+  return (iq + 1) * kTile > t || (jk + 1) * kTile > t ||
+         (causal && (jk >= iq || (window >= 0 &&
+                                  (iq - jk) * kTile + kTile - 1 > window)));
+}
+
+// S[64, 64] = A B^T over D for two [64, D] tiles (K-major wgmma
+// operands at descriptors da and db; D / 64 boxes each)
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], uint64_t da,
+                                       uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
+    wgmma_n64<0, 0>(s, da + off, db + off, kk);
+  }
+}
+
+// rows r and r + 8 (register halves) of a warpgroup's [64, D]
+// accumulator, times `mul`, as bf16 into [T, D] rows of stride ld; rows
+// at or past T are dropped
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* g, long long ld, int r,
+                                          int t, const float (&acc)[D / 2],
+                                          float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= t) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(g + (size_t)row * ld + 8 * i +
+                                   2 * (lane & 3)) =
+          pack_bf16(acc[4 * i + 2 * half] * mul,
+                    acc[4 * i + 2 * half + 1] * mul);
+  }
+}
+
+// the sum of the products of 8 bf16 pairs held in a and b
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
 }
 
 // O[64, D] += P[64, 16 keys] . V[16 keys, D]: P from registers, V the
@@ -338,7 +282,7 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
                   const __grid_constant__ CUtensorMap tm_v, bf16* o,
                   float* lse, int t, int h, float scale, int causal,
                   int window, int stages) {
-  constexpr int kTileB = fwd_tile_bytes<D>();
+  constexpr int kTileB = tile_bytes<D>();
   constexpr int kQT = fwd_q_tiles<D>();
   constexpr int kConsumers = kQT * 128;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -503,165 +447,396 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
   }
 }
 
+// One CTA: warpgroups 0 .. G - 1 consume (G = dq_q_tiles<D>()), each
+// owning one 64-row query tile of the group (G p, ..., G p + G - 1) of
+// one (b, h); warpgroup G produces (one thread issues every copy). The
+// producer loads each tile's Q, dO and O once (past the last tile it
+// loads tile nq - 1 again: those rows are all past T and never stored),
+// then streams the K and V tiles of the union of the tiles' `_k_span`s
+// through a ring of `stages` stages, as k1_fwd does. A warpgroup first
+// forms delta = rowsum(dO * O) of its rows from the two swizzled tiles
+// (a row lives on the 4 lanes of a quad, each summing D / 4 products)
+// and writes it for dkv; then, per key tile:
+//   1. S = Q K^T and, issued right behind it, dP = dO V^T: wgmma
+//      m64n64k16 over D, every operand K-major, two commit groups;
+//   2. once S has retired (dP still running), P = exp2(S scale log2e -
+//      lse log2e) on the accumulators, masked only on an edge tile;
+//   3. once dP has retired, dS = P (dP - delta), rounded to bf16 as
+//      wgmma's register A fragments (the accumulator layout is the A
+//      layout, so dS never touches shared memory);
+//   4. dQ += dS K: K from the ring N-major (the transpose bit), m64nDk16,
+//      left running while the next tile's S and dP are issued behind it;
+//   5. releases the stage once that product has retired (the last
+//      stage is never waited for again and is not released).
+// dq = scale dQ is written in bf16. CTAs are numbered so that the last
+// groups, whose causal spans are the longest, launch first.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    k1_dq_kernel(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                 const bf16* dout, const float* lse, bf16* dq, float* delta,
-                 int t, int h, float scale, int causal, int window) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDo = sQ + kTile * ld_of<D>();
-  bf16* sK = sDo + kTile * ld_of<D>();
-  bf16* sV = sK + kTile * ld_of<D>();
-  float* sDelta = reinterpret_cast<float*>(sV + kTile * ld_of<D>());
-  const int iq = blockIdx.x, bh = blockIdx.y;
-  const long long ld = (long long)h * D;
-  const size_t base = (size_t)(bh / h) * t * ld + (size_t)(bh % h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = iq * kTile;
-  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
-  const float sl2 = scale * kLog2e;
-  stage<D>(sQ, q + base, ld, q0, t);
-  stage<D>(sDo, dout + base, ld, q0, t);
+__global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
+    k1_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const float* lse, bf16* dq, float* delta, int t, int h,
+                 float scale, int causal, int window, int stages) {
+  constexpr int kTileB = tile_bytes<D>();
+  constexpr int kG = dq_q_tiles<D>();
+  constexpr int kConsumers = kG * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sq = smem;                       // per tile: Q, dO, O
+  unsigned char* ring = smem + kG * 3 * kTileB;   // stages x (K, V)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * 2 * kTileB);
+  uint64_t* empty = full + stages;
+  uint64_t* qfull = empty + stages;
+  const int nq = (t + kTile - 1) / kTile;
+  const int ngroups = (nq + kG - 1) / kG;
+  const int bhn = gridDim.x / ngroups;
+  const int grp = ngroups - 1 - (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo = nq, hi = 0;
+  for (int g = 0; g < kG; ++g) {
+    int a, b;
+    k_span(kG * grp + g, nq, causal, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  // delta = rowsum(dO * o) for this warp's 16 rows, written for dkv
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    float part = 0.f;
-    if (q0 + r < t) {
-#pragma unroll
-      for (int c = 2 * lane; c < D; c += 64) {
-        const bf16* go = o + base + (size_t)(q0 + r) * ld + c;
-        const bf16* sd = sDo + r * ld_of<D>() + c;
-        part += __bfloat162float(sd[0]) * __bfloat162float(go[0]) +
-                __bfloat162float(sd[1]) * __bfloat162float(go[1]);
+  if (threadIdx.x >= kConsumers) {  // ------------------------ producer
+    producer_regs<kG>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qfull, kG * 3 * kTileB);
+      for (int g = 0; g < kG; ++g) {
+        const int r = min(kG * grp + g, nq - 1) * kTile;
+        for (int p = 0; p < D / 64; ++p) {
+          unsigned char* s = sq + 3 * g * kTileB + p * kBox;
+          tma_load_4d(s, &tm_q, p * 64, hd, r, bi, qfull);
+          tma_load_4d(s + kTileB, &tm_do, p * 64, hd, r, bi, qfull);
+          tma_load_4d(s + 2 * kTileB, &tm_o, p * 64, hd, r, bi, qfull);
+        }
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int jk = lo; jk < hi; ++jk) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * 2 * kTileB;
+        mbar_expect_tx(&full[st], 2 * kTileB);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(s + p * kBox, &tm_k, p * 64, hd, jk * kTile, bi,
+                      &full[st]);
+          tma_load_4d(s + kTileB + p * kBox, &tm_v, p * 64, hd, jk * kTile,
+                      bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
       }
     }
-    part = warp_sum(part);
-    if (lane == 0) {
-      sDelta[r] = part;
-      if (q0 + r < t) delta[(size_t)bh * t + q0 + r] = part;
+  } else {  // ------------------------------------------------ consumers
+    consumer_regs<kG>();
+    const int g = threadIdx.x >> 7;
+    const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int iq = kG * grp + g;
+    const int r0 = wq * 16 + (lane >> 2);  // tile rows r0 and r0 + 8
+    const int row = iq * kTile + r0;
+    const unsigned char* tq = sq + 3 * g * kTileB;
+    const float sl2 = scale * kLog2e;
+    mbar_wait(qfull, 0);
+    // delta = rowsum(dO * O): lane l of a quad sums 16-byte chunks
+    // 2 (l % 4) and + 1 of each 64-column box of the row
+    float dl[2], ls[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      float sum = 0.f;
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int off = p * kBox + sw128_off(r, 8 * (2 * (lane & 3) + j));
+          sum += dot8(*reinterpret_cast<const uint4*>(tq + kTileB + off),
+                      *reinterpret_cast<const uint4*>(tq + 2 * kTileB + off));
+        }
+      dl[half] = quad_sum(sum);
+      const bool live = row + 8 * half < t;
+      if (live && (lane & 3) == 0)
+        delta[(size_t)bh * t + row + 8 * half] = dl[half];
+      ls[half] = live ? lse[(size_t)bh * t + row + 8 * half] * kLog2e : 0.f;
     }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint64_t dqd = sw128_desc(tq, 16);
+    const uint64_t dod = sw128_desc(tq + kTileB, 16);
+    uint32_t da[4][4];  // dS fragments, read by a dQ product in flight
+    int st = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int jk = lo; jk < hi; ++jk) {
+      mbar_wait(&full[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * 2 * kTileB;
+      float sc[32], dp[32];
+      wgmma_fence();
+      scores<D>(sc, dqd, sw128_desc(s, 16));
+      wgmma_commit();
+      scores<D>(dp, dod, sw128_desc(s + kTileB, 16));
+      wgmma_commit();
+      // the previous tile's dQ product ran behind these two: once it has
+      // retired, its stage goes back to the producer
+      wgmma_wait<2>();
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      wgmma_wait<1>();
+      fence_acc(sc);
+      // register 4i + 2 half + c: row `row` + 8 half, key 8 i + 2 (lane % 4)
+      // + c of the tile
+      const bool edge = edge_tile(iq, jk, t, causal, window);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * i + 2 * half + c];
+            const int key = jk * kTile + 8 * i + 2 * (lane & 3) + c;
+            x = !edge || visible(row + 8 * half, key, t, causal, window)
+                    ? exp2f(fmaf(x, sl2, -ls[half]))
+                    : 0.f;
+          }
+      wgmma_wait<0>();
+      fence_acc(dp);
+      // dS as wgmma's A fragments: 16-key step kc is accumulator columns
+      // 8 (2 kc) .. 8 (2 kc + 1) + 7; register pair 8 kc + 2 e is row
+      // half e % 2
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * kc + 2 * e;
+          da[kc][e] = pack_bf16(sc[j] * (dp[j] - dl[e & 1]),
+                                sc[j + 1] * (dp[j + 1] - dl[e & 1]));
+        }
+      wgmma_fence();
+      const uint64_t dkn = sw128_desc(s, kBox);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(acc, da[kc], dkn + 128 * kc);
+      wgmma_commit();
+      prev = st;
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    const long long ld = (long long)h * D;
+    store_acc<D>(dq + (size_t)bi * t * ld + (size_t)hd * D, ld, row, t, acc,
+                 scale);
   }
-  __syncwarp();
-  float dl[2], ls[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + 8 * half;
-    dl[half] = sDelta[r - q0];
-    ls[half] = r < t ? lse[(size_t)bh * t + r] * kLog2e : 0.f;
-  }
-  int lo, hi;
-  k_span(iq, (t + kTile - 1) / kTile, causal, window, &lo, &hi);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int jk = lo; jk < hi; ++jk) {
-    __syncthreads();
-    stage<D>(sK, k + base, ld, jk * kTile, t);
-    stage<D>(sV, v + base, ld, jk * kTile, t);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    scores<D>(s, sQ, warp * 16, sK);
-    scores<D>(dp, sDo, warp * 16, sV);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row + 8 * (e >> 1);
-        const int key = jk * kTile + j * 8 + 2 * (lane & 3) + (e & 1);
-        const float p = visible(r, key, t, causal, window)
-                            ? exp2f(s[j][e] * sl2 - ls[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]);  // ds
-      }
-    accumulate<D>(acc, s, sK);
-  }
-  store_rows<D>(dq + base, ld, row, t, acc, scale, scale);
 }
 
+// One CTA: warpgroups 0 .. G - 1 consume (G = dkv_k_tiles<D>()), each
+// owning one 64-row key tile of the group (G p, ..., G p + G - 1) of one
+// (b, h), whose K and V the producer loads once (past the last tile,
+// tile nk - 1 again: never stored); warpgroup G produces. The producer
+// streams the query tiles of the union of the key tiles' `_q_span`s:
+// per stage, its first thread copies Q and dO [64, D] by TMA (4-D
+// tensor maps, as k1_fwd) and its second warp the tile's 64 lse and 64
+// delta values with plain loads (0 past T), each lane arriving on the
+// stage's full barrier after its stores (a head's row of lse starts at
+// b h T floats, which TMA cannot read from an address that is not a
+// multiple of 16 bytes). Per query tile, a warpgroup, in the
+// transposed score space (its 64 keys on rows, the 64 queries on
+// columns):
+//   1. S^T = K Q^T and, issued right behind it, dP^T = V dO^T (wgmma
+//      m64n64k16 over D, every operand K-major), two commit groups;
+//   2. once S^T has retired, P^T = exp2(S^T scale log2e - lse log2e),
+//      lse by column from the stage, masked only on an edge tile;
+//   3. once dP^T has retired, P^T and dS^T = P^T (dP^T - delta) rounded
+//      to bf16 as register A fragments;
+//   4. dV += P^T dO and dK += dS^T Q (dO and Q from the ring N-major,
+//      the transpose bit; m64nDk16), one commit group;
+//   5. releases the stage once both products have retired.
+// dk = scale dK and dv = dV are written in bf16. The first groups,
+// whose causal spans are the longest, launch first.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    k1_dkv_kernel(const bf16* q, const bf16* k, const bf16* v,
-                  const bf16* dout, const float* lse, const float* delta,
-                  bf16* dk, bf16* dv, int t, int h, float scale, int causal,
-                  int window) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * ld_of<D>();
-  bf16* sQ = sV + kTile * ld_of<D>();
-  bf16* sDo = sQ + kTile * ld_of<D>();
-  float* sL = reinterpret_cast<float*>(sDo + kTile * ld_of<D>());
-  float* sDelta = sL + kTile;
-  const int jk = blockIdx.x, bh = blockIdx.y;
-  const long long ld = (long long)h * D;
-  const size_t base = (size_t)(bh / h) * t * ld + (size_t)(bh % h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int key = jk * kTile + warp * 16 + (lane >> 2);  // and key + 8
-  const float sl2 = scale * kLog2e;
-  stage<D>(sK, k + base, ld, jk * kTile, t);
-  stage<D>(sV, v + base, ld, jk * kTile, t);
-  int lo, hi;
-  q_span(jk, (t + kTile - 1) / kTile, causal, window, &lo, &hi);
+__global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
+    k1_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* lse, const float* delta, bf16* dk, bf16* dv,
+                  int t, int h, float scale, int causal, int window,
+                  int stages) {
+  constexpr int kTileB = tile_bytes<D>();
+  constexpr int kG = dkv_k_tiles<D>();
+  constexpr int kConsumers = kG * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* skv = smem;                      // per tile: K, V
+  unsigned char* ring = smem + kG * 2 * kTileB;   // stages x (Q, dO)
+  unsigned char* rows = ring + stages * 2 * kTileB;  // stages x (lse, delta)
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + stages * kRowsB);
+  uint64_t* empty = full + stages;
+  uint64_t* kvfull = empty + stages;
+  const int nk = (t + kTile - 1) / kTile;
+  const int ngroups = (nk + kG - 1) / kG;
+  const int bhn = gridDim.x / ngroups;
+  const int grp = (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo = nk, hi = 0;
+  for (int g = 0; g < kG; ++g) {
+    int a, b;
+    q_span(kG * grp + g, nk, causal, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
 
-  float gk[D / 8][4], gv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
-  for (int iq = lo; iq < hi; ++iq) {
-    const int q0 = iq * kTile;
-    __syncthreads();
-    stage<D>(sQ, q + base, ld, q0, t);
-    stage<D>(sDo, dout + base, ld, q0, t);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      sL[threadIdx.x] = r < t ? lse[(size_t)bh * t + r] * kLog2e : 0.f;
-      sDelta[threadIdx.x] = r < t ? delta[(size_t)bh * t + r] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA thread and the row loaders
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    __syncthreads();
-    // transposed space: rows are this warp's 16 keys, columns 64 queries
-    float s[8][4], dp[8][4];
-    scores<D>(s, sK, warp * 16, sQ);
-    scores<D>(dp, sV, warp * 16, sDo);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-        const float p = visible(q0 + c, key + 8 * (e >> 1), t, causal, window)
-                            ? exp2f(s[j][e] * sl2 - sL[c]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sDelta[c]);  // ds^T
-      }
-    accumulate<D>(gv, s, sDo);
-    accumulate<D>(gk, dp, sQ);
+    mbar_init(kvfull, 1);
+    mbar_init_fence();
   }
-  store_rows<D>(dk + base, ld, key, t, gk, scale, scale);
-  store_rows<D>(dv + base, ld, key, t, gv, 1.f, 1.f);
-}
+  __syncthreads();
 
-// launch `kernel` on the caller's stream after raising its dynamic
-// shared-memory limit where it needs more than the default 48 KB
-template <typename... P, typename... A>
-int launch(void (*kernel)(P...), dim3 grid, int smem, void* stream,
-           A... args) {
-  if (smem > 48 * 1024) {
-    const int e = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e) return e;
+  if (threadIdx.x >= kConsumers) {  // ------------------------ producer
+    producer_regs<kG>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(kvfull, kG * 2 * kTileB);
+      for (int g = 0; g < kG; ++g) {
+        const int r = min(kG * grp + g, nk - 1) * kTile;
+        for (int p = 0; p < D / 64; ++p) {
+          unsigned char* s = skv + 2 * g * kTileB + p * kBox;
+          tma_load_4d(s, &tm_k, p * 64, hd, r, bi, kvfull);
+          tma_load_4d(s + kTileB, &tm_v, p * 64, hd, r, bi, kvfull);
+        }
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int iq = lo; iq < hi; ++iq) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * 2 * kTileB;
+        mbar_expect_tx(&full[st], 2 * kTileB);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(s + p * kBox, &tm_q, p * 64, hd, iq * kTile, bi,
+                      &full[st]);
+          tma_load_4d(s + kTileB + p * kBox, &tm_do, p * 64, hd, iq * kTile,
+                      bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    } else if (threadIdx.x >= kConsumers + 32 && threadIdx.x < kConsumers + 64) {
+      const int l = threadIdx.x - kConsumers - 32;
+      const float* gl = lse + (size_t)bh * t;
+      const float* gd = delta + (size_t)bh * t;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int iq = lo; iq < hi; ++iq) {
+        mbar_wait(&empty[st], ph ^ 1);
+        float* r = reinterpret_cast<float*>(rows + st * kRowsB);
+#pragma unroll
+        for (int j = l; j < kTile; j += 32) {
+          const int q = iq * kTile + j;
+          r[j] = q < t ? gl[q] : 0.f;
+          r[kTile + j] = q < t ? gd[q] : 0.f;
+        }
+        mbar_arrive(&full[st]);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    consumer_regs<kG>();
+    const int g = threadIdx.x >> 7;
+    const int wk = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int jk = kG * grp + g;
+    const int key = jk * kTile + wk * 16 + (lane >> 2);  // and key + 8
+    const float sl2 = scale * kLog2e;
+    const uint64_t kd = sw128_desc(skv + 2 * g * kTileB, 16);
+    const uint64_t vd = sw128_desc(skv + (2 * g + 1) * kTileB, 16);
+    float gk[D / 2], gv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+    mbar_wait(kvfull, 0);
+    int st = 0;
+    uint32_t ph = 0;
+    for (int iq = lo; iq < hi; ++iq) {
+      mbar_wait(&full[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * 2 * kTileB;
+      const float* lr = reinterpret_cast<const float*>(rows + st * kRowsB);
+      const float* dr = lr + kTile;
+      float sc[32], dp[32];
+      wgmma_fence();
+      scores<D>(sc, kd, sw128_desc(s, 16));
+      wgmma_commit();
+      scores<D>(dp, vd, sw128_desc(s + kTileB, 16));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(sc);
+      // register 4i + 2 half + c: key `key` + 8 half, query 8 i + 2 (lane
+      // % 4) + c of the tile
+      const bool edge = edge_tile(iq, jk, t, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c0 = 8 * i + 2 * (lane & 3);
+        const float2 l = *reinterpret_cast<const float2*>(lr + c0);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * i + 2 * half + c];
+            x = !edge || visible(iq * kTile + c0 + c, key + 8 * half, t,
+                                 causal, window)
+                    ? exp2f(fmaf(x, sl2, -(c ? l.y : l.x) * kLog2e))
+                    : 0.f;
+          }
+      }
+      wgmma_wait<0>();
+      fence_acc(dp);
+      // P^T and dS^T as wgmma's A fragments: 16-query step kc is
+      // accumulator columns 16 kc .. 16 kc + 15; register pair 8 kc + 2 e
+      // is columns 8 (2 kc + e / 2) + 2 (lane % 4) and + 1
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * kc + 2 * e;
+          const float2 d = *reinterpret_cast<const float2*>(
+              dr + 8 * (2 * kc + e / 2) + 2 * (lane & 3));
+          pa[kc][e] = pack_bf16(sc[j], sc[j + 1]);
+          da[kc][e] = pack_bf16(sc[j] * (dp[j] - d.x),
+                                sc[j + 1] * (dp[j + 1] - d.y));
+        }
+      wgmma_fence();
+      const uint64_t qn = sw128_desc(s, kBox), don = sw128_desc(s + kTileB, kBox);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gv, pa[kc], don + 128 * kc);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gk, da[kc], qn + 128 * kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(gv);
+      fence_acc(gk);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    const long long ld = (long long)h * D;
+    const size_t base = (size_t)bi * t * ld + (size_t)hd * D;
+    store_acc<D>(dk + base, ld, key, t, gk, scale);
+    store_acc<D>(dv + base, ld, key, t, gv, 1.f);
   }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 bool shape_ok(int b, int t, int h) {
   return b > 0 && t > 0 && h > 0 && (long long)b * h <= 65535;
-}
-
-dim3 grid_of(int b, int t, int h) {
-  return dim3((t + kTile - 1) / kTile, b * h);
 }
 
 // a [B, T, H, D] bf16 tensor read in boxes of (64 of D, 1 head, 64
@@ -685,23 +860,33 @@ int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d) {
   return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
 }
 
+// the dynamic shared memory a layout needs below the caller's count:
+// `tiles` [64, D] tiles, `bytes` more, `bars` mbarriers and 1 KB of
+// slack for rounding the base up to the swizzle's 1024-byte period
+template <int D>
+bool smem_short(long long smem, int tiles, int bytes, int bars) {
+  return smem < (long long)tiles * tile_bytes<D>() + bytes + 8 * bars + 1024;
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int b, int t, int h, float scale, int causal, int window, int stages,
         long long smem, void* stream) {
-  constexpr int kTileB = fwd_tile_bytes<D>();
   constexpr int kQT = fwd_q_tiles<D>();
-  if (stages < 2 || stages > kFwdStagesMax ||
-      smem < kQT * kTileB + stages * 2 * kTileB + 8 * (2 * stages + 1) + 1024)
+  if (stages < 2 || stages > kStagesMax ||
+      smem_short<D>(smem, kQT + 2 * stages, 0, 2 * stages + 1))
     return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes the device's context current in this
+  // thread (an autograd worker may have made none), which the tensor-map
+  // encoder needs
+  int e = (int)cudaFuncSetAttribute(
+      k1_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return e;
   CUtensorMap tq, tk, tv;
-  int e = seq_map(&tq, q, b, t, h, D);
+  e = seq_map(&tq, q, b, t, h, D);
   if (!e) e = seq_map(&tk, k, b, t, h, D);
   if (!e) e = seq_map(&tv, v, b, t, h, D);
-  if (e) return e;
-  e = (int)cudaFuncSetAttribute(k1_fwd_kernel<D>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
   if (e) return e;
   const int nq = (t + kTile - 1) / kTile;
   k1_fwd_kernel<D><<<(nq + kQT - 1) / kQT * b * h, fwd_threads<D>(), smem,
@@ -713,28 +898,60 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* o,
-       const void* dout, const void* lse, void* dq, void* delta, int b,
-       int t, int h, float scale, int causal, int window, void* stream) {
-  return launch(k1_dq_kernel<D>, grid_of(b, t, h),
-                4 * tile_bytes<D>() + kTile * 4, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-                static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse), static_cast<bf16*>(dq),
-                static_cast<float*>(delta), t, h, scale, causal, window);
+       const void* dout, const void* lse, void* dq_out, void* delta, int b,
+       int t, int h, float scale, int causal, int window, int stages,
+       long long smem, void* stream) {
+  constexpr int kG = dq_q_tiles<D>();
+  if (stages < 2 || stages > kStagesMax ||
+      smem_short<D>(smem, 3 * kG + 2 * stages, 0, 2 * stages + 1))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // first, as in fwd
+  if (e) return e;
+  CUtensorMap tq, tk, tv, to, tdo;
+  e = seq_map(&tq, q, b, t, h, D);
+  if (!e) e = seq_map(&tk, k, b, t, h, D);
+  if (!e) e = seq_map(&tv, v, b, t, h, D);
+  if (!e) e = seq_map(&to, o, b, t, h, D);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, D);
+  if (e) return e;
+  const int nq = (t + kTile - 1) / kTile;
+  k1_dq_kernel<D><<<(nq + kG - 1) / kG * b * h, (kG + 1) * 128, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, tdo, static_cast<const float*>(lse),
+      static_cast<bf16*>(dq_out), static_cast<float*>(delta), t, h, scale,
+      causal, window, stages);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int b, int t,
-        int h, float scale, int causal, int window, void* stream) {
-  return launch(k1_dkv_kernel<D>, grid_of(b, t, h),
-                4 * tile_bytes<D>() + 2 * kTile * 4, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                static_cast<bf16*>(dv), t, h, scale, causal, window);
+        int h, float scale, int causal, int window, int stages,
+        long long smem, void* stream) {
+  constexpr int kG = dkv_k_tiles<D>();
+  if (stages < 2 || stages > kStagesMax ||
+      smem_short<D>(smem, 2 * kG + 2 * stages, stages * kRowsB,
+                    2 * stages + 1))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // first, as in fwd
+  if (e) return e;
+  CUtensorMap tq, tk, tv, tdo;
+  e = seq_map(&tq, q, b, t, h, D);
+  if (!e) e = seq_map(&tk, k, b, t, h, D);
+  if (!e) e = seq_map(&tv, v, b, t, h, D);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, D);
+  if (e) return e;
+  const int nk = (t + kTile - 1) / kTile;
+  k1_dkv_kernel<D><<<(nk + kG - 1) / kG * b * h, (kG + 1) * 128, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), t, h, scale, causal, window, stages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -758,33 +975,38 @@ int k1_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaErrorInvalidValue;
 }
 
-// dq [B, T, H, D] bf16 and delta [B*H, T] f32 from the caller's (o, lse)
+// dq [B, T, H, D] bf16 and delta [B*H, T] f32 from the caller's (o, lse).
+// A CTA per pair of query tiles of each (b, h), a ring of `stages` K/V
+// stages in `smem` bytes (`flash_plan`'s dq_cta)
 int k1_dq(const void* q, const void* k, const void* v, const void* o,
           const void* dout, const void* lse, void* dq_out, void* delta, int b,
           int t, int h, int d, float scale, int causal, int window,
-          void* stream) {
+          int stages, long long smem, void* stream) {
   if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return dq<64>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, scale, causal,
-                  window, stream);
+                  window, stages, smem, stream);
   if (d == 128)
     return dq<128>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, scale,
-                   causal, window, stream);
+                   causal, window, stages, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// dk, dv [B, T, H, D] bf16 from lse and k1_dq's delta
+// dk, dv [B, T, H, D] bf16 from lse and k1_dq's delta. A CTA per group
+// of key tiles of each (b, h) (two at D = 64, one at D = 128), a ring of
+// `stages` (Q, dO, lse, delta) stages in `smem` bytes (`flash_plan`'s
+// dkv_cta)
 int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int b,
            int t, int h, int d, float scale, int causal, int window,
-           void* stream) {
+           int stages, long long smem, void* stream) {
   if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal,
-                   window, stream);
+                   window, stages, smem, stream);
   if (d == 128)
     return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal,
-                    window, stream);
+                    window, stages, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -65,13 +65,13 @@ KERNELS = {
         "k1_fwd": (_I, [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_I] * 3
                    + [_LL, _P]),
         # q, k, v, o, do, lse, dq, delta, B, T, H, D, scale, causal,
-        # window, stream
-        "k1_dq": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
-                  + [_P]),
+        # window, stages, smem, stream
+        "k1_dq": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 3
+                  + [_LL, _P]),
         # q, k, v, do, lse, delta, dk, dv, B, T, H, D, scale, causal,
-        # window, stream
-        "k1_dkv": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
-                   + [_P]),
+        # window, stages, smem, stream
+        "k1_dkv": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 3
+                   + [_LL, _P]),
     }),
     "stream": ("stream.cu", {
         # x, o, n, SM count, stream

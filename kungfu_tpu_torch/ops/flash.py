@@ -48,9 +48,20 @@ HEAD_DIMS = (64, 128)
 #: (fwd_q_tiles and the launcher's checks in the CUDA source)
 FWD_Q_TILES = {64: 3, 128: 2}
 FWD_STAGES = 4
+#: the backward's CTAs (k1_dq_kernel, k1_dkv_kernel): by head dim, the
+#: consumer warpgroups, each owning one resident 64-row tile (query
+#: tiles for dq, key tiles for dkv), beside a producer warpgroup; the
+#: other side's tiles stream through a ring of BWD_STAGES stages
+#: (dq_q_tiles, dkv_k_tiles and the launchers' checks in the CUDA
+#: source)
+DQ_Q_TILES = {64: 2, 128: 2}
+DKV_K_TILES = {64: 2, 128: 1}
+BWD_STAGES = 4
 #: one [64, 64] bf16 box under the 128-byte swizzle (kBox); a [64, D]
 #: tile is D / 64 of them
 _BOX = BLOCK_Q * 64 * 2
+#: a dkv stage's lse and delta rows, 64 f32 each (kRowsB)
+_ROWS = 2 * BLOCK_Q * 4
 
 #: launch counts since the last `reset_launches()`: one per kernel
 #: launch, and one per call of any plain version
@@ -118,49 +129,93 @@ def flash_attention_flops(b, t, h, d, causal=False, window=None,
     return flops
 
 
-def fwd_smem(d: int, stages: int = FWD_STAGES) -> int:
-    """Dynamic shared memory of one forward CTA at head dim `d`: its
-    query tiles, `stages` (K, V) tile pairs, the full/empty mbarriers
-    and the query tiles' (rounded to 128 bytes), and 1 KB of slack for
-    rounding the base up to the swizzle's 1024-byte period."""
-    tile = d // 64 * _BOX
+def _smem(d: int, tiles: int, stages: int, extra: int = 0) -> int:
+    """Dynamic shared memory of a CTA at head dim `d` that holds `tiles`
+    [64, d] bf16 tiles and `extra` bytes: those, the full/empty
+    mbarriers of `stages` stages and the resident tiles' (rounded to 128
+    bytes), and 1 KB of slack for rounding the base up to the swizzle's
+    1024-byte period. The one formula of every K1 kernel; the launchers
+    check the count they are given against their layouts."""
     bars = 8 * (2 * stages + 1)
-    return FWD_Q_TILES[d] * tile + stages * 2 * tile \
-        + -(-bars // 128) * 128 + 1024
+    return tiles * (d // 64 * _BOX) + extra + -(-bars // 128) * 128 + 1024
+
+
+def fwd_smem(d: int, stages: int = FWD_STAGES) -> int:
+    """One forward CTA: its query tiles and `stages` (K, V) pairs."""
+    return _smem(d, FWD_Q_TILES[d] + 2 * stages, stages)
+
+
+def dq_smem(d: int, stages: int = BWD_STAGES) -> int:
+    """One dq CTA: Q, dO and O of each of its query tiles and `stages`
+    (K, V) pairs."""
+    return _smem(d, 3 * DQ_Q_TILES[d] + 2 * stages, stages)
+
+
+def dkv_smem(d: int, stages: int = BWD_STAGES) -> int:
+    """One dkv CTA: K and V of each of its key tiles, `stages` (Q, dO)
+    pairs and each stage's lse and delta rows."""
+    return _smem(d, 2 * DKV_K_TILES[d] + 2 * stages, stages,
+                 stages * _ROWS)
+
+
+def _groups(t, g, span, causal, window, last_first):
+    """CTAs of g consecutive resident tiles for one (b, h), in launch
+    order: ``(tiles, (lo, hi))`` — the group's tiles (g p, ..., g p + g -
+    1), ``None`` past the last tile, and the other side's tiles the
+    producer streams, the union of the tiles' spans (`span` of every
+    index of the group, as the kernels take it), which every warpgroup
+    walks."""
+    _check_window(causal, window)
+    n = -(-t // BLOCK_Q)
+    kw = dict(causal=causal, window=window, block_q=BLOCK_Q,
+              block_k=BLOCK_K)
+    order = range(-(-n // g))
+    out = []
+    for p in (reversed(order) if last_first else order):
+        idx = range(g * p, g * p + g)
+        spans = [span(i, n, **kw) for i in idx]
+        out.append((tuple(i if i < n else None for i in idx),
+                    (min(a for a, _ in spans), max(b for _, b in spans))))
+    return out
 
 
 def fwd_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
-    """The forward's CTAs for one (b, h) at head dim `d`, in launch
-    order: ``(tiles, (lo, hi))`` — the query tiles of the group (g p, ...,
-    g p + g - 1), g = FWD_Q_TILES[d], ``None`` past the last tile, and
-    the key tiles the producer streams, the union of the tiles'
-    `_k_span`s, which every warpgroup walks. The last groups, whose
-    causal spans are the longest, come first: CTA i of the grid is group
-    ngroups - 1 - i // (B H) of head i % (B H)."""
-    _check_window(causal, window)
-    g = FWD_Q_TILES[d]
-    nq = -(-t // BLOCK_Q)
-    span = dict(causal=causal, window=window, block_q=BLOCK_Q,
-                block_k=BLOCK_K)
-    out = []
-    for p in reversed(range(-(-nq // g))):
-        idx = range(g * p, g * p + g)
-        spans = [_k_span(i, nq, **span) for i in idx]
-        out.append((tuple(i if i < nq else None for i in idx),
-                    (min(a for a, _ in spans), max(b for _, b in spans))))
-    return out
+    """The forward's CTAs for one (b, h) at head dim `d` (`_groups`):
+    query tiles, g = FWD_Q_TILES[d], and the key tiles of their
+    `_k_span`s. The last groups, whose causal spans are the longest,
+    come first: CTA i of the grid is group ngroups - 1 - i // (B H) of
+    head i % (B H)."""
+    return _groups(t, FWD_Q_TILES[d], _k_span, causal, window, True)
+
+
+def dq_groups(t: int, d: int, causal: bool = False,
+              window: Optional[int] = None):
+    """The dq kernel's CTAs, as `fwd_groups` with g = DQ_Q_TILES[d]."""
+    return _groups(t, DQ_Q_TILES[d], _k_span, causal, window, True)
+
+
+def dkv_groups(t: int, d: int, causal: bool = False,
+               window: Optional[int] = None):
+    """The dkv kernel's CTAs for one (b, h) at head dim `d` (`_groups`):
+    key tiles, g = DKV_K_TILES[d], and the query tiles of their
+    `_q_span`s. The first groups, whose causal spans are the longest,
+    come first: CTA i of the grid is group i // (B H) of head i %
+    (B H)."""
+    return _groups(t, DKV_K_TILES[d], _q_span, causal, window, False)
 
 
 def flash_plan(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The port's tiles at length `t` and head dim `d`, and the tiles
     each kernel visits (from `_k_span` / `_q_span`, the loop bounds the
-    kernels use) beside the unskipped grid, and the forward's CTA: its
-    query tiles, key tile, threads, ring stages, shared memory and CTAs
-    per (b, h) (`fwd_groups`; None where `d` is not in HEAD_DIMS). One scheme per kernel: the TPU's
-    resident/stream choice has no counterpart here. The forward's grid
-    is ctas_per_head x B x H."""
+    kernels use) beside the unskipped grid, and each kernel's CTA
+    (``fwd_cta``, ``dq_cta``, ``dkv_cta``): its resident tiles
+    (``q_tiles``, or ``key_tiles`` for dkv), the streamed tile, threads,
+    ring stages, shared memory and CTAs per (b, h) (`fwd_groups`,
+    `dq_groups`, `dkv_groups`; None where `d` is not in HEAD_DIMS). One
+    scheme per kernel: the TPU's resident/stream choice has no
+    counterpart here. Each grid is ctas_per_head x B x H."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
     span = dict(causal=causal, window=window, block_q=BLOCK_Q,
@@ -173,13 +228,20 @@ def flash_plan(t: int, d: int, causal: bool = False,
             "head_dim_supported": d in HEAD_DIMS}
     for name, visited in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
         plan[name] = {"visited_blocks": visited, "grid_blocks": nq * nk}
-    cta = {"q_tiles": None, "key_tile": BLOCK_K, "threads": None,
-           "stages": FWD_STAGES, "smem": None, "ctas_per_head": None}
-    if d in HEAD_DIMS:
-        g = FWD_Q_TILES[d]
-        cta.update(q_tiles=g, threads=(g + 1) * 128, smem=fwd_smem(d),
-                   ctas_per_head=-(-nq // g))
-    plan["fwd_cta"] = cta
+    ok = d in HEAD_DIMS
+    for name, tiles, resident, streamed, n, stages, smem in (
+            ("fwd", FWD_Q_TILES, "q_tiles", "key_tile", nq, FWD_STAGES,
+             fwd_smem),
+            ("dq", DQ_Q_TILES, "q_tiles", "key_tile", nq, BWD_STAGES,
+             dq_smem),
+            ("dkv", DKV_K_TILES, "key_tiles", "query_tile", nk, BWD_STAGES,
+             dkv_smem)):
+        g = tiles[d] if ok else None
+        plan[f"{name}_cta"] = {
+            resident: g, streamed: BLOCK_Q,
+            "threads": (g + 1) * 128 if ok else None, "stages": stages,
+            "smem": smem(d, stages) if ok else None,
+            "ctas_per_head": -(-n // g) if ok else None}
     return plan
 
 
@@ -419,7 +481,8 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
         _launch("dq", _lib().k1_dq, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), delta.data_ptr(), b, t, h, d,
-                *_common(q, causal, scale, window), _build.stream(q.device))
+                *_common(q, causal, scale, window), BWD_STAGES, dq_smem(d),
+                _build.stream(q.device))
     return dq, delta
 
 
@@ -438,7 +501,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
         _launch("dkv", _lib().k1_dkv, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                *_common(q, causal, scale, window), _build.stream(q.device))
+                *_common(q, causal, scale, window), BWD_STAGES,
+                dkv_smem(d), _build.stream(q.device))
     return dk, dv
 
 

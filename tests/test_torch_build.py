@@ -47,13 +47,16 @@ def test_every_kernel_library_includes_what_exists():
         assert [p.name for p in _build.sources(name)][1:] == ["hopper.cuh"]
 
 
-@pytest.mark.parametrize("lib,name", [
-    (lib, name) for lib, v in kernel_split.VARIANTS.items()
-    for name, edit in v.items() if edit is not None])
+_EDITS = {(lib, name): edit
+          for lib, _, v in kernel_split.VARIANTS.values()
+          for name, edit in v.items() if edit is not None}
+
+
+@pytest.mark.parametrize("lib,name", list(_EDITS))
 def test_kernel_split_variants_apply_to_the_current_sources(lib, name):
-    """`benchmarks/kernel_split.py` times copies of `fused_ce.cu` and
-    `flash.cu` with exact source passages removed: each of its edits
-    still finds its passages (it raises otherwise) and changes the
-    source."""
+    """`benchmarks/kernel_split.py` times copies of `fused_ce.cu`,
+    `flash.cu` and `paged_attn.cu` with exact source passages removed:
+    each of its edits still finds its passages (it raises otherwise) and
+    changes the source."""
     src = (_build.CSRC / _build.KERNELS[lib][0]).read_text()
-    assert kernel_split.VARIANTS[lib][name](src) != src
+    assert _EDITS[lib, name](src) != src

@@ -378,7 +378,7 @@ def test_k2_rejects_what_it_does_not_take(cuda):
 # K1: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-from kungfu_tpu_torch.ops import flash as fl  # noqa: E402
+from kungfu_tpu_torch.ops import _build, flash as fl  # noqa: E402
 
 
 def _k1_inputs(device, b, t, h, d, seed=0):
@@ -399,7 +399,15 @@ def _within(name, got, ref, bound):
 
 @pytest.mark.parametrize("b,t,h,d,causal,window", [
     (2, 100, 3, 64, True, None), (1, 257, 2, 64, True, 50),
-    (2, 130, 2, 128, False, None), (1, 64, 1, 128, True, 0)])
+    (2, 130, 2, 128, False, None), (1, 64, 1, 128, True, 0),
+    # one tile (whole and partial); T not a multiple of 64 at both head
+    # dims in every mode; spans longer than the backward's ring (9 tiles
+    # through 4 stages), where the last CTA holds one live warpgroup
+    (1, 64, 2, 64, False, None), (2, 40, 2, 64, True, None),
+    (1, 1, 1, 128, True, None), (2, 100, 2, 64, False, None),
+    (2, 200, 2, 128, True, None), (1, 300, 2, 128, True, 70),
+    (1, 576, 2, 64, True, None), (1, 520, 1, 128, False, None),
+    (1, 600, 2, 64, True, 130)])
 def test_k1_kernels_match_plain_versions(cuda, b, t, h, d, causal, window):
     q, k, v, do = _k1_inputs(cuda, b, t, h, d)
     fl.reset_launches()
@@ -450,6 +458,46 @@ def test_k1_forward_groups_and_tails(cuda, t, d, window):
     bound = fl.kernel_error_bounds(*f, ro, rlse, f[0], True, None, window)
     _within("o", o, ro, bound["o"])
     _within("lse", lse, rlse, bound["lse"])
+
+
+@pytest.mark.parametrize("t,d,causal,window", [
+    (1000, 64, True, None), (333, 128, True, 90), (260, 64, False, None),
+    (130, 128, False, None)])
+def test_k1_backward_second_launch_is_bitwise_equal(cuda, t, d, causal,
+                                                    window):
+    """dq, delta, dk and dv of a second launch equal the first's bit for
+    bit: no atomics, every sum in a fixed order."""
+    q, k, v, do = _k1_inputs(cuda, 2, t, 3, d, seed=t)
+    o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+    fl.reset_launches()
+    dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+    dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None, window)
+    dq2, delta2 = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+    dk2, dv2 = fl.flash_dkv(q, k, v, do, lse, delta2, causal, None, window)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 0, "dq": 2, "dkv": 2, "plain": 0}
+    for a, b in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+def test_k1_launchers_refuse_short_shared_memory(cuda):
+    """Each launcher checks the byte count `flash_plan` gives it against
+    its own layout: a count short of it is refused before any launch."""
+    q, k, v, do = _k1_inputs(cuda, 1, 128, 2, 64)
+    o, lse = fl.flash_fwd(q, k, v, True)
+    delta = torch.empty_like(lse)
+    out = [torch.empty_like(q) for _ in range(2)]
+    lib, st = fl._lib(), _build.stream(cuda)
+    common = (1, 128, 2, 64, 0.125, 1, -1, fl.BWD_STAGES)
+    ptrs = [x.data_ptr() for x in (q, k, v, o, do, lse)]
+    assert lib.k1_dq(*ptrs, out[0].data_ptr(), delta.data_ptr(), *common,
+                     fl.dq_smem(64) - 1200, st) != 0
+    assert lib.k1_dkv(*ptrs[:3], do.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), out[0].data_ptr(),
+                      out[1].data_ptr(), *common, fl.dkv_smem(64) - 1200,
+                      st) != 0
+    assert lib.k1_dq(*ptrs, out[0].data_ptr(), delta.data_ptr(),
+                     *common[:-1], 1, fl.dq_smem(64), st) != 0
 
 
 def test_k1_autograd_on_the_card_launches_k1(cuda):

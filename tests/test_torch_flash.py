@@ -247,6 +247,75 @@ def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
     assert cta["smem"] == fl.fwd_smem(d, cta["stages"]) <= 227 * 1024
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,causal,window", [(1, True, None),
+                                             (64, False, None),
+                                             (64, True, 0),
+                                             (100, True, None),
+                                             (200, False, None),
+                                             (257, True, 0),
+                                             (300, True, 70),
+                                             (576, True, None),
+                                             (1000, True, 200),
+                                             (1024, True, None),
+                                             (4096, True, 512)])
+def test_bwd_ctas_walk_the_union_of_the_jax_spans(t, causal, window, d):
+    """The dq and dkv kernels' CTAs against the JAX package's `_k_span`
+    and `_q_span`: dq takes DQ_Q_TILES[d] consecutive query tiles, the
+    last groups first, and streams the union of their key spans; dkv
+    takes DKV_K_TILES[d] consecutive key tiles, the first groups first,
+    and streams the union of their query spans. Every tile once, a union
+    at most g - 1 tiles longer than any one span (a one-tile span stays
+    one tile in a group of one), and each CTA's shared memory within the
+    227 KB a block may use."""
+    nq = -(-t // 64)
+    span = dict(causal=causal, window=window, block_q=64, block_k=64)
+    plan = fl.flash_plan(t, d, causal=causal, window=window)
+    for kind, groups, g, jspan, last_first in (
+            ("dq", fl.dq_groups(t, d, causal, window), fl.DQ_Q_TILES[d],
+             jfl._k_span, True),
+            ("dkv", fl.dkv_groups(t, d, causal, window), fl.DKV_K_TILES[d],
+             jfl._q_span, False)):
+        cta = plan[f"{kind}_cta"]
+        assert cta["ctas_per_head"] == len(groups) == -(-nq // g)
+        assert cta["threads"] == 128 * (g + 1)
+        assert cta["stages"] == fl.BWD_STAGES
+        assert cta["q_tiles" if kind == "dq" else "key_tiles"] == g
+        assert cta["smem"] == getattr(fl, f"{kind}_smem")(d) <= 227 * 1024
+        tiles = [i for group, _ in groups for i in group if i is not None]
+        assert sorted(tiles) == list(range(nq))
+        firsts = [group[0] for group, _ in groups]
+        assert firsts == sorted(firsts, reverse=last_first)
+        for group, (lo, hi) in groups:
+            spans = [tuple(int(x) for x in jspan(i, nq, **span))
+                     for i in range(group[0], group[0] + g)]
+            assert (lo, hi) == (min(a for a, _ in spans),
+                                max(b for _, b in spans))
+            for i in group:
+                if i is None:
+                    continue
+                a, b = spans[i - group[0]]
+                assert lo <= a and b <= hi and (hi - lo) - (b - a) <= g - 1
+                if g == 1:
+                    assert (lo, hi) == (a, b)
+        if causal and window is None:
+            lengths = [hi - lo for _, (lo, hi) in groups]
+            assert lengths == sorted(lengths, reverse=True)
+
+
+def test_bwd_smem_fits_the_deepest_ring():
+    """The backward's rings at their largest head dim: dq at d 128 holds
+    Q, dO and O of two query tiles and four (K, V) stages, 230,528
+    bytes, inside the 232,448 a block may use; dkv's rows (lse, delta)
+    add 512 bytes a stage."""
+    assert fl.dq_smem(128) == 230528 <= 232448
+    assert fl.dkv_smem(64) - fl._smem(64, 2 * 2 + 2 * 4, 4) == 4 * 512
+    assert fl.fwd_smem(64) == 91264 and fl.fwd_smem(128) == 164992
+    plan = fl.flash_plan(1024, 48)
+    assert all(plan[k][f] is None for k in ("fwd_cta", "dq_cta", "dkv_cta")
+               for f in ("threads", "smem", "ctas_per_head"))
+
+
 def test_window_contract():
     q, k, v = _t(*_inputs(7, (1, 16, 1, 8), n=3))
     for fn in (lambda: fl.flash_attention(q, k, v, causal=False, window=4),
