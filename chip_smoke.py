@@ -28,9 +28,11 @@ fails:
    keys;
 2c. kernel-R1 — the HBM streaming probe (`stream.neg`, ``o = -x`` in
    bf16) bitwise against its plain version, torch.neg: at the bandwidth
-   suite's shape [262144, 1024] (0.5 GiB), a ragged row count, an odd
-   length (the kernel's tail loop), and a tensor of +-0, +-inf, NaNs
-   of both signs, denormals and +-max;
+   suite's shape [262144, 1024] (0.5 GiB), a ragged row count, the
+   lengths at the edges of its plan (below one vector, one chunk +- 8,
+   the grid's chunks +- 1, an odd length: the tail path), a tensor of
+   +-0, +-inf, NaNs of both signs, denormals and +-max, and all 65536
+   bf16 bit patterns; a second launch bitwise equal to the first;
 3. serve — GPT-2-small at full width (bf16, random weights from a
    seed) behind `DecodeEngine` (max_batch 8, bt 16, max_len 1024,
    prefix sharing, 256-token prefill chunks) answering 12 requests;
@@ -76,8 +78,9 @@ fails:
    one call that computes dq, dk and dv: the library time of the pair
    dq + dkv), with the backends SDPA picks and each one's time when
    forced; and R1 per
-   launch at [262144, 1024] beside its byte bound and torch.neg (its
-   plain version and the library call at once).
+   launch at [262144, 1024] by device time (and by events) beside its
+   byte bound and torch.neg (its plain version and the library call at
+   once), timed the same way.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -482,8 +485,10 @@ def phase_kernel_k1(torch, fl):
 
 def phase_kernel_r1(torch, st):
     """R1 bitwise against its plain version (torch.neg) on the same
-    inputs; returns the max |kernel - plain| over the finite values (0
-    when the bits agree)."""
+    inputs — the suite's shape, ragged rows, the plan's edge lengths,
+    every bf16 bit pattern and the specials — and a second launch
+    bitwise equal to the first; returns the max |kernel - plain| over the
+    finite values (0 when the bits agree)."""
     g = torch.Generator(device=DEVICE).manual_seed(9)
     specials = torch.tensor(R1_SPECIALS, dtype=torch.int32).to(torch.int16)
     cases = {
@@ -491,13 +496,17 @@ def phase_kernel_r1(torch, st):
                                                device=DEVICE),
         "ragged rows [1000, 1024]": torch.randn(1000, 1024, generator=g,
                                                 device=DEVICE),
-        "odd length 1000003": torch.randn(1000003, generator=g,
-                                          device=DEVICE),
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, n in st.r1_edge_lengths(sms).items():
+        cases[f"{name} ({n})"] = torch.randn(n, generator=g, device=DEVICE)
     cases = {k: v.to(torch.bfloat16) for k, v in cases.items()}
     # the specials repeated to 8 * 37 + 5 elements: vectors and the tail
     cases["specials x301"] = specials.repeat(22)[:301].view(
         torch.bfloat16).to(DEVICE)
+    cases["every bf16 bit pattern (65536)"] = torch.arange(
+        65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).to(
+            DEVICE)
     err = 0.0
     for name, x in cases.items():
         got = st.stream_neg(x)
@@ -510,6 +519,14 @@ def phase_kernel_r1(torch, st):
         log(f"kernel-R1 {name}: bitwise equal to torch.neg: {same}; "
             f"max_abs_err {e:.3e}")
         check(same, f"R1 {name}: bits differ from torch.neg")
+    x = cases[f"suite {list(R1_SHAPE)}"]
+    first, second = st.stream_neg(x), st.stream_neg(x)
+    torch.cuda.synchronize()
+    check(torch.equal(first.view(torch.int16), second.view(torch.int16)),
+          "R1: a second launch differs from the first")
+    log(f"kernel-R1 second launch bitwise equal to the first; plan "
+        f"{st.r1_plan(x.numel(), sms)}")
+
     def bits(t):
         return [hex(v & 0xFFFF) for v in t.view(torch.int16).tolist()]
 
@@ -578,17 +595,25 @@ def phase_roofline(torch, st):
 def phase_timing_r1(torch, st):
     """R1 per launch at the suite's shape (0.5 GiB in, 0.5 GiB out: far
     beyond L2), beside its byte bound and torch.neg — the plain version
-    and the library call are the same call here."""
+    and the library call are the same call here — each over 50 launches
+    by device time (`time_device`: ``ms``, ``plain_ms``) and by events
+    (`time_cuda`: ``event_ms``, ``plain_event_ms``); ``ratio`` is R1 over
+    torch.neg by device time."""
     x = torch.randn(R1_SHAPE, device=DEVICE).to(torch.bfloat16)
     nbytes = 2 * x.numel() * x.element_size()
-    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
-    ms = time_cuda(torch, lambda i: st.stream_neg(x), 50)
-    plain_ms = time_cuda(torch, lambda i: st.plain_neg(x), 50)
-    log(f"timing R1 neg {ms:.4f} ms/launch; bound {bound_ms:.4f} ms (bytes: "
-        f"{nbytes} B); plain = library = torch.neg {plain_ms:.4f} ms; "
-        f"{1e-6 * nbytes / ms:.1f} GB/s achieved, torch.neg "
-        f"{1e-6 * nbytes / plain_ms:.1f} GB/s")
-    return ms, plain_ms, bound_ms
+    r = {"bound_ms": 1e3 * nbytes / PEAK_BYTES_S}
+    r["event_ms"] = time_cuda(torch, lambda i: st.stream_neg(x), 50)
+    r["plain_event_ms"] = time_cuda(torch, lambda i: st.plain_neg(x), 50)
+    r["ms"] = time_device(torch, lambda i: st.stream_neg(x), 50)
+    r["plain_ms"] = time_device(torch, lambda i: st.plain_neg(x), 50)
+    r["ratio"] = r["ms"] / r["plain_ms"]
+    log(f"timing R1 neg {r['ms']:.4f} ms/launch by device time "
+        f"({r['event_ms']:.4f} by events); bound {r['bound_ms']:.4f} ms "
+        f"(bytes: {nbytes} B); plain = library = torch.neg "
+        f"{r['plain_ms']:.4f} ms ({r['plain_event_ms']:.4f}); R1 / "
+        f"torch.neg {r['ratio']:.4f}; {1e-6 * nbytes / r['ms']:.1f} GB/s "
+        f"achieved, torch.neg {1e-6 * nbytes / r['plain_ms']:.1f} GB/s")
+    return r
 
 
 def phase_train(torch, fc, fl, variant, attention="local"):
@@ -1249,7 +1274,7 @@ def main() -> int:
     k3_times = phase_timing(torch, pa)
     k2_times = phase_timing_k2(torch, fc)
     k1_times = phase_timing_k1(torch, fl)
-    r1_ms, r1_plain_ms, r1_bound_ms = phase_timing_r1(torch, st)
+    r1_times = phase_timing_r1(torch, st)
     log(f"[{time.perf_counter() - T_START:.0f} s] timing done")
 
     kernels = []
@@ -1304,13 +1329,15 @@ def main() -> int:
         kernels.append(row)
     # torch.neg is R1's plain version and the one library call computing
     # the same function: plain_ms and library_ms are the same timing
+    # (device time, as ms)
     kernels.append({
         "name": "stream.neg", "route": "cuda",
         "source": "kungfu_tpu_torch/csrc/stream.cu",
         "replaces": R1_REPLACES, "launches": r1_launches,
-        "max_abs_err": r1_err, "ms": r1_ms, "plain_ms": r1_plain_ms,
-        "bound_ms": r1_bound_ms, "bound_by": "bytes",
-        "library_ms": r1_plain_ms,
+        "max_abs_err": r1_err, "ms": r1_times["ms"],
+        "plain_ms": r1_times["plain_ms"],
+        "bound_ms": r1_times["bound_ms"], "bound_by": "bytes",
+        "library_ms": r1_times["plain_ms"],
     })
     log(f"resnet50 S-SGD: {resnet['images_per_sec']:.1f} images/s, "
         f"{resnet['step_time_ms']:.2f} ms/step (NCCL, one card)")

@@ -7,20 +7,23 @@ card.
 Each turn is a process of its own that imports the checkout's kernels
 (built from that checkout's sources into its own `build/`) and times
 them: K2 with the checkout's own `chip_smoke.phase_timing_k2` (every K2
-kernel per launch at the GPT-2-small training shape), K3 and K1 with
-THIS checkout's `chip_smoke.phase_timing` and `phase_timing_k1` run on
-the other checkout's `ops.paged_attn` and `ops.flash` (K3: both schemes
+kernel per launch at the GPT-2-small training shape), K3, K1 and R1
+with THIS checkout's `chip_smoke.phase_timing`, `phase_timing_k1` and
+`phase_timing_r1` run on the other checkout's `ops.paged_attn`,
+`ops.flash` and `ops.stream` (K3: both schemes
 per launch at full 1023-token rows and at the serve run's mixed
 lengths; K1: every kernel per launch at shapes (a) and (b) by device
-time, beside SDPA's forward and backward; so both trees are timed by
-the same code, whichever has the newer yardstick), and R1 with its
-`chip_smoke.phase_timing_r1`. The four turns
+time, beside SDPA's forward and backward; R1: per launch at the suite's
+shape by device time and by events, beside torch.neg timed the same way
+in the same turn; so both trees are timed by the same code, whichever
+has the newer yardstick). The four turns
 run before, after, after, before, so a drift of the card over the call
 shows as a difference between the two turns of one checkout. Prints the
 card's name and power limit, one JSON line per turn (``{"turn",
 "tree", "k3": {shape: {...}}, "k2": {kernel: [ms, plain_ms, library_ms,
-bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}, "r1": [ms, plain_ms,
-bound_ms]}``) and a table of
+bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}, "r1": {"ms",
+"plain_ms", "ratio", "event_ms", "plain_event_ms", "bound_ms"}}``),
+R1 / torch.neg per turn, and a table of
 each kernel's ms per turn. Needs one CUDA card.
 """
 
@@ -32,7 +35,8 @@ import os
 import subprocess
 import sys
 
-#: this checkout's chip_smoke.py, whose K3 and K1 timing every turn runs
+#: this checkout's chip_smoke.py, whose K3, K1 and R1 timing every turn
+#: runs
 RUNNER = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "chip_smoke.py")
 
@@ -58,7 +62,7 @@ if "k2" in sys.argv[1]:
 if "k1" in sys.argv[1]:
     out["k1"] = runner.phase_timing_k1(torch, fl)
 if "r1" in sys.argv[1]:
-    out["r1"] = cs.phase_timing_r1(torch, st)
+    out["r1"] = runner.phase_timing_r1(torch, st)
 print("AB_RESULT " + json.dumps(out))
 """
 
@@ -107,7 +111,16 @@ def main() -> int:
                 rows.setdefault(f"K1 ({shape}) sdpa {name}", []).append(
                     kern["sdpa"][name])
         if "r1" in res:
-            rows.setdefault("R1 neg", []).append(res["r1"][0])
+            r1 = res["r1"]
+            print(f"turn {i}: R1 / torch.neg {r1['ratio']:.4f} by device "
+                  f"time ({r1['ms']:.4f} / {r1['plain_ms']:.4f} ms), "
+                  f"{r1['event_ms'] / r1['plain_event_ms']:.4f} by events",
+                  flush=True)
+            for key, name in (("ms", "R1 neg"), ("plain_ms", "torch.neg"),
+                              ("ratio", "R1 / torch.neg"),
+                              ("event_ms", "R1 neg (events)"),
+                              ("plain_event_ms", "torch.neg (events)")):
+                rows.setdefault(name, []).append(r1[key])
     print("ms/launch by turn: before, after, after, before")
     for name, vals in rows.items():
         print(f"{name:20s} " + " ".join(f"{ms:10.4f}" for ms in vals))

@@ -1,18 +1,20 @@
-"""Where K2d's, K1's and K3's time goes: each kernel timed beside copies
-of its own source with one part taken out.
+"""Where K2d's, K1's, K3's and R1's time goes: each kernel timed beside
+copies of its own source with one part taken out or replaced.
 
     python3 -m kungfu_tpu_torch.benchmarks.kernel_split
-        [--kernels k2,k1,k1_dq,k1_dkv,k3]
+        [--kernels k2,k1,k1_dq,k1_dkv,k3,r1,r1_walk]
 
-Builds, from `csrc/fused_ce.cu`, `csrc/flash.cu` and `csrc/paged_attn.cu`
-as they stand, the variants below into ``build/kernel_split/`` (one nvcc
-each, in parallel), and times each variant's launch at the shapes of
-`chip_smoke.py` (K2d: n_pad 8192, h 768, v_pad 50304; K1: shapes (a) and
-(b), device time per launch; K3: both schemes at `K3_SHAPES`, as device
-time per launch, since a K3 launch is shorter than the host's time to
-issue it). The variants
-compute wrong results on purpose; they are only timed. Prints the
-card's name and power limit and one JSON line.
+Builds, from `csrc/fused_ce.cu`, `csrc/flash.cu`, `csrc/paged_attn.cu`
+and `csrc/stream.cu` as they stand, the variants below into
+``build/kernel_split/`` (one nvcc each, in parallel), and times each
+variant's launch at the shapes of `chip_smoke.py` (K2d: n_pad 8192, h
+768, v_pad 50304; K1: shapes (a) and (b), device time per launch; K3:
+both schemes at `K3_SHAPES`, as device time per launch, since a K3
+launch is shorter than the host's time to issue it; R1: the suite's
+[262144, 1024] bf16, device time per launch). The K2, K1 and K3
+variants and R1's copy-only one compute wrong results on purpose; they
+are only timed. Prints the card's name and power limit and one JSON
+line.
 
 - ``k2_dx``: the kernel; ``products_only``: the cluster exchange (the
   barrier waits and their arming, the sums, d and the copies) removed —
@@ -34,6 +36,22 @@ card's name and power limit and one JSON line.
   cluster exchange and the combine; ``no_exchange``: also the cluster
   barriers and remote reads (CTA barriers and local reads instead);
   ``launch_only``: every CTA returns at once.
+- ``r1``: the kernel (bulk copies through a shared ring, chunks taken
+  from a counter) at each launch plan of `R1_PLANS`;
+  ``static_interleaved`` and ``static_ranges``: each CTA's chunks fixed
+  at the launch instead (every grid-th chunk, or one contiguous range);
+  ``ticket_ahead``: each ticket taken a chunk earlier;
+  ``ticket_groups_4``: 4 consecutive chunks a ticket; ``with_memset``:
+  the counter zeroed by a memset before each launch; ``evict_first``:
+  an L2 evict-first policy on the bulk loads and stores;
+  ``copy_only``: the consumers' negation removed — the ring of bulk
+  loads and stores alone. ``r1_walk``: R1 as a walk of
+  16-byte vector loads and stores instead (see `_R1_WALKS`):
+  ``grid_stride`` (R1's first version: grid-stride, evict-first hints),
+  ``grid_stride_plain`` (plain loads and stores), ``contiguous_ranges``
+  (a contiguous range a CTA) and ``contiguous_tiles`` (a 16 KB tile a
+  CTA, as PyTorch's vectorised elementwise kernels); each bitwise
+  torch.neg.
 
 Needs one CUDA card.
 """
@@ -50,6 +68,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..ops import _build, flash as fl, fused_ce as fc, paged_attn as pa
+from ..ops import stream as st
 
 OUT = _build.BUILD_DIR.parent / "kernel_split"
 
@@ -165,6 +184,226 @@ def _no_copies(s):
                  "        mbar_arrive(&full[st]);\n")
 
 
+_R1_TICKET = """    const auto ticket = [&] {
+      return static_cast<long long>(atomicAdd(tickets, 1));
+    };"""
+
+
+def _r1_static_interleaved(s):
+    """R1 with each CTA's share of chunks fixed at the launch: chunks b,
+    b + grid, b + 2 grid, ... (all CTAs sweep the tensor together)."""
+    return _cut(s, _R1_TICKET, """    long long taken = 0;
+    const auto ticket = [&] {
+      const long long c = blockIdx.x + gridDim.x * taken++;
+      return c < chunks ? c : chunks;
+    };""")
+
+
+def _r1_static_ranges(s):
+    """R1 with each CTA's share of chunks fixed at the launch: one
+    contiguous range, balanced to a chunk."""
+    return _cut(s, _R1_TICKET, """    long long taken = 0;
+    const long long per = chunks / gridDim.x, extra = chunks % gridDim.x;
+    const long long b = blockIdx.x;
+    const long long first = b * per + (b < extra ? b : extra);
+    const long long count = per + (b < extra);
+    const auto ticket = [&] {
+      return taken < count ? first + taken++ : chunks;
+    };""")
+
+
+def _r1_ticket_ahead(s):
+    """R1 taking each ticket one chunk earlier: the counter's reply has
+    two chunks' time to come back instead of one."""
+    return _cut(s, _R1_TICKET, """    long long ahead = atomicAdd(tickets, 1);
+    const auto ticket = [&] {
+      const long long c = ahead;
+      ahead = atomicAdd(tickets, 1);
+      return c;
+    };""")
+
+
+_R1_HINTED = r"""
+// bulk copies with an L2 evict-first policy
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void bulk_load_ef(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)),
+      "l"(evict_first())
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_ef(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes), "l"(evict_first())
+      : "memory");
+}
+
+constexpr int kConsumerWarps"""
+
+
+def _r1_evict_first(s):
+    """R1 with an L2 evict-first policy on its bulk loads and stores."""
+    s = _cut(s, "constexpr int kConsumerWarps", _R1_HINTED)
+    s = _cut(s, "        bulk_load(smem", "        bulk_load_ef(smem")
+    return _cut(s, "      bulk_store(dst", "      bulk_store_ef(dst")
+
+
+def _r1_ticket_groups(g):
+    """R1 taking `g` consecutive chunks a ticket."""
+    return lambda s: _cut(s, _R1_TICKET, """    long long group = 0, k = %d;
+    const auto ticket = [&] {
+      if (k == %d) {
+        group = atomicAdd(tickets, 1);
+        k = 0;
+      }
+      const long long c = group * %d + k++;
+      return c < chunks ? c : chunks;
+    };""" % (g, g, g))
+
+
+def _r1_with_memset(s):
+    """R1 with the counter set to zero by a memset before each launch."""
+    return _cut(s, "  if (err != cudaSuccess) return static_cast<int>(err);\n"
+                "  r1_neg<<<",
+                "  if (err == cudaSuccess) err = cudaMemsetAsync(tickets, 0, "
+                "8, st);\n  if (err != cudaSuccess) return "
+                "static_cast<int>(err);\n  r1_neg<<<")
+
+
+def _r1_copy_only(s):
+    """R1 with its consumers' negation taken out: the bulk-copy ring
+    alone (the consumers still wait, fence and release each stage)."""
+    return _cut(s, "#pragma unroll 4\n    for (int j = threadIdx.x; j < vecs; "
+                "j += kConsumers) v[j] = neg8(v[j]);\n", "    (void)v;\n")
+
+
+#: R1 as a 16-byte vector walk of global memory, the launcher's plan
+#: arguments ignored but the grid (one an SM): R1's first version, 8
+#: CTAs of 256 threads an SM, four vectors in flight a thread 4.3 MB
+#: apart (`kStreaming`: evict-first loads and stores); ``ranges``: the
+#: same grid, each CTA owning one contiguous range of vectors, four
+#: neighbouring 4 KB blocks of it a step; ``tiles``: as PyTorch's
+#: vectorised elementwise kernels, one CTA per 16 KB tile, four vectors
+#: a thread
+_R1_WALKS = r"""
+template <bool kStreaming>
+__device__ __forceinline__ uint4 ld16(const uint4* p) {
+  return kStreaming ? __ldcs(p) : *p;
+}
+
+template <bool kStreaming>
+__device__ __forceinline__ void st16(uint4* p, uint4 v) {
+  if (kStreaming) __stcs(p, v); else *p = v;
+}
+
+template <int kWalk, bool kStreaming>
+__global__ void __launch_bounds__(256)
+    r1_walk(const uint4* __restrict__ x, uint4* __restrict__ o,
+            long long nvec) {
+  long long i, stride, end;
+  if (kWalk == 0) {         // grid stride
+    i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+    stride = static_cast<long long>(gridDim.x) * 256;
+    end = nvec;
+  } else if (kWalk == 1) {  // one contiguous range a CTA
+    const long long per = (nvec + gridDim.x - 1) / gridDim.x;
+    i = blockIdx.x * per + threadIdx.x;
+    stride = 256;
+    end = min(nvec, (blockIdx.x + 1) * per);
+  } else {                  // one 1024-vector tile a CTA
+    i = static_cast<long long>(blockIdx.x) * 1024 + threadIdx.x;
+    stride = 256;
+    end = min(nvec, i - threadIdx.x + 1024);
+  }
+  for (; i + 3 * stride < end; i += 4 * stride) {
+    const uint4 a = ld16<kStreaming>(x + i);
+    const uint4 b = ld16<kStreaming>(x + i + stride);
+    const uint4 c = ld16<kStreaming>(x + i + 2 * stride);
+    const uint4 d = ld16<kStreaming>(x + i + 3 * stride);
+    st16<kStreaming>(o + i, neg8(a));
+    st16<kStreaming>(o + i + stride, neg8(b));
+    st16<kStreaming>(o + i + 2 * stride, neg8(c));
+    st16<kStreaming>(o + i + 3 * stride, neg8(d));
+  }
+  for (; i < end; i += stride)
+    st16<kStreaming>(o + i, neg8(ld16<kStreaming>(x + i)));
+}
+
+}  // namespace
+
+extern "C" int r1_neg_bf16(const void* x, void* o, long long n, int grid,
+                           int, int, long long, long long, long long, void*,
+                           void* stream) {
+  if (n <= 0) return 0;
+  const long long nvec = n / 8;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* xv = static_cast<const uint4*>(x);
+  uint4* ov = static_cast<uint4*>(o);
+  KWALK
+  if (n % 8)
+    neg_tail_launch<<<1, 32, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                      static_cast<__nv_bfloat16*>(o),
+                                      nvec * 8, n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+_R1_TAIL = r"""
+__global__ void neg_tail_launch(const __nv_bfloat16* __restrict__ x,
+                                __nv_bfloat16* __restrict__ o,
+                                long long begin, long long n) {
+  neg_tail(x, o, begin, n, threadIdx.x, 32);
+}
+"""
+
+_R1_LAUNCH = {
+    "grid_stride": "r1_walk<0, true><<<grid * 8, 256, 0, st>>>(xv, ov, nvec);",
+    "grid_stride_plain": "r1_walk<0, false><<<grid * 8, 256, 0, st>>>(xv, "
+                         "ov, nvec);",
+    "contiguous_ranges": "r1_walk<1, false><<<grid * 8, 256, 0, st>>>(xv, "
+                         "ov, nvec);",
+    "contiguous_tiles": "r1_walk<2, false><<<static_cast<int>((nvec + 1023) "
+                        "/ 1024), 256, 0, st>>>(xv, ov, nvec);",
+}
+
+
+def _r1_walk(name):
+    """R1's source with the bulk-copy kernel's launcher replaced by the
+    walk `name` (the tail past the last vector by a one-warp launch)."""
+    def edit(s):
+        s = _cut(s, "}  // namespace\n", _R1_TAIL + "}  // namespace\n")
+        i = s.index("}  // namespace\n")
+        return s[:i] + _R1_WALKS.replace("KWALK", "if (nvec) " +
+                                         _R1_LAUNCH[name])
+    return edit
+
+
+#: R1's launch plans timed beside the default one (`ops.stream.r1_plan`
+#: keywords)
+R1_PLANS = {"default": {},
+            "32K x6, 1 an SM": {"chunk_bytes": 32768, "stages": 6,
+                                "ctas_per_sm": 1},
+            "16K x6, 2 an SM": {"chunk_bytes": 16384, "stages": 6,
+                                "ctas_per_sm": 2},
+            "16K x10, 1 an SM": {"chunk_bytes": 16384, "stages": 10,
+                                 "ctas_per_sm": 1},
+            "64K x3, 1 an SM": {"chunk_bytes": 65536, "stages": 3,
+                                "ctas_per_sm": 1}}
+
+
 #: --kernels name -> (library, C entry point, {variant: source edit})
 VARIANTS = {
     "k2": ("fused_ce", "k2_dx", {"k2_dx": None,
@@ -180,6 +419,14 @@ VARIANTS = {
         "k1_dkv": None,
         "dkv_no_products": lambda s: _bwd_no_products(s, "dkv"),
         "dkv_pipeline_only": lambda s: _bwd_pipeline_only(s, "dkv")}),
+    "r1": ("stream", "r1_neg_bf16", {
+        "r1_neg": None, "static_interleaved": _r1_static_interleaved,
+        "static_ranges": _r1_static_ranges, "ticket_ahead": _r1_ticket_ahead,
+        "ticket_groups_4": _r1_ticket_groups(4),
+        "with_memset": _r1_with_memset, "evict_first": _r1_evict_first,
+        "copy_only": _r1_copy_only}),
+    "r1_walk": ("stream", "r1_neg_bf16",
+                {k: _r1_walk(k) for k in _R1_LAUNCH}),
     "k3": ("paged_attn", "k3_paged_attention", {
         "k3": None, "no_compute": _k3_no_compute, "no_loads": _k3_no_loads,
         "no_exchange": _k3_no_exchange, "launch_only": _k3_launch_only}),
@@ -237,7 +484,7 @@ def _time_k3(cs, fns, out):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="k2,k1,k1_dq,k1_dkv,k3")
+    ap.add_argument("--kernels", default="k2,k1,k1_dq,k1_dkv,k3,r1,r1_walk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device", file=sys.stderr)
@@ -258,6 +505,8 @@ def main() -> int:
     out = {}
     if "k3" in kernels:
         _time_k3(cs, fns, out)
+    if "r1" in kernels or "r1_walk" in kernels:
+        _time_r1(cs, fns, out, kernels)
     if "k2" in kernels:
         _time_k2(cs, fns, out)
     if "k1" in kernels:
@@ -269,6 +518,47 @@ def main() -> int:
         print(f"{k:32s} {v:.4f} ms/launch", flush=True)
     print(json.dumps({"card": card.stdout.strip(), "ms": out}))
     return 0
+
+
+def _time_r1(cs, fns, out, kernels):
+    """Every R1 variant at the suite's shape (0.5 GiB in and out), by
+    device time per launch over 50 launches, the kernel as built at each
+    of `R1_PLANS`, in order and then again in reverse order (the second
+    time under ``... again``), beside torch.neg timed first and last;
+    the output is zeroed before each variant and checked bitwise against
+    torch.neg after it (but the copy-only one's)."""
+    x = torch.randn(cs.R1_SHAPE, device="cuda").to(torch.bfloat16)
+    o = torch.empty_like(x)
+    tickets = torch.zeros(2, dtype=torch.int32, device="cuda")
+    ref = torch.neg(x)
+    sms = st._sms(x.device.index)
+    out["torch.neg (first)"] = cs.time_device(torch, lambda i: torch.neg(x),
+                                              50)
+    runs = []
+    for k in ("r1", "r1_walk"):
+        if k in kernels:
+            for name in VARIANTS[k][2]:
+                # the walks launch 8 CTAs for each CTA of the plan's grid
+                plans = (R1_PLANS if name == "r1_neg" else
+                         {"": {"ctas_per_sm": 1} if k == "r1_walk" else {}})
+                runs += [(name, tag, kw) for tag, kw in plans.items()]
+    for rep, (name, tag, kw) in enumerate(runs + runs[::-1]):
+        p = st.r1_plan(x.numel(), sms, **kw)
+        o.zero_()
+
+        def go(i, fn=fns[name], args=st.launch_args(x, o, p, tickets)):
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"{name}: launch error {err}")
+        label = (f"{name} ({tag})" if tag else name) + (
+            " again" if rep >= len(runs) else "")
+        out[label] = cs.time_device(torch, go, 50)
+        if name != "copy_only":
+            torch.cuda.synchronize()
+            cs.check(torch.equal(o.view(torch.int16), ref.view(torch.int16)),
+                     f"R1 variant {label}: bits differ from torch.neg")
+    out["torch.neg (last)"] = cs.time_device(torch, lambda i: torch.neg(x),
+                                             50)
 
 
 def _time_k2(cs, fns, out):

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma
-// pipelines (fused_ce.cu, flash.cu): mbarriers, TMA copies, register
+// pipelines (fused_ce.cu, flash.cu) and R1's bulk-copy stream
+// (stream.cu): mbarriers, TMA copies (tensor boxes and 1-D bulk), register
 // reallocation, wgmma (operands from shared memory or A from registers),
 // the 128-byte swizzle, thread-block clusters and their distributed
 // shared memory, and the host-side lookup of the tensor-map encoder.
@@ -7,7 +8,7 @@
 // its own copy.
 //
 // ops/_build.py hashes this header with every source that includes it,
-// so an edit here rebuilds both libraries.
+// so an edit here rebuilds every library that includes it.
 
 #pragma once
 
@@ -100,13 +101,37 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing that many bytes of traffic on the mbarrier at bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared src to global dst, both 16-byte
+// aligned, in the thread's current bulk group (bulk_commit closes it)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-// the committed TMA stores have finished reading shared memory
+// all but the N latest committed TMA stores have finished reading shared
+// memory
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void bulk_wait() {

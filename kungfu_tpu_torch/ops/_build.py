@@ -74,8 +74,10 @@ KERNELS = {
                    + [_LL, _P]),
     }),
     "stream": ("stream.cu", {
-        # x, o, n, SM count, stream
-        "r1_neg_bf16": (_I, [_P, _P, _LL, _I, _P]),
+        # x, o, n, grid, chunk_bytes, stages, smem, chunks, tail,
+        # tickets, stream
+        "r1_neg_bf16": (_I, [_P, _P, _LL, _I, _I, _I, _LL, _LL, _LL, _P,
+                             _P]),
     }),
 }
 

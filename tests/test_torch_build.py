@@ -40,10 +40,11 @@ def test_editing_the_source_or_a_header_changes_the_library(fake_csrc,
 
 def test_every_kernel_library_includes_what_exists():
     """Every local include of the port's sources resolves, and the two
-    TMA/wgmma libraries share the Hopper header."""
+    TMA/wgmma libraries and R1's bulk-copy stream share the Hopper
+    header."""
     for name in _build.KERNELS:
         assert all(p.exists() for p in _build.sources(name)), name
-    for name in ("fused_ce", "flash"):
+    for name in ("fused_ce", "flash", "stream"):
         assert [p.name for p in _build.sources(name)][1:] == ["hopper.cuh"]
 
 

@@ -563,6 +563,66 @@ def test_r1_is_bitwise_torch_neg(cuda, n):
                        torch.neg(x).view(torch.int16))
 
 
+def _r1_bitwise(x):
+    st.reset_launches()
+    got = st.stream_neg(x)
+    torch.cuda.synchronize()
+    assert st.LAUNCHES == {"neg": 1, "plain": 0}
+    assert torch.equal(got.view(torch.int16), torch.neg(x).view(torch.int16))
+    return got
+
+
+def test_r1_every_bit_pattern_is_torch_neg(cuda):
+    """All 65536 bf16 bit patterns, NaNs and denormals among them."""
+    _r1_bitwise(torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(cuda))
+
+
+@pytest.mark.parametrize("edge", list(st.r1_edge_lengths(132)))
+def test_r1_plan_edges_are_torch_neg(cuda, edge):
+    """Lengths at the edges of R1's plan on this card: no whole chunk,
+    one chunk and a partial one, a chunk for every CTA but one, and
+    past it (the tail path, fewer chunks than CTAs)."""
+    n = st.r1_edge_lengths(torch.cuda.get_device_properties(
+        cuda).multi_processor_count)[edge]
+    g = torch.Generator().manual_seed(n)
+    _r1_bitwise(torch.randn(n, generator=g).to(torch.bfloat16).to(cuda))
+
+
+def test_r1_second_launch_is_bitwise_the_first(cuda):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4096, 1024 + 8, generator=g).to(torch.bfloat16).to(cuda)
+    assert torch.equal(_r1_bitwise(x).view(torch.int16),
+                       _r1_bitwise(x).view(torch.int16))
+
+
+def test_r1_launcher_refuses_a_plan_it_does_not_take(cuda):
+    """The C launcher checks the plan it is given (a chunk that is not a
+    multiple of 16 bytes, a ring too short for the store lag or without
+    its shared memory, chunks that do not end at the tail) and returns
+    an error without launching."""
+    from kungfu_tpu_torch.ops import _build
+
+    x = torch.randn(1 << 20, device=cuda).to(torch.bfloat16)
+    o = torch.empty_like(x)
+    tickets = torch.zeros(2, dtype=torch.int32, device=cuda)
+    p = st.r1_plan(x.numel(), 4)
+    lib = _build.load("stream")
+
+    def launch(**kw):
+        return lib.r1_neg_bf16(*st.launch_args(x, o, {**p, **kw}, tickets))
+
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int16), torch.neg(x).view(torch.int16))
+    assert tickets.tolist() == [0, 0]     # left for the next launch
+    for bad in ({"chunk_bytes": p["chunk_bytes"] + 8},
+                {"stages": st.R1_STORE_LAG},
+                {"smem_bytes": p["smem_bytes"] - 8},
+                {"tail": p["tail"] - 8}, {"chunks": p["chunks"] + 1}):
+        assert launch(**bad) != 0, bad
+
+
 def test_r1_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(64, 1024, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16"):
