@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the serving, training and roofline paths
 from the sources in this checkout (nvcc, sm_90a; one nvcc per library,
-all four started together), then runs, failing on the first phase that
-fails:
+all four started together, beside libkf's g++ build), then runs,
+failing on the first phase that fails:
 
 1. kernel — K3 (`paged_attn.resident`, `paged_attn.stream`) against its
    plain PyTorch version at the serving shapes (B=8, h=12, d=64, bt=16,
@@ -64,6 +64,25 @@ fails:
    beside the card's 3.35 TB/s, and the ResNet-50 step; R1 must have
    launched, its plain version never (R1's launch count is zeroed just
    before and read just after);
+7. elastic — runs after 5c and before the timing of 6: the elastic
+   training worker path through the port's harness
+   (`elastic.harness`): a config server, ``kfrun -w``
+   (`python -m kungfu_tpu_torch.run`) and continuity workers
+   (`elastic.continuity_worker --model gpt`) sharing the card, each
+   training GPT-2-small at full width and depth (batch 8 x 1024,
+   flash attention, residual fused CE, AdamW, f32 master weights, bf16
+   compute) with its gradients fused into one f32 buffer and summed by
+   libkf. (a) schedule 3:1,3:2,3:1 over 9 steps: grow 1 -> 2 (the
+   joiner proves the broadcast parameters and AdamW state beat its
+   fresh init), then shrink to 1 with an eviction; (b) two workers,
+   rank 1 killed by a chaos fault after step 3 of 8: the survivor
+   recovers (every KF_MTTR phase), trains on, and the schedule grows a
+   replacement joiner back. Every continuity and recovery marker must
+   show, a parameter digest must be agreed after every resync, and each
+   worker's flash and fused-CE kernels must have launched, their plain
+   versions never. Prints, per cluster size, the step's wall, compute,
+   libkf all-reduce and staging ms, each resync's ms and bytes, the
+   KF_MTTR phases and each worker's peak memory, beside the card;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -83,7 +102,9 @@ fails:
    once), timed the same way.
 
 Prints the card's name and power limit, the measurements, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+``{"kernels": [...]}`` line (K1's and K2's rows also carry
+``elastic_launches``, the elastic workers' launches) and, last,
+``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
 package is missing. Takes no arguments: every phase runs every time.
 """
@@ -662,6 +683,132 @@ def phase_train(torch, fc, fl, variant, attention="local"):
     return meta
 
 
+#: the elastic phase: (a) grow 1 -> 2, shrink to 1 with an eviction;
+#: (b) two workers, rank 1 killed after step 3, the survivor recovers
+ELASTIC_GROW = ("3:1,3:2,3:1", 9)
+ELASTIC_RECOVERY = (1, 3, 8, 2)     # crash rank, crash step, steps, np
+ELASTIC_KERNELS = {"flash": ("fwd", "dq", "dkv"),
+                   "fused_ce": ("fwd", "residual_d")}
+
+
+def _kv(line: str) -> dict:
+    """The ``key=value`` fields of a worker's marker line."""
+    out = {}
+    for tok in line.split():
+        k, sep, v = tok.partition("=")
+        if sep:
+            out[k] = v
+    return out
+
+
+def _marker_lines(logs: str, marker: str):
+    return [_kv(l) for l in logs.splitlines() if l.startswith(marker + " ")]
+
+
+def elastic_report(tag: str, logs: str, card: str, device: str) -> dict:
+    """Check one elastic run's worker logs and print its numbers: each
+    worker's K1/K2 launches (kernels positive and plain versions never on
+    the card; plain only on the CPU), every digest agreed, and per
+    cluster size the median step wall, compute, wire (the libkf gradient
+    all-reduce) and staging ms of rank 0, the resyncs' ms and bytes, the
+    KF_MTTR phases and each worker's peak memory."""
+    launches = [l for l in logs.splitlines() if l.startswith("KF_LAUNCHES")]
+    check(launches, f"elastic {tag}: no worker printed its launches")
+    totals = {f"{m}.{k}": 0 for m, ks in ELASTIC_KERNELS.items()
+              for k in ks}
+    for line in launches:
+        kv = {}
+        for tok in line.split()[3:]:
+            name, _, js = tok.partition("=")
+            kv[name] = json.loads(js)
+        for mod, names in ELASTIC_KERNELS.items():
+            counts = kv[mod]
+            if device == "cuda":
+                check(all(counts[n] > 0 for n in names)
+                      and counts["plain"] == 0,
+                      f"elastic {tag}: {mod} launches {counts} in {line}")
+            else:
+                check(counts["plain"] > 0, f"elastic {tag}: {line}")
+            for n in names:
+                totals[f"{mod}.{n}"] += counts[n]
+    digests = _marker_lines(logs, "KF_DIGEST")
+    check(digests and all(d["agreed"] == "True" for d in digests),
+          f"elastic {tag}: digests {digests}")
+    steps = [d for d in _marker_lines(logs, "KF_STEP") if d["rank"] == "0"]
+    by_size = {}
+    for d in steps:
+        by_size.setdefault(int(d["size"]), []).append(d)
+    for size, rows in sorted(by_size.items()):
+        med = {k: sorted(float(r[k]) for r in rows)[len(rows) // 2]
+               for k in ("wall_ms", "compute_ms", "wire_ms", "stage_ms")}
+        log(f"elastic {tag} size {size}: rank-0 step median wall "
+            f"{med['wall_ms']:.2f} ms, compute {med['compute_ms']:.2f}, "
+            f"libkf all-reduce (wire) {med['wire_ms']:.2f}, staging "
+            f"{med['stage_ms']:.2f} over steps "
+            f"{[int(r['step']) for r in rows]}; walls "
+            f"{[float(r['wall_ms']) for r in rows]} ({card})")
+    for d in _marker_lines(logs, "KF_RESYNC"):
+        log(f"elastic {tag} resync: rank {d['rank']} size {d['size']} step "
+            f"{d['step']} {float(d['ms']):.1f} ms, {int(d['bytes'])} bytes "
+            f"({card})")
+    for line in logs.splitlines():
+        if line.startswith("KF_MTTR"):
+            log(f"elastic {tag} {line} ({card})")
+        elif line.startswith(("KF_JOINER_CONTINUITY", "KF_SURVIVOR_CONTI",
+                              "KF_DIGEST", "evicted at step", "resized:",
+                              "KF_RECOVERY_")):
+            log(f"elastic {tag} {line}")
+    for d in _marker_lines(logs, "KF_PEAK_MEM"):
+        log(f"elastic {tag} peak memory of worker {d['peer']} (rank "
+            f"{d['rank']} at exit): {d['gb']} GB ({card})")
+    log(f"elastic {tag}: {len(digests)} digests agreed; launches "
+        f"{json.dumps(totals)}")
+    return totals
+
+
+def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
+    """The elastic training worker path through the port's harness:
+    config server, ``kfrun -w``, GPT-2-small continuity workers sharing
+    the card. (a) grow 1 -> 2 and shrink to 1 with an eviction; (b) two
+    workers, one killed, the survivor recovers. Returns the workers'
+    K1/K2 launches summed over both runs."""
+    from kungfu_tpu_torch.elastic.harness import (claim_port_span,
+                                                  run_loss_continuity,
+                                                  run_survivor_recovery)
+
+    flags = ["--model", "gpt", "--device", device]
+    schedule, steps = ELASTIC_GROW
+    t0 = time.perf_counter()
+    with claim_port_span() as span:
+        logs = run_loss_continuity(schedule=schedule, total_steps=steps,
+                                   start_np=1, slots=2, port_range=span,
+                                   timeout=420, worker_flags=flags)
+    check("evicted at step" in logs, "elastic grow: no eviction")
+    check(f"KF_CONTINUITY_DONE rank=0 size=1 step={steps}" in logs,
+          "elastic grow: the survivor did not finish at size 1")
+    check(len(_marker_lines(logs, "KF_DIGEST")) >= 3,
+          "elastic grow: a resync without its digest check")
+    log(f"elastic grow 1 -> 2 -> 1 ({schedule}, {steps} steps): "
+        f"{time.perf_counter() - t0:.1f} s")
+    totals = elastic_report("grow", logs, card, device)
+    crash_rank, crash_step, steps, start_np = ELASTIC_RECOVERY
+    t0 = time.perf_counter()
+    with claim_port_span() as span:
+        logs = run_survivor_recovery(crash_rank=crash_rank,
+                                     crash_step=crash_step,
+                                     total_steps=steps, start_np=start_np,
+                                     slots=start_np, port_range=span,
+                                     timeout=420, worker_flags=flags)
+    check("KF_CONTINUITY_DONE rank=0" in logs,
+          "elastic recovery: the survivor did not finish")
+    log(f"elastic recovery (rank {crash_rank} killed after step "
+        f"{crash_step}, {steps} steps, np {start_np}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, v in elastic_report("recovery", logs, card, device).items():
+        totals[k] += v
+    return totals
+
+
 def k2_bound(kernel, n_pad, h, v_pad):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch on these
     padded operands: each input read once, each output written once;
@@ -1195,13 +1342,18 @@ def phase_timing(torch, pa):
 
 
 def build_all(_build, names):
-    """One nvcc per library, all started together; prints each build's
+    """One nvcc per library, all started together, beside libkf's g++
+    build (one compiler per source, `native.library`); prints the
     time and the compiler's register, spill and warning lines."""
+    from kungfu_tpu_torch.native import library
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        libkf = pool.submit(library)
         texts = dict(zip(names, pool.map(_build.build, names)))
-    log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(names)}, in "
-        f"parallel)")
+        libkf_path = libkf.result()
+    log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(names)} and "
+        f"libkf ({libkf_path.name}), in parallel)")
     for name, text in texts.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -1263,6 +1415,8 @@ def main() -> int:
     r1_launches = phase_roofline(torch, st)
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T_START:.0f} s] resnet and roofline done")
+    elastic = phase_elastic(torch, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] elastic done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -1299,6 +1453,7 @@ def main() -> int:
             "source": "kungfu_tpu_torch/csrc/fused_ce.cu",
             "replaces": K2_REPLACES[name],
             "launches": sum(m["launches"][name] for m in trained.values()),
+            "elastic_launches": elastic.get(f"fused_ce.{name}", 0),
             "max_abs_err": k2_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1316,6 +1471,7 @@ def main() -> int:
             "source": "kungfu_tpu_torch/csrc/flash.cu",
             "replaces": K1_REPLACES[name],
             "launches": trained["residual/flash"]["k1_launches"][name],
+            "elastic_launches": elastic[f"flash.{name}"],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,

@@ -65,16 +65,10 @@ def _not_ported(what: str, slice_: str):
                               f"the {slice_} slice of the port")
 
 
-def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
-                   device, attention: str = "local"):
-    """The benchmark's training setup on `device`: ``(cfg, model, step,
-    tokens)`` — GPT of size `size` (vocab 50257, f32 master weights,
-    bf16 compute, the `attention` mixer) with random weights from seed
-    0, the train step over `gpt_fused_loss` with `ce_variant`'s
-    backward and `lm_adamw`, and seeded uniform tokens ``[batch,
-    seq]``."""
-    if ce_variant not in ("residual", "recompute"):
-        raise ValueError(f"unknown ce_variant {ce_variant!r}")
+def build_lm_model(size: str, seq: int, device, attention: str = "local"):
+    """The benchmark's model on `device`: ``(cfg, model)`` — GPT of size
+    `size` (vocab 50257, f32 master weights, bf16 compute, the
+    `attention` mixer) with random weights from seed 0."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r} (known: {sorted(SIZES)})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,6 +81,18 @@ def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
                     attention=attention)
     model = GPTLM(cfg, device="cpu",
                   generator=torch.Generator().manual_seed(0)).to(device)
+    return cfg, model
+
+
+def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
+                   device, attention: str = "local"):
+    """The benchmark's training setup on `device`: ``(cfg, model, step,
+    tokens)`` — `build_lm_model`'s GPT, the train step over
+    `gpt_fused_loss` with `ce_variant`'s backward and `lm_adamw`, and
+    seeded uniform tokens ``[batch, seq]``."""
+    if ce_variant not in ("residual", "recompute"):
+        raise ValueError(f"unknown ce_variant {ce_variant!r}")
+    cfg, model = build_lm_model(size, seq, device, attention)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(17),
                            dtype=torch.int64).to(device)

@@ -4,7 +4,8 @@ The port's modules carry the flax names, so a flax param tree
 flattened with ``"."`` is a `GPTLM` state dict; this module does the
 flattening and checks names and shapes against the config. A ResNet's
 trees also need their kernels transposed to torch's layouts
-(`resnet_from_flax`, and back with `resnet_to_flax`).
+(`resnet_from_flax`, and back with `resnet_to_flax`), and so does the
+SLP's one Dense layer (`slp_from_flax`).
 """
 
 from __future__ import annotations
@@ -91,3 +92,15 @@ def resnet_to_flax(state: Mapping[str, torch.Tensor]):
             tree = tree.setdefault(p, {})
         tree[leaf] = np.array(arr, order="C")          # a copy
     return params, stats
+
+
+def slp_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax `SLP` param tree (``{"Dense_0": {"kernel": [784, 10],
+    "bias": [10]}}``, numpy arrays) -> a state dict for the port's
+    `models.mlp.SLP`: the kernel transposed to the ``[10, 784]``
+    weight, both f32."""
+    dense = params["Dense_0"]
+    kernel = np.asarray(dense["kernel"], dtype=np.float32)
+    return {"dense.weight": torch.tensor(np.ascontiguousarray(kernel.T)),
+            "dense.bias": torch.tensor(np.asarray(dense["bias"],
+                                                  dtype=np.float32))}

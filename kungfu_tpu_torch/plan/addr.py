@@ -6,7 +6,8 @@ srcs/go/plan/id.go). The identity doubles as the wire address of the peer's
 control-plane server and as the key for consensus digests, so it must have a
 canonical binary encoding: 6 bytes little-endian (u32 ipv4, u16 port).
 
-A copy of `kungfu_tpu/plan/addr.py` without the libkf socket path.
+The port's copy of `kungfu_tpu/plan/addr.py`, which imports no JAX:
+only its imports changed.
 """
 
 from __future__ import annotations
@@ -81,6 +82,10 @@ class PeerID:
         114-118) so a restarted process at the same address is distinguishable.
         """
         return (self.ipv4 << 32) | (self.port << 16) | (init_version & 0xFFFF)
+
+    def sock_file(self) -> str:
+        """Per-port unix socket path for colocated fast transport."""
+        return f"/tmp/kungfu-tpu-{self.port}.sock"
 
     def __str__(self) -> str:
         return f"{self.host}:{self.port}"

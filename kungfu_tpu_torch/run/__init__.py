@@ -1,0 +1,27 @@
+"""kfrun — the launcher and elastic supervisor.
+
+The role of the reference's `kungfu-run` (reference: srcs/go/cmd/kungfu-run,
+srcs/go/kungfu/runner): spawn one worker process per slot with the KF_*
+env-var bootstrap, number the local slots, supervise the workers
+(fail-fast on crash), and — in watch mode — reconcile the local worker set
+whenever the cluster membership changes (config-server-driven elastic
+training).
+
+Usage:
+    python -m kungfu_tpu_torch.run -np 4 -H 127.0.0.1:4 -- python3 train.py
+    python -m kungfu_tpu_torch.run -np 4 -w -config-server http://...:9100/get -- ...
+
+The port's copy of `kungfu_tpu/run/` (`__init__`, `__main__`, `job`,
+`watch`, `discovery`), which imports no JAX. Two things differ, both in
+`job`: a slot sets no device variable (no ``TPU_VISIBLE_DEVICES``, no
+XLA cache directory, and no ``CUDA_VISIBLE_DEVICES``: workers that
+share one card pick ``cuda:{local_rank % device_count}`` themselves),
+and joiners are always spawned cold (the warm pool waits for
+``run/prewarm.py``, ROADMAP item 10). ``distribute.py`` and
+``platforms.py`` wait too.
+"""
+
+from .job import ChipPool, Proc, spawn_worker
+from .watch import simple_run, watch_run
+
+__all__ = ["spawn_worker", "Proc", "ChipPool", "simple_run", "watch_run"]

@@ -1,6 +1,9 @@
 """The port stands alone: no module of `kungfu_tpu_torch`, and not the
 chip smoke script, imports JAX, flax or the JAX package — neither
-statically nor at run time."""
+statically nor at run time — and no command line the port builds runs a
+module of the JAX package (``python -m kungfu_tpu...``). The entry
+points of the elastic path (`run.__main__`, the continuity worker) run
+nothing when imported, and importing the package loads no libkf."""
 
 import ast
 import json
@@ -73,5 +76,72 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.optimizers.sync_sgd",
             "kungfu_tpu_torch.models.resnet",
             "kungfu_tpu_torch.benchmarks.throughput",
-            "kungfu_tpu_torch.benchmarks.roofline"} <= set(mods)
+            "kungfu_tpu_torch.benchmarks.roofline",
+            "kungfu_tpu_torch.ffi", "kungfu_tpu_torch.peer",
+            "kungfu_tpu_torch.native", "kungfu_tpu_torch.retrying",
+            "kungfu_tpu_torch.chaos", "kungfu_tpu_torch.monitor",
+            "kungfu_tpu_torch.initializer", "kungfu_tpu_torch.data",
+            "kungfu_tpu_torch.datasets", "kungfu_tpu_torch.datasets.mnist",
+            "kungfu_tpu_torch.models.mlp", "kungfu_tpu_torch.plan.cluster",
+            "kungfu_tpu_torch.plan.graph", "kungfu_tpu_torch.plan.topology",
+            "kungfu_tpu_torch.plan.interval",
+            "kungfu_tpu_torch.trace.collect", "kungfu_tpu_torch.trace.recorder",
+            "kungfu_tpu_torch.serve.ledger",
+            "kungfu_tpu_torch.elastic.config_server",
+            "kungfu_tpu_torch.elastic.schedule",
+            "kungfu_tpu_torch.elastic.streaming",
+            "kungfu_tpu_torch.elastic.hooks",
+            "kungfu_tpu_torch.elastic.harness",
+            "kungfu_tpu_torch.elastic.continuity_worker",
+            "kungfu_tpu_torch.run", "kungfu_tpu_torch.run.__main__",
+            "kungfu_tpu_torch.run.job", "kungfu_tpu_torch.run.watch",
+            "kungfu_tpu_torch.run.discovery"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def _module_flags(path):
+    """Every ``"-m", <module>`` pair in a list or tuple display of
+    `path`: the module named, or None where it is not a string literal."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.List, ast.Tuple)):
+            elts = node.elts
+            for a, b in zip(elts, elts[1:]):
+                if isinstance(a, ast.Constant) and a.value == "-m":
+                    out.append(b.value if isinstance(b, ast.Constant)
+                               else None)
+    return out
+
+
+def test_command_lines_launch_only_the_port():
+    """The harness, the runner and the worker (and every other source of
+    the port) start only modules of `kungfu_tpu_torch`."""
+    found = {}
+    for path in _port_sources():
+        for mod in _module_flags(path):
+            found.setdefault(mod, []).append(path.name)
+    assert all(isinstance(m, str) and m.startswith("kungfu_tpu_torch")
+               for m in found), found
+    assert {"kungfu_tpu_torch.run",
+            "kungfu_tpu_torch.elastic.continuity_worker"} <= set(found)
+
+
+def test_entry_points_run_nothing_at_import():
+    """Importing the worker and kfrun's ``__main__`` starts no peer, loads
+    no libkf and prints nothing; nor does importing the package."""
+    code = (
+        "import sys, json\n"
+        "import kungfu_tpu_torch as p\n"
+        "before = 'kungfu_tpu_torch.ffi' in sys.modules\n"
+        "import kungfu_tpu_torch.elastic.continuity_worker\n"
+        "import kungfu_tpu_torch.run.__main__\n"
+        "from kungfu_tpu_torch import ffi\n"
+        "print(json.dumps([before, ffi._lib is None, "
+        "p._default_peer is None]))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and not k.startswith("KF_")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines() == ["[false, true, true]"]
