@@ -71,18 +71,30 @@ failing on the first phase that fails:
    (`elastic.continuity_worker --model gpt`) sharing the card, each
    training GPT-2-small at full width and depth (batch 8 x 1024,
    flash attention, residual fused CE, AdamW, f32 master weights, bf16
-   compute) with its gradients fused into one f32 buffer and summed by
-   libkf. (a) schedule 3:1,3:2,3:1 over 9 steps: grow 1 -> 2 (the
-   joiner proves the broadcast parameters and AdamW state beat its
-   fresh init), then shrink to 1 with an eviction; (b) two workers,
-   rank 1 killed by a chaos fault after step 3 of 8: the survivor
-   recovers (every KF_MTTR phase), trains on, and the schedule grows a
-   replacement joiner back. Every continuity and recovery marker must
-   show, a parameter digest must be agreed after every resync, and each
-   worker's flash and fused-CE kernels must have launched, their plain
-   versions never. Prints, per cluster size, the step's wall, compute,
-   libkf all-reduce and staging ms, each resync's ms and bytes, the
-   KF_MTTR phases and each worker's peak memory, beside the card;
+   compute). (a) schedule 3:1,6:2,1:1 over 10 steps, the gradients
+   fused into one f32 buffer and summed by libkf (the lump): grow
+   1 -> 2 (the joiner proves the broadcast parameters and AdamW state
+   beat its fresh init), then shrink to 1 with an eviction; (b) two
+   workers, rank 1 killed by a chaos fault after step 3 of 8: the
+   survivor recovers (every KF_MTTR phase), trains on, and the schedule
+   grows a replacement joiner back; (c) (a)'s schedule on the bucketed
+   wire (`grad_pipeline`, KF_GRAD_BUCKET_MB=1), ``none`` then ``bf16``;
+   (d) `run_checkpoint_restore` on the bf16 bucketed wire: async sharded
+   checkpoints every 2 steps at np 2, the whole cluster SIGKILLed at step
+   5, a cold boot at np 1 restores the latest complete generation
+   (residual sidecars included) and must beat its fresh init; (e) the
+   GNS loop: `elastic.gns_worker`s on the card grow 2 -> 4 because the
+   noise-scale monitor asked for it. Every continuity, recovery and
+   restore marker must show, a parameter digest must be agreed after
+   every resync, and each worker's flash and fused-CE kernels must have
+   launched, their plain versions never. Prints, per cluster size, rank
+   0's median step wall, compute, wire and staging ms (on the bucketed
+   wire also the exposed wire, pack, host, land, payload, buckets and
+   arrival lag) beside (a)'s, rank 0's device idle share over three
+   profiled size-2 steps of (a) and (c), each resync's ms and bytes, the
+   KF_MTTR phases, the checkpoint's generation bytes, stall, snapshot
+   memory, writer and restore times, the GNS readings, and each
+   worker's peak memory, beside the card;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -683,12 +695,27 @@ def phase_train(torch, fc, fl, variant, attention="local"):
     return meta
 
 
-#: the elastic phase: (a) grow 1 -> 2, shrink to 1 with an eviction;
-#: (b) two workers, rank 1 killed after step 3, the survivor recovers
-ELASTIC_GROW = ("3:1,3:2,3:1", 9)
+#: the elastic phase: (a) grow 1 -> 2, shrink to 1 with an eviction (and
+#: (c) the same schedule on the bucketed wire); (b) two workers, rank 1
+#: killed after step 3, the survivor recovers; (d) saved at np 2 every 2
+#: steps, the whole cluster killed at step 5, restored at np 1; (e) the
+#: GNS loop, 2 -> 4
+ELASTIC_GROW = ("3:1,6:2,1:1", 10)
 ELASTIC_RECOVERY = (1, 3, 8, 2)     # crash rank, crash step, steps, np
+ELASTIC_RESTORE = (2, 1, 5, 2)      # save np, restore np, kill step, every
+#: steps the restored cluster trains past the kill step
+ELASTIC_RESTORE_STEPS = 2
 ELASTIC_KERNELS = {"flash": ("fwd", "dq", "dkv"),
                    "fused_ce": ("fwd", "residual_d")}
+#: rank 0 profiles three steps at this size (`KF_PROFILE_SIZE`)
+ELASTIC_PROFILE_SIZE = 2
+#: the bucketed wire: the reference's default bucket, both compressions
+#: the run compares
+ELASTIC_BUCKET_MB = "1"
+#: KF_STEP fields a report takes medians of
+STEP_FIELDS = ("wall_ms", "compute_ms", "wire_ms", "stage_ms", "exposed_ms",
+               "pack_ms", "host_ms", "land_ms", "lag_ms", "payload",
+               "buckets")
 
 
 def _kv(line: str) -> dict:
@@ -705,13 +732,15 @@ def _marker_lines(logs: str, marker: str):
     return [_kv(l) for l in logs.splitlines() if l.startswith(marker + " ")]
 
 
-def elastic_report(tag: str, logs: str, card: str, device: str) -> dict:
-    """Check one elastic run's worker logs and print its numbers: each
-    worker's K1/K2 launches (kernels positive and plain versions never on
-    the card; plain only on the CPU), every digest agreed, and per
-    cluster size the median step wall, compute, wire (the libkf gradient
-    all-reduce) and staging ms of rank 0, the resyncs' ms and bytes, the
-    KF_MTTR phases and each worker's peak memory."""
+def _med(rows, key):
+    vals = sorted(float(r[key]) for r in rows)
+    return vals[len(vals) // 2]
+
+
+def check_launches(tag: str, logs: str, device: str) -> dict:
+    """Each worker's K1/K2 launches: every kernel of the path positive and
+    the plain versions never on the card (plain only on the CPU); returns
+    the sums."""
     launches = [l for l in logs.splitlines() if l.startswith("KF_LAUNCHES")]
     check(launches, f"elastic {tag}: no worker printed its launches")
     totals = {f"{m}.{k}": 0 for m, ks in ELASTIC_KERNELS.items()
@@ -731,22 +760,60 @@ def elastic_report(tag: str, logs: str, card: str, device: str) -> dict:
                 check(counts["plain"] > 0, f"elastic {tag}: {line}")
             for n in names:
                 totals[f"{mod}.{n}"] += counts[n]
+    return totals
+
+
+def elastic_report(tag: str, logs: str, card: str, device: str,
+                   resyncs: bool = True):
+    """Check one elastic run's worker logs and print its numbers: each
+    worker's K1/K2 launches (`check_launches`), every digest agreed, and
+    per cluster size rank 0's median step fields (wall, compute, wire —
+    the libkf all-reduce, or the pipeline's summed wire ops — and
+    staging; on the bucketed wire also the exposed wire, the packers',
+    host and landing ms, the payload, the bucket count and the arrival
+    lag) over the steps rank 0 did not profile, its device idle share
+    (KF_IDLE), the resyncs' ms and bytes, the KF_MTTR phases and each
+    worker's peak memory. A run with `resyncs` must show digests.
+    Returns (launch sums, {size: medians}, the KF_IDLE fields or
+    None)."""
+    totals = check_launches(tag, logs, device)
     digests = _marker_lines(logs, "KF_DIGEST")
-    check(digests and all(d["agreed"] == "True" for d in digests),
+    check((digests or not resyncs)
+          and all(d["agreed"] == "True" for d in digests),
           f"elastic {tag}: digests {digests}")
+    idle = next((d for d in _marker_lines(logs, "KF_IDLE")
+                 if d["rank"] == "0"), None)
+    profiled = set()
+    if idle is not None:
+        lo, hi = (int(x) for x in idle["steps"].split("-"))
+        profiled = set(range(lo, hi + 1))
+        log(f"elastic {tag} device idle share, rank 0 at size "
+            f"{idle['size']} over steps {idle['steps']} (torch.profiler, "
+            f"this process's kernels and copies; the other worker shares "
+            f"the card): wall {idle['wall_ms']} ms, busy {idle['busy_ms']} "
+            f"ms, idle {idle['idle']} ({idle['wire']} wire; {card})")
     steps = [d for d in _marker_lines(logs, "KF_STEP") if d["rank"] == "0"]
-    by_size = {}
+    by_size, meds = {}, {}
     for d in steps:
         by_size.setdefault(int(d["size"]), []).append(d)
     for size, rows in sorted(by_size.items()):
-        med = {k: sorted(float(r[k]) for r in rows)[len(rows) // 2]
-               for k in ("wall_ms", "compute_ms", "wire_ms", "stage_ms")}
+        plain = [r for r in rows if int(r["step"]) not in profiled] or rows
+        med = {k: _med(plain, k) for k in STEP_FIELDS if k in plain[0]}
+        meds[size] = med
+        extra = ""
+        if "exposed_ms" in med:
+            extra = (f", exposed wire {med['exposed_ms']:.2f}, pack "
+                     f"{med['pack_ms']:.2f}, host {med['host_ms']:.2f}, "
+                     f"land {med['land_ms']:.2f}, arrival lag "
+                     f"{med['lag_ms']:.2f}, payload {int(med['payload'])} B "
+                     f"in {int(med['buckets'])} buckets "
+                     f"({plain[0]['compression']})")
         log(f"elastic {tag} size {size}: rank-0 step median wall "
             f"{med['wall_ms']:.2f} ms, compute {med['compute_ms']:.2f}, "
-            f"libkf all-reduce (wire) {med['wire_ms']:.2f}, staging "
-            f"{med['stage_ms']:.2f} over steps "
-            f"{[int(r['step']) for r in rows]}; walls "
-            f"{[float(r['wall_ms']) for r in rows]} ({card})")
+            f"wire {med['wire_ms']:.2f}, staging {med['stage_ms']:.2f}"
+            f"{extra} over steps {[int(r['step']) for r in plain]} "
+            f"(profiled {sorted(profiled & {int(r['step']) for r in rows})}"
+            f"); walls {[float(r['wall_ms']) for r in rows]} ({card})")
     for d in _marker_lines(logs, "KF_RESYNC"):
         log(f"elastic {tag} resync: rank {d['rank']} size {d['size']} step "
             f"{d['step']} {float(d['ms']):.1f} ms, {int(d['bytes'])} bytes "
@@ -756,41 +823,183 @@ def elastic_report(tag: str, logs: str, card: str, device: str) -> dict:
             log(f"elastic {tag} {line} ({card})")
         elif line.startswith(("KF_JOINER_CONTINUITY", "KF_SURVIVOR_CONTI",
                               "KF_DIGEST", "evicted at step", "resized:",
-                              "KF_RECOVERY_")):
+                              "KF_RECOVERY_", "KF_RESTORE_CONTINUITY",
+                              "KF_CKPT_")):
             log(f"elastic {tag} {line}")
     for d in _marker_lines(logs, "KF_PEAK_MEM"):
         log(f"elastic {tag} peak memory of worker {d['peer']} (rank "
             f"{d['rank']} at exit): {d['gb']} GB ({card})")
     log(f"elastic {tag}: {len(digests)} digests agreed; launches "
         f"{json.dumps(totals)}")
+    return totals, meds, idle
+
+
+def _add(totals: dict, more: dict) -> None:
+    for k, v in more.items():
+        totals[k] += v
+
+
+def phase_elastic_restore(card: str, flags, device: str) -> dict:
+    """(d): `run_checkpoint_restore` with the bf16 bucketed wire (so the
+    residual sidecars ride along): saved at np 2 every 2 steps, the
+    whole cluster SIGKILLed at step 5, restored at np 1. Prints each
+    rank's generation bytes (the shard files on disk), the save's
+    synchronous stall, the snapshot's memory, the writer's time, the
+    restore time and fresh against restored loss."""
+    import re
+    import tempfile
+
+    from kungfu_tpu_torch.elastic.harness import (claim_port_span,
+                                                  run_checkpoint_restore)
+
+    save_np, restore_np, kill, every = ELASTIC_RESTORE
+    root = os.path.join(HERE, "build", "elastic-ckpt")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as tmp, \
+            claim_port_span() as span:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        logs = run_checkpoint_restore(
+            ckpt_dir, save_np=save_np, restore_np=restore_np,
+            kill_step=kill, save_every=every, slots=save_np,
+            port_range=span, timeout=420, logdir=os.path.join(tmp, "logs"),
+            worker_flags=flags, restore_steps=ELASTIC_RESTORE_STEPS,
+            extra_env={"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                       "KF_GRAD_COMPRESS": "bf16"})
+        save_logs = ""
+        save_dir = os.path.join(tmp, "logs", "save")
+        for f in sorted(os.listdir(save_dir)):
+            if f.endswith(".log"):
+                with open(os.path.join(save_dir, f)) as fh:
+                    save_logs += fh.read()
+        gens = {}
+        for g in sorted(os.listdir(ckpt_dir)):
+            files = sorted(os.listdir(os.path.join(ckpt_dir, g)))
+            gens[g] = {f: os.path.getsize(os.path.join(ckpt_dir, g, f))
+                       for f in files}
+    check("KF_CKPT_RESTORE_NONE" not in logs,
+          "elastic restore: a rank found no generation")
+    restored = _marker_lines(logs, "KF_RESTORE_CONTINUITY")
+    check(len(restored) == restore_np and all(
+        float(d["restored"]) < float(d["fresh"]) - 0.05 for d in restored),
+        f"elastic restore: {restored}")
+    check(f"KF_CONTINUITY_DONE rank=0 size={restore_np}" in logs,
+          "elastic restore: the restored cluster did not finish")
+    log(f"elastic restore (np {save_np} saving every {every} steps, killed "
+        f"at step {kill}, restored at np {restore_np}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for g, files in gens.items():
+        log(f"elastic restore generation {g} on disk: {json.dumps(files)}")
+    for d in _marker_lines(save_logs, "KF_CKPT_SAVED"):
+        log(f"elastic restore save: rank {d['rank']} gen {d['gen']} "
+            f"synchronous stall {d['stall_ms']} ms (residual copy "
+            f"{d['residual_ms']}, save() {d['save_ms']}, the card's queue "
+            f"{d['sync_ms']}), snapshot "
+            f"{int(d['snapshot_device_bytes'])} B on the card + "
+            f"{int(d['snapshot_host_bytes'])} B on the host ({card})")
+    for d in _marker_lines(save_logs, "KF_CKPT_WRITTEN"):
+        log(f"elastic restore writer: rank {d['rank']} gen {d['gen']} "
+            f"{int(d['bytes'])} B, writer {d['writer_ms']} ms (hash "
+            f"{d['hash_ms']}, write {d['write_ms']}) ({card})")
+    for d in restored:
+        log(f"elastic restore: rank {d['rank']} at size {d['size']} from "
+            f"step {d['step']}: {d['restore_ms']} ms for {d['bytes']} B; "
+            f"first-batch loss fresh {d['fresh']} vs restored "
+            f"{d['restored']} ({card})")
+    check(re.search(r"^KF_CKPT_RESIDUALS rank=0 adopted", logs, re.M),
+          "elastic restore: rank 0 did not adopt its residuals")
+    totals, _, _ = elastic_report("restore", logs, card, device,
+                                  resyncs=False)
     return totals
+
+
+def phase_elastic_gns(card: str, device: str) -> None:
+    """(e): the GNS loop, `elastic.gns_worker`s on the card (sharing it),
+    grown 2 -> 4 because the noise-scale monitor asked for it."""
+    from kungfu_tpu_torch.elastic.harness import (claim_port_span,
+                                                  run_gns_adaptation)
+
+    t0 = time.perf_counter()
+    with claim_port_span() as span:
+        logs = run_gns_adaptation(total_steps=10, ramp_step=4, start_np=2,
+                                  slots=4, port_range=span, timeout=300,
+                                  worker_flags=["--device", device])
+    readings = {}
+    for line in logs.splitlines():
+        if line.startswith("--- worker-"):
+            who = line.split()[1]
+        elif line.startswith("step "):
+            readings.setdefault(who, []).append(line.split()[3])
+        elif line.startswith(("monitor-resize", "joined at", "finished")):
+            log(f"elastic gns {who}: {line}")
+    for who, vals in readings.items():
+        log(f"elastic gns {who} noise-scale readings {vals}")
+    log(f"elastic gns 2 -> 4: {time.perf_counter() - t0:.1f} s ({card})")
 
 
 def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
     """The elastic training worker path through the port's harness:
     config server, ``kfrun -w``, GPT-2-small continuity workers sharing
-    the card. (a) grow 1 -> 2 and shrink to 1 with an eviction; (b) two
-    workers, one killed, the survivor recovers. Returns the workers'
-    K1/K2 launches summed over both runs."""
+    the card. (a) grow 1 -> 2 and shrink to 1 with an eviction, on the
+    lump; (b) two workers, one killed, the survivor recovers; (c) (a)'s
+    schedule on the bucketed wire, ``none`` then ``bf16``; (d) the
+    durable rung; (e) the GNS loop. Rank 0 profiles three size-2 steps
+    of (a) and (c) for the device's idle share. Returns the workers'
+    K1/K2 launches summed over every run."""
     from kungfu_tpu_torch.elastic.harness import (claim_port_span,
                                                   run_loss_continuity,
                                                   run_survivor_recovery)
 
     flags = ["--model", "gpt", "--device", device]
     schedule, steps = ELASTIC_GROW
-    t0 = time.perf_counter()
-    with claim_port_span() as span:
-        logs = run_loss_continuity(schedule=schedule, total_steps=steps,
-                                   start_np=1, slots=2, port_range=span,
-                                   timeout=420, worker_flags=flags)
-    check("evicted at step" in logs, "elastic grow: no eviction")
-    check(f"KF_CONTINUITY_DONE rank=0 size=1 step={steps}" in logs,
-          "elastic grow: the survivor did not finish at size 1")
-    check(len(_marker_lines(logs, "KF_DIGEST")) >= 3,
-          "elastic grow: a resync without its digest check")
-    log(f"elastic grow 1 -> 2 -> 1 ({schedule}, {steps} steps): "
-        f"{time.perf_counter() - t0:.1f} s")
-    totals = elastic_report("grow", logs, card, device)
+    profile = {"KF_PROFILE_SIZE": str(ELASTIC_PROFILE_SIZE)}
+    meds, digests = {}, {}
+    totals = None
+    for tag, env in (("grow", {}),
+                     ("bucketed none", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                                        "KF_GRAD_COMPRESS": "none"}),
+                     ("bucketed bf16", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                                        "KF_GRAD_COMPRESS": "bf16"})):
+        t0 = time.perf_counter()
+        with claim_port_span() as span:
+            logs = run_loss_continuity(schedule=schedule, total_steps=steps,
+                                       start_np=1, slots=2, port_range=span,
+                                       timeout=420, worker_flags=flags,
+                                       extra_env={**profile, **env})
+        check("evicted at step" in logs, f"elastic {tag}: no eviction")
+        check(f"KF_CONTINUITY_DONE rank=0 size=1 step={steps}" in logs,
+              f"elastic {tag}: the survivor did not finish at size 1")
+        check(len(_marker_lines(logs, "KF_DIGEST")) >= 3,
+              f"elastic {tag}: a resync without its digest check")
+        log(f"elastic {tag} 1 -> 2 -> 1 ({schedule}, {steps} steps): "
+            f"{time.perf_counter() - t0:.1f} s")
+        got, meds[tag], _ = elastic_report(tag, logs, card, device)
+        digests[tag] = [d["digest"] for d in _marker_lines(logs, "KF_DIGEST")
+                        if d["rank"] == "0"]
+        if totals is None:
+            totals = got
+        else:
+            _add(totals, got)
+        if tag != "grow":
+            lump, bucketed = meds["grow"].get(2), meds[tag].get(2)
+            check(lump and bucketed, f"elastic {tag}: no size-2 steps")
+            log(f"elastic size 2, rank-0 medians, lump vs {tag} (this "
+                f"call): wall {lump['wall_ms']:.2f} vs "
+                f"{bucketed['wall_ms']:.2f} ms, compute "
+                f"{lump['compute_ms']:.2f} vs {bucketed['compute_ms']:.2f}, "
+                f"exposed wire {lump['wire_ms'] + lump['stage_ms']:.2f} "
+                f"(all-reduce + staging) vs {bucketed['exposed_ms']:.2f}, "
+                f"wire ops {lump['wire_ms']:.2f} vs "
+                f"{bucketed['wire_ms']:.2f}, pack + land "
+                f"{lump['stage_ms']:.2f} (staging) vs "
+                f"{bucketed['pack_ms'] + bucketed['land_ms']:.2f} ({card})")
+    # the same seeded training: `none` sums the same f32 values as the
+    # lump, so every resync's parameter digest is the lump run's
+    check(digests["bucketed none"] == digests["grow"],
+          f"elastic: the bucketed none wire's parameters differ from the "
+          f"lump's: {digests}")
+    log(f"elastic: bucketed none's parameter digests equal the lump's at "
+        f"every resync {digests['grow']}; bf16's {digests['bucketed bf16']}")
     crash_rank, crash_step, steps, start_np = ELASTIC_RECOVERY
     t0 = time.perf_counter()
     with claim_port_span() as span:
@@ -804,8 +1013,9 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
     log(f"elastic recovery (rank {crash_rank} killed after step "
         f"{crash_step}, {steps} steps, np {start_np}): "
         f"{time.perf_counter() - t0:.1f} s")
-    for k, v in elastic_report("recovery", logs, card, device).items():
-        totals[k] += v
+    _add(totals, elastic_report("recovery", logs, card, device)[0])
+    _add(totals, phase_elastic_restore(card, flags, device))
+    phase_elastic_gns(card, device)
     return totals
 
 

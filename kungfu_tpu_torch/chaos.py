@@ -517,9 +517,10 @@ def corrupt_file(path: str, nbytes: int = 8,
 
 
 #: the three ways a sharded checkpoint generation can rot on disk
-#: (kungfu_tpu/checkpoint_async.py layout); each must make restore
-#: fail loudly or fall back to the previous COMPLETE generation —
-#: never silently load a mix (tests/test_chaos.py holds it to that)
+#: (the `checkpoint_async` layout, the port's and the reference's);
+#: each must make restore fail loudly or fall back to the previous
+#: COMPLETE generation — never silently load a mix
+#: (tests/test_torch_checkpoint.py holds the port's restore to that)
 SHARDED_CORRUPTIONS = ("torn_shard", "missing_shard",
                       "mismatch_manifest")
 

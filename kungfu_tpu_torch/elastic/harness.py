@@ -12,8 +12,9 @@ What differs from the reference: libkf comes from the port's build
 runner's control port is passed explicitly (``-runner-port``, the top of
 `port_range`), so two clusters on one host never share the default
 runner port; `claim_port_span` hands out a free span of ports under a
-file lock; and `run_checkpoint_restore` waits for the port's
-``checkpoint_async`` (slice 6b).
+file lock; and `run_gns_adaptation` drives the port's GNS worker
+(`elastic.gns_worker`, the reference's tests/workers/
+adaptive_gns_trainer.py) through the same runner.
 
 Reference analog: scripts/tests/run-elastic-test.sh drives
 kungfu-fake-adaptive-trainer the same way (boot server, walk schedule,
@@ -37,6 +38,23 @@ CONTINUITY_MARKERS = (
     ("KF_CONTINUITY_DONE", "schedule did not complete"),
 )
 
+CKPT_SAVE_MARKERS = (
+    ("KF_CKPT_SAVED", "no async sharded checkpoint generation landed"),
+    ("KF_CHAOS_FIRE", "the whole-cluster kill never fired"),
+)
+
+CKPT_RESTORE_MARKERS = (
+    ("KF_RESTORE_CONTINUITY",
+     "restored-vs-fresh loss proof did not run"),
+    ("KF_CONTINUITY_DONE", "training did not finish after restore"),
+)
+
+GNS_MARKERS = (
+    ("target 4", "the monitor's reading never asked for 4 workers"),
+    ("monitor-resize", "the cluster did not resize on the monitor"),
+    ("joined at epoch", "no joiner synced its position"),
+)
+
 RECOVERY_MARKERS = (
     ("KF_CHAOS_FIRE", "the scheduled fault never fired"),
     ("KF_MTTR detect", "the runner never detected the death"),
@@ -49,6 +67,13 @@ RECOVERY_MARKERS = (
     ("KF_SURVIVOR_CONTINUITY", "post-recovery loss continuity unproven"),
     ("KF_CONTINUITY_DONE", "training did not finish after recovery"),
 )
+
+#: the workers the runner can start: the continuity trainer and the GNS
+#: adaptation worker
+_WORKER_ARGS = {
+    "continuity": ["-m", "kungfu_tpu_torch.elastic.continuity_worker"],
+    "gns": ["-m", "kungfu_tpu_torch.elastic.gns_worker"],
+}
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -113,7 +138,8 @@ def _run_continuity_cluster(schedule: str,
                             expect_rc: int = 0,
                             server=None,
                             hosts: str = "",
-                            worker_flags: list | None = None) -> str:
+                            worker_flags: list | None = None,
+                            worker: str = "continuity") -> str:
     """Boot config server + kfrun -w + continuity_worker; assert the
     given marker set against the combined runner+worker logs. Pass a
     running `server` (e.g. one with an in-process chaos schedule) to
@@ -124,7 +150,8 @@ def _run_continuity_cluster(schedule: str,
     spawns only the workers scheduled on its own emulated host — the
     test_multirunner shape), so host-scoped failures have a real
     per-host supervisor to detect them. Empty = the single-runner
-    single-host launch every pre-existing caller uses."""
+    single-host launch every pre-existing caller uses. ``worker`` names
+    the worker the runner starts (a key of `_WORKER_ARGS`)."""
     from ..native import library
     from .config_server import ConfigServer
 
@@ -152,10 +179,8 @@ def _run_continuity_cluster(schedule: str,
                 "-runner-port", port_range.split("-")[1],
                 "-w", "-config-server", server.get_url,
                 "-logdir", logdir, "-q"]
-        tail = (extra_flags or []) + [
-            "--", sys.executable, "-m",
-            "kungfu_tpu_torch.elastic.continuity_worker"] + list(
-                worker_flags or [])
+        tail = (extra_flags or []) + ["--", sys.executable] + \
+            _WORKER_ARGS[worker] + list(worker_flags or [])
         ips = ([h.split(":")[0] for h in hosts.split(",")]
                if hosts and "," in hosts else [""])
         procs = []
@@ -254,6 +279,128 @@ def run_loss_continuity(schedule: str = "6:2,6:4",
         schedule, total_steps, start_np, slots, port_range, timeout,
         logdir, CONTINUITY_MARKERS, extra_env=extra_env,
         worker_flags=worker_flags)
+
+
+def run_checkpoint_restore(ckpt_dir: str,
+                           save_np: int = 4,
+                           restore_np: int = 2,
+                           kill_step: int = 9,
+                           save_every: int = 2,
+                           slots: int = 4,
+                           port_range: str = "31000-31099",
+                           timeout: int = 600,
+                           logdir: str | None = None,
+                           worker_flags: list | None = None,
+                           extra_env: dict | None = None,
+                           restore_steps: int = 6) -> str:
+    """The durable rung of the recovery state machine, end to end:
+    train at `save_np` with async sharded checkpoints every
+    `save_every` steps, chaos-SIGKILL the WHOLE cluster at `kill_step`
+    (rank unpinned: every worker crashes — the one fault class the
+    survivor-recovery machinery cannot cover), then relaunch at a
+    DIFFERENT size `restore_np` against the same checkpoint directory
+    and assert the cold boot restores the latest complete generation
+    with loss continuity (restored first-batch loss strictly better
+    than this process's fresh init) and a step > 0; the restored
+    cluster then trains `restore_steps` steps past the kill step.
+    `extra_env` (e.g. the gradient pipeline's KF_GRAD_BUCKET_MB and
+    KF_GRAD_COMPRESS) applies to both launches.
+
+    Returns the combined logs of the restore run (with a `logdir`, the
+    save run's logs stay in its ``save`` subdirectory)."""
+    import json as _json
+    import re as _re
+
+    # phase 1: save under training, then whole-cluster death. The
+    # crash fault pins only the step — every rank matches, so the
+    # entire cluster dies at the same boundary; the runner (no
+    # -recover: nobody survives to recover) fails fast, nonzero.
+    chaos_spec = _json.dumps({"faults": [{
+        "type": "crash_worker", "step": kill_step, "signal": "KILL",
+    }]})
+    # per-phase log directories: phase 2's marker assertions must
+    # never be satisfied by phase 1's stale log files
+    logdir_save = logdir_restore = None
+    if logdir is not None:
+        logdir_save = os.path.join(logdir, "save")
+        logdir_restore = os.path.join(logdir, "restore")
+        os.makedirs(logdir_save, exist_ok=True)
+        os.makedirs(logdir_restore, exist_ok=True)
+    env = {"KF_CKPT_DIR": ckpt_dir, "KF_CKPT_EVERY": str(save_every),
+           **(extra_env or {})}
+    _run_continuity_cluster(
+        schedule=f"{kill_step + 9}:{save_np}",
+        total_steps=kill_step + 8,
+        start_np=save_np,
+        slots=slots,
+        port_range=port_range,
+        timeout=timeout,
+        logdir=logdir_save,
+        markers=CKPT_SAVE_MARKERS,
+        extra_env={"KF_CHAOS": chaos_spec, **env},
+        expect_rc="nonzero",
+        worker_flags=worker_flags,
+    )
+
+    # phase 2: cold boot at a different np, no chaos — restore,
+    # reshard, resume, finish.
+    logs = _run_continuity_cluster(
+        schedule=f"{kill_step + 9}:{restore_np}",
+        total_steps=kill_step + restore_steps,
+        start_np=restore_np,
+        slots=slots,
+        port_range=port_range,
+        timeout=timeout,
+        logdir=logdir_restore,
+        markers=CKPT_SAVE_MARKERS[:1] + CKPT_RESTORE_MARKERS,
+        extra_env={"KF_CHAOS": "", **env},
+        worker_flags=worker_flags,
+    )
+    m = _re.search(r"KF_RESTORE_CONTINUITY rank=\d+ size=\d+ step=(\d+)",
+                   logs)
+    if m is None or int(m.group(1)) <= 0:
+        raise AssertionError(
+            "restore did not resume from a positive step:\n"
+            f"{logs[-3000:]}")
+    if "KF_CKPT_RESTORE_NONE" in logs:
+        raise AssertionError(
+            f"a rank found no generation to restore:\n{logs[-3000:]}")
+    return logs
+
+
+def run_gns_adaptation(total_steps: int = 10,
+                       ramp_step: int = 4,
+                       start_np: int = 2,
+                       slots: int = 4,
+                       port_range: str = "31000-31099",
+                       timeout: int = 300,
+                       logdir: str | None = None,
+                       worker_flags: list | None = None,
+                       extra_env: dict | None = None) -> str:
+    """The closed adaptation loop (the reference's
+    tests/test_adaptation_loop.py): `elastic.gns_worker`s start at
+    `start_np` with no schedule; at `ramp_step` their gradient noise
+    jumps, the noise-scale monitor's reading asks `NoiseScalePolicy` for
+    4 workers, rank 0 proposes it and the consensus resize grows the
+    cluster. Asserts GNS_MARKERS and that rank 0 finishes at size 4;
+    returns the combined logs."""
+    logs = _run_continuity_cluster(
+        schedule="",
+        total_steps=total_steps,
+        start_np=start_np,
+        slots=slots,
+        port_range=port_range,
+        timeout=timeout,
+        logdir=logdir,
+        markers=GNS_MARKERS,
+        extra_env={"TEST_RAMP_STEP": str(ramp_step), **(extra_env or {})},
+        worker_flags=worker_flags,
+        worker="gns",
+    )
+    want = f"finished rank=0 size=4 step={total_steps}"
+    if want not in logs:
+        raise AssertionError(f"{want!r} missing:\n{logs[-3000:]}")
+    return logs
 
 
 def run_survivor_recovery(crash_rank: int = 1,

@@ -157,7 +157,11 @@ def shard_schedule(tensors: Sequence[torch.Tensor], chunk_bytes: int,
 
 def _flat_bytes(t: torch.Tensor) -> torch.Tensor:
     """A 1-D uint8 view of a contiguous tensor's bytes (a copy only when
-    `t` is not contiguous)."""
+    `t` is not contiguous). An empty tensor gives an empty view: one made
+    by `torch.from_numpy` keeps numpy's 0 strides, which no dtype view
+    takes."""
+    if t.numel() == 0:
+        return torch.empty(0, dtype=torch.uint8, device=t.device)
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 

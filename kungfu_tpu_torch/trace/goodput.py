@@ -1,0 +1,369 @@
+"""Goodput accounting: decompose a run's wallclock into attributed phases.
+
+The operator-facing number three PRs of instrumentation exist to
+produce: **what fraction of wallclock was useful training, and where
+did the rest go?** `decompose()` consumes the same flight-recorder
+sources the exporter merges (`export.read_flight_dir`) and splits every
+worker's active wallclock into an exhaustive, non-overlapping phase
+taxonomy (docs/observability.md):
+
+==============  ===============================================
+``compute``     useful training compute: the LAST surviving
+                attempt at each (rank, step) ``step.compute`` span
+``lost``        computed-but-discarded work: earlier attempts at a
+                redone step (a survivor's pre-recovery try) and
+                victim steps past the restored checkpoint
+                generation — read from the victims' flight dumps,
+                which survive SIGKILL
+``wire``        exposed gradient wire (``step.grad_wire``) minus
+                any part overlapping another rank's straggler
+                sleep window
+``straggler``   straggler wait: the straggler's own scheduled
+                sleep (``chaos.straggler`` spans) plus the other
+                ranks' collective wait overlapping those windows
+``hook``        control plane: schedule/consensus poll
+                (``step.hook``) minus nested straggler sleep
+``resize``      planned epoch switches (``resize.resync``: pack +
+                broadcast + position + reshard) — minus any part
+                nested inside a recovery.restore window, which
+                stays billed to ``recovery``
+``recovery``    survivor recovery (``recovery.adopt`` +
+                ``recovery.restore``, which wraps the restore-side
+                resync; the runner-side detect/propose phases ride
+                the separate MTTR decomposition)
+``checkpoint``  checkpoint overhead EXPOSED to the step loop
+                (``ckpt.snapshot``); the async writer's
+                wall (``ckpt.save``) is reported separately as
+                ``checkpoint_async_ms`` and excluded from the sum
+                — it overlaps training by design
+``other``       the unattributed residual (init, optimizer apply,
+                sampling, logging) — always >= 0 when the
+                taxonomy is consistent
+==============  ===============================================
+
+Wallclock here is **rank-active wall**: per worker process, the span
+from its first to its last recorded event, summed across processes
+(the orchestration gap between a whole-allocation kill and its
+relaunch is the runner's to report — `scenario.runner.ScenarioRun.
+relaunch_gap_s`). The per-run **invariant** is that the attributed
+phases never exceed that wall: each phase total is computed
+independently (with explicit overlap subtraction only where the
+taxonomy defines it), so double-counting — a straggler sleep billed
+to both ``hook`` and ``straggler``, an async writer span billed
+against a wall it overlaps — pushes the sum PAST the wall and fails
+the run instead of flattering it. ``invariant.error_pct`` is that
+excess; the CI gate (`--goodput`, scripts/run-all.sh) fails above
+``tolerance_pct`` (default 5%).
+
+Step attribution note: spans carry the SPMD context captured at open,
+and the trainer bumps the step counter in ``after_step`` — so a
+``step.compute`` span tagged ``step=k`` is the computation OF step
+``k+1``. `decompose` normalizes that (`_step_computed`).
+
+`GoodputMeter` is the live half: the training loop feeds it per-step
+phase timings and it maintains the ``kf_goodput_ratio`` gauge,
+``kf_useful_ms_total`` and per-phase ``kf_lost_ms_total{phase=...}``
+counters on the /metrics registry — the families `GoodputPolicy`
+(elastic/policy.py) reads to price shrink-vs-ride-out decisions.
+
+The port's copy of `kungfu_tpu/trace/goodput.py`, which imports no JAX:
+nothing changed.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from .export import merge_sources
+
+#: span name -> taxonomy phase (step.compute handled separately:
+#: useful-vs-lost needs cross-span context)
+_SPAN_PHASE = {
+    "step.grad_wire": "wire",
+    "step.hook": "hook",
+    "resize.resync": "resize",
+    "recovery.adopt": "recovery",
+    "recovery.restore": "recovery",
+    "ckpt.snapshot": "checkpoint",
+    "chaos.straggler": "straggler",
+}
+
+PHASES = ("compute", "wire", "hook", "resize", "recovery",
+          "checkpoint", "straggler", "lost")
+
+
+def _step_computed(ev: Dict) -> int:
+    """Training step a step.compute span computed: the context is the
+    last COMPLETED step at open, so the work is for step ctx+1."""
+    return int(ev.get("step", -1)) + 1
+
+
+def _overlap_ms(t0: float, t1: float,
+                windows: List[Tuple[float, float]]) -> float:
+    """Length of [t0,t1] ∩ ∪windows, in the input unit. Windows may
+    overlap each other; clip via a sorted sweep."""
+    if t1 <= t0 or not windows:
+        return 0.0
+    total = 0.0
+    cur = t0
+    for w0, w1 in sorted(windows):
+        lo, hi = max(cur, w0), min(t1, w1)
+        if hi > lo:
+            total += hi - lo
+            cur = hi
+        if cur >= t1:
+            break
+    return total
+
+
+def decompose(sources: List[Dict], tolerance_pct: float = 5.0,
+              device_batch: Optional[int] = None) -> Dict:
+    """Goodput decomposition over flight-record `sources`
+    (`export.read_flight_dir` shape). Returns the full accounting
+    dict; ``invariant["ok"]`` is the CI gate."""
+    # _nonce tells the per-process active windows which boot (which
+    # launch phase of a multi-phase scenario) an event belongs to
+    events, _ = merge_sources(sources, keep_nonce=True)
+    workers = [e for e in events
+               if e.get("role", "worker") == "worker"
+               and isinstance(e.get("rank"), int) and e["rank"] >= 0]
+
+    # restore landmarks: (ts_us, restored generation step)
+    restores = [(float(e["ts"]), int((e.get("args") or {})
+                                     .get("gen_step", -1)))
+                for e in events if e.get("name") == "ckpt.restored"]
+
+    # straggler sleep windows per rank (wall µs)
+    strag_windows: Dict[int, List[Tuple[float, float]]] = {}
+    for e in workers:
+        if e.get("name") == "chaos.straggler" and e.get("ph") == "X":
+            strag_windows.setdefault(e["rank"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+
+    # recovery.restore windows per rank: the survivor's restore wraps
+    # resync_params, whose own resize.resync span would otherwise be
+    # billed AGAIN under "resize" — nested time stays with "recovery"
+    recov_windows: Dict[int, List[Tuple[float, float]]] = {}
+    for e in workers:
+        if e.get("name") == "recovery.restore" and e.get("ph") == "X":
+            recov_windows.setdefault(e["rank"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+
+    # compute attempts grouped per (rank, step-computed), time-ordered
+    attempts: Dict[Tuple[int, int], List[Dict]] = {}
+    for e in workers:
+        if e.get("name") == "step.compute" and e.get("ph") == "X":
+            attempts.setdefault((e["rank"], _step_computed(e)),
+                                []).append(e)
+    for spans in attempts.values():
+        spans.sort(key=lambda e: e["ts"])
+
+    per_rank: Dict[int, Dict[str, float]] = {}
+    lost_steps_by_rank: Dict[int, int] = {}
+    useful_step_ranks = 0
+    ckpt_async_us = 0.0
+
+    def acc(rank: int, phase: str, us: float) -> None:
+        d = per_rank.setdefault(rank, {p: 0.0 for p in PHASES})
+        d[phase] += us
+
+    for (rank, step), spans in sorted(attempts.items()):
+        for n, e in enumerate(spans):
+            dur = float(e.get("dur", 0))
+            end = float(e["ts"]) + dur
+            discarded = n < len(spans) - 1 or any(
+                end < ts_r and step > gen_step
+                for ts_r, gen_step in restores if gen_step >= 0)
+            if discarded:
+                acc(rank, "lost", dur)
+                lost_steps_by_rank[rank] = (
+                    lost_steps_by_rank.get(rank, 0) + 1)
+            else:
+                acc(rank, "compute", dur)
+                useful_step_ranks += 1
+
+    for e in workers:
+        if e.get("ph") != "X":
+            continue
+        name, rank = e.get("name"), e["rank"]
+        dur = float(e.get("dur", 0))
+        t0, t1 = float(e["ts"]), float(e["ts"]) + dur
+        phase = _SPAN_PHASE.get(name)
+        if name == "step.grad_wire":
+            other = [w for r, ws in strag_windows.items()
+                     if r != rank for w in ws]
+            waited = _overlap_ms(t0, t1, other)
+            acc(rank, "straggler", waited)
+            acc(rank, "wire", dur - waited)
+        elif name == "step.hook":
+            nested = _overlap_ms(t0, t1, strag_windows.get(rank, []))
+            acc(rank, "straggler", nested)
+            acc(rank, "hook", dur - nested)
+        elif name == "resize.resync":
+            nested = _overlap_ms(t0, t1, recov_windows.get(rank, []))
+            acc(rank, "resize", dur - nested)  # nested part: recovery
+        elif name == "chaos.straggler":
+            pass  # billed via the step.hook nesting subtraction above
+        elif name == "ckpt.save":
+            ckpt_async_us += dur  # overlaps training; reported aside
+        elif phase is not None:
+            acc(rank, phase, dur)
+
+    # rank-active wall: per (rank, process-boot) event envelope
+    envelopes: Dict[Tuple[int, str], Tuple[float, float]] = {}
+    for e in workers:
+        key = (e["rank"], e["_nonce"])
+        end = float(e["ts"]) + float(e.get("dur", 0))
+        lo, hi = envelopes.get(key, (float(e["ts"]), end))
+        envelopes[key] = (min(lo, float(e["ts"])), max(hi, end))
+    wall_by_rank: Dict[int, float] = {}
+    for (rank, _nonce), (lo, hi) in envelopes.items():
+        wall_by_rank[rank] = wall_by_rank.get(rank, 0.0) + (hi - lo)
+
+    ranks_out: Dict[str, Dict] = {}
+    tot = {p: 0.0 for p in PHASES}
+    tot_wall = 0.0
+    worst_err = 0.0
+    for rank in sorted(wall_by_rank):
+        phases = per_rank.get(rank, {p: 0.0 for p in PHASES})
+        wall = wall_by_rank[rank]
+        attributed = sum(phases.values())
+        other = wall - attributed
+        err = (max(0.0, -other) / wall * 100.0) if wall > 0 else 0.0
+        worst_err = max(worst_err, err)
+        row = {p: round(v / 1e3, 1) for p, v in phases.items()}
+        row["wall_ms"] = round(wall / 1e3, 1)
+        row["other_ms"] = round(max(0.0, other) / 1e3, 1)
+        row["goodput_ratio"] = round(
+            phases["compute"] / wall, 4) if wall > 0 else 0.0
+        ranks_out[str(rank)] = row
+        for p in PHASES:
+            tot[p] += phases[p]
+        tot_wall += wall
+
+    attributed = sum(tot.values())
+    total_err = (max(0.0, attributed - tot_wall) / tot_wall * 100.0
+                 if tot_wall > 0 else 0.0)
+    err_pct = max(total_err, worst_err)
+    out = {
+        "ranks": ranks_out,
+        "totals": {
+            **{f"{p}_ms": round(v / 1e3, 1) for p, v in tot.items()},
+            "wall_ms": round(tot_wall / 1e3, 1),
+            "other_ms": round(max(0.0, tot_wall - attributed) / 1e3, 1),
+            "checkpoint_async_ms": round(ckpt_async_us / 1e3, 1),
+        },
+        "goodput_ratio": round(tot["compute"] / tot_wall, 4)
+        if tot_wall > 0 else 0.0,
+        "useful_step_ranks": useful_step_ranks,
+        "lost_step_ranks": sum(lost_steps_by_rank.values()),
+        "lost_steps_by_rank": {str(r): n for r, n in
+                               sorted(lost_steps_by_rank.items())},
+        "restored_step": max((s for _, s in restores), default=None)
+        if restores else None,
+        "invariant": {
+            "ok": bool(useful_step_ranks > 0
+                       and err_pct <= tolerance_pct),
+            "error_pct": round(err_pct, 2),
+            "tolerance_pct": tolerance_pct,
+        },
+    }
+    if device_batch:
+        useful_samples = useful_step_ranks * int(device_batch)
+        out["useful_samples"] = useful_samples
+        if tot_wall > 0:
+            # rank-active wall is rank-seconds; samples/sec uses the
+            # cluster's elapsed envelope instead (max over processes)
+            lo = min((e[0] for e in envelopes.values()), default=0.0)
+            hi = max((e[1] for e in envelopes.values()), default=0.0)
+            if hi > lo:
+                out["elapsed_ms"] = round((hi - lo) / 1e3, 1)
+                out["useful_samples_per_sec"] = round(
+                    useful_samples / ((hi - lo) / 1e6), 1)
+    from .export import recovery_decomposition
+
+    rec = recovery_decomposition(events)
+    if rec is not None:
+        out["recovery_decomposition"] = {k: round(v, 1)
+                                         for k, v in rec.items()}
+    return out
+
+
+def format_table(decomp: Dict) -> str:
+    """The operator's text view: one line per phase, % of wall."""
+    t = decomp["totals"]
+    wall = t["wall_ms"] or 1.0
+    lines = ["phase        total_ms   % of wall"]
+    for p in PHASES + ("other",):
+        v = t[f"{p}_ms"]
+        lines.append(f"{p:<12} {v:>9.1f}   {100.0 * v / wall:>6.2f}%")
+    lines.append(f"{'wall':<12} {t['wall_ms']:>9.1f}   100.00%  "
+                 f"(rank-active; async ckpt writer overlapped "
+                 f"{t['checkpoint_async_ms']:.1f} ms)")
+    lines.append(
+        f"goodput_ratio={decomp['goodput_ratio']:.4f}  "
+        f"useful_step_ranks={decomp['useful_step_ranks']}  "
+        f"lost_step_ranks={decomp['lost_step_ranks']}"
+        + (f"  restored_step={decomp['restored_step']}"
+           if decomp.get("restored_step") is not None else ""))
+    inv = decomp["invariant"]
+    lines.append(
+        f"invariant: {'OK' if inv['ok'] else 'VIOLATED'} "
+        f"(error {inv['error_pct']:.2f}% of wall, tolerance "
+        f"{inv['tolerance_pct']:.0f}%)")
+    return "\n".join(lines)
+
+
+# -- the live half: /metrics families -----------------------------------------
+
+class GoodputMeter:
+    """Per-step phase accounting for the /metrics plane.
+
+    The training loop calls `observe_step` (and `observe` for
+    out-of-loop phases: resize, recovery, checkpoint stalls); the
+    meter maintains:
+
+    - ``kf_useful_ms_total`` (counter) — compute milliseconds
+    - ``kf_lost_ms_total{phase=...}`` (counter family) — every
+      non-compute millisecond, by taxonomy phase
+    - ``kf_goodput_ratio`` (gauge) — useful / (useful + lost), the
+      live running ratio
+
+    A live rank cannot tell straggler-induced wire wait from ordinary
+    wire time (that attribution needs the cluster-merged trace), so
+    live wire inflation stays in ``phase="wire"`` — `GoodputPolicy`
+    detects stragglers from exactly that inflation.
+    """
+
+    def __init__(self, registry=None):
+        if registry is None:
+            from .metrics import REGISTRY
+            registry = REGISTRY
+        self.registry = registry
+        self._useful_ms = 0.0
+        self._lost_ms = 0.0
+
+    def observe_step(self, compute_ms: float, wire_ms: float,
+                     hook_ms: float = 0.0) -> None:
+        self.registry.inc("kf_useful_ms_total", compute_ms)
+        self._useful_ms += compute_ms
+        self.observe("wire", wire_ms)
+        if hook_ms:
+            self.observe("hook", hook_ms)
+        elif self._useful_ms > 0:
+            self.registry.set("kf_goodput_ratio", self.ratio)
+
+    def observe(self, phase: str, ms: float) -> None:
+        if ms <= 0:
+            return
+        self.registry.inc("kf_lost_ms_total", ms, phase=phase)
+        self._lost_ms += ms
+        total = self._useful_ms + self._lost_ms
+        if total > 0:
+            self.registry.set("kf_goodput_ratio",
+                              self._useful_ms / total)
+
+    @property
+    def ratio(self) -> float:
+        total = self._useful_ms + self._lost_ms
+        return self._useful_ms / total if total > 0 else 0.0

@@ -147,3 +147,17 @@ def test_byte_views_alias_cpu_tensors():
     (v,) = tcol.leaf_byte_views([t])
     v[:4] = np.frombuffer(np.float32(1.5).tobytes(), np.uint8)
     assert t[0].item() == 1.5
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int64, np.bool_])
+def test_empty_tensors_from_numpy_have_byte_views(dtype):
+    """numpy gives an empty array 0 strides and `torch.from_numpy` keeps
+    them; no dtype view takes such a tensor, so the byte views, the packing
+    and the streaming resync of a 0-size leaf made from numpy (a restored
+    checkpoint's, for one) used to raise."""
+    t = torch.from_numpy(np.zeros((0,), dtype))
+    assert t.stride() == (0,)
+    (v,) = tcol.leaf_byte_views([t])
+    assert v.shape == (0,) and v.dtype == np.uint8
+    full = torch.arange(3, dtype=torch.float32)
+    assert tcol.pack_bytes([full, t]).tobytes() == full.numpy().tobytes()

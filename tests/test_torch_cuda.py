@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (K3 paged attention, K2 fused
 head + cross-entropy, K1 flash attention, R1 the HBM streaming probe)
 against their plain PyTorch versions, and the default paths through
-them (with a ResNet-50 S-SGD step under a one-rank NCCL group). Marked ``cuda``; every test
-skips without a card. The machine with the card has no JAX, so run
-these without the suite's conftest:
+them (with a ResNet-50 S-SGD step under a one-rank NCCL group), plus
+the gradient pipeline's hooks and the checkpoint's device snapshot.
+Marked ``cuda``; every test skips without a card. The machine with the
+card has no JAX, so run these without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
@@ -674,3 +675,68 @@ def test_resnet_sync_sgd_step_on_nccl(cuda):
     assert all(bool(torch.isfinite(b).all()) for b in model.buffers())
     assert any(not torch.equal(b, b0) for b, b0 in
                zip(model.buffers(), stats0))
+
+
+def test_grad_pipeline_hooks_on_the_card(cuda):
+    """The card's half of `GradBucketPipeline`: the gradients reach the
+    pinned buckets only through the post-accumulate hooks, land back in
+    the device ``.grad``, and equal the CPU pipeline's on the same
+    gradients (bitwise, residuals included) for ``none``, ``bf16`` and
+    ``int8`` over three steps. A gradient no hook saw raises."""
+    from kungfu_tpu_torch import env as kfenv
+    from kungfu_tpu_torch.grad_pipeline import GradBucketPipeline
+    from kungfu_tpu_torch.peer import Peer
+
+    p = Peer(kfenv.from_env({}))
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 128), torch.nn.GELU(),
+                                torch.nn.Linear(128, 10)).to(cuda)
+    params = list(model.parameters())
+    x = torch.randn(32, 64, device=cuda)
+    for comp in ("none", "bf16", "int8"):
+        pipe = GradBucketPipeline(p, params, bucket_bytes=4096,
+                                  compression=comp)
+        host = GradBucketPipeline(p, [q.detach().cpu() for q in params],
+                                  bucket_bytes=4096, compression=comp)
+        assert pipe.num_buckets == host.num_buckets > 1
+        for step in range(3):
+            model.zero_grad(set_to_none=False)
+            model(x).square().mean().backward()
+            want = [q.grad.detach().cpu().clone() for q in params]
+            pipe.all_reduce([q.grad for q in params], step=step)
+            host.all_reduce(want, step=step)
+            for q, w in zip(params, want):
+                assert torch.equal(q.grad.cpu(), w)
+        for a, b in zip(pipe.state()["residual"], host.state()["residual"]):
+            assert a.tobytes() == b.tobytes()
+        pipe.close()
+        host.close()
+    pipe = GradBucketPipeline(p, params, bucket_bytes=4096)
+    with pytest.raises(RuntimeError, match="hooks"):
+        pipe.all_reduce([q.grad for q in params])
+    pipe.close()
+
+
+def test_checkpoint_snapshot_on_the_card(cuda, tmp_path):
+    """A generation queued before an in-place update of CUDA tensors
+    holds the values from before it: the snapshot is a device clone the
+    writer copies to pinned memory on its own stream."""
+    from kungfu_tpu_torch import checkpoint_async as ca
+
+    g = torch.Generator().manual_seed(0)
+    state = [torch.randn(1 << 20, generator=g).to(cuda),
+             torch.randn(33, 7, generator=g).to(cuda, torch.bfloat16),
+             torch.tensor(3.0)]
+    want = [t.clone() for t in state]
+    ckpt = ca.AsyncShardedCheckpointer(str(tmp_path))
+    ckpt.save(state, step=1)
+    for t in state:
+        t.add_(1.0)  # queued behind the clone on the same stream
+    ckpt.close()
+    assert ckpt.snapshot_bytes == {"device": 4 * (1 << 20) + 2 * 33 * 7,
+                                   "host": 4}
+    out, step, _, _ = ca.restore_sharded(str(tmp_path),
+                                         [torch.zeros_like(t) for t in state])
+    assert step == 1
+    for got, w in zip(out, want):
+        assert got.device == w.device and torch.equal(got, w)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of `kungfu_tpu_torch`, and not the
-chip smoke script, imports JAX, flax or the JAX package — neither
-statically nor at run time — and no command line the port builds runs a
-module of the JAX package (``python -m kungfu_tpu...``). The entry
-points of the elastic path (`run.__main__`, the continuity worker) run
+chip smoke script, imports JAX, flax, optax, orbax, ml_dtypes (none of
+which the card's machine has) or the JAX package — neither statically
+nor at run time — and no command line the port builds runs a module of
+the JAX package (``python -m kungfu_tpu...``). The entry points of the
+elastic path (`run.__main__`, the continuity and GNS workers) run
 nothing when imported, and importing the package loads no libkf."""
 
 import ast
@@ -16,7 +17,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "kungfu_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kungfu_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "kungfu_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -27,7 +29,8 @@ def _port_sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_decode_profile.py",
         ROOT / "scripts" / "torch_train_profile.py",
-        ROOT / "scripts" / "torch_resnet_profile.py"]
+        ROOT / "scripts" / "torch_resnet_profile.py",
+        ROOT / "scripts" / "torch_elastic_wire.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -93,6 +96,13 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.elastic.hooks",
             "kungfu_tpu_torch.elastic.harness",
             "kungfu_tpu_torch.elastic.continuity_worker",
+            "kungfu_tpu_torch.elastic.gns_worker",
+            "kungfu_tpu_torch.elastic.policy",
+            "kungfu_tpu_torch.grad_pipeline", "kungfu_tpu_torch.checkpoint",
+            "kungfu_tpu_torch.checkpoint_async",
+            "kungfu_tpu_torch.trace.export", "kungfu_tpu_torch.trace.goodput",
+            "kungfu_tpu_torch.ops.state", "kungfu_tpu_torch.ops.monitor",
+            "kungfu_tpu_torch.optimizers.monitors",
             "kungfu_tpu_torch.run", "kungfu_tpu_torch.run.__main__",
             "kungfu_tpu_torch.run.job", "kungfu_tpu_torch.run.watch",
             "kungfu_tpu_torch.run.discovery"} <= set(mods)
@@ -124,7 +134,8 @@ def test_command_lines_launch_only_the_port():
     assert all(isinstance(m, str) and m.startswith("kungfu_tpu_torch")
                for m in found), found
     assert {"kungfu_tpu_torch.run",
-            "kungfu_tpu_torch.elastic.continuity_worker"} <= set(found)
+            "kungfu_tpu_torch.elastic.continuity_worker",
+            "kungfu_tpu_torch.elastic.gns_worker"} <= set(found)
 
 
 def test_entry_points_run_nothing_at_import():
@@ -135,6 +146,7 @@ def test_entry_points_run_nothing_at_import():
         "import kungfu_tpu_torch as p\n"
         "before = 'kungfu_tpu_torch.ffi' in sys.modules\n"
         "import kungfu_tpu_torch.elastic.continuity_worker\n"
+        "import kungfu_tpu_torch.elastic.gns_worker\n"
         "import kungfu_tpu_torch.run.__main__\n"
         "from kungfu_tpu_torch import ffi\n"
         "print(json.dumps([before, ffi._lib is None, "
