@@ -78,7 +78,8 @@ failing on the first phase that fails:
    workers, rank 1 killed by a chaos fault after step 3 of 8: the
    survivor recovers (every KF_MTTR phase), trains on, and the schedule
    grows a replacement joiner back; (c) (a)'s schedule on the bucketed
-   wire (`grad_pipeline`, KF_GRAD_BUCKET_MB=1), ``none`` then ``bf16``;
+   wire (`grad_pipeline`, KF_GRAD_BUCKET_MB=1), ``none``, then ``bf16``
+   on a 7-step cut of it (2:1,4:2,1:1);
    (d) `run_checkpoint_restore` on the bf16 bucketed wire: async sharded
    checkpoints every 2 steps at np 2, the whole cluster SIGKILLed at step
    5, a cold boot at np 1 restores the latest complete generation
@@ -95,6 +96,29 @@ failing on the first phase that fails:
    KF_MTTR phases, the checkpoint's generation bytes, stall, snapshot
    memory, writer and restore times, the GNS readings, and each
    worker's peak memory, beside the card;
+8. adaptive — runs after 7: KungFu's adaptive optimizers. (a) In
+   process, under a one-rank NCCL group (joined and left as 5b's):
+   GPT-2-small at full width (batch 8 x 1024, flash, residual CE,
+   `lm_adamw`) takes 3 steps under the plain inner optimizer, then 3
+   from the same seed under each of `sma`, `pair_averaging` and
+   `ada_sgd` (the switch at step 2, `broadcast_params` there): at one
+   rank the mean of a parameter is itself and each blend adds 0, so
+   every wrapper's parameters must `torch.equal` the inner's; K1 and
+   K2 must launch 12 and 1 times a step and their plain versions never;
+   prints each wrapper's ms/step beside the inner's and its collectives
+   a step (one a parameter for `sma` and `ada_sgd`). (b)
+   `benchmarks.straggler.measure` at ``--model gpt``, np 2 on the card
+   over libkf, one clean cell each for ``sma`` and ``pair`` (2 warm-up,
+   6 timed steps): each worker's K1/K2 launched and their plain
+   versions never, its loss fell, and ``pair`` mixed in at least one
+   round; prints each worker's samples/s and tokens/s, the step's
+   split (compute and wire, or the pair store's wait, blend, save and
+   request), peak memory and its parameters' gap to the ranks' mean.
+   (c) The reference test's straggler contrast at its own model (the
+   SLP) on the card: np 4, rank 0 sleeping 120 ms a step, 20 steps of
+   64, ``sync`` and ``pair``, clean and with the straggler: prints the
+   retentions and checks the reference's ordering, pair's straggler
+   rate above 1.5x sync's;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -115,7 +139,9 @@ failing on the first phase that fails:
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
-``elastic_launches``, the elastic workers' launches) and, last,
+``elastic_launches``, the elastic workers' launches, and
+``adaptive_launches``, the adaptive phase's: (a)'s in process and
+(b)'s workers) and, last,
 ``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
 package is missing. Takes no arguments: every phase runs every time.
@@ -701,6 +727,10 @@ def phase_train(torch, fc, fl, variant, attention="local"):
 #: steps, the whole cluster killed at step 5, restored at np 1; (e) the
 #: GNS loop, 2 -> 4
 ELASTIC_GROW = ("3:1,6:2,1:1", 10)
+#: (c)'s bf16 run: (a)'s schedule cut by three steps (one at size 1, two
+#: at size 2) to keep the whole smoke near its time budget beside the
+#: adaptive phase; `none` keeps (a)'s, whose digests it must equal
+ELASTIC_GROW_BF16 = ("2:1,4:2,1:1", 7)
 ELASTIC_RECOVERY = (1, 3, 8, 2)     # crash rank, crash step, steps, np
 ELASTIC_RESTORE = (2, 1, 5, 2)      # save np, restore np, kill step, every
 #: steps the restored cluster trains past the kill step
@@ -942,7 +972,8 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
     config server, ``kfrun -w``, GPT-2-small continuity workers sharing
     the card. (a) grow 1 -> 2 and shrink to 1 with an eviction, on the
     lump; (b) two workers, one killed, the survivor recovers; (c) (a)'s
-    schedule on the bucketed wire, ``none`` then ``bf16``; (d) the
+    schedule on the bucketed wire, ``none``, then ``bf16`` on a shorter
+    one; (d) the
     durable rung; (e) the GNS loop. Rank 0 profiles three size-2 steps
     of (a) and (c) for the device's idle share. Returns the workers'
     K1/K2 launches summed over every run."""
@@ -951,15 +982,16 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
                                                   run_survivor_recovery)
 
     flags = ["--model", "gpt", "--device", device]
-    schedule, steps = ELASTIC_GROW
     profile = {"KF_PROFILE_SIZE": str(ELASTIC_PROFILE_SIZE)}
     meds, digests = {}, {}
     totals = None
-    for tag, env in (("grow", {}),
-                     ("bucketed none", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                                        "KF_GRAD_COMPRESS": "none"}),
-                     ("bucketed bf16", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                                        "KF_GRAD_COMPRESS": "bf16"})):
+    for tag, env, (schedule, steps) in (
+            ("grow", {}, ELASTIC_GROW),
+            ("bucketed none", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                               "KF_GRAD_COMPRESS": "none"}, ELASTIC_GROW),
+            ("bucketed bf16", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                               "KF_GRAD_COMPRESS": "bf16"},
+             ELASTIC_GROW_BF16)):
         t0 = time.perf_counter()
         with claim_port_span() as span:
             logs = run_loss_continuity(schedule=schedule, total_steps=steps,
@@ -1016,6 +1048,214 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
     _add(totals, elastic_report("recovery", logs, card, device)[0])
     _add(totals, phase_elastic_restore(card, flags, device))
     phase_elastic_gns(card, device)
+    return totals
+
+
+#: the adaptive phase. (a) steps each in-step wrapper (and AdaSGD's
+#: switch) takes in process against its inner optimizer; (b) the libkf
+#: GPT-2-small cells: workers and timed steps (after the benchmark's 2
+#: warm-up steps), no straggler; (c) the reference test's straggler
+#: contrast (tests/test_straggler.py:14-16): workers, straggler ms a
+#: step (rank 0), timed steps, batch
+ADAPTIVE_STEPS, ADAPTIVE_CHANGE_STEP = 3, 2
+ADAPTIVE_GPT = (2, 6)
+ADAPTIVE_STRAGGLER = (4, 120, 20, 64)
+#: the reference test's ordering: pair's cluster rate under the
+#: straggler above this multiple of sync's
+ADAPTIVE_PAIR_OVER_SYNC = 1.5
+
+
+def _launch_totals(launches: dict) -> dict:
+    """``{"flash.fwd": n, ...}`` of a flash / fused-CE launch dict pair,
+    the path's kernels (`ELASTIC_KERNELS`) only."""
+    return {f"{m}.{k}": launches[m][k] for m, ks in ELASTIC_KERNELS.items()
+            for k in ks}
+
+
+def phase_adaptive_wrappers(torch, fc, fl, card: str) -> dict:
+    """(a): GPT-2-small at full width (batch 8 x 1024, flash, residual
+    CE, `lm_adamw`) under a one-rank NCCL group: `ADAPTIVE_STEPS` steps
+    under the plain inner optimizer, then from the same seeded initial
+    parameters under `sma`, `pair_averaging` and `ada_sgd` (switch at
+    `ADAPTIVE_CHANGE_STEP`, `broadcast_params` there). At one rank the
+    mean of a parameter is itself and each blend adds 0, so every
+    wrapper's parameters must equal the inner's (`torch.equal`). Returns
+    the K1/K2 launches of the four runs."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.benchmarks.lm import build_lm_model
+    from kungfu_tpu_torch.elastic.continuity_worker import gpt_corpus
+    from kungfu_tpu_torch.models.gpt import gpt_fused_loss
+    from kungfu_tpu_torch.optimizers import (ada_sgd, lm_adamw,
+                                             pair_averaging, sma)
+    from kungfu_tpu_torch.parallel import (broadcast_params, data_mesh,
+                                           init_distributed,
+                                           shutdown_distributed)
+
+    wrappers = {"inner": lambda o, m: o, "sma": sma,
+                "pair_averaging": pair_averaging,
+                "ada_sgd": lambda o, m: ada_sgd(
+                    o, m, change_step=ADAPTIVE_CHANGE_STEP)}
+    tokens = torch.from_numpy(gpt_corpus(1024)[:8]).to(DEVICE)
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    fl.reset_launches()
+    init_distributed(device=DEVICE)
+    try:
+        mesh = data_mesh(1)
+        check(dist.get_backend() == "nccl" and mesh.world == 1,
+              f"adaptive (a): not a one-rank NCCL group: {mesh}")
+        ref, runs = None, {}
+        _, model = build_lm_model("small", 1024, DEVICE, attention="flash")
+        params = list(model.parameters())
+        init = [p.detach().clone() for p in params]
+        for name, wrap in wrappers.items():
+            with torch.no_grad():       # every run from the seeded init
+                for p, p0 in zip(params, init):
+                    p.copy_(p0)
+            opt = wrap(lm_adamw(params), mesh)
+            ms, losses = [], []
+            for k in range(ADAPTIVE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "ada_sgd" and k == ADAPTIVE_CHANGE_STEP:
+                    broadcast_params(model, mesh)
+                opt.zero_grad(set_to_none=False)
+                loss = gpt_fused_loss(model, tokens, residual=True)
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            final = [p.detach().clone() for p in params]
+            if ref is None:
+                ref = final
+            else:
+                same = sum(torch.equal(a, b) for a, b in zip(final, ref))
+                check(same == len(ref), f"adaptive (a): {name}'s "
+                      f"parameters differ from the inner optimizer's in "
+                      f"{len(ref) - same} of {len(ref)} tensors")
+            per_step = getattr(opt, "collectives", 0) / ADAPTIVE_STEPS
+            if name in ("sma", "ada_sgd"):
+                check(per_step == len(params), f"adaptive (a): {name} "
+                      f"issued {per_step} collectives a step, expected "
+                      f"{len(params)} (one a parameter)")
+            runs[name] = ms
+            equal = ("" if name == "inner" else
+                     "; parameters torch.equal the inner optimizer's")
+            log(f"adaptive (a) {name}: ms/step {[f'{t:.2f}' for t in ms]}"
+                f" (inner: {[f'{t:.2f}' for t in runs['inner']]}), "
+                f"{per_step:g} collectives a step over {len(params)} "
+                f"parameters, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+                f"{equal} ({card})")
+            del opt, final
+        del model, params, init, ref
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+    torch.cuda.synchronize()
+    launches = _launch_totals({"flash": fl.LAUNCHES,
+                               "fused_ce": fc.LAUNCHES})
+    n = len(wrappers) * ADAPTIVE_STEPS
+    want = {"flash.fwd": LAYERS * n, "flash.dq": LAYERS * n,
+            "flash.dkv": LAYERS * n, "fused_ce.fwd": n,
+            "fused_ce.residual_d": n}
+    check(launches == want and fl.LAUNCHES["plain"] == 0
+          and fc.LAUNCHES["plain"] == 0,
+          f"adaptive (a): launches {launches}, expected {want}, plain "
+          f"{fl.LAUNCHES['plain']} / {fc.LAUNCHES['plain']}")
+    check(not dist.is_initialized(), "adaptive (a): the process group "
+          "outlived the run")
+    return launches
+
+
+def phase_adaptive_libkf(card: str) -> dict:
+    """(b): `benchmarks.straggler --model gpt` at np 2 on the card, one
+    clean cell each for ``sma`` and ``pair``. Each worker's K1/K2 must
+    have launched and their plain versions never, its loss must fall,
+    and the pair workers must have mixed in at least one round. Returns
+    the workers' K1/K2 launches summed."""
+    from kungfu_tpu_torch.benchmarks.straggler import WARMUP, measure
+
+    workers, steps = ADAPTIVE_GPT
+    t0 = time.perf_counter()
+    res = measure(np_=workers, straggler_ms=0, steps=steps,
+                  strategies=("sma", "pair"), model="gpt", device=DEVICE,
+                  timeout=600)
+    totals = {f"{m}.{k}": 0 for m, ks in ELASTIC_KERNELS.items()
+              for k in ks}
+    for strategy, entry in res.items():
+        for rank, r in sorted(entry["cells"]["clean"].items()):
+            tag = f"adaptive (b) {strategy} rank {rank}"
+            fl_n, fc_n = r["launches"]["flash"], r["launches"]["fused_ce"]
+            got = _launch_totals(r["launches"])
+            check(all(v > 0 for v in got.values()) and fl_n["plain"] == 0
+                  and fc_n["plain"] == 0, f"{tag}: launches {r['launches']}")
+            _add(totals, got)
+            check(r["last_loss"] < r["first_loss"], f"{tag}: the loss did "
+                  f"not fall ({r['first_loss']} -> {r['last_loss']})")
+            if strategy == "pair":
+                check(r["skipped"] < steps, f"{tag}: skipped "
+                      f"{r['skipped']} of {steps + WARMUP} rounds")
+            split = ", ".join(f"{k} {v:.2f}" for k, v in
+                              r["split_ms"].items())
+            log(f"{tag}: {r['samples_per_sec']:.3f} samples/s, "
+                f"{r['tokens_per_sec']:.1f} tokens/s over {steps} steps "
+                f"of {r['batch']} x 1024 ({r['wall_s']:.3f} s); step "
+                f"medians, ms: {split}; skipped {r['skipped']}; loss "
+                f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}; peak "
+                f"memory {r['peak_mem_gb']} GB; parameter gap to the "
+                f"ranks' mean {r['param_gap']:.6g}; launches {json.dumps(got)}"
+                f" ({r['kind']}; {card})")
+        log(f"adaptive (b) {strategy}: cluster {entry['clean_samples_per_sec']:.3f}"
+            f" samples/s at np {workers} ({card})")
+    log(f"adaptive (b): {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+def phase_adaptive_straggler(card: str) -> None:
+    """(c): the reference test's straggler contrast at its own model
+    (the SLP) on the card: np 4, rank 0 sleeping 120 ms a step, 20
+    steps of 64, ``sync`` and ``pair``, clean and with the straggler.
+    Pair's cluster rate under the straggler must beat sync's by the
+    reference's 1.5x."""
+    from kungfu_tpu_torch.benchmarks.straggler import measure
+
+    workers, ms, steps, batch = ADAPTIVE_STRAGGLER
+    t0 = time.perf_counter()
+    res = measure(np_=workers, straggler_ms=ms, steps=steps, batch=batch,
+                  strategies=("sync", "pair"), model="slp", device=DEVICE,
+                  timeout=420)
+    for strategy, r in res.items():
+        rates = {cell: {k: round(w["samples_per_sec"], 1)
+                        for k, w in sorted(ws.items())}
+                 for cell, ws in r["cells"].items()}
+        log(f"adaptive (c) {strategy}: clean {r['clean_samples_per_sec']:.3f}"
+            f" samples/s, straggler {r['straggler_samples_per_sec']:.3f},"
+            f" retention {r['retention']:.4f}; by rank {json.dumps(rates)}"
+            f" ({card})")
+    sync, pair = res["sync"], res["pair"]
+    ratio = (pair["straggler_samples_per_sec"]
+             / sync["straggler_samples_per_sec"])
+    log(f"adaptive (c): pair / sync under the straggler {ratio:.3f} "
+        f"(reference test: > {ADAPTIVE_PAIR_OVER_SYNC}; its retentions: "
+        f"sync < 0.6, pair > 0.55); {time.perf_counter() - t0:.1f} s")
+    check(ratio > ADAPTIVE_PAIR_OVER_SYNC,
+          f"adaptive (c): pair's straggler rate is {ratio:.3f}x sync's: "
+          f"{json.dumps({k: {x: v for x, v in r.items() if x != 'cells'} for k, r in res.items()})}")
+
+
+def phase_adaptive(torch, fc, fl, card: str) -> dict:
+    """The adaptive optimizers: (a) the in-step wrappers, (b) the libkf
+    GPT-2-small workers under SMA and pair averaging, (c) the straggler
+    contrast. Returns the K1/K2 launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    totals = phase_adaptive_wrappers(torch, fc, fl, card)
+    torch.cuda.empty_cache()
+    _add(totals, phase_adaptive_libkf(card))
+    phase_adaptive_straggler(card)
+    log(f"adaptive: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(totals)}")
     return totals
 
 
@@ -1627,6 +1867,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] resnet and roofline done")
     elastic = phase_elastic(torch, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] elastic done")
+    adaptive = phase_adaptive(torch, fc, fl, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] adaptive done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -1664,6 +1906,7 @@ def main() -> int:
             "replaces": K2_REPLACES[name],
             "launches": sum(m["launches"][name] for m in trained.values()),
             "elastic_launches": elastic.get(f"fused_ce.{name}", 0),
+            "adaptive_launches": adaptive.get(f"fused_ce.{name}", 0),
             "max_abs_err": k2_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1682,6 +1925,7 @@ def main() -> int:
             "replaces": K1_REPLACES[name],
             "launches": trained["residual/flash"]["k1_launches"][name],
             "elastic_launches": elastic[f"flash.{name}"],
+            "adaptive_launches": adaptive[f"flash.{name}"],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,

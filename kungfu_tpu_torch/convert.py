@@ -4,8 +4,8 @@ The port's modules carry the flax names, so a flax param tree
 flattened with ``"."`` is a `GPTLM` state dict; this module does the
 flattening and checks names and shapes against the config. A ResNet's
 trees also need their kernels transposed to torch's layouts
-(`resnet_from_flax`, and back with `resnet_to_flax`), and so does the
-SLP's one Dense layer (`slp_from_flax`).
+(`resnet_from_flax`, and back with `resnet_to_flax`), and so do the
+SLP's one Dense layer (`slp_from_flax`) and the MLP's (`mlp_from_flax`).
 """
 
 from __future__ import annotations
@@ -104,3 +104,20 @@ def slp_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return {"dense.weight": torch.tensor(np.ascontiguousarray(kernel.T)),
             "dense.bias": torch.tensor(np.asarray(dense["bias"],
                                                   dtype=np.float32))}
+
+
+def mlp_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax `MLP` param tree (``{"Dense_i": {"kernel": [in, out],
+    "bias": [out]}}``, numpy arrays) -> a state dict for the port's
+    `models.mlp.MLP` of the same widths: ``Dense_i`` becomes
+    ``dense.i``, each kernel transposed to torch's ``[out, in]``
+    weight, all f32."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        dense = params[f"Dense_{i}"]
+        kernel = np.asarray(dense["kernel"], dtype=np.float32)
+        out[f"dense.{i}.weight"] = torch.tensor(
+            np.ascontiguousarray(kernel.T))
+        out[f"dense.{i}.bias"] = torch.tensor(
+            np.asarray(dense["bias"], dtype=np.float32))
+    return out

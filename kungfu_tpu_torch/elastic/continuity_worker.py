@@ -128,16 +128,17 @@ def gpt_corpus(seq: int, n: int = CORPUS_SEQS, ids: int = CORPUS_IDS,
 
 
 class SLPTrainer:
-    """The reference worker's model: SLP, synthetic MNIST, SGD(0.1)."""
+    """The reference worker's model: SLP, synthetic MNIST (`n` samples),
+    SGD(0.1)."""
 
     LR = 0.1
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, n: int = 2048):
         from ..datasets import load_synthetic_split
         from ..models import SLP
 
         self.device = device
-        ds = load_synthetic_split(n=2048, seed=0)
+        ds = load_synthetic_split(n=n, seed=0)
         self.x = torch.from_numpy(ds.images).to(device)
         self.y = torch.from_numpy(ds.labels).long().to(device)
         self.num_samples = len(ds.labels)
@@ -191,6 +192,19 @@ class GPTTrainer:
         return gpt_fused_loss(self.model, batch, residual=True)
 
 
+def param_digest(params) -> bytes:
+    """blake2b over the parameters' own blake2b digests (their bytes,
+    in order), each hashed on a thread of its own (hashlib releases the
+    GIL)."""
+    from ..ops.collective import leaf_byte_views
+
+    views = leaf_byte_views([p.detach() for p in params])
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        parts = pool.map(
+            lambda v: hashlib.blake2b(v, digest_size=16).digest(), views)
+        return hashlib.blake2b(b"".join(parts), digest_size=16).digest()
+
+
 def _profile_busy_us(prof) -> float:
     """Union of the device intervals a profile recorded (kernels and
     copies), in µs."""
@@ -232,7 +246,7 @@ def main(argv=None) -> None:
     from ..data import ElasticSampler
     from ..ffi import KfError
     from ..initializer import broadcast_variables
-    from ..ops.collective import defuse, fuse, leaf_byte_views
+    from ..ops.collective import defuse, fuse
     from ..trace import metrics
     from ..trace.goodput import GoodputMeter
     from . import ElasticCallback
@@ -302,14 +316,9 @@ def main(argv=None) -> None:
             return float(trainer.loss(idx))
 
     def digest_check(tag: str) -> None:
-        """Every member hashes its parameters' bytes; they must agree.
-        The digest is blake2b over the parameters' own blake2b digests,
-        each hashed on a thread of its own (hashlib releases the GIL)."""
-        views = leaf_byte_views([p.detach() for p in params])
-        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-            parts = pool.map(
-                lambda v: hashlib.blake2b(v, digest_size=16).digest(), views)
-            d = hashlib.blake2b(b"".join(parts), digest_size=16).digest()
+        """Every member hashes its parameters' bytes (`param_digest`);
+        they must agree."""
+        d = param_digest(params)
         agreed = peer.consensus(d, name=f"kf::digest:{peer.version}")
         print(f"KF_DIGEST rank={peer.rank} size={peer.size} "
               f"step={elastic.state.step} {tag} digest={d.hex()} "

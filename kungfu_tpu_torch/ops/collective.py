@@ -3,9 +3,12 @@ schedules that cut a list of tensors into chunks, all-reduce buckets and
 checkpoint shards, and the byte views the libkf control plane moves.
 
 The JAX package's collectives (`kungfu_tpu/ops/collective.py`) are
-`lax.psum`/`pmean` over a named mesh axis inside `shard_map`; here one
-process drives one card and they are NCCL (on CUDA) or gloo (on the
-CPU) calls over a process group, in place. `chunk_schedule`,
+`lax.psum`/`pmean`/`all_gather`/`ppermute` over a named mesh axis inside
+`shard_map`; here one process drives one card and they are NCCL (on
+CUDA) or gloo (on the CPU) calls over a process group: `all_reduce`,
+`all_reduce_mean`, `broadcast` and `neighbor_exchange` work in place
+over a list of tensors and return the number of collectives issued,
+`all_gather` returns the gathered tensor. `chunk_schedule`,
 `bucket_schedule` and `shard_schedule` are copies of the JAX functions
 over a list of tensors in parameter order (the JAX ones take a pytree's
 leaves): for the same shapes and dtypes they give the same spans, which
@@ -49,6 +52,74 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> int:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
             t.div_(world)
     return len(tensors)
+
+
+def all_reduce(tensors: Sequence[torch.Tensor], group=None) -> int:
+    """Sum each tensor over `group` in place, one all-reduce per tensor
+    (reference KungfuAllReduce; the JAX package's `psum` per leaf).
+    Returns the number of collectives issued."""
+    for t in tensors:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return len(tensors)
+
+
+def group_all_reduce(tensors: Sequence[torch.Tensor], group=None) -> int:
+    """The JAX package's list form of `all_reduce` (one `psum` per
+    tensor, like the reference's per-gradient ops). Every collective of
+    the port takes a list, so it is `all_reduce` itself."""
+    return all_reduce(tensors, group)
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's `x` concatenated along the leading axis, in rank
+    order: the output's leading dim is the group's size times `x`'s
+    (reference KungfuAllGather; the JAX package's tiled
+    ``lax.all_gather``). A new tensor; `x` is unchanged."""
+    world = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather(list(out.chunk(world)), x, group=group)
+    return out
+
+
+def neighbor_exchange(tensors: Sequence[torch.Tensor], shift: int = 1,
+                      group=None) -> int:
+    """Rotate the tensors around the ring by `shift`, in place: rank r
+    takes the values rank ``(r - shift) mod n`` held — the JAX package's
+    ``ppermute`` with the pairs ``(i, (i + shift) % n)``, which SENDS to
+    ``(r + shift) mod n``. One send and one receive a tensor, all in one
+    `dist.batch_isend_irecv`; the values sent are copies, since each
+    tensor is also the receive buffer. A shift that is a multiple of the
+    group's size leaves every tensor as it is and issues nothing.
+    Returns the number of collectives issued (one a tensor)."""
+    world = dist.get_world_size(group)
+    if not tensors or shift % world == 0:
+        return 0
+    rank = dist.get_rank(group)
+
+    def glob(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    dst, src = glob((rank + shift) % world), glob((rank - shift) % world)
+    ops = []
+    for t in tensors:
+        ops.append(dist.P2POp(dist.isend, t.clone(), dst, group))
+        ops.append(dist.P2POp(dist.irecv, t, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return len(tensors)
+
+
+def ring_neighbor(x: torch.Tensor, shift: int = 1, group=None) -> int:
+    """`neighbor_exchange` of one tensor: `x` takes, in place, the value
+    rank ``(r - shift) mod n`` held. Returns the collectives issued."""
+    return neighbor_exchange([x], shift, group)
+
+
+def subtree_shapes(tensors: Sequence[torch.Tensor]) -> List[Tuple]:
+    """The tensors' shapes, in order."""
+    return [tuple(t.shape) for t in tensors]
 
 
 def broadcast(tensors: Sequence[torch.Tensor], src: int = 0,

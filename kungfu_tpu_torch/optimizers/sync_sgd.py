@@ -41,34 +41,54 @@ def bucketed_all_reduce_mean(tensors: Sequence[torch.Tensor], mesh,
     return len(buckets)
 
 
-class SyncSGD:
-    """`inner` whose `step()` first averages every gradient over the
-    mesh: one all-reduce per gradient, or per `bucket_schedule` bucket
-    when `bucket_bytes` is set. `all_reduces` counts the collectives it
-    has issued. Gradients must be contiguous and alike in shape on
-    every rank (every rank's `inner` holds the same parameters)."""
+class WrappedOptimizer:
+    """An inner torch optimizer under a distributed rule (the JAX
+    package's optax transformations that wrap an inner one): `inner`,
+    its `param_groups` and `zero_grad`, and `collectives`, the number of
+    collectives the rule has issued. Every rank's `inner` holds the same
+    parameters in the same order, contiguous and alike in shape."""
 
-    def __init__(self, inner: torch.optim.Optimizer, mesh,
-                 bucket_bytes: Optional[int] = None):
+    def __init__(self, inner: torch.optim.Optimizer, mesh):
         self.inner = inner
         self.mesh = mesh
-        self.bucket_bytes = bucket_bytes
-        self.all_reduces = 0
+        self.collectives = 0
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
 
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
     def _grads(self) -> List[torch.Tensor]:
-        return [p.grad for g in self.inner.param_groups
-                for p in g["params"] if p.grad is not None]
+        return [p.grad for p in self._params() if p.grad is not None]
+
+
+class SyncSGD(WrappedOptimizer):
+    """`inner` whose `step()` first averages every gradient over the
+    mesh: one all-reduce per gradient, or per `bucket_schedule` bucket
+    when `bucket_bytes` is set. `all_reduces` (= `collectives`) counts
+    the collectives it has issued."""
+
+    def __init__(self, inner: torch.optim.Optimizer, mesh,
+                 bucket_bytes: Optional[int] = None):
+        super().__init__(inner, mesh)
+        self.bucket_bytes = bucket_bytes
+
+    @property
+    def all_reduces(self) -> int:
+        return self.collectives
 
     @torch.no_grad()
     def step(self):
         grads = self._grads()
         if self.bucket_bytes is None:
-            self.all_reduces += all_reduce_mean(grads, self.mesh.group)
+            self.collectives += all_reduce_mean(grads, self.mesh.group)
         else:
-            self.all_reduces += bucketed_all_reduce_mean(
+            self.collectives += bucketed_all_reduce_mean(
                 grads, self.mesh, self.bucket_bytes)
         return self.inner.step()
 

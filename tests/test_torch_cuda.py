@@ -740,3 +740,54 @@ def test_checkpoint_snapshot_on_the_card(cuda, tmp_path):
     assert step == 1
     for got, w in zip(out, want):
         assert got.device == w.device and torch.equal(got, w)
+
+
+def test_pair_host_on_the_card_is_the_cpu_path(cuda):
+    """`PairAveragingHost` on CUDA parameters (fused on the card, one
+    pinned copy to the store, the fetched vector back in one copy, the
+    blend on the card, defused in place) gives bitwise the CPU path's
+    parameters and stores, through an in-process store of two ranks."""
+    from kungfu_tpu_torch.parallel import PairAveragingHost
+
+    class StorePeer:
+        def __init__(self, rank, store):
+            self.rank, self.size, self.store = rank, 2, store
+
+        def save(self, name, x, version=None):
+            self.store[(self.rank, name)] = np.array(x, copy=True)
+
+        def request(self, rank, name, like, version=None):
+            return self.store[(rank, name)].copy()
+
+        def barrier(self):
+            pass
+
+    g = torch.Generator().manual_seed(0)
+    init = [[torch.randn(300, 7, generator=g), torch.randn(5, generator=g)]
+            for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        store = {}
+        hosts = [PairAveragingHost(StorePeer(r, store), seed=r)
+                 for r in range(2)]
+        params = [[t.to(dev, copy=True) for t in ts] for ts in init]
+        for r in range(2):
+            hosts[r].publish(params[r])
+        for r in range(2):
+            hosts[r].init_store(params[r])
+            hosts[r]._prefetch.join()
+        for k in range(3):
+            for r in range(2):
+                hosts[r].mix(params[r])
+                hosts[r]._prefetch.join()
+                for p in params[r]:
+                    p.mul_(0.9).add_(0.01 * (k + r))
+                hosts[r].publish(params[r])
+        for h in hosts:
+            h.stop()
+            assert h.skipped == 0
+        runs[str(dev)] = ([[p.cpu() for p in ps] for ps in params], store)
+    (cpu_p, cpu_s), (card_p, card_s) = runs.values()
+    for a, b in zip(sum(cpu_p, []), sum(card_p, [])):
+        assert torch.equal(a, b)
+    assert all(cpu_s[k].tobytes() == card_s[k].tobytes() for k in cpu_s)

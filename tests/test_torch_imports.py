@@ -30,7 +30,8 @@ def _port_sources():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_decode_profile.py",
         ROOT / "scripts" / "torch_train_profile.py",
         ROOT / "scripts" / "torch_resnet_profile.py",
-        ROOT / "scripts" / "torch_elastic_wire.py"]
+        ROOT / "scripts" / "torch_elastic_wire.py",
+        ROOT / "scripts" / "torch_pair_wire.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
