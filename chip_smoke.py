@@ -119,6 +119,33 @@ failing on the first phase that fails:
    64, ``sync`` and ``pair``, clean and with the straggler: prints the
    retentions and checks the reference's ordering, pair's straggler
    rate above 1.5x sync's;
+9. serve-tier — runs after 8 and before the timing of 6: the kfserve
+   tier through the serve benchmark's cell
+   (`benchmarks.serve.measure_cell` over `serve.harness.run_serve_cluster`):
+   a config server holding the request ledger, ``kfrun -w`` and
+   `serve.worker` replicas sharing the card, each serving GPT-2-small at
+   full width and depth in bf16 (max_len 1024, batch 8, 256-token
+   prefill chunks, prefix sharing; the same seeded weights as phase 3)
+   through `DecodeEngine`, so every decode step launches K3. The
+   requests are phase 3's 12 and `default_requests(12, gen_len=64)`,
+   after 2 warm-up requests. (a) np 1 with KF_SERVE_KERNEL=auto (the
+   plan's resident scheme) and np 2 with ``stream``: each worker's
+   scheme launched and K3's plain version never; prints p50/p99 latency,
+   generated tokens/s, each worker's decode, prefill, control, resize
+   and warm ms and peak memory, and the tier's token agreement with phase 3's
+   engine on its 12 requests (printed, not checked: bf16 under other
+   batch compositions); (b) np 2 grown to 3 through /addworker once the
+   first measured request is done, with 60 more requests, at the
+   ledger's default lease: the joiner adopts the weights and decodes,
+   the survivors ride the epoch switch, and a request is leased twice
+   only if the survivors' stall in it outlasted the lease; prints the
+   re-leased count, the stall and the p99 through the resize; (c) (b)'s
+   tier with the ledger on an in-process `ReplicaTier(n=3, wal_dir)`
+   and every request admitted
+   through a `Router`, rank 1 SIGKILLed at its 20th decode iteration
+   with KF_RECOVER=1: the survivor recovers, the dead worker's requests
+   are re-leased and every request completes. Every run must complete
+   every request with the ledger's invariants empty;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -141,7 +168,8 @@ Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
 ``elastic_launches``, the elastic workers' launches, and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
-(b)'s workers) and, last,
+(b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
+tier's workers' launches of that scheme) and, last,
 ``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
 package is missing. Takes no arguments: every phase runs every time.
@@ -1259,6 +1287,217 @@ def phase_adaptive(torch, fc, fl, card: str) -> dict:
     return totals
 
 
+#: the serve-tier phase: the decode workers' environment (GPT-2-small
+#: at full width and depth in bf16, phase 3's engine settings), the new
+#: tokens of `default_requests`' twelve, the warm-up requests before
+#: the measured ones, (b)'s added requests (enough that the queue
+#: outlasts the survivors' stall and the joiner's warm-up, so the joiner
+#: decodes; (b) runs at the ledger's default lease), and (c)'s fault:
+#: rank 1 killed at this decode iteration, under a short lease so the
+#: dead worker's requests come back quickly
+SERVE_TIER_ENV = {"KF_SERVE_MODEL": "small", "KF_SERVE_MAX_LEN": str(MAX_LEN),
+                  "KF_SERVE_MAX_BATCH": str(BATCH),
+                  "KF_SERVE_PREFILL_CHUNK": "256",
+                  "KF_SERVE_SHARE_PREFIX": "1"}
+SERVE_TIER_GEN = 64
+SERVE_TIER_WARMUP = 2
+SERVE_TIER_GROW_EXTRA = 60
+SERVE_TIER_KILL_STEP = 20
+SERVE_TIER_KILL_LEASE_MS = "3000"
+SERVE_TIER_TIMEOUT = 300
+
+
+def tier_requests(vocab: int):
+    """Phase 3's 12 requests (`serve_requests`) and
+    `default_requests(12, gen_len=64)`: [(prompt, max_new), ...]."""
+    from kungfu_tpu_torch.serve.harness import default_requests
+
+    return ([(p, m) for _, p, m in serve_requests(vocab)]
+            + default_requests(12, gen_len=SERVE_TIER_GEN, vocab=vocab))
+
+
+def tier_report(tag: str, cell: dict, out: dict, card: str,
+                every_worker: bool = False) -> None:
+    """Check one tier run's workers and print its numbers: each worker's
+    K3 launches (plain never; with `every_worker`, each worker's scheme
+    above 0 and the other scheme at 0; the run's sum above 0), and from
+    `cell` (`benchmarks.serve.measure_cell`'s) p50/p99 latency and
+    generated tokens/s over the measured requests and each worker's
+    decode, prefill, control, resize and warm ms and peak memory."""
+    logs = out["logs"]
+    schemes = {l["rank"]: l["kernel"]
+               for l in _marker_lines(logs, "KF_SERVE_READY")}
+    rows = _marker_lines(logs, "KF_LAUNCHES")
+    check(rows, f"serve-tier {tag}: no worker printed its launches")
+    for row in rows:
+        counts = json.loads(row["paged_attn"])
+        check(counts["plain"] == 0, f"serve-tier {tag}: K3's plain "
+              f"version ran on the card: {row}")
+        if every_worker:
+            scheme = schemes.get(row["rank"])
+            other = "stream" if scheme == "resident" else "resident"
+            check(scheme in counts and counts[scheme] > 0
+                  and counts[other] == 0,
+                  f"serve-tier {tag}: worker {row} ran {scheme!r}")
+    k3 = cell["timing"]["paged_attn"]
+    # a late joiner may find the queue empty: the run as a whole must
+    # have launched
+    check(k3["resident"] + k3["stream"] > 0,
+          f"serve-tier {tag}: no decode step ran: {rows}")
+    log(f"serve-tier {tag}: {cell['requests']} requests, p50 "
+        f"{cell['p50_ms']} ms, p99 {cell['p99_ms']} ms, "
+        f"{cell['tokens_per_sec']} generated tok/s over "
+        f"{cell['measured_wall_s']} s; K3 launches {json.dumps(k3)}; "
+        f"resumed {cell['resumed_requests']} ({card})")
+    # the membership events, in log order: who joined, resized,
+    # recovered, left, and (c)'s kill with its recovery phases
+    for line in logs.splitlines():
+        if line.startswith(("KF_SERVE_JOINER", "KF_SERVE_RESIZED",
+                            "KF_SERVE_RECOVERED", "KF_SERVE_EVICTED",
+                            "KF_SERVE_DRAINED", "KF_CHAOS_FIRE",
+                            "KF_MTTR")):
+            log(f"serve-tier {tag}: {line.strip()}")
+    for t in cell["timing"]["by_worker"]:
+        log(f"serve-tier {tag} worker rank {int(t['rank'])}: steps "
+            f"{int(t['steps'])}, decode {t['decode_ms']} ms, prefill "
+            f"{t['prefill_ms']} ms ({int(t['prefill_chunks'])} chunks), "
+            f"control {t['control_ms']} ms, resize {t['resize_ms']} ms, "
+            f"warm {t['warm_ms']} ms, peak blocks {int(t['peak_blocks'])}, "
+            f"peak memory {t['peak_mem_gb']} GB")
+
+
+def phase_serve_tier(card: str, engine_tokens: dict) -> dict:
+    """The kfserve tier through `benchmarks.serve.measure_cell` (the
+    serve benchmark's cell over `serve.harness.run_serve_cluster`): a
+    config server (or the replicated tier), ``kfrun -w`` and
+    `serve.worker` replicas sharing the card, serving `tier_requests`
+    after `SERVE_TIER_WARMUP` warm-up requests. (a) np 1 with
+    KF_SERVE_KERNEL=auto (the plan's resident scheme) and np 2 with
+    ``stream``; the token agreement with `engine_tokens` (phase 3's
+    in-process engine on its 12 requests) is printed; (b) np 2 grown to
+    3 through /addworker once the first measured request is done, with
+    `SERVE_TIER_GROW_EXTRA` more requests, at the default lease: the
+    joiner decodes, and a request is re-leased only if the survivors'
+    stall outlasted the lease; (c) (b)'s tier behind a `ReplicaTier(n=3,
+    wal_dir)` with a `Router` in front, rank 1 SIGKILLed at decode
+    iteration `SERVE_TIER_KILL_STEP` with KF_RECOVER=1: every request
+    completes, some re-leased. The harness checks every request done
+    and the ledger's invariants empty. Returns the K3 launches summed
+    over every worker of every run."""
+    import tempfile
+
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.benchmarks.serve import measure_cell
+    from kungfu_tpu_torch.elastic.replica import ReplicaTier
+    from kungfu_tpu_torch.serve.harness import (RECOVERY_MARKERS,
+                                                RESIZE_MARKERS,
+                                                default_requests)
+    from kungfu_tpu_torch.serve.ledger import RequestLedger
+    from kungfu_tpu_torch.serve.router import Router
+
+    t_phase = time.perf_counter()
+    reqs = tier_requests(50257)
+    totals = {"resident": 0, "stream": 0, "plain": 0}
+
+    def run(tag, np_, requests, every_worker=False, **kw):
+        t0 = time.perf_counter()
+        cell, out = measure_cell(np_, requests, device=DEVICE,
+                                 timeout=SERVE_TIER_TIMEOUT,
+                                 warmup=SERVE_TIER_WARMUP, **kw)
+        tier_report(tag, cell, out, card, every_worker)
+        for k in totals:
+            totals[k] += cell["timing"]["paged_attn"][k]
+        log(f"serve-tier {tag}: {time.perf_counter() - t0:.1f} s")
+        return cell, out
+
+    for np_, kernel in ((1, "auto"), (2, "stream")):
+        _, out = run(
+            f"(a) np {np_} {kernel}", np_, reqs, every_worker=True,
+            slots=np_, extra_env={**SERVE_TIER_ENV,
+                                  "KF_SERVE_KERNEL": kernel})
+        got = [r["tokens"] for r in out["results"][:len(engine_tokens)]]
+        agree = sum(a == b for i, t in enumerate(got)
+                    for a, b in zip(t, engine_tokens[i]))
+        total = sum(len(t) for t in engine_tokens.values())
+        log(f"serve-tier (a) np {np_} {kernel}: token agreement with "
+            f"phase 3's in-process engine on its 12 requests "
+            f"{agree}/{total} (bf16, other batch compositions: printed, "
+            f"not checked)")
+    grow_reqs = reqs + default_requests(SERVE_TIER_GROW_EXTRA,
+                                        gen_len=SERVE_TIER_GEN, vocab=50257)
+    grow, out = run("(b) grow 2 -> 3", 2, grow_reqs, slots=3,
+                    grow_when_done=SERVE_TIER_WARMUP + 1,
+                    markers=RESIZE_MARKERS, extra_env=SERVE_TIER_ENV)
+    logs = out["logs"]
+    check("KF_SERVE_RESIZED rank=0 size=3" in logs,
+          "serve-tier (b): rank 0 never reached size 3")
+    joiner = int(_marker_lines(logs, "KF_SERVE_JOINER")[0]["rank"])
+    steps = {int(t["rank"]): int(t["steps"])
+             for t in grow["timing"]["by_worker"]}
+    check(steps.get(joiner, 0) > 0,
+          f"serve-tier (b): the joiner (rank {joiner}) decoded nothing: "
+          f"steps by rank {steps}")
+    lease_ms = RequestLedger().lease_ms
+    stall_ms = max(float(l["stall_ms"])
+                   for l in _marker_lines(logs, "KF_SERVE_RESIZED"))
+    # a survivor renews its leases every iteration but not while it
+    # waits in the epoch switch: only a stall past the lease re-leases
+    check(grow["resumed_requests"] == 0 or stall_ms > lease_ms,
+          f"serve-tier (b): {grow['resumed_requests']} requests re-leased "
+          f"with the survivors' stall {stall_ms} ms under the {lease_ms} "
+          f"ms lease")
+    log(f"serve-tier (b): {grow['resumed_requests']} of "
+        f"{grow['requests']} requests re-leased at the default "
+        f"{lease_ms:.0f} ms lease; the survivors' longest stall in the "
+        f"epoch switch {stall_ms} ms; joiner rank {joiner} decoded "
+        f"{steps[joiner]} steps; p99 through the resize {grow['p99_ms']} "
+        f"ms, the stall included ({card})")
+    fault = json.dumps({"faults": [{"type": "crash_worker", "rank": 1,
+                                    "step": SERVE_TIER_KILL_STEP,
+                                    "signal": "KILL"}]})
+    with tempfile.TemporaryDirectory() as wal_dir:
+        tier = ReplicaTier(n=3, lease_ms=500.0, wal_dir=wal_dir)
+        router = Router(tier.bases, flush_ms=2.0).start()
+        try:
+            tier.wait_leader(10)
+            kill, out = run(
+                "(c) kill behind the replicated tier", 2, reqs, slots=3,
+                schedule="999:2", recover=True, server=tier,
+                submit_url=router.base,
+                markers=RECOVERY_MARKERS[:3],
+                extra_env={**SERVE_TIER_ENV, **tier.env(),
+                           "KF_CHAOS": fault,
+                           "KF_SERVE_LEASE_MS": SERVE_TIER_KILL_LEASE_MS,
+                           "KF_RETRY_ATTEMPTS": "10",
+                           "KF_RETRY_DEADLINE_MS": "30000"})
+            logs = out["logs"]
+            check("KF_SERVE_RECOVERED" in logs
+                  or "KF_SERVE_RESIZED rank=0 size=1" in logs,
+                  "serve-tier (c): the survivor neither recovered nor "
+                  "shrank")
+            resumed = kill["resumed_requests"]
+            check(resumed > 0, "serve-tier (c): no request was re-leased "
+                  "after the kill")
+            check(router.healthz()["submitted"]
+                  == SERVE_TIER_WARMUP + len(reqs),
+                  f"serve-tier (c): the router admitted "
+                  f"{router.healthz()['submitted']} requests")
+            check(all(r.status()["wal"] for r in tier.replicas),
+                  "serve-tier (c): a replica kept no WAL")
+            log(f"serve-tier (c): {resumed} requests re-leased after the "
+                f"kill; replicas' seq "
+                f"{[r.status()['seq'] for r in tier.replicas]}, leader "
+                f"{tier.leader().index}")
+        finally:
+            router.stop()
+            tier.stop()
+            chaos.load(None)
+            chaos._reset()
+    log(f"serve-tier: {time.perf_counter() - t_phase:.1f} s; K3 launches "
+        f"{json.dumps(totals)}")
+    return totals
+
+
 def k2_bound(kernel, n_pad, h, v_pad):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch on these
     padded operands: each input read once, each output written once;
@@ -1869,6 +2108,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] elastic done")
     adaptive = phase_adaptive(torch, fc, fl, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] adaptive done")
+    tier = phase_serve_tier(card, served["resident"][0])
+    log(f"[{time.perf_counter() - T_START:.0f} s] serve-tier done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -1893,6 +2134,7 @@ def main() -> int:
             "source": "kungfu_tpu_torch/csrc/paged_attn.cu",
             "replaces": REPLACES[scheme],
             "launches": served[scheme][1]["launches"],
+            "serve_tier_launches": tier[scheme],
             "max_abs_err": errs[(scheme, "bfloat16")],
             "ms": full[scheme], "plain_ms": full["plain"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],

@@ -74,8 +74,8 @@ fabric at the bottom of this module (`FakeNet`) is the
 container-runtime-free equivalent used by the churn/partition tests.
 
 The port's copy of `kungfu_tpu/chaos.py`, which imports no JAX:
-only its imports changed, and `corrupt_wal` raises NotImplementedError
-until the port's `elastic/wal.py` exists (slice 6c).
+only its imports changed (`corrupt_wal` damages the port's
+`elastic/wal.py` files, whose bytes are the reference's).
 """
 
 from __future__ import annotations
@@ -601,11 +601,49 @@ def corrupt_wal(wal_dir: str, mode: str,
     regress state). The cut point and the regressed stamp derive from
     the seed alone, so a failing chaos test replays byte-identically.
     Returns the damaged path."""
-    # the port's elastic/wal.py comes with the replicated control plane
-    # (ROADMAP queue 1 item 6c); until then there is no WAL to damage
-    raise NotImplementedError(
-        "corrupt_wal needs the port's elastic/wal.py, which comes with "
-        "slice 6c (the replicated control plane)")
+    from .elastic import wal as wal_mod
+
+    if mode not in WAL_CORRUPTIONS:
+        raise ValueError(f"unknown WAL corruption {mode!r} "
+                         f"(known: {WAL_CORRUPTIONS})")
+    if seed is None:
+        sched = active()
+        seed = sched.seed if sched is not None else 0
+    rng = random.Random(seed)
+    if mode == "torn_tail":
+        path = os.path.join(wal_dir, wal_mod.LOG_FILE)
+        # find the last record's start by walking the length prefixes
+        with open(path, "rb") as f:
+            data = f.read()
+        hdr = wal_mod._HEADER
+        off = last = 0
+        while off + hdr <= len(data):
+            (length,) = wal_mod._LEN.unpack_from(data, off)
+            if off + hdr + length > len(data):
+                break
+            last = off
+            off += hdr + length
+        if off == 0:
+            raise FileNotFoundError(f"no records to tear in {path}")
+        # cut strictly inside the last record: keep at least one byte
+        # of it (so there IS a torn tail) and drop at least one
+        keep = last + 1 + rng.randrange(off - last - 1)
+        with open(path, "r+b") as f:
+            f.truncate(keep)
+        _fire("torn_tail", path=path, kept=keep, seed=seed)
+    else:
+        path = os.path.join(wal_dir, wal_mod.SNAP_FILE)
+        with open(path) as f:
+            snap = json.load(f)
+        seq = int(snap.get("seq", 0))
+        if seq <= 0:
+            raise ValueError(f"snapshot {path} has no seq to regress")
+        snap["seq"] = rng.randrange(seq)  # strictly older stamp
+        with open(path, "w") as f:
+            json.dump(snap, f)
+        _fire("stale_snapshot", path=path, old_seq=seq,
+              new_seq=snap["seq"], seed=seed)
+    return path
 
 
 # -- netns fault fabric -------------------------------------------------------

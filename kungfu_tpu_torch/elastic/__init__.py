@@ -8,8 +8,8 @@ cluster config server, the step->size schedule parser, the
 and the survivors' recovery from inside a training loop, the
 monitor-driven and cost-aware sizing policies (`elastic/policy.py`) a
 callback can consult instead of a schedule, and the chunked resync
-pipeline. The replicated control plane (`replica.py`, `wal.py`) comes
-with slice 6c.
+pipeline. The replicated, WAL-backed config tier (`replica.py`,
+`wal.py`) is imported from its modules, as in the reference.
 """
 
 from .config_server import ConfigServer

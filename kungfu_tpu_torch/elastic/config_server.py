@@ -15,9 +15,8 @@ tests/go/cmd/kungfu-config-server-example/kungfu-config-server-example.go):
                          probe shape that must never kill a replica)
 - POST /trace         -> ingest one kftrace event batch (bounded)
 - GET  /trace         -> collected trace snapshot (JSON)
-- *    /serve/*       -> 501 in the port until its serving front-end
-                         (slice 6c); the reference answers it from
-                         kungfu_tpu/serve/frontend.py
+- *    /serve/*       -> the decode tier's request front-end
+                         (serve/frontend.py)
 
 The /serve family (docs/serving.md) is the serving tier's request
 ledger — submit/result at ingest, lease/append/release on the worker
@@ -39,9 +38,8 @@ however many trace batches happened to land first).
 Run standalone: `python -m kungfu_tpu_torch.elastic.config_server --port 9100`.
 
 The port's copy of `kungfu_tpu/elastic/config_server.py`, which imports
-no JAX: only its imports changed, and /serve/* answers 501 until the
-serving front-end is ported (slice 6c). The request ledger it holds is
-the port's `serve/ledger.py`.
+no JAX: only its imports changed. The request ledger it holds and the
+/serve routes are the port's `serve/ledger.py` and `serve/frontend.py`.
 """
 
 from __future__ import annotations
@@ -371,11 +369,36 @@ class ConfigServer:
                 chaos hook (see module docstring), no stage lock."""
                 if not self.path.startswith("/serve"):
                     return False
-                # the port's serve/frontend.py (and the decode workers
-                # that lease from this ledger) come with slice 6c
-                self._reply(501, json.dumps(
-                    {"error": "the /serve front-end is not ported yet; "
-                              "it comes with slice 6c"}))
+                from ..serve.frontend import handle_serve
+
+                if method == "GET":
+                    out = handle_serve(server.serve_ledger, method,
+                                       self.path, body)
+                    if out is None:
+                        return False
+                    self._reply(out[0], out[1], server._read_headers())
+                    return True
+                # mutation: apply + log atomically under _mut_mu so
+                # the delta log records ops in application order, then
+                # replicate BEFORE acking: a 200 must mean the
+                # mutation survives the leader's death, else a submit
+                # acked an instant before a kill is lost
+                with server._mut_mu:
+                    out = handle_serve(server.serve_ledger, method,
+                                       self.path, body)
+                    wait = None
+                    if out is not None and out[0] == 200:
+                        wait = server._on_mutation("serve", {
+                            "method": method, "path": self.path,
+                            "body": body})
+                if out is None:
+                    return False
+                code, payload = out
+                if wait is not None and not wait():
+                    self._reply(503, '{"error": "write not replicated'
+                                     ' (leader changed mid-commit)"}')
+                    return True
+                self._reply(code, payload)
                 return True
 
             def _crash_guard(self, fn):

@@ -9,10 +9,10 @@ the worker-side markers. The worker's own flags (``--model``,
 
 What differs from the reference: libkf comes from the port's build
 (`native.library`, into ``build/libkf/``) before anything launches; the
-runner's control port is passed explicitly (``-runner-port``, the top of
-`port_range`), so two clusters on one host never share the default
-runner port; `claim_port_span` hands out a free span of ports under a
-file lock; and `run_gns_adaptation` drives the port's GNS worker
+runner's control port is passed explicitly (`kfrun_command`:
+``-runner-port``, the top of `port_range`), so two clusters on one host
+never share the default runner port; `claim_port_span` hands out a free
+span of ports under a file lock; and `run_gns_adaptation` drives the port's GNS worker
 (`elastic.gns_worker`, the reference's tests/workers/
 adaptive_gns_trainer.py) through the same runner.
 
@@ -125,6 +125,35 @@ def claim_port_span():
     raise RuntimeError(f"no free span of {width} ports in [{lo}, {hi})")
 
 
+def cluster_env(extra_env: dict | None = None) -> dict:
+    """The environment of a launched cluster: this process's, with the
+    checkout on PYTHONPATH, a 120 s libkf timeout unless one is set,
+    warnings-only libkf logging, then `extra_env`."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["KF_TIMEOUT_MS"] = env.get("KF_TIMEOUT_MS", "120000")
+    env["KF_LOG_LEVEL"] = "warn"
+    if extra_env:
+        env.update(extra_env)
+    return env
+
+
+def kfrun_command(start_np: int, hosts: str, port_range: str,
+                  config_url: str, logdir: str) -> list:
+    """The port's watch-mode runner (``python -m kungfu_tpu_torch.run
+    -w``) for `start_np` workers on `hosts` (``"ip:slots,..."``), its
+    workers' ports in `port_range` and its own control port at the
+    span's top (``-runner-port``), so two clusters on one host never
+    share the default runner port. The caller appends its own flags,
+    ``--`` and the worker's command."""
+    return [sys.executable, "-m", "kungfu_tpu_torch.run",
+            "-np", str(start_np), "-H", hosts,
+            "-port-range", port_range,
+            "-runner-port", port_range.split("-")[1],
+            "-w", "-config-server", config_url,
+            "-logdir", logdir, "-q"]
+
+
 def _run_continuity_cluster(schedule: str,
                             total_steps: int,
                             start_np: int,
@@ -164,21 +193,11 @@ def _run_continuity_cluster(schedule: str,
     tmp = tempfile.TemporaryDirectory() if own_logdir else None
     logdir = tmp.name if own_logdir else logdir
     try:
-        env = dict(os.environ)
-        env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
-        env["KF_TIMEOUT_MS"] = env.get("KF_TIMEOUT_MS", "120000")
-        env["KF_LOG_LEVEL"] = "warn"
-        env["TEST_SCHEDULE"] = schedule
-        env["TEST_TOTAL_STEPS"] = str(total_steps)
-        if extra_env:
-            env.update(extra_env)
-        base = [sys.executable, "-m", "kungfu_tpu_torch.run",
-                "-np", str(start_np),
-                "-H", hosts or f"127.0.0.1:{slots}",
-                "-port-range", port_range,
-                "-runner-port", port_range.split("-")[1],
-                "-w", "-config-server", server.get_url,
-                "-logdir", logdir, "-q"]
+        env = cluster_env({"TEST_SCHEDULE": schedule,
+                           "TEST_TOTAL_STEPS": str(total_steps),
+                           **(extra_env or {})})
+        base = kfrun_command(start_np, hosts or f"127.0.0.1:{slots}",
+                             port_range, server.get_url, logdir)
         tail = (extra_flags or []) + ["--", sys.executable] + \
             _WORKER_ARGS[worker] + list(worker_flags or [])
         ips = ([h.split(":")[0] for h in hosts.split(",")]

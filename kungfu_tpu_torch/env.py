@@ -153,6 +153,11 @@ ALL_BOOTSTRAP_VARS = (
 )
 
 
+#: KF_SERVE_KERNEL's values: the reference's (auto, kernel, functional)
+#: and the port engine's K3 schemes forced by name
+SERVE_KERNELS = ("auto", "kernel", "functional", "resident", "stream")
+
+
 def env_float(name: str, default: float,
               environ: Optional[Dict[str, str]] = None,
               minimum: Optional[float] = None) -> float:
@@ -315,8 +320,7 @@ def from_env(environ: Optional[Dict[str, str]] = None) -> Config:
     env_int("KF_SERVE_BLOCKS", 0, e, minimum=0)
     env_int("KF_SERVE_EXPECT", 0, e, minimum=0)
     env_int("KF_SERVE_MAX_ITERS", 20_000, e, minimum=1)
-    env_choice("KF_SERVE_KERNEL", "auto",
-               ("auto", "kernel", "functional"), e)
+    env_choice("KF_SERVE_KERNEL", "auto", SERVE_KERNELS, e)
     env_int("KF_SERVE_PREFILL_CHUNK", 0, e, minimum=0)
     env_flag("KF_SERVE_SHARE_PREFIX", True, e)
     # replicated control plane (docs/control_plane.md)

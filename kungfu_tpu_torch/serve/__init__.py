@@ -1,11 +1,31 @@
-"""kfserve on PyTorch: the continuous-batching decode engine over the
-paged KV pool (`serve.engine` / `serve.kv_cache` / `serve.paged`),
-ported from `kungfu_tpu.serve`. The request ledger (`serve.ledger`) is
-here for the config server that holds it; the front-end, router and
-serving worker come with slice 6c."""
+"""kfserve on PyTorch: the elastic continuous-batching decode tier,
+ported from `kungfu_tpu.serve`.
+
+- the request front-end (`serve.ledger` and the `/serve/*` routes of
+  `serve.frontend`, mounted on the config server) and the stateless
+  admission router in front of it (`serve.router`);
+- the iteration-level continuous-batching engine over the paged KV
+  pool (`serve.engine`, `serve.kv_cache`, `serve.paged`), whose decode
+  step launches the hand-written K3 kernel (`ops.paged_attn`) on the
+  card;
+- the elastic decode worker (`python -m kungfu_tpu_torch.serve.worker`)
+  that leases requests from the ledger and rides the training runtime's
+  membership machinery (consensus resize, survivor recovery, cold boot
+  from the sharded checkpoint tier), and the harness that drives a real
+  tier end to end (`serve.harness.run_serve_cluster`).
+"""
 
 from .engine import SIZES, DecodeEngine, build_lm
 from .kv_cache import KVPoolExhausted, PagedKVPool
+from .ledger import AdmissionFull, Request, RequestLedger
 
-__all__ = ["DecodeEngine", "KVPoolExhausted", "PagedKVPool", "SIZES",
-           "build_lm"]
+__all__ = [
+    "AdmissionFull",
+    "DecodeEngine",
+    "KVPoolExhausted",
+    "PagedKVPool",
+    "Request",
+    "RequestLedger",
+    "SIZES",
+    "build_lm",
+]

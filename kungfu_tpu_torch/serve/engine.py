@@ -48,14 +48,16 @@ SIZES = {
 
 def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
              seed: int = 0, vocab_size: int = 50257, num_layers=None,
-             device=None) -> GPTLM:
+             device=None, init: bool = True) -> GPTLM:
     """The serving model: a `GPTLM` of size `size` with random weights
     from `seed`, in `dtype` (default bfloat16), on `device` (default
     the CUDA card), in eval mode without gradients. `num_layers` cuts
     the depth and keeps the widths. f32 matrix products run in full f32
     (TF32 off), as the JAX reference's f32 logits head assumes. The
     port never drops to the CPU by itself: with no CUDA card, pass
-    ``device="cpu"``.
+    ``device="cpu"``. ``init=False`` allocates the weights on `device`
+    and leaves them uninitialised, for a caller that overwrites every
+    parameter (a joiner adopting the survivors' broadcast).
 
     tp > 1 (Megatron-sharded serving) is not ported yet."""
     if tp != 1:
@@ -73,9 +75,15 @@ def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
                     num_layers=num_layers or layers, num_heads=heads,
                     intermediate_size=inter, max_position=max_position,
                     dtype=dtype if dtype is not None else torch.bfloat16)
-    model = GPTLM(cfg, device="cpu",
-                  generator=torch.Generator().manual_seed(seed))
-    return model.to(dev).eval().requires_grad_(False)
+    if init:
+        model = GPTLM(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    else:
+        # `to_empty`'s empty_like of a meta tensor imports sympy, which
+        # costs more than a seeded init
+        model = GPTLM(cfg, device="meta")._apply(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev))
+    return model.eval().requires_grad_(False)
 
 
 @dataclass
@@ -144,14 +152,15 @@ class DecodeEngine:
     def _resolve_kernel(self, knob: str, block_tokens: int) -> str:
         """Map the kernel knob to the decode_step `kernel` argument:
         "auto" is the plan's K3 scheme on a CUDA device (a shape no
-        scheme fits raises) and the plain gather elsewhere;
+        scheme fits raises) and the plain gather elsewhere; "kernel"
+        (the reference's name) is the plan's scheme on any device;
         "functional" is the oracle mode only; "resident"/"stream" force
         a scheme (on the CPU both run the plain version)."""
         if knob == "functional":
             return "functional"
         if knob == "auto" and self.device.type != "cuda":
             return "functional"
-        if knob == "auto":
+        if knob in ("auto", "kernel"):
             return paged_attn.paged_plan(
                 self.max_blocks, block_tokens, self.cfg.num_heads,
                 self.cfg.head_dim, dtype=self.cfg.dtype)["scheme"]

@@ -3,7 +3,8 @@ chip smoke script, imports JAX, flax, optax, orbax, ml_dtypes (none of
 which the card's machine has) or the JAX package — neither statically
 nor at run time — and no command line the port builds runs a module of
 the JAX package (``python -m kungfu_tpu...``). The entry points of the
-elastic path (`run.__main__`, the continuity and GNS workers) run
+elastic path (`run.__main__`, the continuity and GNS workers) and the
+serving tier (`serve.worker`, `serve.router`, `elastic.replica`) run
 nothing when imported, and importing the package loads no libkf."""
 
 import ast
@@ -106,7 +107,14 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.optimizers.monitors",
             "kungfu_tpu_torch.run", "kungfu_tpu_torch.run.__main__",
             "kungfu_tpu_torch.run.job", "kungfu_tpu_torch.run.watch",
-            "kungfu_tpu_torch.run.discovery"} <= set(mods)
+            "kungfu_tpu_torch.run.discovery",
+            "kungfu_tpu_torch.serve.frontend",
+            "kungfu_tpu_torch.serve.router",
+            "kungfu_tpu_torch.serve.worker",
+            "kungfu_tpu_torch.serve.harness",
+            "kungfu_tpu_torch.elastic.wal",
+            "kungfu_tpu_torch.elastic.replica",
+            "kungfu_tpu_torch.benchmarks.serve"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -136,11 +144,13 @@ def test_command_lines_launch_only_the_port():
                for m in found), found
     assert {"kungfu_tpu_torch.run",
             "kungfu_tpu_torch.elastic.continuity_worker",
-            "kungfu_tpu_torch.elastic.gns_worker"} <= set(found)
+            "kungfu_tpu_torch.elastic.gns_worker",
+            "kungfu_tpu_torch.serve.worker"} <= set(found)
 
 
 def test_entry_points_run_nothing_at_import():
-    """Importing the worker and kfrun's ``__main__`` starts no peer, loads
+    """Importing the workers, the router, the replica and kfrun's
+    ``__main__`` starts no peer, loads
     no libkf and prints nothing; nor does importing the package."""
     code = (
         "import sys, json\n"
@@ -149,6 +159,9 @@ def test_entry_points_run_nothing_at_import():
         "import kungfu_tpu_torch.elastic.continuity_worker\n"
         "import kungfu_tpu_torch.elastic.gns_worker\n"
         "import kungfu_tpu_torch.run.__main__\n"
+        "import kungfu_tpu_torch.serve.worker\n"
+        "import kungfu_tpu_torch.serve.router\n"
+        "import kungfu_tpu_torch.elastic.replica\n"
         "from kungfu_tpu_torch import ffi\n"
         "print(json.dumps([before, ffi._lib is None, "
         "p._default_peer is None]))\n")
