@@ -85,7 +85,11 @@ failing on the first phase that fails:
    5, a cold boot at np 1 restores the latest complete generation
    (residual sidecars included) and must beat its fresh init; (e) the
    GNS loop: `elastic.gns_worker`s on the card grow 2 -> 4 because the
-   noise-scale monitor asked for it. Every continuity, recovery and
+   noise-scale monitor asked for it. The grows of (a) and (c) must
+   activate their joiner from the runner's warm pool (``KF_JOINER_BOOT
+   ... warm=1``, every thread at the runner's niceness; its build split
+   into the card's context, the model and the optimizer's state). Every
+   continuity, recovery and
    restore marker must show, a parameter digest must be agreed after
    every resync, and each worker's flash and fused-CE kernels must have
    launched, their plain versions never. Prints, per cluster size, rank
@@ -136,16 +140,41 @@ failing on the first phase that fails:
    engine on its 12 requests (printed, not checked: bf16 under other
    batch compositions); (b) np 2 grown to 3 through /addworker once the
    first measured request is done, with 60 more requests, at the
-   ledger's default lease: the joiner adopts the weights and decodes,
-   the survivors ride the epoch switch, and a request is leased twice
-   only if the survivors' stall in it outlasted the lease; prints the
-   re-leased count, the stall and the p99 through the resize; (c) (b)'s
+   ledger's default lease: the joiner is activated from the runner's
+   warm pool (``KF_SERVE_JOINER ... warm=1``, every thread at the
+   runner's niceness), adopts the weights and decodes, the survivors
+   ride the epoch switch; then the same grow with ``KF_PREWARM=0`` (the
+   joiner starts cold, ``warm=0``). In both runs more requests are
+   leased twice than their workers released only if a worker's gap
+   between lease renewals (``renew_gap_ms``) outlasted the lease; prints
+   each run's re-leased count, stall, renewal gaps and p99 through the
+   resize and the two joiners' boot phases side by side; (c) (b)'s
    tier with the ledger on an in-process `ReplicaTier(n=3, wal_dir)`
    and every request admitted
    through a `Router`, rank 1 SIGKILLed at its 20th decode iteration
    with KF_RECOVER=1: the survivor recovers, the dead worker's requests
    are re-leased and every request completes. Every run must complete
    every request with the ledger's invariants empty;
+10. scenario — runs after 9 and before the timing of 6: the scenario
+   engine (`scenario.run_scenario`). (a) `spot_preempt` at np0 2 with
+   GPT-2-small continuity workers sharing the card (batch 8 x 1024,
+   flash attention, residual fused CE, AdamW, f32 master weights, bf16
+   compute): the whole allocation SIGKILLed at step 8 after async
+   checkpoints every 3 steps (one generation in flight), a second launch
+   restoring from them; the
+   trace decomposed by ``python -m kungfu_tpu_torch.trace --goodput``
+   must hold the reference test's checks (invariant within 5 %,
+   restored step < 8, each rank >= 8 - restored lost steps, >= 24
+   useful step-ranks), and the relaunch's workers must have launched K1
+   and K2, their plain versions never; prints the goodput ratio, the
+   phase shares and the relaunch gap. (b) `spot_serve_kill` at np0 2
+   through the decode tier (GPT-2-small bf16, phase 3's seeded weights,
+   serve-tier's settings at the scenario's batch 4 and 3 s lease): rank
+   1 SIGKILLed at its 8th iteration, its requests re-leased, the tier
+   re-grown; every request done, the ledger's invariants empty, the
+   fault fired, K3's resident scheme (the plan's) launched in the
+   workers and its plain version never; prints p50/p99 and the
+   re-leased count;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -169,10 +198,14 @@ Prints the card's name and power limit, the measurements, a
 ``elastic_launches``, the elastic workers' launches, and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
 (b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
-tier's workers' launches of that scheme) and, last,
+tier's workers' launches of that scheme; the K1, K2 and K3 rows carry
+``scenario_launches``, the scenario phase's workers') and, last,
 ``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
 package is missing. Takes no arguments: every phase runs every time.
+It caches compiled bytecode under ``build/pycache`` for itself and the
+processes it starts (`bytecode_cache`), and names its card in
+``CUDA_VISIBLE_DEVICES`` for the runners it starts.
 """
 
 from __future__ import annotations
@@ -761,6 +794,13 @@ ELASTIC_GROW = ("3:1,6:2,1:1", 10)
 ELASTIC_GROW_BF16 = ("2:1,4:2,1:1", 7)
 ELASTIC_RECOVERY = (1, 3, 8, 2)     # crash rank, crash step, steps, np
 ELASTIC_RESTORE = (2, 1, 5, 2)      # save np, restore np, kill step, every
+#: the whole-cluster kills ((d) and scenario (a)) run with one generation
+#: in flight: a save waits for the previous write, so the generation
+#: before the kill's last save is complete however slow the disk. With
+#: the double buffer, (d)'s restore needed step 2's 1.6 GB a rank
+#: written within the three steps before the kill, and a slower disk
+#: left no complete generation at all
+CKPT_DURABLE_ENV = {"KF_CKPT_MAX_PENDING": "1"}
 #: steps the restored cluster trains past the kill step
 ELASTIC_RESTORE_STEPS = 2
 ELASTIC_KERNELS = {"flash": ("fwd", "dq", "dkv"),
@@ -879,7 +919,8 @@ def elastic_report(tag: str, logs: str, card: str, device: str,
     for line in logs.splitlines():
         if line.startswith("KF_MTTR"):
             log(f"elastic {tag} {line} ({card})")
-        elif line.startswith(("KF_JOINER_CONTINUITY", "KF_SURVIVOR_CONTI",
+        elif line.startswith(("KF_JOINER_CONTINUITY", "KF_JOINER_BOOT",
+                              "KF_SURVIVOR_CONTI",
                               "KF_DIGEST", "evicted at step", "resized:",
                               "KF_RECOVERY_", "KF_RESTORE_CONTINUITY",
                               "KF_CKPT_")):
@@ -899,8 +940,9 @@ def _add(totals: dict, more: dict) -> None:
 
 def phase_elastic_restore(card: str, flags, device: str) -> dict:
     """(d): `run_checkpoint_restore` with the bf16 bucketed wire (so the
-    residual sidecars ride along): saved at np 2 every 2 steps, the
-    whole cluster SIGKILLed at step 5, restored at np 1. Prints each
+    residual sidecars ride along): saved at np 2 every 2 steps with one
+    generation in flight, the whole cluster SIGKILLed at step 5,
+    restored at np 1. Prints each
     rank's generation bytes (the shard files on disk), the save's
     synchronous stall, the snapshot's memory, the writer's time, the
     restore time and fresh against restored loss."""
@@ -923,7 +965,7 @@ def phase_elastic_restore(card: str, flags, device: str) -> dict:
             port_range=span, timeout=420, logdir=os.path.join(tmp, "logs"),
             worker_flags=flags, restore_steps=ELASTIC_RESTORE_STEPS,
             extra_env={"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                       "KF_GRAD_COMPRESS": "bf16"})
+                       "KF_GRAD_COMPRESS": "bf16", **CKPT_DURABLE_ENV})
         save_logs = ""
         save_dir = os.path.join(tmp, "logs", "save")
         for f in sorted(os.listdir(save_dir)):
@@ -944,11 +986,16 @@ def phase_elastic_restore(card: str, flags, device: str) -> dict:
     check(f"KF_CONTINUITY_DONE rank=0 size={restore_np}" in logs,
           "elastic restore: the restored cluster did not finish")
     log(f"elastic restore (np {save_np} saving every {every} steps, killed "
-        f"at step {kill}, restored at np {restore_np}): "
+        f"at step {kill}, restored at np {restore_np}; one generation in "
+        f"flight): "
         f"{time.perf_counter() - t0:.1f} s")
     for g, files in gens.items():
         log(f"elastic restore generation {g} on disk: {json.dumps(files)}")
-    for d in _marker_lines(save_logs, "KF_CKPT_SAVED"):
+    saves = _marker_lines(save_logs, "KF_CKPT_SAVED")
+    check(saves and all(d["max_pending"] == CKPT_DURABLE_ENV[
+        "KF_CKPT_MAX_PENDING"] for d in saves),
+          f"elastic restore: a save ran at another depth: {saves}")
+    for d in saves:
         log(f"elastic restore save: rank {d['rank']} gen {d['gen']} "
             f"synchronous stall {d['stall_ms']} ms (residual copy "
             f"{d['residual_ms']}, save() {d['save_ms']}, the card's queue "
@@ -1031,6 +1078,14 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
               f"elastic {tag}: the survivor did not finish at size 1")
         check(len(_marker_lines(logs, "KF_DIGEST")) >= 3,
               f"elastic {tag}: a resync without its digest check")
+        # the runner's warm pool: the grow's joiner starts from a slot
+        # whose interpreter and imports were paid before the resize
+        boots = _marker_lines(logs, "KF_JOINER_BOOT")
+        check(len(boots) == 1 and boots[0]["warm"] == "1",
+              f"elastic {tag}: the joiner was not warm-activated: {boots}")
+        check(int(boots[0]["nice"]) == os.getpriority(os.PRIO_PROCESS, 0),
+              f"elastic {tag}: the joiner's threads run at nice "
+              f"{boots[0]['nice']}, not the runner's")
         log(f"elastic {tag} 1 -> 2 -> 1 ({schedule}, {steps} steps): "
             f"{time.perf_counter() - t0:.1f} s")
         got, meds[tag], _ = elastic_report(tag, logs, card, device)
@@ -1376,9 +1431,11 @@ def phase_serve_tier(card: str, engine_tokens: dict) -> dict:
     ``stream``; the token agreement with `engine_tokens` (phase 3's
     in-process engine on its 12 requests) is printed; (b) np 2 grown to
     3 through /addworker once the first measured request is done, with
-    `SERVE_TIER_GROW_EXTRA` more requests, at the default lease: the
-    joiner decodes, and a request is re-leased only if the survivors'
-    stall outlasted the lease; (c) (b)'s tier behind a `ReplicaTier(n=3,
+    `SERVE_TIER_GROW_EXTRA` more requests, at the default lease, with a
+    warm joiner and again with a cold one: the joiner decodes, and more
+    requests are re-leased than their workers released only if a
+    worker's gap between lease renewals outlasted the lease; (c) (b)'s
+    tier behind a `ReplicaTier(n=3,
     wal_dir)` with a `Router` in front, rank 1 SIGKILLed at decode
     iteration `SERVE_TIER_KILL_STEP` with KF_RECOVER=1: every request
     completes, some re-leased. The harness checks every request done
@@ -1425,33 +1482,72 @@ def phase_serve_tier(card: str, engine_tokens: dict) -> dict:
             f"not checked)")
     grow_reqs = reqs + default_requests(SERVE_TIER_GROW_EXTRA,
                                         gen_len=SERVE_TIER_GEN, vocab=50257)
-    grow, out = run("(b) grow 2 -> 3", 2, grow_reqs, slots=3,
-                    grow_when_done=SERVE_TIER_WARMUP + 1,
-                    markers=RESIZE_MARKERS, extra_env=SERVE_TIER_ENV)
-    logs = out["logs"]
-    check("KF_SERVE_RESIZED rank=0 size=3" in logs,
-          "serve-tier (b): rank 0 never reached size 3")
-    joiner = int(_marker_lines(logs, "KF_SERVE_JOINER")[0]["rank"])
-    steps = {int(t["rank"]): int(t["steps"])
-             for t in grow["timing"]["by_worker"]}
-    check(steps.get(joiner, 0) > 0,
-          f"serve-tier (b): the joiner (rank {joiner}) decoded nothing: "
-          f"steps by rank {steps}")
     lease_ms = RequestLedger().lease_ms
-    stall_ms = max(float(l["stall_ms"])
-                   for l in _marker_lines(logs, "KF_SERVE_RESIZED"))
-    # a survivor renews its leases every iteration but not while it
-    # waits in the epoch switch: only a stall past the lease re-leases
-    check(grow["resumed_requests"] == 0 or stall_ms > lease_ms,
-          f"serve-tier (b): {grow['resumed_requests']} requests re-leased "
-          f"with the survivors' stall {stall_ms} ms under the {lease_ms} "
-          f"ms lease")
-    log(f"serve-tier (b): {grow['resumed_requests']} of "
-        f"{grow['requests']} requests re-leased at the default "
-        f"{lease_ms:.0f} ms lease; the survivors' longest stall in the "
-        f"epoch switch {stall_ms} ms; joiner rank {joiner} decoded "
-        f"{steps[joiner]} steps; p99 through the resize {grow['p99_ms']} "
-        f"ms, the stall included ({card})")
+
+    def grow_cell(tag, prewarm):
+        """(b)'s grow 2 -> 3 with the runner's warm pool on (`prewarm`
+        "1", the default: the joiner must be activated from a warm
+        slot) or off ("0": the joiner starts cold); returns the cell,
+        the survivors' longest stall, the joiner's boot fields and the
+        longest gap between a worker's lease renewals across the
+        switch."""
+        grow, out = run(tag, 2, grow_reqs, slots=3,
+                        grow_when_done=SERVE_TIER_WARMUP + 1,
+                        markers=RESIZE_MARKERS,
+                        extra_env={**SERVE_TIER_ENV, "KF_PREWARM": prewarm})
+        logs = out["logs"]
+        check("KF_SERVE_RESIZED rank=0 size=3" in logs,
+              f"serve-tier {tag}: rank 0 never reached size 3")
+        boot = _marker_lines(logs, "KF_SERVE_JOINER")[0]
+        check(boot.get("warm") == prewarm,
+              f"serve-tier {tag}: the joiner's boot {boot} (KF_PREWARM="
+              f"{prewarm}: warm={prewarm} expected)")
+        joiner = int(boot["rank"])
+        steps = {int(t["rank"]): int(t["steps"])
+                 for t in grow["timing"]["by_worker"]}
+        check(steps.get(joiner, 0) > 0,
+              f"serve-tier {tag}: the joiner (rank {joiner}) decoded "
+              f"nothing: steps by rank {steps}")
+        stall_ms = max(float(l["stall_ms"])
+                       for l in _marker_lines(logs, "KF_SERVE_RESIZED"))
+        check(int(boot["nice"]) == os.getpriority(os.PRIO_PROCESS, 0),
+              f"serve-tier {tag}: the joiner's threads run at nice "
+              f"{boot['nice']}, not the runner's")
+        # a request is re-leased only when its holder released it
+        # (`released`) or its lease expired, which takes a gap between
+        # the holder's renewals longer than the lease (`renew_gap_ms`,
+        # the start of one renewal to the end of the next)
+        rows = grow["timing"]["by_worker"]
+        gap = max(t["renew_gap_ms"] for t in rows)
+        switch_gap = max(t["switch_gap_ms"] for t in rows)
+        released = int(sum(t["released"] for t in rows))
+        stale = int(sum(t["stale"] for t in rows))
+        resumed = grow["resumed_requests"]
+        check(resumed <= released or gap > lease_ms,
+              f"serve-tier {tag}: {resumed} requests re-leased, "
+              f"{released} released by their workers, with the longest "
+              f"gap between a worker's lease renewals {gap} ms under the "
+              f"{lease_ms} ms lease")
+        log(f"serve-tier {tag}: {resumed} of {grow['requests']} requests "
+            f"re-leased at the default {lease_ms:.0f} ms lease ({released} "
+            f"released by their workers, {stale} appends refused as "
+            f"stale); the survivors' longest stall in the epoch switch "
+            f"{stall_ms} ms, the longest gap between a worker's lease "
+            f"renewals {gap} ms ({switch_gap} ms across the switch); "
+            f"joiner rank {joiner} (warm={boot['warm']}, nice "
+            f"{boot['nice']}) decoded {steps[joiner]} steps; p99 through "
+            f"the resize {grow['p99_ms']} ms, the stall included ({card})")
+        return grow, stall_ms, boot, switch_gap
+
+    warm = grow_cell("(b) grow 2 -> 3", "1")
+    cold = grow_cell("(b) cold contrast, KF_PREWARM=0", "0")
+    phases = ("main_ms", "import_ms", "init_ms", "build_ms", "resync_ms")
+    log(f"serve-tier (b) warm vs cold joiner (this call): survivors' stall "
+        f"{warm[1]} vs {cold[1]} ms; the gap between lease renewals across "
+        f"the switch {warm[3]} vs {cold[3]} ms; p99 through the grow "
+        f"{warm[0]['p99_ms']} vs {cold[0]['p99_ms']} ms; the joiner's boot "
+        + ", ".join(f"{p[:-3]} {warm[2][p]} vs {cold[2][p]}" for p in phases)
+        + f" ms ({card})")
     fault = json.dumps({"faults": [{"type": "crash_worker", "rank": 1,
                                     "step": SERVE_TIER_KILL_STEP,
                                     "signal": "KILL"}]})
@@ -1495,6 +1591,140 @@ def phase_serve_tier(card: str, engine_tokens: dict) -> dict:
             chaos._reset()
     log(f"serve-tier: {time.perf_counter() - t_phase:.1f} s; K3 launches "
         f"{json.dumps(totals)}")
+    return totals
+
+
+#: the scenario phase: (a) the training replay — the canned scenario,
+#: its start size and the batch a GPT-2-small worker trains at; (b) the
+#: serving replay — the canned scenario and its start size, the decode
+#: workers under serve-tier's settings but the scenario's own batch and
+#: lease; the reference test's checks on (a): the kill step and the
+#: step-ranks of the whole run (12 steps x 2 ranks)
+SCENARIO_TRAIN = ("spot_preempt", 2, 8)
+SCENARIO_SERVE = ("spot_serve_kill", 2)
+SCENARIO_SERVE_ENV = {k: v for k, v in SERVE_TIER_ENV.items()
+                      if k != "KF_SERVE_MAX_BATCH"}
+SCENARIO_KILL_STEP, SCENARIO_USEFUL = 8, 24
+SCENARIO_TIMEOUT = 420
+
+
+def phase_scenario(card: str) -> dict:
+    """The scenario engine on the card (`scenario.run_scenario`). (a)
+    `spot_preempt` at np0 2 with GPT-2-small continuity workers (batch
+    8 x 1024, flash attention, residual fused CE, AdamW, f32 master
+    weights, bf16 compute) sharing the card: the whole allocation is
+    SIGKILLed at step 8 and a second launch restores from the sharded
+    checkpoints (one generation in flight, `CKPT_DURABLE_ENV`); ``python -m kungfu_tpu_torch.trace --goodput`` must
+    hold the reference test's checks, and every worker that ran to its
+    end must have launched K1 and K2, their plain versions never (the
+    killed ones print no counts). (b) `spot_serve_kill` at np0 2 through
+    the decode tier (GPT-2-small bf16, phase 3's seeded weights): rank 1
+    is SIGKILLed at its 8th iteration, its requests are re-leased, the
+    schedule re-grows the tier; every request done, the ledger's
+    invariants empty (the harness's gate), the fault fired, K3 launched
+    in the workers and its plain version never. Returns the workers'
+    launches, K1/K2 from (a) and K3 from (b)."""
+    import dataclasses
+    import tempfile
+
+    from kungfu_tpu_torch.benchmarks.goodput import _row
+    from kungfu_tpu_torch.elastic.harness import claim_port_span
+    from kungfu_tpu_torch.scenario import canned, run_scenario
+    from kungfu_tpu_torch.serve.ledger import percentile
+
+    root = os.path.join(HERE, "build", "scenario")
+    os.makedirs(root, exist_ok=True)
+    name, np0, batch = SCENARIO_TRAIN
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        with claim_port_span() as span:
+            run = run_scenario(
+                dataclasses.replace(canned(name, np0=np0),
+                                    device_batch=batch),
+                trace_dir=trace_dir, logdir=os.path.join(tmp, "logs"),
+                port_range=span, timeout=SCENARIO_TIMEOUT,
+                extra_env=CKPT_DURABLE_ENV,
+                worker_flags=["--model", "gpt", "--device", DEVICE])
+        out = subprocess.run(
+            [sys.executable, "-m", "kungfu_tpu_torch.trace", "--dir",
+             trace_dir, "--goodput", "--device-batch", str(batch)],
+            cwd=HERE, capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"scenario (a): the goodput CLI failed: "
+          f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    decomp = json.loads(out.stdout[out.stdout.index("{"):])
+    restored = decomp["restored_step"]
+    lost = decomp["lost_steps_by_rank"]
+    check(decomp["invariant"]["ok"]
+          and decomp["invariant"]["error_pct"] <= 5.0,
+          f"scenario (a): invariant {decomp['invariant']}")
+    check(len(run.phase_logs) == 2 and restored is not None
+          and restored < SCENARIO_KILL_STEP,
+          f"scenario (a): restored step {restored}")
+    check(all(lost.get(str(r), 0) >= SCENARIO_KILL_STEP - restored
+              for r in range(np0)),
+          f"scenario (a): lost steps {lost} after restoring {restored}")
+    check(decomp["useful_step_ranks"] >= SCENARIO_USEFUL,
+          f"scenario (a): {decomp['useful_step_ranks']} useful step-ranks")
+    totals = check_launches("scenario (a)", run.phase_logs[-1], DEVICE)
+    row = _row(run, decomp)
+    log(f"scenario (a) {name} np0 {np0}, GPT-2-small batch {batch} x "
+        f"{MAX_LEN}: {time.perf_counter() - t0:.1f} s (phases "
+        f"{list(run.phase_wall_s)} s, relaunch gap {run.relaunch_gap_s} "
+        f"s); goodput ratio {row['goodput_ratio']}, phases % of the "
+        f"ranks' active wall {json.dumps(row['phases_pct'])}, other "
+        f"{row['other_pct']} %, wall {row['wall_ms']} ms, invariant "
+        f"error {row['invariant_error_pct']} %; useful step-ranks "
+        f"{row['useful_step_ranks']}, lost {row['lost_step_ranks']} "
+        f"({json.dumps(lost)}), restored step {restored}, useful "
+        f"samples/s {row['useful_samples_per_sec']} ({card})")
+    for line in run.logs.splitlines():
+        if line.startswith(("KF_CHAOS_FIRE", "KF_CKPT_SAVED",
+                            "KF_CKPT_WRITTEN", "KF_RESTORE_CONTINUITY",
+                            "KF_CONTINUITY_DONE")):
+            log(f"scenario (a) {line}")
+    log(f"scenario (a): launches of the relaunch's workers "
+        f"{json.dumps(totals)}")
+
+    name, np0 = SCENARIO_SERVE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as tmp, \
+            claim_port_span() as span:
+        run = run_scenario(canned(name, np0=np0),
+                           trace_dir=os.path.join(tmp, "trace"),
+                           logdir=os.path.join(tmp, "logs"),
+                           port_range=span, timeout=SCENARIO_TIMEOUT,
+                           worker_flags=["--device", DEVICE],
+                           extra_env=SCENARIO_SERVE_ENV)
+    logs = run.logs
+    check("type=crash_worker" in logs, "scenario (b): the kill never fired")
+    check(run.results and all(r["state"] == "done" for r in run.results),
+          "scenario (b): a request was not done")
+    rows = _marker_lines(logs, "KF_LAUNCHES")
+    check(rows, "scenario (b): no worker printed its launches")
+    k3 = {"resident": 0, "stream": 0, "plain": 0}
+    for r in rows:
+        counts = json.loads(r["paged_attn"])
+        check(counts["plain"] == 0, f"scenario (b): K3's plain version "
+              f"ran on the card: {r}")
+        for k in k3:
+            k3[k] += counts[k]
+    check(k3["resident"] > 0 and k3["stream"] == 0,
+          f"scenario (b): the plan's resident scheme did not run: {rows}")
+    lat = sorted(r["latency_ms"] for r in run.results)
+    leased = sum(1 for r in run.results if r["leases"] > 1)
+    log(f"scenario (b) {name} np0 {np0}: {time.perf_counter() - t0:.1f} s; "
+        f"{len(run.results)} requests done, p50 "
+        f"{percentile(lat, 50):.1f} ms, p99 {percentile(lat, 99):.1f} ms "
+        f"(of {len(lat)} requests: the slowest, {lat[-1]:.1f} ms; a "
+        f"liveness replay, not a latency cell), {leased} re-leased; K3 "
+        f"launches {json.dumps(k3)} ({card})")
+    for line in logs.splitlines():
+        if line.startswith(("KF_CHAOS_FIRE", "KF_SERVE_RECOVERED",
+                            "KF_SERVE_JOINER", "KF_SERVE_RESIZED",
+                            "KF_MTTR")):
+            log(f"scenario (b) {line.strip()}")
+    totals.update({f"paged_attn.{k}": v for k, v in k3.items()})
     return totals
 
 
@@ -2051,7 +2281,23 @@ def build_all(_build, names):
         _build.load(name)
 
 
+def bytecode_cache() -> None:
+    """Cache compiled bytecode under ``build/pycache`` for this process
+    and every process it starts. Where the environment forbids writing
+    bytecode (``PYTHONDONTWRITEBYTECODE``) and the installed packages
+    ship none, each new interpreter compiles torch from its sources
+    again: 7.3 s of an 8.8 s ``import numpy, torch`` on the H100's host.
+    Runs before torch is first imported."""
+    prefix = os.path.join(HERE, "build", "pycache")
+    os.makedirs(prefix, exist_ok=True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ.setdefault("PYTHONPYCACHEPREFIX", prefix)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+
+
 def main() -> int:
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -2066,6 +2312,10 @@ def main() -> int:
     from kungfu_tpu_torch.serve import build_lm
 
     card = card_line()
+    # the smoke runs on one card: name it for every runner it starts, so
+    # their slot mapping (`run.job.visible_cards`) reads the variable
+    # instead of starting nvidia-smi
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions'
@@ -2110,6 +2360,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] adaptive done")
     tier = phase_serve_tier(card, served["resident"][0])
     log(f"[{time.perf_counter() - T_START:.0f} s] serve-tier done")
+    scen = phase_scenario(card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] scenario done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -2135,6 +2387,7 @@ def main() -> int:
             "replaces": REPLACES[scheme],
             "launches": served[scheme][1]["launches"],
             "serve_tier_launches": tier[scheme],
+            "scenario_launches": scen[f"paged_attn.{scheme}"],
             "max_abs_err": errs[(scheme, "bfloat16")],
             "ms": full[scheme], "plain_ms": full["plain"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -2149,6 +2402,7 @@ def main() -> int:
             "launches": sum(m["launches"][name] for m in trained.values()),
             "elastic_launches": elastic.get(f"fused_ce.{name}", 0),
             "adaptive_launches": adaptive.get(f"fused_ce.{name}", 0),
+            "scenario_launches": scen.get(f"fused_ce.{name}", 0),
             "max_abs_err": k2_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2168,6 +2422,7 @@ def main() -> int:
             "launches": trained["residual/flash"]["k1_launches"][name],
             "elastic_launches": elastic[f"flash.{name}"],
             "adaptive_launches": adaptive[f"flash.{name}"],
+            "scenario_launches": scen[f"flash.{name}"],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2195,6 +2450,14 @@ def main() -> int:
         f"{resnet['step_time_ms']:.2f} ms/step (NCCL, one card)")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
+    # (b)'s workers run KF_SERVE_KERNEL=auto, the plan's resident scheme:
+    # the stream scheme is not on the scenario's path
+    scenario_path = ("paged_attn.resident", "fused_ce.fwd",
+                     "fused_ce.residual_d", "flash.fwd", "flash.dq",
+                     "flash.dkv")
+    check(all(k["scenario_launches"] > 0 for k in kernels
+              if k["name"] in scenario_path),
+          f"a kernel of the scenario phase was not launched: {kernels}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

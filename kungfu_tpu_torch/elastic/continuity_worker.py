@@ -47,7 +47,20 @@ state broadcast (ms, bytes), one ``KF_DIGEST`` line after it (a
 blake2b digest of the parameters' bytes and whether every member agreed
 on it through `Peer.consensus`; disagreement fails the worker), and at
 the end ``KF_LAUNCHES`` (the flash and fused-CE launch counts) and
-``KF_PEAK_MEM``.
+``KF_PEAK_MEM``. A joiner also prints ``KF_JOINER_BOOT``: its boot
+phases (``main_ms``: the start to `main` — a cold process's interpreter
+and imports, or from a warm slot's activation, ``warm=1``
+(`env.process_start`, on `time.monotonic`); ``import_ms``,
+``init_ms``, ``build_ms`` — of it ``ctx_ms``, the card's context,
+``model_ms``, the seeded model on the host and its copy to the device
+with the corpus, and ``opt_ms``, the optimizer's state — and
+``resync_ms``: through its position sync, first-batch check and state
+broadcast; ``nice``, the highest niceness of its threads: a warm slot's
+runner sets every thread back to its own at activation), and a
+survivor's ``resized:`` line its stall in the switch: ``hook_ms`` (the
+step's elastic hook, whose consensus waits for a joiner's boot) and
+``resync_ms`` (its position sync and state broadcast, which wait for the
+joiner's build).
 
 The reference's three switches, on both models:
 
@@ -74,6 +87,10 @@ The reference's three switches, on both models:
   state must beat this process's fresh init by 0.05
   (``KF_RESTORE_CONTINUITY``, ``KF_CKPT_RESIDUALS``;
   ``KF_CKPT_RESTORE_NONE`` when no generation exists).
+  ``KF_CKPT_MAX_PENDING`` (default 2, the double buffer) bounds the
+  generations in flight: at 1 a save first waits for the previous
+  write, so a cluster killed after the save of step n·k always leaves
+  the generation of step (n−1)·k complete, whatever the disk's speed.
 - ``KF_POLICY`` (goodput or naive_straggler): the sizing driver is the
   policy, read from the goodput families a `trace.goodput.GoodputMeter`
   is fed every step (and with the checkpoint's stall); the schedule is
@@ -101,6 +118,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..env import env_int, process_start, thread_niceness
 
 #: the GPT worker's corpus: sequences, distinct token ids and the
 #: chance a token follows its predecessor's fixed successor
@@ -145,6 +164,7 @@ class SLPTrainer:
         torch.manual_seed(0)
         self.model = SLP(num_classes=10).to(device)
         self.params = list(self.model.parameters())
+        self.model_ready = time.monotonic()
         self.opt = torch.optim.SGD(self.params, lr=self.LR)
 
     def state(self):
@@ -170,6 +190,9 @@ class GPTTrainer:
         self.tokens = torch.from_numpy(gpt_corpus(seq)).to(device)
         self.num_samples = self.tokens.shape[0]
         self.params = list(self.model.parameters())
+        #: the instant the model and corpus were on the device (the
+        #: optimizer's state follows; `main`'s boot phases)
+        self.model_ready = time.monotonic()
         self.opt = lm_adamw(self.params)
         # the optimizer state exists from the start, so a joiner's state
         # list has the survivors' shapes before its first step
@@ -240,6 +263,9 @@ def main(argv=None) -> None:
     ap.add_argument("--model", choices=("slp", "gpt"), default="slp")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
+    # the boot's phases (a joiner's stall of the survivors is its boot)
+    boot = {"main": time.monotonic()}
+    boot["start"], warm = process_start(boot["main"])
 
     import kungfu_tpu_torch
     from .. import trace
@@ -258,6 +284,7 @@ def main(argv=None) -> None:
         os.environ.get("KF_RECOVERY_DEADLINE_MS", "30000")) / 1e3
     ckpt_dir = os.environ.get("KF_CKPT_DIR", "")
     ckpt_every = int(os.environ.get("KF_CKPT_EVERY", "4"))
+    ckpt_pending = env_int("KF_CKPT_MAX_PENDING", 2, minimum=1)
     profile_size = int(os.environ.get("KF_PROFILE_SIZE", "0"))
     policy = _make_policy(os.environ.get("KF_POLICY", ""))
     bucket_bytes = 0
@@ -269,7 +296,9 @@ def main(argv=None) -> None:
             raise SystemExit("KF_GRAD_BUCKET_MB must be positive; unset it "
                              "for the lump path")
 
+    boot["import"] = time.monotonic()
     peer = kungfu_tpu_torch.init()
+    boot["init"] = time.monotonic()
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass --device cpu "
@@ -277,13 +306,19 @@ def main(argv=None) -> None:
         dev = torch.device("cuda", peer.local_rank
                            % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+        # the context, with the first allocation (a boot phase of its own)
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
     else:
         dev = torch.device("cpu")
+    boot["ctx"] = time.monotonic()
     on_card = dev.type == "cuda"
     default_batch = {"slp": 64, "gpt": 8 if on_card else 2}[args.model]
     batch = int(os.environ.get("TEST_DEVICE_BATCH", default_batch))
     trainer = (SLPTrainer if args.model == "slp" else GPTTrainer)(dev)
     params = trainer.params
+    boot["model"] = trainer.model_ready
+    boot["build"] = time.monotonic()
     # a policy run is monitor-driven: the schedule must not also steer
     # (ElasticCallback consults the policy only when no schedule is set)
     elastic = ElasticCallback(peer, schedule="" if policy else schedule,
@@ -365,7 +400,8 @@ def main(argv=None) -> None:
         if ckpt is not None:
             ckpt.close()
             report_written()
-        ckpt = AsyncShardedCheckpointer(ckpt_dir, peer)
+        ckpt = AsyncShardedCheckpointer(ckpt_dir, peer,
+                                        max_pending=ckpt_pending)
 
     def maybe_save() -> None:
         if ckpt is None or ckpt_every <= 0 \
@@ -393,7 +429,8 @@ def main(argv=None) -> None:
               f"save_ms={(t2 - t1) * 1e3:.2f} "
               f"sync_ms={(t3 - t2) * 1e3:.2f} "
               f"snapshot_device_bytes={snap['device']} "
-              f"snapshot_host_bytes={snap['host']}", flush=True)
+              f"snapshot_host_bytes={snap['host']} "
+              f"max_pending={ckpt_pending}", flush=True)
 
     make_checkpointer()
 
@@ -409,10 +446,20 @@ def main(argv=None) -> None:
         idx = make_sampler().next_indices()
         fresh_loss = eval_loss(idx)
         broadcast_state("joiner")
+        boot["resync"] = time.monotonic()
         got_loss = eval_loss(idx)
         print(f"KF_JOINER_CONTINUITY rank={peer.rank} "
               f"fresh={fresh_loss:.4f} broadcast={got_loss:.4f}",
               flush=True)
+        def ms(a, b, name="") -> str:
+            return f"{name or b}_ms={(boot[b] - boot[a]) * 1e3:.1f}"
+
+        names = ("start", "main", "import", "init", "build", "resync")
+        print(f"KF_JOINER_BOOT rank={peer.rank} size={peer.size} "
+              + " ".join(ms(a, b) for a, b in zip(names, names[1:]))
+              + f" {ms('init', 'ctx')} {ms('ctx', 'model')} "
+              f"{ms('model', 'build', 'opt')} warm={int(warm)} "
+              f"nice={thread_niceness()}", flush=True)
         assert got_loss < fresh_loss - 0.05, (
             f"joiner's broadcast weights are no better than a fresh init "
             f"({got_loss:.4f} vs {fresh_loss:.4f}): state broadcast failed")
@@ -674,7 +721,8 @@ def main(argv=None) -> None:
                 raise
             try_recover()
             continue
-        meter.observe("hook", (time.perf_counter() - t_hook0) * 1e3)
+        hook_ms = (time.perf_counter() - t_hook0) * 1e3
+        meter.observe("hook", hook_ms)
         if changed:
             if not elastic.state.keep:
                 report()
@@ -687,13 +735,15 @@ def main(argv=None) -> None:
                             size=peer.size):
                 elastic.sync_position()
                 broadcast_state("survivor")
-            meter.observe("resize", (time.perf_counter() - t_rs0) * 1e3)
+            resync_ms = (time.perf_counter() - t_rs0) * 1e3
+            meter.observe("resize", resync_ms)
             sampler = make_sampler()
             make_checkpointer()  # rank/size changed: rebind the schedule
             pending_continuity = last_loss
             steps_at_size = 0
             print(f"resized: epoch {peer.version} size={peer.size} "
-                  f"step={elastic.state.step}", flush=True)
+                  f"step={elastic.state.step} hook_ms={hook_ms:.1f} "
+                  f"resync_ms={resync_ms:.1f}", flush=True)
         maybe_save()
         metrics.REGISTRY.observe("kf_step_latency_ms",
                                  (time.perf_counter() - t_step0) * 1e3)

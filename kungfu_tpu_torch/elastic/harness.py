@@ -261,11 +261,14 @@ def _run_continuity_cluster(schedule: str,
         bad = (all(rc == 0 for rc in rcs) if expect_rc == "nonzero"
                else any(rc != expect_rc for rc in rcs))
         if bad:
+            # the runners' own stderr last: a reader of the message's
+            # tail sees why a runner failed, after the workers' logs
             raise AssertionError(
                 f"elastic continuity run failed rcs={rcs} "
-                f"(expected {expect_rc}):\n"
+                f"(expected {expect_rc}):\n{logs[-2000:]}\n"
                 f"stdout: {all_out[-2000:]}\n"
-                f"stderr: {all_err[-2000:]}\n{logs[-2000:]}")
+                f"stderr: {all_err[-2000:]}\n"
+                f"rcs={rcs} (expected {expect_rc})")
         for marker, why in markers:
             if marker not in logs:
                 raise AssertionError(

@@ -6,8 +6,10 @@ reference (reference: srcs/go/kungfu/env/envs.go:4-14, config.go:24-76).
 A process started without these vars becomes a single-process cluster of
 itself, so every program using kungfu_tpu also runs standalone.
 
-The port's copy of `kungfu_tpu/env.py`, which imports no JAX:
-only its imports changed.
+The port's copy of `kungfu_tpu/env.py`, which imports no JAX: its
+imports changed, and it adds the warm-start stamp (`WARM_START_ENV`,
+`process_start`) and `thread_niceness`, which a worker's boot line
+reports.
 """
 
 from __future__ import annotations
@@ -151,6 +153,42 @@ ALL_BOOTSTRAP_VARS = (
     ALLREDUCE_STRATEGY,
     CONFIG_SERVER,
 )
+
+
+#: a warm slot's activation instant: the runner's `time.monotonic` when
+#: it wrote the activation line (`run.job.activate_warm`)
+WARM_START_ENV = "KF_WARM_START"
+
+
+def process_start(now: float) -> tuple:
+    """``(start, warm)`` on `now`'s clock, `time.monotonic`: the instant
+    this worker started — a warm slot's activation (``KF_WARM_START``,
+    the runner's stamp: Linux's monotonic clock is one for every
+    process; warm True), else the process's start from /proc (10 ms
+    ticks: the interpreter's start and the imports before `main`)."""
+    warm = os.environ.get(WARM_START_ENV, "")
+    if warm:
+        return float(warm), True
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return now - max(up - start / os.sysconf("SC_CLK_TCK"), 0.0), False
+
+
+def thread_niceness(pid="self") -> int:
+    """The highest niceness among the threads of process `pid` (a
+    warm slot's threads started at its nice 19 keep it unless each is
+    reniced)."""
+    task = f"/proc/{pid}/task"
+    worst = os.getpriority(os.PRIO_PROCESS, 0 if pid == "self" else pid)
+    for tid in os.listdir(task):
+        try:
+            with open(f"{task}/{tid}/stat") as f:
+                worst = max(worst, int(f.read().rsplit(")", 1)[1].split()[16]))
+        except (OSError, IndexError, ValueError):
+            pass  # the thread ended meanwhile
+    return worst
 
 
 #: KF_SERVE_KERNEL's values: the reference's (auto, kernel, functional)

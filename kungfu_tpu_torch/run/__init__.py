@@ -2,7 +2,7 @@
 
 The role of the reference's `kungfu-run` (reference: srcs/go/cmd/kungfu-run,
 srcs/go/kungfu/runner): spawn one worker process per slot with the KF_*
-env-var bootstrap, number the local slots, supervise the workers
+env-var bootstrap, give local slots their cards, supervise the workers
 (fail-fast on crash), and — in watch mode — reconcile the local worker set
 whenever the cluster membership changes (config-server-driven elastic
 training).
@@ -12,13 +12,13 @@ Usage:
     python -m kungfu_tpu_torch.run -np 4 -w -config-server http://...:9100/get -- ...
 
 The port's copy of `kungfu_tpu/run/` (`__init__`, `__main__`, `job`,
-`watch`, `discovery`), which imports no JAX. Two things differ, both in
-`job`: a slot sets no device variable (no ``TPU_VISIBLE_DEVICES``, no
-XLA cache directory, and no ``CUDA_VISIBLE_DEVICES``: workers that
-share one card pick ``cuda:{local_rank % device_count}`` themselves),
-and joiners are always spawned cold (the warm pool waits for
-``run/prewarm.py``, ROADMAP item 10). ``distribute.py`` and
-``platforms.py`` wait too.
+`watch`, `discovery`, `prewarm`, `platforms`, `distribute`), which
+imports no JAX. Joiners activate from a warm pool of pre-started
+interpreters (`prewarm`, ``KF_PREWARM``). What differs is the device
+variable, in `job`: no ``TPU_VISIBLE_DEVICES`` and no XLA cache
+directory; a slot gets ``CUDA_VISIBLE_DEVICES=<card>`` only when the
+runner's slots do not exceed the host's cards, else none (workers that
+share one card pick ``cuda:{local_rank % device_count}`` themselves).
 """
 
 from .job import ChipPool, Proc, spawn_worker

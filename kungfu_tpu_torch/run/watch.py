@@ -22,11 +22,18 @@ bounds how many times this may happen before the runner falls back to
 fail-fast; every phase emits a KF_MTTR marker so
 `benchmarks/recovery.py` can decompose detect/consensus/restore.
 
-The port's copy of `kungfu_tpu/run/watch.py`, which imports no JAX:
-only its imports changed, joiners are always spawned cold (no warm
-pool until `run/prewarm.py` is ported), and a departing worker gets
-`EVICT_GRACE_S` to exit by itself before its SIGTERM (the reference
-terminates it at once, racing its ``evicted at step`` line).
+Joiners activate from pre-warmed interpreters (`job.WarmPool`, whose
+imports are already paid) so a resize costs one env write, not an
+interpreter + torch start; the pool is refilled to ``slots`` minus the
+live workers in the idle loop only, never inside a resize
+(``KF_PREWARM=0`` opts out).
+
+The port's copy of `kungfu_tpu/run/watch.py`, which imports no JAX.
+What differs: a departing worker gets `EVICT_GRACE_S` to exit by itself
+before its SIGTERM (the reference terminates it at once, racing its
+``evicted at step`` line), the runner passes each slot its card when
+its slots do not exceed the host's cards (`job.slot_devices`), and the
+warm pool is shut down however the loop ends (an exception included).
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from ..ffi import NativePeer
 from ..peer import Stage, fetch_url, put_url
 from ..plan import Cluster, PeerID, PeerList
 from ..retrying import NO_RETRY, control_plane_policy
-from .job import ChipPool, Proc, spawn_worker
+from .job import (ChipPool, Proc, WarmPool, activate_warm,
+                  slot_devices, spawn_worker)
 
 
 #: how long a departing worker may take to exit by itself before the
@@ -71,6 +79,8 @@ def simple_run(
         print("[kfrun] no workers scheduled on this host", flush=True)
         return 2
     pool = ChipPool(len(local))
+    devices = slot_devices(len(local))
+    chips = [pool.get() for _ in local]
     procs = [
         spawn_worker(
             prog,
@@ -80,11 +90,12 @@ def simple_run(
             strategy=strategy,
             parent=parent,
             config_server=config_server,
-            chip=pool.get(),
+            chip=chip,
             logdir=logdir,
             quiet=quiet,
+            device=devices[chip] if devices else None,
         )
-        for w in local
+        for w, chip in zip(local, chips)
     ]
     code = 0
     for p in procs:
@@ -128,6 +139,11 @@ class Watcher:
         self.recoveries = 0
         self.pool = ChipPool(slots)
         self.slots = slots
+        self.devices = slot_devices(slots)
+        # joiners activate from pre-warmed interpreters (imports already
+        # paid) so a resize costs one env write, not a python+torch boot
+        # (KF_PREWARM=0 opts out)
+        self.warm = WarmPool(prog, target=0, quiet=True, logdir=logdir)
         self.procs: Dict[PeerID, Proc] = {}
         # the last stage this runner APPLIED — the recovery proposal's
         # fallback base when the config server answers 404 (restarted
@@ -207,16 +223,23 @@ class Watcher:
             if proc.chip is not None:
                 self.pool.put(proc.chip)
         for peer in sorted(new_local - old_local):
+            chip = self.pool.get()
             kwargs = dict(
                 strategy=self.strategy,
                 parent=self.runner_id,
                 config_server=self.config_server,
-                chip=self.pool.get(),
+                chip=chip,
                 logdir=self.logdir,
                 quiet=self.quiet,
+                device=(self.devices[chip]
+                        if self.devices and chip is not None else None),
             )
-            proc = spawn_worker(self.prog, peer, stage.cluster.workers,
-                                stage.version, **kwargs)
+            proc = activate_warm(self.warm, peer, stage.cluster.workers,
+                                 stage.version, **kwargs)
+            if proc is None:  # no warm slot ready: cold spawn
+                proc = spawn_worker(self.prog, peer,
+                                    stage.cluster.workers, stage.version,
+                                    **kwargs)
             self.procs[peer] = proc
         if self.procs:
             self.regrow_deadline = None  # host repopulated
@@ -412,6 +435,10 @@ class Watcher:
                 if code is not None:
                     self._shutdown()
                     return code
+                # keep enough warm slots for the largest possible join
+                # wave; spawned during steady state, never in a resize
+                self.warm.target = max(0, self.slots - len(self.procs))
+                self.warm.refill()
                 if not self.procs and not self.keep \
                         and self.current_version >= 0 \
                         and self.stages.empty():
@@ -424,6 +451,7 @@ class Watcher:
             self._shutdown()
             return 0
         finally:
+            self.warm.shutdown()
             self.control.close()
 
     def _shutdown(self):

@@ -251,10 +251,11 @@ def run_serve_cluster(
                     logs += f"--- {f} ---\n" + fh.read()
         logs += f"--- runner ---\n{out}"
         if proc.returncode != 0:
+            # the runner's own stderr last, after the workers' logs
             raise AssertionError(
                 f"serve cluster failed rc={proc.returncode}:\n"
-                f"stdout: {out[-2000:]}\n"
-                f"stderr: {err[-2000:]}\n{logs[-3000:]}")
+                f"{logs[-3000:]}\nstdout: {out[-2000:]}\n"
+                f"stderr: {err[-2000:]}\nrc={proc.returncode}")
         for marker, why in markers:
             if marker not in logs:
                 raise AssertionError(

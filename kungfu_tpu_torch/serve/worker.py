@@ -50,12 +50,22 @@ paged_attn={...}`` — the K3 launch counts of this worker's serving
 loop (zeroed after `engine.warm()`). On the card the KF_SERVE_TIMING
 line also carries the worker's peak device memory (``peak_mem_gb``).
 Beyond the reference's fields, KF_SERVE_JOINER carries the joiner's boot
-phases (``main_ms``: the process's start to `main`, the interpreter and
-the package's imports; ``import_ms``, ``init_ms``, ``build_ms``,
-``resync_ms``), KF_SERVE_RESIZED a survivor's wait in the epoch switch
-(``stall_ms``, of it ``barrier_ms`` in the join barrier and
+phases (``main_ms``: the start to `main` — a cold process's interpreter
+and imports, or from a warm slot's activation, ``warm=1``
+(`env.process_start`, on `time.monotonic`); ``import_ms``,
+``init_ms``, ``build_ms``, ``resync_ms``; ``nice``, the highest
+niceness of its threads: a warm slot's runner sets every thread back to
+its own at activation), KF_SERVE_RESIZED a survivor's wait in the epoch
+switch (``stall_ms``, of it ``barrier_ms`` in the join barrier and
 ``resync_ms``), and KF_SERVE_TIMING the sum of those waits
-(``resize_ms``).
+(``resize_ms``) and what a re-lease needs: ``renew_gap_ms``, the
+longest time between the start of one of the worker's lease renewals
+(its iteration's ``append_batch``) and the end of the next while it held
+requests — the ledger re-queues a request only after a gap longer than
+the lease — and ``switch_gap_ms``, the longest such gap across an epoch
+switch; ``released``, the requests it handed back itself (preempted,
+unadmittable, on leaving), each of which a later lease resumes; and
+``stale``, its appends refused because the lease had expired.
 """
 
 from __future__ import annotations
@@ -65,15 +75,7 @@ import json
 import os
 import time
 
-
-def _process_age_s() -> float:
-    """Seconds since this process started (Linux's /proc, 10 ms ticks):
-    the interpreter's start and the package's imports before `main`."""
-    with open("/proc/self/stat") as f:
-        start = int(f.read().rsplit(")", 1)[1].split()[19])
-    with open("/proc/uptime") as f:
-        up = float(f.read().split()[0])
-    return max(up - start / os.sysconf("SC_CLK_TCK"), 0.0)
+from ..env import process_start, thread_niceness
 
 
 def main(argv=None) -> None:
@@ -81,8 +83,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     # the boot's phases (a joiner's stall of the survivors is its boot)
-    boot = {"main": time.perf_counter()}
-    boot["start"] = boot["main"] - _process_age_s()
+    boot = {"main": time.monotonic()}
+    boot["start"], warm = process_start(boot["main"])
 
     import torch
 
@@ -118,9 +120,9 @@ def main(argv=None) -> None:
         os.environ.get("KF_RECOVERY_DEADLINE_MS", "30000")) / 1e3
     ckpt_dir = os.environ.get("KF_CKPT_DIR", "")
 
-    boot["import"] = time.perf_counter()
+    boot["import"] = time.monotonic()
     peer = kungfu_tpu_torch.init()
-    boot["init"] = time.perf_counter()
+    boot["init"] = time.monotonic()
     url = peer.config.config_server
     if not url:
         raise SystemExit("serve.worker needs a config server "
@@ -145,7 +147,7 @@ def main(argv=None) -> None:
                      dtype=None if on_card else torch.float32,
                      init=peer.config.version == 0)
     params = list(model.parameters())
-    boot["build"] = time.perf_counter()
+    boot["build"] = time.monotonic()
 
     def phases_ms(marks, names) -> str:
         """`name_ms=` fields: the wall time from each mark to the next."""
@@ -191,11 +193,12 @@ def main(argv=None) -> None:
                       flush=True)
                 raise SystemExit(0) from None
             raise
-        boot["resync"] = time.perf_counter()
+        boot["resync"] = time.monotonic()
         print(f"KF_SERVE_JOINER rank={peer.rank} size={peer.size} "
               f"step={elastic.state.step} "
               + phases_ms(boot, ("start", "main", "import", "init",
-                                 "build", "resync")), flush=True)
+                                 "build", "resync"))
+              + f" warm={int(warm)} nice={thread_niceness()}", flush=True)
     elif ckpt_dir:
         # cold boot: every version-0 rank enters the restore rendezvous;
         # rank 0's pick broadcast agrees on the generation (or on none)
@@ -230,6 +233,12 @@ def main(argv=None) -> None:
     control = [0.0]   # wall seconds in control-plane round trips
     resize = [0.0]    # wall seconds of epoch switches (consensus + resync)
     peak_blocks = 0   # high-water mark of KV blocks in use
+    # lease renewals: the start of the last append_batch (None while the
+    # worker holds no request), the longest gaps (any, across a switch),
+    # whether a switch came since the last renewal; requests handed back
+    # and appends refused as stale
+    renew = {"last": None, "gap": 0.0, "switch_gap": 0.0,
+             "switched": False, "released": 0, "stale": 0}
 
     def timed(fn, *a, **kw):
         t = time.perf_counter()
@@ -257,6 +266,7 @@ def main(argv=None) -> None:
             engine.drain(s)
             try:
                 frontend.release(url, int(s), wid)
+                renew["released"] += 1
             except (OSError, ValueError, KeyError) as e:
                 # control plane unreachable: the lease expiry reclaims it
                 print(f"[kf-serve] release({s}) after {note}: {e}",
@@ -311,6 +321,7 @@ def main(argv=None) -> None:
                 remaining = int(r["max_new"]) - int(r["pos"])
                 if remaining <= 0 or not engine.can_admit(len(prompt)):
                     timed(frontend.release, url, rid, wid)
+                    renew["released"] += 1
                     continue
                 tok, done = engine.admit(rid, prompt, remaining)
                 if tok is None:
@@ -334,6 +345,7 @@ def main(argv=None) -> None:
         emitted, preempted = engine.step()
         for s in preempted:
             timed(frontend.release, url, int(s), wid)
+            renew["released"] += 1
             positions.pop(s, None)
         for s, (tok, done) in emitted.items():
             rows.append({"id": int(s), "pos": positions[s],
@@ -347,9 +359,17 @@ def main(argv=None) -> None:
                              "tokens": [], "done": False})
         stats = None
         if rows:
+            t_sent = time.monotonic()
             statuses, stats = timed(frontend.append_batch, url, rows, wid)
+            if renew["last"] is not None:
+                gap = time.monotonic() - renew["last"]
+                renew["gap"] = max(renew["gap"], gap)
+                if renew["switched"]:
+                    renew["switch_gap"] = max(renew["switch_gap"], gap)
+            renew["last"], renew["switched"] = t_sent, False
             for row, status in zip(rows, statuses):
                 rid = row["id"]
+                renew["stale"] += status == "stale"
                 if status != "ok":
                     # "stale": our lease was reclaimed; "done": a resumed
                     # lease finished the request elsewhere
@@ -358,6 +378,8 @@ def main(argv=None) -> None:
                 elif row["done"]:
                     served += 1
                     positions.pop(rid, None)
+        else:
+            renew["last"] = None  # nothing held, nothing to expire
         metrics.REGISTRY.set("kf_serve_active", engine.active)
         peak_blocks = max(peak_blocks, engine.pool.blocks_in_use)
 
@@ -401,6 +423,7 @@ def main(argv=None) -> None:
             # joiner's boot up to its `kungfu_tpu_torch.init()`, the
             # resync the rest of it up to its broadcast
             t_done = time.perf_counter()
+            renew["switched"] = True
             resize[0] += t_done - t_hook
             ph = peer.last_resize_phases
             print(f"KF_SERVE_RESIZED rank={peer.rank} size={peer.size} "
@@ -430,6 +453,9 @@ def main(argv=None) -> None:
           f"control_ms={control[0] * 1e3:.1f} "
           f"resize_ms={resize[0] * 1e3:.1f} "
           f"warm_ms={warm_s * 1e3:.1f} "
+          f"renew_gap_ms={renew['gap'] * 1e3:.1f} "
+          f"switch_gap_ms={renew['switch_gap'] * 1e3:.1f} "
+          f"released={renew['released']} stale={renew['stale']} "
           f"peak_blocks={peak_blocks}{mem}", flush=True)
     report()
     print(f"KF_SERVE_DONE rank={peer.rank} size={peer.size} "

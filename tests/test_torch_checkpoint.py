@@ -43,6 +43,16 @@ from kungfu_tpu_torch.elastic import harness
 from kungfu_tpu_torch.ops.collective import pack_bytes
 
 
+@pytest.fixture(autouse=True)
+def _cold_joiners(monkeypatch):
+    """This file's clusters start their joiners cold (``KF_PREWARM=0``).
+    The warm pool has its own tests (test_torch_prewarm.py, and the
+    scenario replays run with it), and each warm slot is an import of
+    torch at nice 19 that would compete for a loaded host with the JAX
+    package's warm-slot tests, whose slots wait 60 s at nice 19."""
+    monkeypatch.setenv("KF_PREWARM", "0")
+
+
 def ref_tree(seed=0):
     """The reference test's mixed tree, nested one level."""
     rng = np.random.default_rng(seed)
@@ -250,9 +260,11 @@ def test_damaged_generation_falls_back(tmp_path, mode, capsys):
     assert "falling back" in capsys.readouterr().out
 
 
-def test_backpressure_at_max_pending(tmp_path, monkeypatch):
-    """The writer is held; two saves queue (the double buffer) and the
-    third blocks until a write lands — taking no snapshot meanwhile."""
+@pytest.mark.parametrize("max_pending", [2, 1])
+def test_backpressure_at_max_pending(tmp_path, monkeypatch, max_pending):
+    """The writer is held; `max_pending` saves queue (2: the double
+    buffer) and the next blocks until a write lands — taking no
+    snapshot meanwhile."""
     gate = threading.Event()
     real = ca.write_generation
 
@@ -262,20 +274,21 @@ def test_backpressure_at_max_pending(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ca, "write_generation", held)
     d = str(tmp_path)
-    ckpt = ca.AsyncShardedCheckpointer(d, max_pending=2)
+    ckpt = ca.AsyncShardedCheckpointer(d, max_pending=max_pending)
     tree = {"w": torch.arange(4096, dtype=torch.float32)}
-    ckpt.save(tree, step=1)
-    ckpt.save(tree, step=2)
-    third = threading.Thread(target=ckpt.save, args=(tree,),
-                             kwargs={"step": 3})
-    third.start()
+    for step in range(1, max_pending + 1):
+        ckpt.save(tree, step=step)
+    last = max_pending + 1
+    blocked = threading.Thread(target=ckpt.save, args=(tree,),
+                               kwargs={"step": last})
+    blocked.start()
     time.sleep(0.5)
-    assert third.is_alive()  # blocked behind the double buffer
+    assert blocked.is_alive()  # blocked behind the held writes
     gate.set()
-    third.join(30)
-    assert not third.is_alive()
+    blocked.join(30)
+    assert not blocked.is_alive()
     ckpt.close()
-    assert ca.complete_generations(d) == [3, 2, 1]
+    assert ca.complete_generations(d) == list(range(last, 0, -1))
 
 
 def test_in_place_mutation_after_save_keeps_the_old_values(tmp_path):
@@ -348,7 +361,15 @@ def test_whole_cluster_kill_restores_at_np1(tmp_path):
     assert "KF_CONTINUITY_DONE rank=0 size=1 step=11" in logs
 
 
-def _restore_run(tmp_path, restore_np):
+def test_one_generation_in_flight_reaches_the_worker(tmp_path):
+    """``KF_CKPT_MAX_PENDING=1`` (the depth the smoke's whole-cluster
+    kills run at) reaches every worker's checkpointer, and the kill
+    still restores a complete generation."""
+    _restore_run(tmp_path, restore_np=1,
+                 extra_env={"KF_CKPT_MAX_PENDING": "1"}, max_pending="1")
+
+
+def _restore_run(tmp_path, restore_np, extra_env=None, max_pending="2"):
     d = str(tmp_path / "ckpt")
     with harness.claim_port_span() as span:
         logs = harness.run_checkpoint_restore(
@@ -357,11 +378,14 @@ def _restore_run(tmp_path, restore_np):
             logdir=str(tmp_path / "logs"),
             worker_flags=["--model", "slp", "--device", "cpu"],
             extra_env={"OMP_NUM_THREADS": "1", "KF_GRAD_BUCKET_MB": "0.004",
-                       "KF_GRAD_COMPRESS": "bf16"})
+                       "KF_GRAD_COMPRESS": "bf16", **(extra_env or {})})
     save_logs = "".join(p.read_text() for p in
                         sorted((tmp_path / "logs" / "save").glob("*.log")))
     for marker, _why in harness.CKPT_SAVE_MARKERS:
         assert marker in save_logs
+    saved = re.findall(r"^KF_CKPT_SAVED .* max_pending=(\d+)$",
+                       save_logs + logs, re.M)
+    assert saved and set(saved) == {max_pending}
     for marker, _why in harness.CKPT_RESTORE_MARKERS:
         assert marker in logs
     # the latest generation the writer landed before the kill: step 4,

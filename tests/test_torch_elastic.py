@@ -60,6 +60,17 @@ from kungfu_tpu_torch.elastic.schedule import step_based_schedule
 from kungfu_tpu_torch.models import SLP
 from kungfu_tpu_torch.ops.collective import defuse, fuse
 
+
+@pytest.fixture(autouse=True)
+def _cold_joiners(monkeypatch):
+    """This file's clusters start their joiners cold (``KF_PREWARM=0``).
+    The warm pool has its own tests (test_torch_prewarm.py, and the
+    scenario replays run with it), and each warm slot is an import of
+    torch at nice 19 that would compete for a loaded host with the JAX
+    package's warm-slot tests, whose slots wait 60 s at nice 19."""
+    monkeypatch.setenv("KF_PREWARM", "0")
+
+
 ROOT = Path(__file__).resolve().parents[1]
 #: the continuity worker's SLP constants (`continuity_worker.SLPTrainer`)
 SLP_N, SLP_BATCH, SLP_LR = 2048, 64, 0.1

@@ -4,8 +4,10 @@ which the card's machine has) or the JAX package — neither statically
 nor at run time — and no command line the port builds runs a module of
 the JAX package (``python -m kungfu_tpu...``). The entry points of the
 elastic path (`run.__main__`, the continuity and GNS workers) and the
-serving tier (`serve.worker`, `serve.router`, `elastic.replica`) run
-nothing when imported, and importing the package loads no libkf."""
+serving tier (`serve.worker`, `serve.router`, `elastic.replica`), the
+warm slot (`run.prewarm`), the platform launcher, kfdistribute, the
+trace CLI and the goodput benchmark run nothing when imported, and
+importing the package loads no libkf."""
 
 import ast
 import json
@@ -114,7 +116,14 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.serve.harness",
             "kungfu_tpu_torch.elastic.wal",
             "kungfu_tpu_torch.elastic.replica",
-            "kungfu_tpu_torch.benchmarks.serve"} <= set(mods)
+            "kungfu_tpu_torch.benchmarks.serve",
+            "kungfu_tpu_torch.scenario", "kungfu_tpu_torch.scenario.spec",
+            "kungfu_tpu_torch.scenario.compiler",
+            "kungfu_tpu_torch.scenario.runner",
+            "kungfu_tpu_torch.trace.__main__",
+            "kungfu_tpu_torch.benchmarks.goodput",
+            "kungfu_tpu_torch.run.prewarm", "kungfu_tpu_torch.run.platforms",
+            "kungfu_tpu_torch.run.distribute"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -134,8 +143,8 @@ def _module_flags(path):
 
 
 def test_command_lines_launch_only_the_port():
-    """The harness, the runner and the worker (and every other source of
-    the port) start only modules of `kungfu_tpu_torch`."""
+    """The harness, the runner, its warm slots and the worker (and every
+    other source of the port) start only modules of `kungfu_tpu_torch`."""
     found = {}
     for path in _port_sources():
         for mod in _module_flags(path):
@@ -145,7 +154,8 @@ def test_command_lines_launch_only_the_port():
     assert {"kungfu_tpu_torch.run",
             "kungfu_tpu_torch.elastic.continuity_worker",
             "kungfu_tpu_torch.elastic.gns_worker",
-            "kungfu_tpu_torch.serve.worker"} <= set(found)
+            "kungfu_tpu_torch.serve.worker",
+            "kungfu_tpu_torch.run.prewarm"} <= set(found)
 
 
 def test_entry_points_run_nothing_at_import():
@@ -162,6 +172,11 @@ def test_entry_points_run_nothing_at_import():
         "import kungfu_tpu_torch.serve.worker\n"
         "import kungfu_tpu_torch.serve.router\n"
         "import kungfu_tpu_torch.elastic.replica\n"
+        "import kungfu_tpu_torch.run.prewarm\n"
+        "import kungfu_tpu_torch.run.platforms\n"
+        "import kungfu_tpu_torch.run.distribute\n"
+        "import kungfu_tpu_torch.trace.__main__\n"
+        "import kungfu_tpu_torch.benchmarks.goodput\n"
         "from kungfu_tpu_torch import ffi\n"
         "print(json.dumps([before, ffi._lib is None, "
         "p._default_peer is None]))\n")

@@ -43,6 +43,17 @@ from kungfu_tpu_torch.optimizers import (monitor_gradient_noise_scale,
                                          monitor_gradient_variance)
 from test_torch_grad_pipeline import make_peers, run_on_all
 
+
+@pytest.fixture(autouse=True)
+def _cold_joiners(monkeypatch):
+    """This file's clusters start their joiners cold (``KF_PREWARM=0``).
+    The warm pool has its own tests (test_torch_prewarm.py, and the
+    scenario replays run with it), and each warm slot is an import of
+    torch at nice 19 that would compete for a loaded host with the JAX
+    package's warm-slot tests, whose slots wait 60 s at nice 19."""
+    monkeypatch.setenv("KF_PREWARM", "0")
+
+
 RTOL = 1e-6
 
 

@@ -4,7 +4,8 @@
   into ``build/libkf/``, and `ffi` loads that library — never the
   reference's ``kungfu_tpu/native/libkf.so``, which no test here builds
   or loads;
-- the port's ``native/`` sources are byte-equal to the reference's, and
+- the port's ``native/`` sources (the C++ smoke test included) and
+  sanitizer suppression files are byte-equal to the reference's, and
   its build list is the reference Makefile's ``SRC``, so a fix to one
   copy cannot silently miss the other;
 - the single-process `Peer` API (no KF_* env: a cluster of one);
@@ -53,14 +54,21 @@ def test_libkf_is_built_from_the_port_copy():
 
 def test_native_sources_equal_the_reference():
     ref = sorted(p.name for p in (REF_NATIVE / "src").iterdir()
-                 if p.suffix in (".cpp", ".hpp") and p.name != "smoke_test.cpp")
+                 if p.suffix in (".cpp", ".hpp"))
     port = sorted(p.name for p in (native.NATIVE / "src").iterdir())
-    assert port == ref
+    assert port == ref and "smoke_test.cpp" in port
     for name in ref:
         assert (native.NATIVE / "src" / name).read_bytes() == \
             (REF_NATIVE / "src" / name).read_bytes(), name
     assert (native.NATIVE / "include" / "kf.h").read_bytes() == \
         (REF_NATIVE / "include" / "kf.h").read_bytes()
+    supp = sorted(p.name for p in (REF_NATIVE / "sanitize").iterdir())
+    assert supp == ["lsan.supp", "tsan.supp", "ubsan.supp"]
+    assert sorted(p.name for p in
+                  (native.NATIVE / "sanitize").iterdir()) == supp
+    for name in supp:
+        assert (native.NATIVE / "sanitize" / name).read_bytes() == \
+            (REF_NATIVE / "sanitize" / name).read_bytes(), name
     make = (REF_NATIVE / "Makefile").read_text()
     m = re.search(r"^SRC := (.*?)\n(?=\S)", make, re.S | re.M)
     assert tuple(m.group(1).replace("\\", " ").split()) == native.SRC

@@ -36,6 +36,16 @@ from test_goodput import I, X, clean_rank, source
 # -- policies -----------------------------------------------------------------
 
 
+@pytest.fixture(autouse=True)
+def _cold_joiners(monkeypatch):
+    """This file's clusters start their joiners cold (``KF_PREWARM=0``).
+    The warm pool has its own tests (test_torch_prewarm.py, and the
+    scenario replays run with it), and each warm slot is an import of
+    torch at nice 19 that would compete for a loaded host with the JAX
+    package's warm-slot tests, whose slots wait 60 s at nice 19."""
+    monkeypatch.setenv("KF_PREWARM", "0")
+
+
 def _noise_script(seed):
     rng = np.random.default_rng(seed)
     return [float(v) for v in rng.choice([0.0, 3.0, 16.0, 40.0, 64.0,

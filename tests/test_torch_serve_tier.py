@@ -31,6 +31,18 @@ under its own timeout, with one BLAS thread a worker.
 """
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def _cold_joiners(monkeypatch):
+    """This file's clusters start their joiners cold (``KF_PREWARM=0``).
+    The warm pool has its own tests (test_torch_prewarm.py, and the
+    scenario replays run with it), and each warm slot is an import of
+    torch at nice 19 that would compete for a loaded host with the JAX
+    package's warm-slot tests, whose slots wait 60 s at nice 19."""
+    monkeypatch.setenv("KF_PREWARM", "0")
+
 
 #: one BLAS thread a worker process: the tests share the CPU with the
 #: rest of the suite
