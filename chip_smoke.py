@@ -175,6 +175,23 @@ failing on the first phase that fails:
    fault fired, K3's resident scheme (the plan's) launched in the
    workers and its plain version never; prints p50/p99 and the
    re-leased count;
+11. benchmarks — runs after 10 and before the timing of 6: the port's
+   benchmark entry points on the card. (a)
+   `benchmarks.lm.measure_decode_rate("small", 8, 128, 128, iters=3)`
+   (GPT-2-small bf16, dense-cache `gpt_generate`): tok/s and ms/token;
+   the warm-up call's tokens must equal the last timed call's. (b)
+   `benchmarks.flash_eff.measure_paged_bandwidth()` (K3 at B=8, max_len
+   2048, bt 16, h 12, d 64, bf16, ragged lengths): K3's counts zeroed
+   just before and read just after — the plan's scheme launched once a
+   call, the plain version never — and one launch on the same inputs
+   within ``TOL["bfloat16"]`` of the plain version; prints decode ms,
+   its byte bound, GB/s and its share of 3.35 TB/s, and the visited
+   fraction of the pool. (c)
+   `benchmarks.throughput.measure_adamw_update("small", v)` for
+   per-leaf, grouped (`optimizers.group_small_leaves`) and flat
+   (`optimizers.flatten_optimizer`) AdamW: ms/step beside the 28 B a
+   parameter floor at 3.35 TB/s; the three variants' parameters must be
+   bitwise equal after the same steps;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -198,7 +215,8 @@ Prints the card's name and power limit, the measurements, a
 ``elastic_launches``, the elastic workers' launches, and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
 (b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
-tier's workers' launches of that scheme; the K1, K2 and K3 rows carry
+tier's workers' launches of that scheme, and ``benchmarks_launches``,
+the paged measurement's; the K1, K2 and K3 rows carry
 ``scenario_launches``, the scenario phase's workers') and, last,
 ``{"ok": true, "device": ...}``.
 Exits non-zero without that line when there is no CUDA card or the
@@ -1728,6 +1746,102 @@ def phase_scenario(card: str) -> dict:
     return totals
 
 
+#: the benchmarks phase's shapes: the decode rate's (size, batch,
+#: prompt, generated tokens, timed calls) and the AdamW variants
+BENCH_DECODE = ("small", 8, 128, 128, 3)
+ADAMW_VARIANTS = ("per-leaf", "grouped", "flat")
+
+
+def phase_benchmarks(torch, pa, card: str) -> dict:
+    """The port's benchmark entry points on the card. (a)
+    `benchmarks.lm.measure_decode_rate` at `BENCH_DECODE` (GPT-2-small
+    bf16 through `gpt_generate`'s dense cache): the warm-up call's tokens
+    must equal the last timed call's. (b)
+    `benchmarks.flash_eff.measure_paged_bandwidth` at its defaults (B=8,
+    max_len 2048, bt 16, h 12, d 64, bf16): K3's counts zeroed just
+    before and read just after — the plan's scheme launched once a call
+    the measurement made, the other scheme and the plain version never;
+    then one launch on the same inputs (`paged_inputs`) against
+    `paged_attention_reference` at ``TOL["bfloat16"]``. (c)
+    `benchmarks.throughput.measure_adamw_update("small", v)` for each
+    of `ADAMW_VARIANTS`: after the same steps from the same state the
+    three variants' parameters must be bitwise equal. Prints each
+    number beside the card. Returns K3's launches by scheme."""
+    from kungfu_tpu_torch.benchmarks import flash_eff, lm, throughput
+
+    t0 = time.perf_counter()
+    size, batch, prompt, gen, iters = BENCH_DECODE
+    toks = []
+    rate, meta = lm.measure_decode_rate(size, batch, prompt, gen,
+                                        iters=iters, outputs=toks)
+    check(tuple(toks[0].shape) == (batch, prompt + gen),
+          f"decode tokens of shape {tuple(toks[0].shape)}")
+    check(torch.equal(toks[0], toks[1]),
+          "decode: the last timed call's tokens differ from the warm-up's")
+    log(f"benchmarks (a) decode {size} batch {batch}, {prompt} + {gen}: "
+        f"{rate:.1f} tok/s, {meta['ms_per_token']:.4f} ms/token "
+        f"({iters} timed calls, tokens equal across calls) on {card}")
+    torch.cuda.empty_cache()
+
+    pa.reset_launches()
+    meta = flash_eff.measure_paged_bandwidth()
+    launches = dict(pa.LAUNCHES)
+    plan = meta["plan"]
+    scheme = plan["scheme"]
+    other = "stream" if scheme == "resident" else "resident"
+    check(launches[scheme] == meta["calls"] and launches[other] == 0
+          and launches["plain"] == 0,
+          f"paged: launches {launches} for {meta['calls']} calls of "
+          f"{scheme}")
+    inputs = flash_eff.paged_inputs(
+        meta["batch"], meta["max_len"], meta["block_tokens"],
+        meta["heads"], meta["head_dim"], torch.bfloat16, DEVICE)
+    got = pa.paged_attention(*inputs, scheme=scheme).float()
+    ref = pa.paged_attention_reference(*inputs).float()
+    atol, rtol = TOL["bfloat16"]
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+          f"paged: {int(bad.sum())} elements outside tolerance "
+          f"(max_abs_err {float(err.max()):.3e})")
+    share = meta["achieved_gbps"] * 1e9 / PEAK_BYTES_S
+    log(f"benchmarks (b) paged K3 {scheme} ({plan['splits']} splits of "
+        f"{plan['split_blocks']} blocks, tiles of {plan['tile_blocks']}): "
+        f"decode_ms {meta['decode_ms']:.5f}, bound_ms "
+        f"{meta.get('bound_ms')}, {meta['achieved_gbps']:.1f} GB/s "
+        f"({share:.3f} of 3.35 TB/s), visited {meta['visited_bytes']} B "
+        f"= {meta['visited_fraction_of_pool']:.4f} of the pool; "
+        f"{meta['calls']} launches, plain 0; one launch max_abs_err "
+        f"{float(err.max()):.3e} (tolerance {atol:g} + {rtol:g}*|ref|) "
+        f"on {card}")
+    del inputs, got, ref
+    torch.cuda.empty_cache()
+
+    finals = {}
+    for variant in ADAMW_VARIANTS:
+        outs = []
+        ms, m = throughput.measure_adamw_update("small", variant,
+                                                outputs=outs)
+        finals[variant] = outs[0]
+        log(f"benchmarks (c) AdamW {variant:8s} {ms:.4f} ms/step, floor "
+            f"{m.get('hbm_floor_ms_at_3350GBps')} ms "
+            f"({m['hbm_floor_bytes']} B), floor_ratio "
+            f"{m.get('floor_ratio')}; {m['n_leaves']} leaves, "
+            f"{m['tail_leaves']} under 64k elements "
+            f"({m['tail_frac_of_bytes']:.5f} of the bytes), "
+            f"{m['iters']} timed steps on {card}")
+        torch.cuda.empty_cache()
+    base = finals[ADAMW_VARIANTS[0]]
+    for variant in ADAMW_VARIANTS[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(base, finals[variant])),
+              f"AdamW {variant}: parameters differ from per-leaf's")
+    log(f"benchmarks (c) the three AdamW variants' parameters bitwise "
+        f"equal after the same steps; phase {time.perf_counter() - t0:.1f} s")
+    del finals, base
+    torch.cuda.empty_cache()
+    return {s: launches[s] for s in ("resident", "stream")}
+
+
 def k2_bound(kernel, n_pad, h, v_pad):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch on these
     padded operands: each input read once, each output written once;
@@ -2362,6 +2476,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] serve-tier done")
     scen = phase_scenario(card)
     log(f"[{time.perf_counter() - T_START:.0f} s] scenario done")
+    bench = phase_benchmarks(torch, pa, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] benchmarks done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -2388,6 +2504,7 @@ def main() -> int:
             "launches": served[scheme][1]["launches"],
             "serve_tier_launches": tier[scheme],
             "scenario_launches": scen[f"paged_attn.{scheme}"],
+            "benchmarks_launches": bench[scheme],
             "max_abs_err": errs[(scheme, "bfloat16")],
             "ms": full[scheme], "plain_ms": full["plain"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],

@@ -12,12 +12,15 @@ its cross-entropy in the fused K2 kernels — with the benchmark's AdamW
   python -m kungfu_tpu_torch.benchmarks.lm --ce-variant recompute
   python -m kungfu_tpu_torch.benchmarks.lm --attention flash
   python -m kungfu_tpu_torch.benchmarks.lm --device cpu    # smoke
+  python -m kungfu_tpu_torch.benchmarks.lm --decode        # generation
 
 Prints one JSON line: tokens/sec, ms/step, MFU and the configuration;
 with flash attention on the card also the flash kernels' own efficiency
-at the run's attention shape (`flash_eff`). The ring and ulysses
-mixers, tp > 1, MoE experts, remat and the pipeline are later slices of
-the port and raise NotImplementedError.
+at the run's attention shape (`flash_eff`). ``--decode`` measures
+KV-cached greedy generation instead (`measure_decode_rate`, metric
+``gpt_decode_tokens_per_sec``). The ring and ulysses mixers, tp > 1,
+MoE experts, remat and the pipeline are later slices of the port and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,16 +31,25 @@ import time
 
 import torch
 
-from ..models.gpt import GPTConfig, GPTLM, gpt_fused_loss
+from ..models.gpt import GPTConfig, GPTLM, gpt_fused_loss, gpt_generate
 from ..optimizers import lm_adamw
 from ..parallel import build_gspmd_train_step
-from ..serve.engine import SIZES
+from ..serve.engine import SIZES, build_lm
 
 #: dense bf16 peak FLOP/s per card, keyed by torch.cuda.get_device_name
 #: (NVIDIA's data sheet, H100 SXM). MFU is reported only for kinds
 #: listed here.
 _BF16_PEAK_BY_KIND = {
     "NVIDIA H100 80GB HBM3": 989e12,
+}
+
+#: HBM bytes/s per card, keyed the same way (the data sheet's 3.35 TB/s
+#: for the H100 SXM): the byte floors of the AdamW update
+#: (`throughput.measure_adamw_update`) and of the paged decode
+#: (`flash_eff.measure_paged_bandwidth`) are reported only for kinds
+#: listed here
+_HBM_BYTES_S_BY_KIND = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
 
 
@@ -170,6 +182,61 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     return tokens_per_step / dt, meta
 
 
+def time_decode(model: GPTLM, prompt: torch.Tensor, gen_len: int,
+                iters: int):
+    """``(seconds_per_call, warm_tokens, last_tokens)`` of
+    ``gpt_generate(model, prompt, gen_len)``: one warm-up call, then
+    `iters` timed calls, each fenced by reading its last token (a device
+    sync). The tokens are the warm-up call's and the last timed call's
+    outputs, ``[B, T0 + gen_len]``."""
+    warm = gpt_generate(model, prompt, gen_len)
+    int(warm[0, -1])                     # fence
+    out = warm
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = gpt_generate(model, prompt, gen_len)
+        int(out[0, -1])
+    return (time.perf_counter() - t0) / max(iters, 1), warm, out
+
+
+def measure_decode_rate(size: str = "small", batch: int = 8,
+                        prompt_len: int = 128, gen_len: int = 128,
+                        iters: int = 3, tp: int = 1, device: str = "cuda",
+                        outputs=None):
+    """Generated tokens/sec of KV-cached greedy decoding. Returns
+    ``(tokens_per_sec, meta)``.
+
+    The model is `serve.engine.build_lm`'s (the same entry point the
+    continuous-batching decode tier boots from: bf16, random weights
+    from seed 0) and the generation the dense-cache
+    `models.gpt.gpt_generate`: one batched prefill of an all-zeros
+    prompt ``[batch, prompt_len]``, then ``gen_len - 1`` cached decode
+    steps. One warm-up call, then `iters` timed calls (`time_decode`).
+    `ms_per_token` divides a call by `gen_len`, so it slightly overstates
+    a decode step's cost by the one prefill pass. ``device="cpu"``
+    shrinks to the JAX package's CPU smoke (tiny, batch 2, 8 + 8, one
+    call). With `outputs` (a list), the warm-up call's and the last
+    timed call's tokens are appended to it. tp > 1 is not ported."""
+    if tp != 1:
+        _not_ported("tp > 1 decoding", "parallel-axes")
+    dev = torch.device(device)
+    if dev.type == "cpu":  # smoke path
+        size, batch, prompt_len, gen_len = "tiny", 2, 8, 8
+        iters = 1
+    model = build_lm(size, max_position=prompt_len + gen_len, tp=tp,
+                     device=dev)
+    prompt = torch.zeros((batch, prompt_len), dtype=torch.int64,
+                         device=dev)
+    dt, warm, last = time_decode(model, prompt, gen_len, iters)
+    if outputs is not None:
+        outputs.extend([warm, last])
+    meta = {"platform": "gpu" if dev.type == "cuda" else "cpu",
+            "size": size, "batch": batch, "prompt_len": prompt_len,
+            "gen_len": gen_len, "tp": tp,
+            "ms_per_token": dt * 1000 / gen_len}
+    return batch * gen_len / dt, meta
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", default="small", choices=sorted(SIZES))
@@ -184,8 +251,34 @@ def main():
     ap.add_argument("--ce-variant", default="residual",
                     choices=("residual", "recompute"))
     ap.add_argument("--pp", type=int, default=0)
+    ap.add_argument("--decode", action="store_true",
+                    help="measure KV-cached generation instead of "
+                         "training")
+    ap.add_argument("--prompt-len", type=int, default=128,
+                    help="(--decode) prompt length")
+    ap.add_argument("--gen-len", type=int, default=128,
+                    help="(--decode) generated tokens")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if (args.decode or args.pp) and (args.remat
+                                     or args.ce_variant != "residual"):
+        raise SystemExit(
+            "--remat/--ce-variant only apply to the dense train path "
+            "(measure_lm_rate); they are not plumbed through --pp or "
+            "--decode and would be silently ignored")
+    if args.decode:
+        if args.attention != "local":
+            raise SystemExit(
+                "--decode uses the KV-cached local path; "
+                "--attention does not apply")
+        rate, meta = measure_decode_rate(args.size, args.batch,
+                                         args.prompt_len, args.gen_len,
+                                         iters=args.iters, tp=args.tp,
+                                         device=args.device)
+        print(json.dumps({"metric": "gpt_decode_tokens_per_sec",
+                          "value": rate, "unit": "tokens/sec",
+                          "details": meta}))
+        return
     if args.pp:
         _not_ported("the pipeline (--pp)", "parallel-axes")
     rate, meta = measure_lm_rate(args.size, args.batch, args.seq, args.tp,

@@ -15,11 +15,15 @@ gradient all-reduce runs at every world size (NCCL on the card).
 
   python -m kungfu_tpu_torch.benchmarks.throughput --model resnet50
   python -m kungfu_tpu_torch.benchmarks.throughput --device cpu   # smoke
+  python -m kungfu_tpu_torch.benchmarks.throughput --adamw grouped
 
 Prints `bench.py`'s JSON line (metric, value, unit, vs_baseline,
-details). VGG16 and InceptionV3 raise NotImplementedError until their
-models are ported; the JAX package's XLA flop count (its `hfu` field)
-has no counterpart in an eager program and is not reported.
+details). ``--adamw per-leaf|grouped|flat`` measures the isolated AdamW
+update of the GPT instead (`measure_adamw_update`, metric
+``gpt_adamw_update_ms``). VGG16 and InceptionV3 raise
+NotImplementedError until their models are ported; the JAX package's
+XLA flop count (its `hfu` field) has no counterpart in an eager program
+and is not reported.
 """
 
 from __future__ import annotations
@@ -33,7 +37,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..models.gpt import GPTConfig, GPTLM
 from ..models.resnet import ResNet50
+from ..optimizers import (SMALL_LEAF_ELEMS, flatten_optimizer,
+                          group_small_leaves, lm_adamw)
 from ..optimizers.sync_sgd import sync_sgd
 from ..parallel import (build_train_step_with_state, data_mesh,
                         init_distributed, replicate_to_workers,
@@ -161,6 +168,104 @@ def measure_rate(model_name: str, n=None, batch: int = 0, iters: int = 20,
     return batch * world * iters / dt, meta
 
 
+def measure_adamw_update(size: str = "small", variant: str = "per-leaf",
+                         iters: int = 20, warmup: int = 3,
+                         device: str = "cuda", outputs=None):
+    """ms/step of the isolated AdamW update on the GPT's parameters.
+    Returns ``(ms_per_step, meta)``.
+
+    Gradients in, update applied, nothing else, for the three
+    partitionings of the parameters:
+
+    - ``per-leaf``: `lm_adamw` over every parameter (the LM benchmark's
+      optimizer);
+    - ``grouped``: `optimizers.group_small_leaves` — the parameters
+      under `SMALL_LEAF_ELEMS` in one flat buffer, the 2-D ones per
+      leaf;
+    - ``flat``: `optimizers.flatten_optimizer` — every parameter a view
+      of one flat buffer, so a step is one AdamW over it.
+
+    The model is the f32 GPT of ``SIZES[size]`` (vocab 50257, untied
+    lm_head) with random weights from seed 0; every gradient is the
+    constant 1e-3 (elementwise math is data-independent). Every variant
+    runs ``lm_adamw(foreach=True)``, so the three give bitwise equal
+    parameters after the same steps from the same state. The steps are
+    timed between ``torch.cuda.synchronize()`` fences after `warmup`
+    untimed ones; ``device="cpu"`` shrinks to the tiny GPT and at most 1
+    warmup and 3 timed steps. With `outputs` (a list), the parameters
+    after the last step are appended to it.
+
+    The HBM floor is 28 B a parameter (read p, m, v, g and write p, m,
+    v at f32); on a kind listed in `lm._HBM_BYTES_S_BY_KIND` `meta` also
+    holds the floor's ms at its data-sheet rate and the measured time's
+    ratio to it."""
+    from .lm import _HBM_BYTES_S_BY_KIND, SIZES
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if variant not in ("per-leaf", "grouped", "flat"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if dev.type == "cpu":  # smoke path
+        size = "tiny"
+        iters, warmup = min(iters, 3), min(warmup, 1)
+    hidden, layers, heads, inter = SIZES[size]
+    cfg = GPTConfig(vocab_size=50257, hidden_size=hidden,
+                    num_layers=layers, num_heads=heads,
+                    intermediate_size=inter, max_position=1024,
+                    dtype=torch.float32, param_dtype=torch.float32)
+    model = GPTLM(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0)).to(dev)
+    params = list(model.parameters())
+    for p in params:
+        p.grad = torch.full_like(p, 1e-3)
+
+    def make(ps):
+        return lm_adamw(ps, foreach=True)
+
+    opt = {"per-leaf": lambda: make(params),
+           "grouped": lambda: group_small_leaves(params, make),
+           "flat": lambda: flatten_optimizer(params, make)}[variant]()
+
+    def fence():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for _ in range(max(warmup, 1)):
+        opt.step()
+    fence()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        opt.step()
+    fence()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    if outputs is not None:
+        outputs.append([p.detach().clone() for p in params])
+
+    n_params = sum(p.numel() for p in params)
+    n_bytes = sum(p.numel() * p.element_size() for p in params)
+    tail = [p for p in params if p.numel() < SMALL_LEAF_ELEMS]
+    hbm_bytes = 28 * n_params  # r: p, m, v, g + w: p, m, v at f32
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    meta = {
+        "platform": "gpu" if dev.type == "cuda" else "cpu", "size": size,
+        "variant": variant, "n_leaves": len(params), "n_params": n_params,
+        "tail_leaves": len(tail),
+        "tail_frac_of_leaves": len(tail) / len(params),
+        "tail_frac_of_bytes": sum(p.numel() * p.element_size()
+                                  for p in tail) / n_bytes,
+        "hbm_floor_bytes": hbm_bytes, "device_kind": kind, "iters": iters,
+    }
+    rate = _HBM_BYTES_S_BY_KIND.get(kind)
+    if rate:
+        floor_ms = hbm_bytes / rate * 1e3
+        meta["hbm_floor_ms_at_3350GBps"] = floor_ms
+        meta["floor_ratio"] = ms / floor_ms
+    return ms, meta
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=sorted(MODELS) + list(NOT_PORTED),
@@ -169,7 +274,21 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--adamw", choices=("per-leaf", "grouped", "flat"),
+                    default="",
+                    help="measure the isolated AdamW update on the GPT "
+                         "with this partitioning of its parameters "
+                         "instead of image-model throughput")
+    ap.add_argument("--lm-size", default="small",
+                    help="(--adamw) GPT size from benchmarks/lm.py")
     args = ap.parse_args(argv)
+    if args.adamw:
+        ms, meta = measure_adamw_update(args.lm_size, args.adamw,
+                                        args.iters, args.warmup,
+                                        args.device)
+        print(json.dumps({"metric": "gpt_adamw_update_ms", "value": ms,
+                          "unit": "ms/step", "details": meta}))
+        return 0
     rate, meta = measure_rate(args.model, None, args.batch, args.iters,
                               args.warmup, args.device)
     per_chip = rate / meta["chips"]

@@ -249,14 +249,17 @@ def _buf_ptr(a: np.ndarray) -> ctypes.c_void_p:
 
 
 def accumulate(dst: np.ndarray, src: np.ndarray, op: str = "sum", *,
-               force_scalar: bool = False) -> None:
+               force_scalar: bool = False,
+               code: Optional[int] = None) -> None:
     """In-place ``dst = dst (op) src`` via libkf's reduce kernel.
 
     This is the accumulate step collectives run on received chunks,
     SIMD-dispatched at runtime (AVX2/F16C with a portable fallback;
     reference: srcs/go/kungfu/base/f16.c uses the same intrinsics).
     ``force_scalar`` pins the portable path for comparison; both paths are
-    bit-identical.
+    bit-identical. `code` overrides the dtype code derived from the
+    arrays' numpy dtype: a bf16 pair is passed as `host_view`'s uint16
+    views with code `BF16_CODE`.
     """
     lib = load()
     if dst.shape != src.shape or dst.dtype != src.dtype:
@@ -267,7 +270,7 @@ def accumulate(dst: np.ndarray, src: np.ndarray, op: str = "sum", *,
         raise ValueError("dst must be writeable")
     _check(
         lib.kf_accumulate(_buf_ptr(dst), _buf_ptr(src), dst.size,
-                          dtype_code(dst.dtype), op_code(op),
+                          _code(dst, code), op_code(op),
                           1 if force_scalar else 0), "accumulate")
 
 

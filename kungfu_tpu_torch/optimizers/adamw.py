@@ -16,7 +16,7 @@ for f32 parameters, and `lm_adamw` refuses any other dtype (train with
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -28,10 +28,13 @@ WEIGHT_DECAY = 1e-4
 
 
 def lm_adamw(params: Iterable[torch.nn.Parameter],
-             lr: float = LR) -> torch.optim.AdamW:
+             lr: float = LR, foreach: Optional[bool] = None
+             ) -> torch.optim.AdamW:
     """AdamW over `params` with optax's constants (b1 0.9, b2 0.999, eps
     1e-8, weight decay 1e-4 on every parameter) and f32 moments. Raises
-    ValueError for a parameter that is not f32."""
+    ValueError for a parameter that is not f32. `foreach` picks torch's
+    implementation (None: torch's default for the device); two AdamWs
+    are bitwise comparable only on the same one."""
     params = list(params)
     bad = sorted({str(p.dtype) for p in params if p.dtype != torch.float32})
     if bad:
@@ -39,4 +42,4 @@ def lm_adamw(params: Iterable[torch.nn.Parameter],
                          f"parameters, got {bad}; use "
                          f"GPTConfig(param_dtype=torch.float32)")
     return torch.optim.AdamW(params, lr=lr, betas=BETAS, eps=EPS,
-                             weight_decay=WEIGHT_DECAY)
+                             weight_decay=WEIGHT_DECAY, foreach=foreach)

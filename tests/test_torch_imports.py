@@ -6,7 +6,8 @@ the JAX package (``python -m kungfu_tpu...``). The entry points of the
 elastic path (`run.__main__`, the continuity and GNS workers) and the
 serving tier (`serve.worker`, `serve.router`, `elastic.replica`), the
 warm slot (`run.prewarm`), the platform launcher, kfdistribute, the
-trace CLI and the goodput benchmark run nothing when imported, and
+trace CLI and the benchmarks (goodput, adaptation, recovery, control
+plane, checkpoint, reduce kernels) run nothing when imported, and
 importing the package loads no libkf."""
 
 import ast
@@ -123,7 +124,15 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.trace.__main__",
             "kungfu_tpu_torch.benchmarks.goodput",
             "kungfu_tpu_torch.run.prewarm", "kungfu_tpu_torch.run.platforms",
-            "kungfu_tpu_torch.run.distribute"} <= set(mods)
+            "kungfu_tpu_torch.run.distribute",
+            "kungfu_tpu_torch.optimizers.fused",
+            "kungfu_tpu_torch.benchmarks.reduce_kernels",
+            "kungfu_tpu_torch.benchmarks.trace_overhead",
+            "kungfu_tpu_torch.benchmarks.monitoring",
+            "kungfu_tpu_torch.benchmarks.checkpoint",
+            "kungfu_tpu_torch.benchmarks.recovery",
+            "kungfu_tpu_torch.benchmarks.adaptation",
+            "kungfu_tpu_torch.benchmarks.control_plane"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -152,6 +161,7 @@ def test_command_lines_launch_only_the_port():
     assert all(isinstance(m, str) and m.startswith("kungfu_tpu_torch")
                for m in found), found
     assert {"kungfu_tpu_torch.run",
+            "kungfu_tpu_torch.benchmarks.adaptation",
             "kungfu_tpu_torch.elastic.continuity_worker",
             "kungfu_tpu_torch.elastic.gns_worker",
             "kungfu_tpu_torch.serve.worker",
@@ -177,6 +187,11 @@ def test_entry_points_run_nothing_at_import():
         "import kungfu_tpu_torch.run.distribute\n"
         "import kungfu_tpu_torch.trace.__main__\n"
         "import kungfu_tpu_torch.benchmarks.goodput\n"
+        "import kungfu_tpu_torch.benchmarks.adaptation\n"
+        "import kungfu_tpu_torch.benchmarks.recovery\n"
+        "import kungfu_tpu_torch.benchmarks.control_plane\n"
+        "import kungfu_tpu_torch.benchmarks.checkpoint\n"
+        "import kungfu_tpu_torch.benchmarks.reduce_kernels\n"
         "from kungfu_tpu_torch import ffi\n"
         "print(json.dumps([before, ffi._lib is None, "
         "p._default_peer is None]))\n")
