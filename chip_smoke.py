@@ -192,6 +192,29 @@ failing on the first phase that fails:
    (`optimizers.flatten_optimizer`) AdamW: ms/step beside the 28 B a
    parameter floor at 3.35 TB/s; the three variants' parameters must be
    bitwise equal after the same steps;
+12. zoo — runs after 11 and before the timing of 6: the rest of the
+   training surface, which launches no kernel of the port (convolutions,
+   BatchNorm, cuBLAS products and plain attention). (a)
+   `benchmarks.throughput.measure_rate("vgg16", 1)` at full size (224,
+   batch 64, bf16 over f32 parameters, one-rank NCCL group, 2 warmup
+   and 8 timed steps): the loss finite and falling, and sync_sgd's
+   gradient all-reduces a step equal to the length of
+   `fake_model_catalog("vgg16-imagenet")` (32); (b) the same for
+   InceptionV3 at 299, batch 64, with the BatchNorm running statistics
+   finite and moved and the catalog's 284 all-reduces; (c)
+   `benchmarks.publish.run_bert_sma_gns` at BERT-base (L12/H768/12
+   heads/vocab 30522, seq 128, batch 16), SMA with and without the GNS
+   monitor, its row published into a temporary directory: both losses
+   finite; prints both ms a step and the overhead; (d)
+   `benchmarks.convergence_cv.run_cifar` on the synthetic CIFAR path
+   for `ZOO_CIFAR_STEPS` steps: ``real_data`` false, a finite accuracy;
+   (e) the helpers: `data.prefetch_to_device` feeds seeded ImageNet
+   batches (`datasets.imagenet.synthetic_batches`, (a)'s shape) to
+   VGG16's train step — each batch equal to its plain copy, the copies
+   on a side stream; `checkpoint.DCPCheckpointManager` saves (c)'s
+   BERT-base state asynchronously and restores it onto the card bitwise
+   equal; `dryrun.dryrun(1)` takes one ResNet-18 S-SGD step. Every row
+   is printed beside the card;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -229,6 +252,7 @@ processes it starts (`bytecode_cache`), and names its card in
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -308,6 +332,9 @@ R1_SPECIALS = (0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81,
 #: the ResNet-50 S-SGD run: sync_sgd's gradient all-reduces a step (one
 #: per parameter leaf)
 RESNET_LEAVES = 161
+#: the zoo phase: warmup and timed steps of VGG16 and InceptionV3, BERT's
+#: timed steps a variant (interleaved blocks of 3), the CIFAR run's steps
+ZOO_WARMUP, ZOO_ITERS, ZOO_BERT_ITERS, ZOO_CIFAR_STEPS = 2, 8, 12, 30
 T_START = time.perf_counter()
 
 
@@ -1842,6 +1869,163 @@ def phase_benchmarks(torch, pa, card: str) -> dict:
     return {s: launches[s] for s in ("resident", "stream")}
 
 
+def zoo_image(torch, model: str, catalog: str, card: str) -> dict:
+    """(a)/(b): one zoo model through `measure_rate` at full size."""
+    import torch.distributed as dist
+
+    from kungfu_tpu_torch.benchmarks.throughput import measure_rate
+    from kungfu_tpu_torch.models import fake_model_catalog
+
+    rate, meta = measure_rate(model, 1, warmup=ZOO_WARMUP, iters=ZOO_ITERS)
+    losses = meta["losses"]
+    check(all(x == x and abs(x) < 1e9 for x in losses),
+          f"zoo {model}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"zoo {model}: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    leaves = len(fake_model_catalog(catalog))
+    check(meta["grad_all_reduces_per_step"] == leaves,
+          f"zoo {model}: sync_sgd issued "
+          f"{meta['grad_all_reduces_per_step']} all-reduces a step, the "
+          f"{catalog} catalog has {leaves}")
+    if model == "inception3":
+        check(meta["bn_stats_finite"] and meta["bn_stats_max_change"] > 0,
+              "zoo inception3: BatchNorm running statistics non-finite "
+              "or unmoved")
+    check(not dist.is_initialized(), f"zoo {model}: the process group "
+          "outlived the run")
+    log(f"zoo ({model}) {rate:.1f} images/s, {meta['step_time_ms']:.2f} "
+        f"ms/step (batch {meta['per_chip_batch']} at "
+        f"{meta['image_size']}, NCCL one rank), peak memory "
+        f"{meta['peak_mem_gb']:.2f} GB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {len(losses)} steps, "
+        f"{leaves} all-reduces a step = the catalog's, BN stats moved "
+        f"{meta['bn_stats_max_change']:.3e} on {card}")
+    return {"images_per_sec": rate, **meta}
+
+
+def zoo_helpers(torch, bert_state, card: str) -> None:
+    """(e): prefetch into VGG16's step, the DCP manager on BERT's state,
+    the dry-run entry."""
+    import tempfile
+
+    import numpy as np
+
+    from kungfu_tpu_torch.benchmarks.throughput import build_image_train
+    from kungfu_tpu_torch.checkpoint import DCPCheckpointManager
+    from kungfu_tpu_torch.data import prefetch_to_device
+    from kungfu_tpu_torch.datasets import synthetic_batches
+    from kungfu_tpu_torch.dryrun import dryrun
+    from kungfu_tpu_torch.parallel import (init_distributed,
+                                           shutdown_distributed)
+
+    n_batches, batch, image = 3, 64, 224
+    src = synthetic_batches(batch, image, seed=3)
+    host = [next(src) for _ in range(n_batches)]
+    init_distributed(device="cuda")
+    try:
+        _, _, step, _ = build_image_train("vgg16", batch, image)
+        pf = prefetch_to_device(
+            ({"x": x, "y": y.astype(np.int64)} for x, y in host), 2,
+            DEVICE)
+        check(pf.stream is not None and pf.stream.cuda_stream
+              != torch.cuda.default_stream().cuda_stream,
+              "prefetch: the copies are not on a side stream")
+        losses = []
+        for (x, y), b in zip(host, pf):
+            check(torch.equal(b["x"].cpu(), torch.from_numpy(x))
+                  and torch.equal(b["y"].cpu(),
+                                  torch.from_numpy(y.astype(np.int64))),
+                  "prefetch: a batch differs from its host copy")
+            losses.append(float(step(b)))
+        check(pf.copies == 2 * n_batches and len(losses) == n_batches
+              and all(np.isfinite(losses)),
+              f"prefetch: {pf.copies} copies, losses {losses}")
+    finally:
+        shutdown_distributed()
+    log(f"zoo (e) prefetch_to_device fed {n_batches} seeded ImageNet "
+        f"batches of {batch} at {image} to VGG16's step on a side stream "
+        f"({pf.copies} copies, values equal), losses {losses} on {card}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kf-zoo-ckpt-") as td:
+        t0 = time.perf_counter()
+        with DCPCheckpointManager(td, max_to_keep=1) as mgr:
+            mgr.save(1, bert_state)
+            queued_ms = 1e3 * (time.perf_counter() - t0)
+            mgr.wait()
+            saved_ms = 1e3 * (time.perf_counter() - t0)
+            like = {k: torch.empty_like(v) for k, v in bert_state.items()}
+            back, step_no = mgr.restore(like=like)
+        check(step_no == 1 and all(
+            back[k].device == v.device and torch.equal(back[k], v)
+            for k, v in bert_state.items()),
+            "checkpoint: the restored BERT state differs")
+    nbytes = sum(v.numel() * v.element_size() for v in bert_state.values())
+    log(f"zoo (e) DCPCheckpointManager: BERT-base state ({nbytes} B, "
+        f"{len(bert_state)} tensors) save returned in {queued_ms:.1f} ms, "
+        f"on disk after {saved_ms:.1f} ms, restored to the card bitwise "
+        f"equal on {card}")
+    out = dryrun(1, DEVICE)
+    check(out["params_equal"] and np.isfinite(out["loss"]),
+          f"dryrun: {out}")
+    log(f"zoo (e) dryrun n=1 on the card: loss {out['loss']:.6f}, "
+        f"parameters equal across ranks, on {card}")
+
+
+def phase_zoo(torch, card: str) -> dict:
+    """The rest of the training surface on the card (docstring phase
+    12). Returns the figures the log line at the end repeats."""
+    import argparse
+    import tempfile
+
+    from kungfu_tpu_torch.benchmarks import convergence_cv, publish
+
+    t0 = time.perf_counter()
+    out = {"vgg16": zoo_image(torch, "vgg16", "vgg16-imagenet", card)}
+    torch.cuda.empty_cache()
+    out["inception3"] = zoo_image(torch, "inception3",
+                                  "inception3-imagenet", card)
+    torch.cuda.empty_cache()
+    args = argparse.Namespace(device=DEVICE, batch=16,
+                              iters=ZOO_BERT_ITERS, lr=0.1)
+    models = {}
+    row = publish.run_bert_sma_gns(args, outputs=models)
+    check(all(math.isfinite(v) for v in row["losses"].values()),
+          f"zoo bert: non-finite losses {row['losses']}")
+    with tempfile.TemporaryDirectory(prefix="kf-zoo-publish-") as td:
+        with open(os.path.join(td, "BASELINE.json"), "w") as f:
+            f.write("{}")
+        publish.publish_result(
+            "bert_sma_gns_monitor", dict(row),
+            parsed={"metric": "bert_gns_overhead_pct",
+                    "value": row["gns_overhead_pct"]},
+            cmd="chip_smoke.py zoo (c)", directory=td)
+        check(os.path.exists(os.path.join(td, "BENCH_r00.json")),
+              "zoo bert: the publish wrote no BENCH file")
+    log(f"zoo (c) BERT-base seq 128 batch 16: sma_ms_per_step "
+        f"{row['sma_ms_per_step']}, sma_gns_ms_per_step "
+        f"{row['sma_gns_ms_per_step']}, gns_overhead_pct "
+        f"{row['gns_overhead_pct']}, losses {row['losses']} on {card}")
+    out["bert"] = row
+    bert_state = {k: v.detach() for k, v in
+                  models["sma"][0].state_dict().items()}
+    del models
+    torch.cuda.empty_cache()
+    cifar = convergence_cv.run_cifar(ZOO_CIFAR_STEPS)
+    check(cifar["real_data"] is False
+          and math.isfinite(cifar["test_accuracy"]),
+          f"zoo cifar: {cifar}")
+    log(f"zoo (d) ResNet-18 on synthetic CIFAR, {cifar['steps']} steps: "
+        f"test accuracy {cifar['test_accuracy']}, "
+        f"{cifar['train_seconds']} s on {card}")
+    out["cifar"] = cifar
+    torch.cuda.empty_cache()
+    zoo_helpers(torch, bert_state, card)
+    del bert_state
+    torch.cuda.empty_cache()
+    log(f"zoo phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def k2_bound(kernel, n_pad, h, v_pad):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch on these
     padded operands: each input read once, each output written once;
@@ -2478,6 +2662,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] scenario done")
     bench = phase_benchmarks(torch, pa, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] benchmarks done")
+    zoo = phase_zoo(torch, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] zoo done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -2565,6 +2751,12 @@ def main() -> int:
     })
     log(f"resnet50 S-SGD: {resnet['images_per_sec']:.1f} images/s, "
         f"{resnet['step_time_ms']:.2f} ms/step (NCCL, one card)")
+    log(f"zoo: vgg16 {zoo['vgg16']['images_per_sec']:.1f} images/s, "
+        f"inception3 {zoo['inception3']['images_per_sec']:.1f} images/s, "
+        f"BERT-base sma {zoo['bert']['sma_ms_per_step']} ms/step, "
+        f"sma+gns {zoo['bert']['sma_gns_ms_per_step']} ms/step "
+        f"({zoo['bert']['gns_overhead_pct']} %); no kernel of the port "
+        f"on the zoo's path")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {kernels}")
     # (b)'s workers run KF_SERVE_KERNEL=auto, the plan's resident scheme:

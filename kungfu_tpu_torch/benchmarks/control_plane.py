@@ -47,8 +47,10 @@ Every acknowledged write reads back: the router rows check every acked
 id in the ledger, the takeover and tier-death rows the first write
 served after the crash, and the recovery rows the replayed seq.
 Everything runs on the host (loopback HTTP, in-process replicas);
-nothing here uses the card. ``--publish`` raises NotImplementedError
-until `benchmarks/publish.py` is ported.
+nothing here uses the card. ``--publish`` merges the router,
+replicated and durability rows into ``BASELINE.json`` of
+``--publish-dir`` (default: the repo root) and emits the round's BENCH
+file (`benchmarks.publish.publish_result`).
 
 Usage:  python -m kungfu_tpu_torch.benchmarks.control_plane
             [--runs 3] [--ops 40] [--submits 320] [--lease-ms 300]
@@ -744,12 +746,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="emit one machine-readable JSON line")
     ap.add_argument("--publish", action="store_true",
-                    help="publish the rows (not ported yet)")
+                    help="merge into BASELINE.json + emit the round's "
+                         "BENCH_rNN.json")
+    ap.add_argument("--publish-dir", default="",
+                    help="directory of BASELINE.json, CHANGES.md and "
+                         "the BENCH file (default: the repo root)")
     args = ap.parse_args(argv)
-    if args.publish:
-        raise NotImplementedError(
-            "--publish is not ported yet; it comes with "
-            "benchmarks/publish.py")
 
     cost: Dict[str, Dict[str, float]] = {}
     for n in (1, 2, 3):
@@ -886,6 +888,99 @@ def main(argv=None) -> int:
               f"{takeover['mid_resize']['mttr_ms']} ms; admissions/s "
               f"1->3 replicas {cost['1']['admissions_per_s']} -> "
               f"{cost['3']['admissions_per_s']}", flush=True)
+    if args.publish:
+        from .publish import publish_result
+
+        publish_result(
+            "control_plane_router",
+            {"benchmark": "control_plane_router",
+             "lease_ms": args.lease_ms,
+             "router": router, "router_chaos": router_chaos,
+             "router_scaling": router_scaling,
+             "note": result["note"]},
+            parsed={
+                "metric": "cp_router_admissions_per_s",
+                "value": router["2"]["admissions_per_s"],
+                "unit": ("admissions/s through 2 stateless routers "
+                         "coalescing into a 3-replica group-commit "
+                         "tier, 8-way concurrent burst"),
+                "details": {
+                    "routers_1": router["1"]["admissions_per_s"],
+                    "routers_2": router["2"]["admissions_per_s"],
+                    "router_scaling": router_scaling,
+                    "chaos_kill_admissions_per_s":
+                        router_chaos["admissions_per_s"],
+                    "chaos_kill_dropped": router_chaos["dropped"],
+                    "caveat": "shared-host loopback; see BASELINE.md",
+                },
+            },
+            cmd=("python -m kungfu_tpu_torch.benchmarks.control_plane "
+                 "--publish"),
+            directory=args.publish_dir)
+        publish_result(
+            "control_plane_replicated", result,
+            parsed={
+                "metric": "cp_leader_death_mid_resize_mttr_ms",
+                "value": takeover["mid_resize"]["mttr_ms"],
+                "unit": ("median ms, permanent leader kill riding a "
+                         "live /addworker -> first client write "
+                         "served by the new leader (3 replicas, "
+                         f"lease {args.lease_ms:.0f} ms)"),
+                "details": {
+                    "mid_traffic_mttr_ms":
+                        takeover["mid_traffic"]["mttr_ms"],
+                    "detect_ms": takeover["mid_resize"]["detect_ms"],
+                    "election_ms":
+                        takeover["mid_resize"]["election_ms"],
+                    "catchup_ms":
+                        takeover["mid_resize"]["catchup_ms"],
+                    "admissions_per_s_1_2_3": [
+                        cost["1"]["admissions_per_s"],
+                        cost["2"]["admissions_per_s"],
+                        cost["3"]["admissions_per_s"]],
+                    "admissions_per_s_n3_no_batch":
+                        no_batch["admissions_per_s"],
+                    "group_commit_speedup": group_commit_speedup,
+                    "source": source,
+                    "caveat": "shared-host loopback; see BASELINE.md",
+                },
+            },
+            cmd=("python -m kungfu_tpu_torch.benchmarks.control_plane "
+                 "--publish"),
+            directory=args.publish_dir)
+        publish_result(
+            "control_plane_durability",
+            {"benchmark": "control_plane_durability",
+             "lease_ms": args.lease_ms,
+             "durability": durability, "fsync_cost": fsync_cost,
+             "recovery": recovery, "tier_death": tier_death,
+             "note": result["note"]},
+            parsed={
+                "metric": "cp_wal_fsync_admissions_per_s",
+                "value": durability["fsync_on"]["admissions_per_s"],
+                "unit": ("admissions/s into a 3-replica tier with "
+                         "every replica fsyncing its WAL once per "
+                         "group-commit window, 8-way concurrent "
+                         "burst"),
+                "details": {
+                    "fsync_off_admissions_per_s":
+                        durability["fsync_off"]["admissions_per_s"],
+                    "memory_only_admissions_per_s":
+                        cost["3"]["admissions_per_s"],
+                    "fsync_cost_x": fsync_cost,
+                    "recovery": recovery,
+                    "tier_death_mttr_ms": tier_death["mttr_ms"],
+                    "tier_death_decomposition": {
+                        k: tier_death[k]
+                        for k in ("relaunch_ms", "replay_ms",
+                                  "election_ms", "catchup_ms",
+                                  "first_request_ms")},
+                    "caveat": "shared-host loopback; see BASELINE.md",
+                },
+            },
+            cmd=("python -m kungfu_tpu_torch.benchmarks.control_plane "
+                 "--publish"),
+            directory=args.publish_dir)
     return 0
 
 

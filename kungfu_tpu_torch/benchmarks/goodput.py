@@ -25,8 +25,10 @@ scenario's batch of 64; ``gpt``, GPT-2-small at full width and depth,
 batch 8 x 1024 a worker on the card, the tiny GPT at batch 2 on the
 CPU); ``--device`` is ``cuda`` (the default; raises without a card;
 the workers share the card) or ``cpu``. Each cell runs on a span of
-ports from `elastic.harness.claim_port_span`. ``--publish`` raises: the
-port has no ``benchmarks/publish.py`` yet (ROADMAP queue 1 item 10).
+ports from `elastic.harness.claim_port_span`. ``--publish`` merges the
+result into ``BASELINE.json`` of ``--publish-dir`` (default: the repo
+root; ``--json`` names another BASELINE file) and emits the round's
+BENCH file (`benchmarks.publish.publish_result`).
 """
 
 from __future__ import annotations
@@ -201,16 +203,35 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=("slp", "gpt"), default="slp")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--publish", action="store_true",
-                    help="not available yet: the port has no "
-                         "benchmarks/publish.py")
+                    help="merge into BASELINE.json + emit the round's "
+                         "BENCH_rNN.json (publish.py protocol)")
+    ap.add_argument("--publish-dir", default="",
+                    help="directory of BASELINE.json, CHANGES.md and "
+                         "the BENCH file (default: the repo root)")
+    ap.add_argument("--json", default="", help="path to BASELINE.json")
     args = ap.parse_args(argv)
-    if args.publish:
-        raise NotImplementedError(
-            "--publish needs benchmarks/publish.py, which the port does "
-            "not have yet (ROADMAP queue 1 item 10)")
 
     result = run_goodput(args)
     print(json.dumps(result), flush=True)
+    if args.publish:
+        from .publish import publish_result
+
+        publish_result(
+            "goodput_under_churn", result,
+            parsed={
+                "metric": "scenario_goodput_ratio_mean",
+                "value": result["mean_goodput_ratio"],
+                "unit": "useful-compute fraction of rank-active wall",
+                "details": {
+                    "scenarios": args.scenarios,
+                    "np": args.np,
+                    "goodput_policy_wins": result[
+                        "policy_comparison"]["goodput_policy_wins"],
+                    "caveat": "shared host; see BASELINE.md",
+                },
+            },
+            cmd="python -m kungfu_tpu_torch.benchmarks.goodput --publish",
+            json_path=args.json, directory=args.publish_dir)
     return 0
 
 

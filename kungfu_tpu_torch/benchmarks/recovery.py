@@ -32,8 +32,10 @@ KF_HIER=1 and the shm rings on the wire, killing in turn a host MASTER
 (rank 2 — every leaf on its host loses its ring peer and the inter-host
 edge), a LEAF (rank 3 — the smallest blast radius), and a WHOLE HOST
 (the ``crash_host`` chaos fault — master, leaves and rings at once; the
-host's runner reaps the burst as ONE shrunken proposal). ``--publish``
-raises NotImplementedError until `benchmarks/publish.py` is ported.
+host's runner reaps the burst as ONE shrunken proposal). With
+``--publish`` the matrix merges into ``BASELINE.json`` of
+``--publish-dir`` (default: the repo root) and emits the round's BENCH
+file (`benchmarks.publish.publish_result`).
 
 Two decomposition sources: the kftrace flight-recorder events (each
 run launches with KF_TRACE=1 + a KF_TRACE_DIR; `decompose_events`
@@ -190,10 +192,6 @@ def _worker_flags(args) -> List[str]:
 def hier_matrix_main(args) -> int:
     """Per-shape MTTR rows of the death matrix, decomposed exactly like
     the flat np=3 benchmark. One JSON line."""
-    if args.publish:
-        raise NotImplementedError(
-            "--publish is not ported yet; it comes with "
-            "benchmarks/publish.py")
     rows: Dict[str, Dict[str, float]] = {}
     source = "markers"
     for shape, kw in HIER_SHAPES:
@@ -236,6 +234,28 @@ def hier_matrix_main(args) -> int:
         "rows": rows,
     }
     print(json.dumps(result), flush=True)
+    if args.publish:
+        from .publish import publish_result
+
+        publish_result(
+            "failure_recovery_mttr_hier", result,
+            parsed={
+                "metric": "hier_host_death_mttr_ms",
+                "value": rows["host_death"]["mttr_ms"],
+                "unit": ("median ms, whole-host SIGKILL -> first "
+                         "post-recovery collective (np=4, hier+shm, "
+                         "two emulated hosts)"),
+                "details": {
+                    "master_death_mttr_ms":
+                        rows["master_death"]["mttr_ms"],
+                    "leaf_death_mttr_ms": rows["leaf_death"]["mttr_ms"],
+                    "source": source,
+                    "caveat": "loopback hosts; see BASELINE.md",
+                },
+            },
+            cmd=("python -m kungfu_tpu_torch.benchmarks.recovery "
+                 "--hier-matrix --publish"),
+            directory=args.publish_dir)
     return 0
 
 
@@ -262,15 +282,14 @@ def main(argv=None) -> int:
                     help="master/leaf/whole-host death MTTR at np=4 "
                          "over two emulated hosts under KF_HIER=1")
     ap.add_argument("--publish", action="store_true",
-                    help="with --hier-matrix: publish the rows (not "
-                         "ported yet)")
+                    help="with --hier-matrix: merge into BASELINE.json"
+                         " and emit the round's BENCH_rNN.json")
+    ap.add_argument("--publish-dir", default="",
+                    help="directory of BASELINE.json, CHANGES.md and "
+                         "the BENCH file (default: the repo root)")
     args = ap.parse_args(argv)
     if args.hier_matrix:
         return hier_matrix_main(args)
-    if args.publish:
-        raise NotImplementedError(
-            "--publish is not ported yet; it comes with "
-            "benchmarks/publish.py")
 
     rows = []
     for i in range(args.runs):

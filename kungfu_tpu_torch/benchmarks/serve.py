@@ -31,8 +31,10 @@ launching K3 in its decode step) or ``cpu``; it reaches every worker as
 its ``--device`` flag. The model is the workers' (``KF_SERVE_MODEL``,
 default the tiny GPT; ``KF_SERVE_MAX_LEN``). Each cluster runs on a
 span of ports from `elastic.harness.claim_port_span` unless
-``--port-base`` pins one for all of them. The reference's ``--publish``
-waits for the port's ``benchmarks/publish.py``. Absolute figures are
+``--port-base`` pins one for all of them. ``--publish`` merges the
+result (with the per-np timing breakdown) into ``BASELINE.json`` of
+``--publish-dir`` (default: the repo root) and emits the round's BENCH
+file (`benchmarks.publish.publish_result`). Absolute figures are
 the device's and the host's together: the workers share one host's
 cores with the config server, so record the card (``nvidia-smi
 --query-gpu=name,power.limit``) beside them.
@@ -269,25 +271,66 @@ def main(argv=None) -> int:
     ap.add_argument("--port-base", type=int, default=None,
                     help="pin the clusters' ports to [base, base + 99]; "
                          "default: a free span from claim_port_span")
+    ap.add_argument("--publish", action="store_true",
+                    help="merge into BASELINE.json and emit the "
+                         "round's BENCH file (publish.py protocol)")
+    ap.add_argument("--publish-dir", default="",
+                    help="directory of BASELINE.json, CHANGES.md and "
+                         "the BENCH file (default: the repo root)")
     args = ap.parse_args(argv)
     ports = (f"{args.port_base}-{args.port_base + 99}"
              if args.port_base is not None else None)
     res = measure(tuple(args.np), requests=args.requests,
                   gen_len=args.gen_len, port_range=ports,
                   timeout=args.timeout, device=args.device)
+    result = {
+        "config": (
+            f"elastic decode tier on {args.device}: {args.requests} "
+            f"requests x {args.gen_len} generated tokens per cell, "
+            f"per-worker continuous batch {MAX_BATCH}, paged KV "
+            "(16-token blocks), warm-tier measurement; resize cell: 8x "
+            "the mix, grown 2->3 via /addworker mid-traffic"),
+        **res}
     print(json.dumps({"metric": "serve_elastic_latency",
                       "value": res["resize_cell"]["p99_ms"],
                       "unit": "ms (p99 through mid-traffic resize)",
-                      "details": {
-                          "config": (
-                              f"elastic decode tier on {args.device}: "
-                              f"{args.requests} requests x {args.gen_len} "
-                              f"generated tokens per cell, per-worker "
-                              f"continuous batch {MAX_BATCH}, paged KV "
-                              "(16-token blocks), warm-tier measurement; "
-                              "resize cell: 8x the mix, grown 2->3 via "
-                              "/addworker mid-traffic"),
-                          **res}}), flush=True)
+                      "details": result}), flush=True)
+    if args.publish:
+        from .publish import publish_result
+
+        prefix = res["prefix_cell"]
+        # the per-np timing decomposition goes INTO the published row
+        # ("where did the wall time go"; control_share is the headline)
+        breakdown = {
+            f"np{r['np']}": {
+                "control_share": r["timing"]["control_share"],
+                "decode_s": round(r["timing"]["decode_ms"] / 1e3, 2),
+                "prefill_s": round(r["timing"]["prefill_ms"] / 1e3, 2),
+                "control_s": round(r["timing"]["control_ms"] / 1e3, 2),
+                "peak_blocks": r["timing"]["peak_blocks"],
+                "tokens_per_sec": r["tokens_per_sec"],
+            } for r in res["cells"]
+        }
+        result["timing_breakdown"] = breakdown
+        publish_result(
+            "serve_elastic_latency", result,
+            parsed={"metric": "serve_p99_through_resize_ms",
+                    "value": res["resize_cell"]["p99_ms"],
+                    "unit": "ms",
+                    "timing_breakdown": breakdown,
+                    "tokens_per_sec_np2":
+                        next((r["tokens_per_sec"] for r in
+                              res["cells"] if r["np"] == 2), None),
+                    "prefix_tokens_per_sec_on":
+                        prefix["sharing_on"]["tokens_per_sec"],
+                    "prefix_tokens_per_sec_off":
+                        prefix["sharing_off"]["tokens_per_sec"],
+                    "prefix_peak_blocks_on":
+                        prefix["sharing_on"]["peak_blocks"],
+                    "prefix_peak_blocks_off":
+                        prefix["sharing_off"]["peak_blocks"]},
+            cmd="python -m kungfu_tpu_torch.benchmarks.serve --publish",
+            directory=args.publish_dir)
     return 0
 
 

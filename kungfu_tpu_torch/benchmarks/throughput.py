@@ -18,12 +18,13 @@ gradient all-reduce runs at every world size (NCCL on the card).
   python -m kungfu_tpu_torch.benchmarks.throughput --adamw grouped
 
 Prints `bench.py`'s JSON line (metric, value, unit, vs_baseline,
-details). ``--adamw per-leaf|grouped|flat`` measures the isolated AdamW
+details). ``--model vgg16|inception3`` trains the rest of the JAX
+package's trio the same way (VGG16 at 224 and InceptionV3 at 299, batch
+64 a card; VGG16's dropout masks come from one seeded generator on the
+card). ``--adamw per-leaf|grouped|flat`` measures the isolated AdamW
 update of the GPT instead (`measure_adamw_update`, metric
-``gpt_adamw_update_ms``). VGG16 and InceptionV3 raise
-NotImplementedError until their models are ported; the JAX package's
-XLA flop count (its `hfu` field) has no counterpart in an eager program
-and is not reported.
+``gpt_adamw_update_ms``). The JAX package's XLA flop count (its `hfu`
+field) has no counterpart in an eager program and is not reported.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.gpt import GPTConfig, GPTLM
+from ..models.inception import InceptionV3
 from ..models.resnet import ResNet50
+from ..models.vgg import VGG16
 from ..optimizers import (SMALL_LEAF_ELEMS, flatten_optimizer,
                           group_small_leaves, lm_adamw)
 from ..optimizers.sync_sgd import sync_sgd
@@ -50,12 +53,25 @@ from ..parallel import (build_train_step_with_state, data_mesh,
 #: Horovod-era figure the reference benchmarks against
 BASELINE_IMAGES_PER_SEC_PER_CHIP = 360.0
 
+def _vgg16(image, device, **kw):
+    # the JAX benchmark draws every step's dropout mask from one fixed
+    # key; here one seeded generator on the card draws them
+    return VGG16(num_classes=1000, image=image, dropout_generator=torch.
+                 Generator(device).manual_seed(1), **kw)
+
+
 MODELS = {
-    # name -> (constructor, image size, default per-card batch)
-    "resnet50": (lambda **kw: ResNet50(num_classes=1000,
-                                       space_to_depth=True, **kw), 224, 128),
+    # name -> (constructor(image, device, **kw), image size, default
+    # per-card batch)
+    "resnet50": (lambda image, device, **kw: ResNet50(
+        num_classes=1000, space_to_depth=True, **kw), 224, 128),
+    "vgg16": (_vgg16, 224, 64),
+    "inception3": (lambda image, device, **kw: InceptionV3(
+        num_classes=1000, **kw), 299, 64),
 }
-NOT_PORTED = ("vgg16", "inception3")
+#: models of the JAX zoo the port cannot train yet (none since VGG16 and
+#: InceptionV3 were ported)
+NOT_PORTED: tuple = ()
 
 
 def _spec(model_name: str):
@@ -63,8 +79,7 @@ def _spec(model_name: str):
     NotImplementedError for a model of the JAX zoo not ported yet."""
     if model_name in NOT_PORTED:
         raise NotImplementedError(
-            f"{model_name} is not ported yet; it comes with the rest of "
-            f"the training surface (its model)")
+            f"{model_name} is not ported yet")
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r} (known: "
                          f"{sorted(MODELS) + list(NOT_PORTED)})")
@@ -80,8 +95,8 @@ def build_image_train(model_name: str, batch: int, image: int, n=None):
     a global batch of ``batch * world`` images of ones, labels 0."""
     build = _spec(model_name)[0]
     mesh = data_mesh(n)
-    model = build(generator=torch.Generator().manual_seed(0)).to(
-        mesh.device)
+    model = build(image, mesh.device,
+                  generator=torch.Generator().manual_seed(0)).to(mesh.device)
     replicate_to_workers(model, mesh)
     g = batch * mesh.world
     shard = shard_batch({"x": torch.ones(g, image, image, 3),
@@ -116,7 +131,8 @@ def measure_rate(model_name: str, n=None, batch: int = 0, iters: int = 20,
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type == "cpu":  # keep the smoke path fast
-        image, default_batch = 64, 4
+        image = 75 if model_name == "inception3" else 64
+        default_batch = 4
         iters, warmup = min(iters, 3), min(warmup, 1)
     warmup = max(warmup, 1)  # the warmup fence binds `loss`
     batch = batch or default_batch
@@ -142,8 +158,8 @@ def measure_rate(model_name: str, n=None, batch: int = 0, iters: int = 20,
         dt = time.perf_counter() - t0
         if not math.isfinite(final_loss):
             raise RuntimeError(f"non-finite loss {final_loss} in benchmark")
-        moved = max(float((b - b0).abs().max()) for b, b0 in
-                    zip(model.buffers(), stats0))
+        moved = max((float((b - b0).abs().max()) for b, b0 in
+                     zip(model.buffers(), stats0)), default=0.0)
         kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
         meta = {

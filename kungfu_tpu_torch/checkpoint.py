@@ -13,14 +13,22 @@ view under the reserved ``::bf16`` suffix; dtypes and shapes survive
 exactly. `load_checkpoint` rebuilds the flat dict or restores into the
 structure of a template tree.
 
-The orbax tier (`OrbaxCheckpointManager`) comes with item 8b: the card's
-machine has no orbax. `checkpoint_async` is the sharded, incremental
-tier the elastic worker writes.
+`DCPCheckpointManager` is the counterpart of the JAX package's orbax
+tier (`OrbaxCheckpointManager`; the card's machine has no orbax) over
+``torch.distributed.checkpoint``: asynchronous saves of numbered steps,
+restores into a template's dtypes and devices, `max_to_keep`.
+`checkpoint_async` is the sharded, incremental tier the elastic worker
+writes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import shutil
+import threading
+import warnings
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -249,3 +257,171 @@ def load_checkpoint(path: str, like: Any = None):
         leaves.append(t.to(leaf.device) if isinstance(leaf, torch.Tensor)
                       else t.numpy())
     return tree_unflatten(like, leaves), step
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.tensor(np.asarray(leaf))  # a copy; 0-d stays 0-d
+
+
+@contextlib.contextmanager
+def _no_dist_quietly():
+    """DCP warns at every call without a process group that it assumes
+    a single process: that is the manager's design, not news."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is "
+                                "disabled")
+        yield
+
+
+class DCPCheckpointManager:
+    """Numbered checkpoints over ``torch.distributed.checkpoint`` (DCP):
+    the counterpart of the JAX package's `checkpoint.OrbaxCheckpointManager`
+    (orbax, which the card's machine lacks).
+
+    A tree is a nested dict/list/tuple/NamedTuple of tensors (numpy
+    arrays and scalars are saved as CPU tensors), flattened as
+    `tree_flatten_with_path` flattens it: DCP stores one tensor per leaf
+    under its path joined with '/'. Step ``s`` lives in
+    ``<directory>/<s>`` in DCP's format, complete once its ``.metadata``
+    is written. `save` stages every leaf to host memory (one copy, so
+    training may update the tensors at once) and hands the write to one
+    background thread (saves land in order); with ``async_save=False``
+    it returns after the write. After each write the oldest steps beyond
+    `max_to_keep` are deleted. Usage, as orbax's:
+
+        with DCPCheckpointManager(dir, max_to_keep=3) as mgr:
+            mgr.save(step, {"params": params, "opt": opt_state})
+            tree, step = mgr.restore(like={"params": params, ...})
+
+    Every call works without a process group (DCP's ``no_dist``): each
+    process writes and reads its own directory.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = True):
+        self._dir = os.path.abspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.async_save = async_save
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="kf-dcp")
+        self._mu = threading.Lock()
+        self._pending: List[Future] = []  # kf: guarded_by(_mu)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self._dir, str(int(step)))
+
+    def all_steps(self) -> List[int]:
+        """The complete steps on disk, ascending."""
+        steps = []
+        for name in os.listdir(self._dir):
+            if name.isdigit() and os.path.exists(
+                    os.path.join(self._dir, name, ".metadata")):
+                steps.append(int(name))
+        return sorted(steps)
+
+    def _write(self, step: int, staged) -> None:
+        import torch.distributed.checkpoint as dcp
+
+        path = self._step_dir(step)
+        shutil.rmtree(path, ignore_errors=True)
+        with _no_dist_quietly():
+            dcp.save(staged, checkpoint_id=path, no_dist=True)
+        if self.max_to_keep:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self._step_dir(old), ignore_errors=True)
+
+    def save(self, step: int, tree) -> None:
+        """Stage `tree` on the host and queue (async) or run (sync) the
+        write of step `step`."""
+        staged = {_path_str(path): _as_tensor(leaf).detach().to(
+            "cpu", copy=True) for path, leaf in tree_flatten_with_path(tree)}
+        fut = self._pool.submit(self._write, step, staged)
+        with self._mu:
+            self._pending.append(fut)
+        if not self.async_save:
+            self.wait()
+
+    def latest_step(self) -> Optional[int]:
+        """The latest complete step (a save still being written does not
+        count until it lands), or None."""
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, like: Any = None):
+        """Returns ``(tree, step)`` after the queued saves landed (the
+        latest step when `step` is None; FileNotFoundError when there is
+        none). With `like` (a
+        tree of the saved structure) each leaf is read into a new
+        tensor of its template's dtype and device (a numpy template
+        leaf gives a numpy array); without it, CPU tensors of the saved
+        dtypes in nested dicts rebuilt from the leaves' paths, a dict
+        whose keys are 0..n-1 read back as a list."""
+        import torch.distributed.checkpoint as dcp
+
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint steps under {self._dir}")
+        path = self._step_dir(step)
+        if like is not None:
+            flat = tree_flatten_with_path(like)
+            dst = {_path_str(p): torch.empty_like(_as_tensor(leaf))
+                   for p, leaf in flat}
+            with _no_dist_quietly():
+                dcp.load(dst, checkpoint_id=path, no_dist=True)
+            leaves = [dst[_path_str(p)] if isinstance(leaf, torch.Tensor)
+                      else dst[_path_str(p)].numpy() for p, leaf in flat]
+            return tree_unflatten(like, leaves), step
+        meta = dcp.FileSystemReader(path).read_metadata()
+        dst = {key: torch.empty(m.size, dtype=m.properties.dtype)
+               for key, m in meta.state_dict_metadata.items()}
+        with _no_dist_quietly():
+            dcp.load(dst, checkpoint_id=path, no_dist=True)
+        return _from_paths(dst), step
+
+    def wait(self) -> None:
+        """Block until queued saves hit disk; re-raises a failed save."""
+        with self._mu:
+            pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def _from_paths(flat: Dict[str, Any]):
+    """The tree of nested dicts whose leaves sit at `flat`'s '/'-joined
+    paths (a lone key "" is a root leaf); a dict keyed 0..n-1 becomes a
+    list."""
+    if set(flat) == {""}:
+        return flat[""]
+    tree: Dict = {}
+    for key, leaf in flat.items():
+        *inner, last = key.split("/")
+        node = tree
+        for comp in inner:
+            node = node.setdefault(comp, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if sorted(out) == [str(i) for i in range(len(out))]:
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return lists(tree)

@@ -9,13 +9,15 @@ every worker re-creates the adaptor at that offset under the new (rank,
 size) — no sample is dropped or double-counted across epochs of different
 cluster shape.
 
-The port's copy of `kungfu_tpu/data.py`'s `ElasticSampler` and
-`shard_slice` (numpy only; `tests/test_torch_elastic.py` holds the
-indices equal); `prefetch_to_device` is JAX's and is not ported.
+The port of `kungfu_tpu/data.py`: `ElasticSampler` and `shard_slice`
+are copies (numpy only; `tests/test_torch_elastic.py` holds the indices
+equal); `prefetch_to_device` moves the next batches to the card on a
+side CUDA stream while the current step runs.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -82,3 +84,93 @@ def shard_slice(num_samples: int, rank: int, size: int) -> Tuple[int, int]:
     end = begin + per + (1 if rank < rem else 0)
     return begin, end
 
+
+
+class DevicePrefetcher:
+    """The iterator `prefetch_to_device` returns: the batches of
+    `iterator` (a tensor, numpy array, or a dict/list/tuple of them), in
+    order, on `device`, with up to `size` batches in flight.
+
+    On the card each batch is staged in pinned host memory and copied
+    with ``non_blocking=True`` on `stream`, a side CUDA stream, so the
+    copies overlap the step the caller runs on its own stream; an event
+    recorded after a batch's copies is waited on by the consumer's
+    current stream when the batch is handed out, and every tensor of it
+    is ``record_stream``-ed on that stream so the caching allocator does
+    not reuse its memory while the step still reads it. `copies` counts
+    the tensors copied. On the CPU the batches pass through as CPU
+    tensors."""
+
+    def __init__(self, iterator, size: int, device):
+        import torch
+
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        if self.cuda and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' "
+                               "to prefetch on the CPU")
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.copies = 0
+        self._it = iter(iterator)
+        self._size = max(size, 1)
+        self._queue: "collections.deque" = collections.deque()
+
+    def _put(self, batch):
+        import torch
+
+        from .checkpoint import tree_leaves, tree_unflatten
+
+        def move(x):
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.asarray(x))
+            if not self.cuda:
+                return t
+            self.copies += 1
+            if not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        if not self.cuda:
+            return tree_unflatten(batch, map(move, tree_leaves(batch))), None
+        with torch.cuda.stream(self.stream):
+            out = tree_unflatten(batch, map(move, tree_leaves(batch)))
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return out, ready
+
+    def _fill(self) -> None:
+        while len(self._queue) < self._size:
+            try:
+                self._queue.append(self._put(next(self._it)))
+            except StopIteration:
+                return
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+
+        from .checkpoint import tree_leaves
+
+        self._fill()
+        if not self._queue:
+            raise StopIteration
+        out, ready = self._queue.popleft()
+        if ready is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ready)
+            for t in tree_leaves(out):
+                t.record_stream(consumer)
+        self._fill()
+        return out
+
+
+def prefetch_to_device(iterator, size: int = 2, device="cuda"
+                       ) -> DevicePrefetcher:
+    """Wrap a host batch iterator so the next `size` batches are already
+    on `device` while the current step computes — the port of the JAX
+    package's ``jax.device_put`` prefetcher (see `DevicePrefetcher`).
+    Order is preserved; it stops when `iterator` does. Raises without a
+    card unless ``device="cpu"``."""
+    return DevicePrefetcher(iterator, size, device)

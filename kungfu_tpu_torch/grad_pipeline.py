@@ -296,26 +296,24 @@ class GradBucketPipeline:
 
     # -- per-step all-reduce --------------------------------------------------
 
-    def _host_flats(self, grads) -> List[Optional[np.ndarray]]:
-        """CPU path: each gradient's memory as a 1-D numpy view."""
-        flats: List[Optional[np.ndarray]] = []
-        for i, g in enumerate(grads):
-            if g.device.type != "cpu":
-                raise ValueError(
-                    f"leaf {i} is on {g.device}: a pipeline built from "
-                    "CPU tensors reduces CPU gradients")
-            if tuple(g.shape) != self._shapes[i]:
-                raise ValueError(f"leaf {i} shape {tuple(g.shape)} != "
-                                 f"template {self._shapes[i]}")
-            if not g.is_contiguous():
-                raise ValueError(f"leaf {i} is not contiguous")
-            a = g.detach().reshape(-1).numpy()
-            if a.dtype != self._dtypes[i]:
-                raise ValueError(
-                    f"leaf {i} dtype {a.dtype} != template "
-                    f"{self._dtypes[i]}")
-            flats.append(a if a.size else None)
-        return flats
+    def _host_flat(self, i: int, g) -> Optional[np.ndarray]:
+        """CPU path: gradient `i`'s memory as a 1-D numpy view (None when
+        empty)."""
+        if g.device.type != "cpu":
+            raise ValueError(
+                f"leaf {i} is on {g.device}: a pipeline built from "
+                "CPU tensors reduces CPU gradients")
+        if tuple(g.shape) != self._shapes[i]:
+            raise ValueError(f"leaf {i} shape {tuple(g.shape)} != "
+                             f"template {self._shapes[i]}")
+        if not g.is_contiguous():
+            raise ValueError(f"leaf {i} is not contiguous")
+        a = g.detach().reshape(-1).numpy()
+        if a.dtype != self._dtypes[i]:
+            raise ValueError(
+                f"leaf {i} dtype {a.dtype} != template "
+                f"{self._dtypes[i]}")
+        return a if a.size else None
 
     def all_reduce(self, grads: Sequence[torch.Tensor], average: bool = True,
                    step: Optional[int] = None) -> List[torch.Tensor]:
@@ -327,7 +325,13 @@ class GradBucketPipeline:
         ``elastic.state.step``): a joiner's fresh pipeline and the
         survivors' long-lived ones must produce identical names or the
         name-keyed rendezvous deadlocks. Static clusters may omit it
-        (an internal counter advances identically on every rank)."""
+        (an internal counter advances identically on every rank).
+
+        On the CPU a leaf may also be a zero-argument callable returning
+        the gradient (the reference's producer form): the packer of its
+        first bucket calls it, so buckets whose leaves are ready go to
+        the wire while later producers still block; the tensor it
+        returns is reduced in place and returned in its place."""
         grads = list(grads)
         if len(grads) != len(self._shapes):
             raise ValueError(
@@ -350,7 +354,23 @@ class GradBucketPipeline:
             ready, self._ready = self._ready, [None] * len(self._ready)
             flats = None
         else:
-            flats = self._host_flats(grads)
+            # a zero-argument callable leaf (the all-reduce benchmark's
+            # simulated backward) is resolved by the packer of its first
+            # bucket under that leaf's own lock, which blocks until the
+            # "backward" produced it; tensor leaves take no lock
+            producing = {i: threading.Lock()
+                         for i, g in enumerate(grads) if callable(g)}
+            flats = [None if i in producing else self._host_flat(i, g)
+                     for i, g in enumerate(grads)]
+
+            def fetch(i: int) -> np.ndarray:
+                mu = producing.get(i)
+                if mu is not None:
+                    with mu:
+                        if callable(grads[i]):
+                            grads[i] = grads[i]()
+                            flats[i] = self._host_flat(i, grads[i])
+                return flats[i]
 
         err_mu = threading.Lock()
         errors: List = []  # kf: guarded_by(err_mu)
@@ -375,7 +395,7 @@ class GradBucketPipeline:
                     ready[i].synchronize()
                 t_host[k] = time.perf_counter()
                 return [self._host_np[k]]
-            return [flats[i][o:o + n] for i, o, n in spans]
+            return [fetch(i)[o:o + n] for i, o, n in spans]
 
         def pack(k: int):
             """Assemble bucket k and hand its wire op to the order

@@ -65,22 +65,26 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(use_bias=False, padding="SAME")``: `kernel` is
-    OIHW in f32, cast to the input's dtype at each use."""
+    """flax ``nn.Conv(use_bias=False)``: `kernel` is OIHW in f32, cast to
+    the input's dtype at each use. `k` is a size or an (h, w) pair;
+    `padding` is flax's "SAME" (XLA's split, `_same`) or "VALID"."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 device=None, generator=None):
+    def __init__(self, cin: int, cout: int, k, stride: int = 1,
+                 device=None, generator=None, padding: str = "SAME"):
         super().__init__()
-        self.k, self.stride = k, stride
-        self.kernel = nn.Parameter(torch.empty(cout, cin, k, k,
+        self.kh, self.kw = (k, k) if isinstance(k, int) else k
+        self.stride, self.padding = stride, padding
+        self.kernel = nn.Parameter(torch.empty(cout, cin, self.kh, self.kw,
                                                device=device))
         if self.kernel.device.type != "meta":
-            _lecun_normal_(self.kernel, cin * k * k, generator)
+            _lecun_normal_(self.kernel, cin * self.kh * self.kw, generator)
 
     def forward(self, x):
-        (top, bottom) = _same(x.shape[2], self.k, self.stride)
-        (left, right) = _same(x.shape[3], self.k, self.stride)
         w = self.kernel.to(x.dtype, memory_format=torch.channels_last)
+        if self.padding == "VALID":
+            return F.conv2d(x, w, stride=self.stride)
+        (top, bottom) = _same(x.shape[2], self.kh, self.stride)
+        (left, right) = _same(x.shape[3], self.kw, self.stride)
         if top == bottom and left == right:
             return F.conv2d(x, w, stride=self.stride, padding=(top, left))
         return F.conv2d(F.pad(x, (left, right, top, bottom)), w,
@@ -91,12 +95,15 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
     param_dtype=float32)`` over the channels of an NCHW input, with the
     order of operations of `flax.linen.normalization` (see the module
-    docstring). In training mode the batch statistics normalise and
-    update the running `mean`/`var` buffers in place; in eval mode the
-    buffers normalise."""
+    docstring); InceptionV3 passes its `epsilon` of 1e-3. In training
+    mode the batch statistics normalise and update the running
+    `mean`/`var` buffers in place; in eval mode the buffers
+    normalise."""
 
-    def __init__(self, c: int, zero_scale: bool = False, device=None):
+    def __init__(self, c: int, zero_scale: bool = False, device=None,
+                 epsilon: float = EPSILON):
         super().__init__()
+        self.epsilon = epsilon
         self.scale = nn.Parameter(torch.full((c,), 0.0 if zero_scale
                                              else 1.0, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
@@ -104,7 +111,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c, device=device))
 
     def forward(self, x):
-        xf = x.float()
+        # flax promotes the input to at least f32 for the statistics
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = (0, 2, 3)
             mean = xf.mean(dims)
@@ -115,7 +123,7 @@ class BatchNorm(nn.Module):
                 self.var.copy_(MOMENTUM * self.var + (1 - MOMENTUM) * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + EPSILON) * self.scale
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(x.dtype)

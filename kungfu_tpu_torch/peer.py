@@ -254,6 +254,14 @@ def _request_once(target: str, method: str, body: Optional[bytes],
             if reused:
                 continue  # idle keep-alive conn died under us; resend fresh
             raise
+        except http.client.IncompleteRead as e:
+            # the server died after its headers, mid-body (a killed
+            # router): a connection-level failure like a reset, so the
+            # caller rotates and retries. No transparent resend — the
+            # request reached a handler.
+            conn.close()
+            raise ConnectionResetError(
+                f"{key} closed mid-response: {e!r}") from e
         except Exception:
             conn.close()
             raise

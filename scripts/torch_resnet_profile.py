@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
-"""Where a ResNet-50 S-SGD step's time goes on the card, for the
-PyTorch/CUDA port.
+"""Where a ResNet-50 (or VGG16, InceptionV3) S-SGD step's time goes on
+the card, for the PyTorch/CUDA port.
 
-    python3 scripts/torch_resnet_profile.py [--steps 5] [--batch 128]
-        [--image 224] [--trace PATH]
+    python3 scripts/torch_resnet_profile.py [--model resnet50|vgg16|
+        inception3] [--steps 5] [--batch B] [--image S] [--trace PATH]
+
+``--model`` picks the throughput benchmark's model; ``--batch`` and
+``--image`` default to its own (128 at 224 for ResNet-50, 64 at 224 for
+VGG16, 64 at 299 for InceptionV3). The rest is about ResNet-50; the
+other two run the same way (VGG16 has no BatchNorm: its elementwise
+group is bias, ReLU, pooling and dropout).
 
 `bench.py`'s configuration through the port's throughput benchmark
 (`benchmarks.throughput.build_image_train`): ResNet-50 v1.5 with the
@@ -68,9 +74,11 @@ def _group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="resnet50",
+                    choices=("resnet50", "vgg16", "inception3"))
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--image", type=int, default=224)
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--image", type=int, default=0)
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
 
@@ -81,7 +89,8 @@ def main() -> int:
         print("torch_resnet_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(HERE))
-    from kungfu_tpu_torch.benchmarks.throughput import build_image_train
+    from kungfu_tpu_torch.benchmarks.throughput import (MODELS,
+                                                        build_image_train)
     from kungfu_tpu_torch.parallel import (init_distributed,
                                            shutdown_distributed)
 
@@ -91,10 +100,12 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
+    _, image, batch = MODELS[args.model]
+    args.image, args.batch = args.image or image, args.batch or batch
     init_distributed(device="cuda")
     try:
         torch.backends.cudnn.benchmark = True
-        _, _, step, shard = build_image_train("resnet50", args.batch,
+        _, _, step, shard = build_image_train(args.model, args.batch,
                                               args.image)
         for _ in range(3):
             step(shard)
@@ -130,7 +141,8 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + us
     n = args.steps
     summary = {
-        "card": card, "torch": torch.__version__, "batch": args.batch,
+        "card": card, "torch": torch.__version__, "model": args.model,
+        "batch": args.batch,
         "image": args.image, "steps": n,
         "host_wall_ms_per_step": plain_wall_us / n / 1e3,
         "images_per_sec": args.batch * n / (plain_wall_us / 1e6),

@@ -867,3 +867,87 @@ def test_fused_optimizers_mixed_tree_bitwise_on_the_card(cuda, wrap, inner):
 
     ref, got = run(None), run(wrap)
     assert all(torch.equal(a, b) for a, b in zip(ref, got))
+
+
+def _zoo_model(name, dtype):
+    """(model in compute `dtype` with seed-0 weights, its input)."""
+    from kungfu_tpu_torch.models import (BertConfig, BertEncoder,
+                                         InceptionV3, VGG16)
+
+    g = torch.Generator().manual_seed(0)
+    if name == "vgg16":
+        return VGG16(dtype=dtype, image=32, generator=g), \
+            torch.randn(2, 32, 32, 3, generator=g)
+    if name == "inception3":
+        return InceptionV3(dtype=dtype, generator=g), \
+            torch.randn(4, 75, 75, 3, generator=g)
+    cfg = BertConfig(num_layers=2, hidden_size=128, num_heads=2,
+                     intermediate_size=512, vocab_size=1024,
+                     max_position=128, dtype=dtype)
+    return BertEncoder(cfg, generator=g), \
+        torch.randint(0, 1024, (2, 64), generator=g)
+
+
+@pytest.mark.parametrize("name", ["vgg16", "inception3", "bert"])
+def test_zoo_forward_on_the_card_is_the_cpu_forward(cuda, name):
+    """The zoo's eval forward on the card against the same weights on
+    the CPU (the CPU parity tests hold the CPU forward to flax in both
+    dtypes). f32 (TF32 off): the same arithmetic in another summation
+    order, within 1e-4 + 1e-3 |ref|. bf16, the dtype the card trains
+    in: within 1e-2 * max(1, max|ref|), the CPU bf16 tolerance against
+    flax."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, x = _zoo_model(name, torch.float32)
+    low, _ = _zoo_model(name, torch.bfloat16)
+    low.load_state_dict(model.state_dict())
+    model.eval()
+    low.eval()
+    with torch.no_grad():
+        ref = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4,
+                                   rtol=1e-3)
+        ref = low(x)
+        got = low.to(cuda)(x.to(cuda)).cpu()
+    assert got.dtype == ref.dtype == torch.float32
+    top = max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-2 * top,
+                               rtol=0)
+
+
+def test_prefetch_to_device_side_stream(cuda):
+    """`prefetch_to_device` on the card: the batches in order, equal to
+    their host copies, copied on a stream that is not the default."""
+    from kungfu_tpu_torch.data import prefetch_to_device
+
+    host = [{"x": torch.randn(64, 32), "y": torch.arange(64) + i}
+            for i in range(5)]
+    pf = prefetch_to_device(iter(host), 2, cuda)
+    assert pf.stream.cuda_stream != torch.cuda.default_stream().cuda_stream
+    got = [{k: v.cpu() for k, v in b.items()} for b in pf]
+    assert len(got) == 5 and pf.copies == 10
+    for a, b in zip(got, host):
+        assert torch.equal(a["x"], b["x"]) and torch.equal(a["y"], b["y"])
+
+
+def test_dcp_checkpoint_manager_on_the_card(cuda, tmp_path):
+    """An async save of card tensors restores onto the card bitwise."""
+    from kungfu_tpu_torch.checkpoint import DCPCheckpointManager
+
+    tree = {"w": torch.randn(256, 128, device=cuda),
+            "b": torch.randn(128, device=cuda).to(torch.bfloat16),
+            "opt": [torch.arange(7, device=cuda)]}
+    with DCPCheckpointManager(str(tmp_path), max_to_keep=2) as mgr:
+        for step in range(3):
+            mgr.save(step, tree)
+        mgr.wait()
+        assert mgr.all_steps() == [1, 2]
+        like = {"w": torch.empty_like(tree["w"]),
+                "b": torch.empty_like(tree["b"]),
+                "opt": [torch.empty_like(tree["opt"][0])]}
+        back, step = mgr.restore(like=like)
+    assert step == 2 and back["w"].device.type == "cuda"
+    assert torch.equal(back["w"], tree["w"])
+    assert torch.equal(back["b"], tree["b"])
+    assert torch.equal(back["opt"][0], tree["opt"][0])

@@ -11,7 +11,10 @@ end to end on the CPU.
   on the replay;
 - the gate: a decomposition whose invariant fails raises instead of
   yielding a row;
-- ``--publish`` raises until the port has `benchmarks/publish.py`.
+- ``--publish`` (once it raised, before the port had
+  `benchmarks/publish.py`) now publishes into the directory it is
+  given: the result under ``published.goodput_under_churn`` of that
+  directory's BASELINE.json, the headline in its round's BENCH file.
 """
 
 import json
@@ -82,6 +85,24 @@ def test_invariant_gate_refuses_a_row(monkeypatch, tmp_path):
                              device="cpu")
 
 
-def test_publish_raises():
-    with pytest.raises(NotImplementedError, match="publish.py"):
-        goodput.main(["--device", "cpu", "--publish"])
+def test_publish_raises(monkeypatch, tmp_path, capsys):
+    """Kept under its old name: ``--publish`` no longer raises. With the
+    sweep replaced by a fixed result, it merges that result into
+    `tmp_path`'s BASELINE.json and writes the round's BENCH file there
+    (the round from `tmp_path`'s CHANGES.md), touching nothing else."""
+    fixed = {"config": "c", "model": "slp", "device": "cpu",
+             "mean_goodput_ratio": 0.5, "scenarios": {},
+             "policy_comparison": {"goodput_policy_wins": True}}
+    monkeypatch.setattr(goodput, "run_goodput", lambda args: dict(fixed))
+    (tmp_path / "BASELINE.json").write_text('{"published": {}}')
+    (tmp_path / "CHANGES.md").write_text("- PR 3 (round 7): x\n")
+    assert goodput.main(["--device", "cpu", "--publish", "--publish-dir",
+                         str(tmp_path)]) == 0
+    base = json.loads((tmp_path / "BASELINE.json").read_text())
+    assert base["published"]["goodput_under_churn"] == {**fixed,
+                                                        "round": 7}
+    bench = json.loads((tmp_path / "BENCH_r07.json").read_text())
+    assert bench["n"] == 7 and bench["parsed"]["value"] == 0.5
+    assert bench["parsed"]["metric"] == "scenario_goodput_ratio_mean"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "BASELINE.json", "BENCH_r07.json", "CHANGES.md"]

@@ -330,6 +330,39 @@ def test_refusals():
     pipe.close()
 
 
+def test_producer_leaves_resolve_under_their_own_locks():
+    """CPU leaves may be zero-argument producers (the all-reduce
+    benchmark's simulated backward): each is called once, by the packer
+    of its bucket, and its tensor comes back in its place. A producer
+    that blocks holds up only its own leaf: the buckets run in reverse
+    leaf order, and leaf 2's producer (packed first) waits for leaf 0's
+    (packed last) to have run, which a lock shared by every leaf would
+    deadlock."""
+    p = Peer(kfenv.from_env({}))
+    leaves = [torch.full((64,), float(i + 1)) for i in range(3)]
+    pipe = gp.GradBucketPipeline(p, leaves, bucket_bytes=256, packers=3)
+    assert [spans[0][0] for _, spans in pipe._schedule] == [2, 1, 0]
+    first_ran = threading.Event()
+    calls = [0, 0]
+
+    def first():
+        calls[0] += 1
+        first_ran.set()
+        return leaves[0].clone()
+
+    def last():
+        calls[1] += 1
+        assert first_ran.wait(10), "leaf 2's producer blocked leaf 0's"
+        return leaves[2].clone()
+
+    out = pipe.all_reduce([first, leaves[1].clone(), last])
+    pipe.close()
+    assert calls == [1, 1]
+    assert all(isinstance(t, torch.Tensor) for t in out)
+    for got, want in zip(out, leaves):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("comp,tol", [("bf16", 1 / 64), ("int8", 1 / 16)])
 def test_single_process_compression_bounded_and_cancelling(comp, tol):
     """One peer: the decoded step is within one quantization step, and

@@ -6,9 +6,12 @@ the JAX package (``python -m kungfu_tpu...``). The entry points of the
 elastic path (`run.__main__`, the continuity and GNS workers) and the
 serving tier (`serve.worker`, `serve.router`, `elastic.replica`), the
 warm slot (`run.prewarm`), the platform launcher, kfdistribute, the
-trace CLI and the benchmarks (goodput, adaptation, recovery, control
-plane, checkpoint, reduce kernels) run nothing when imported, and
-importing the package loads no libkf."""
+trace CLI, the benchmarks (goodput, adaptation, recovery, control
+plane, checkpoint, reduce kernels, the all-reduce drivers, publish,
+convergence) and the dry run run nothing when imported, and importing
+the package loads no libkf. sklearn (which the card's machine lacks
+too) is imported only inside the two functions that read its bundled
+digits."""
 
 import ast
 import json
@@ -132,8 +135,43 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.benchmarks.checkpoint",
             "kungfu_tpu_torch.benchmarks.recovery",
             "kungfu_tpu_torch.benchmarks.adaptation",
-            "kungfu_tpu_torch.benchmarks.control_plane"} <= set(mods)
+            "kungfu_tpu_torch.benchmarks.control_plane",
+            "kungfu_tpu_torch.models.vgg", "kungfu_tpu_torch.models.inception",
+            "kungfu_tpu_torch.models.bert",
+            "kungfu_tpu_torch.models.fake_models",
+            "kungfu_tpu_torch.datasets.idx", "kungfu_tpu_torch.datasets.cifar",
+            "kungfu_tpu_torch.datasets.imagenet",
+            "kungfu_tpu_torch.benchmarks.__main__",
+            "kungfu_tpu_torch.benchmarks.allreduce",
+            "kungfu_tpu_torch.benchmarks.convergence_cv",
+            "kungfu_tpu_torch.benchmarks.publish",
+            "kungfu_tpu_torch.dryrun"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
+    assert [m for m in loaded if m == "sklearn"
+            or m.startswith("sklearn.")] == []
+
+
+def test_sklearn_only_inside_the_digits_functions():
+    """Every import of sklearn in the port sits in the body of
+    `convergence_cv.run_digits` or `publish.run_digits_convergence`."""
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for fn in ast.walk(tree):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            for node in ast.walk(fn):
+                if isinstance(node, ast.ImportFrom) and \
+                        (node.module or "").startswith("sklearn"):
+                    found.append((path.name, fn.name))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert not any(
+            (getattr(n, "module", "") or "").startswith("sklearn")
+            or any(a.name.startswith("sklearn") for a in n.names)
+            for n in top), path.name
+    assert sorted(found) == [("convergence_cv.py", "run_digits"),
+                             ("publish.py", "run_digits_convergence")]
 
 
 def _module_flags(path):
@@ -165,7 +203,10 @@ def test_command_lines_launch_only_the_port():
             "kungfu_tpu_torch.elastic.continuity_worker",
             "kungfu_tpu_torch.elastic.gns_worker",
             "kungfu_tpu_torch.serve.worker",
-            "kungfu_tpu_torch.run.prewarm"} <= set(found)
+            "kungfu_tpu_torch.run.prewarm",
+            "kungfu_tpu_torch.benchmarks.allreduce",
+            "kungfu_tpu_torch.benchmarks.publish",
+            "kungfu_tpu_torch.dryrun"} <= set(found)
 
 
 def test_entry_points_run_nothing_at_import():
@@ -192,6 +233,11 @@ def test_entry_points_run_nothing_at_import():
         "import kungfu_tpu_torch.benchmarks.control_plane\n"
         "import kungfu_tpu_torch.benchmarks.checkpoint\n"
         "import kungfu_tpu_torch.benchmarks.reduce_kernels\n"
+        "import kungfu_tpu_torch.benchmarks.__main__\n"
+        "import kungfu_tpu_torch.benchmarks.allreduce\n"
+        "import kungfu_tpu_torch.benchmarks.publish\n"
+        "import kungfu_tpu_torch.benchmarks.convergence_cv\n"
+        "import kungfu_tpu_torch.dryrun\n"
         "from kungfu_tpu_torch import ffi\n"
         "print(json.dumps([before, ffi._lib is None, "
         "p._default_peer is None]))\n")
