@@ -215,6 +215,34 @@ failing on the first phase that fails:
    BERT-base state asynchronously and restores it onto the card bitwise
    equal; `dryrun.dryrun(1)` takes one ResNet-18 S-SGD step. Every row
    is printed beside the card;
+13. seq — runs after 12 and before the timing of 6: the sequence axis
+   on four rank processes sharing the card, joined over gloo (one card
+   holds one NCCL rank; the axis collectives stage the card's tensors
+   through pinned host memory), through `parallel.long_context.run`:
+   (a) GPT-2-small (f32 master weights, bf16 compute, the benchmark's
+   AdamW) with `attention="ring"`, `use_flash=True` on a (data 1, seq 4)
+   mesh, global T = 4096 (1024 a rank), batch 2, 3 steps; (b) the same
+   with `attention="ulysses"` (3 heads a rank, K1 over all 4096
+   positions); (c) BERT-base with the ring mixer on a (data 2, seq 2)
+   mesh, T = 512, batch 4, 2 steps (non-causal hops). Every rank's loss
+   finite, falling and equal to the others'; every rank launched K1's
+   fwd, dq and dkv `seq_k1` times a step (a layer a visible hop, or a
+   layer) and no plain version; step 1's loss and a sample of its
+   averaged gradients against one process on the whole batch: GPT's
+   against `attention="flash"` at T = 4096 (within twice the gap between
+   that run and the plain mixer's, or the floors `SEQ_LOSS_FLOOR` /
+   `SEQ_GRAD_FLOOR`), BERT's against its local mixer (within twice the
+   gap between that run in bf16 and in f32, or the same floors). Prints each rank's ms/step and tokens/s (marked:
+   4 ranks share one card), the exchange's ms, bytes and staged bytes a
+   step, and K1's launches. (d) K1's new cases against their plain
+   versions: f32 at d 8..128 and bf16 at d 16, 32, 96, 256, causal,
+   non-causal and windowed, within TOL and bitwise on a second launch,
+   and one launch of B*H = 66000 > 65535. (e)
+   `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
+   through the SIMT family; (e') `measure_flash_efficiency(dtype=
+   "float32")` at its default shape through the f32 SIMT kernels. (f)
+   `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
+   BERT, d 8, the plain ring as the reference's) on the card's ranks;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -231,11 +259,16 @@ failing on the first phase that fails:
    forced; and R1 per
    launch at [262144, 1024] by device time (and by events) beside its
    byte bound and torch.neg (its plain version and the library call at
-   once), timed the same way.
+   once), timed the same way; and the SIMT family of K1 (f32, and bf16
+   off d 64/128) per launch at `K1_SIMT_TIMING`'s shapes, the main
+   path's (e) and (e'), first held there to its plain version within
+   TOL, beside its bound at the peak of its input type, its plain
+   version and SDPA.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
 ``elastic_launches``, the elastic workers' launches, and
+``seq_launches``, the seq phase's ranks', and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
 (b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
 tier's workers' launches of that scheme, and ``benchmarks_launches``,
@@ -321,6 +354,47 @@ K1_REPLACES = {
           ":801 (_bwd_dq_kernel, stream)",
     "dkv": "kungfu_tpu/ops/flash.py:510 (_dkv_res_kernel, resident), "
            ":845 (_bwd_dkv_kernel, stream)"}
+
+#: the seq phase: long-context training on SEQ_RANKS rank processes that
+#: share the card (one gloo group, `parallel.long_context`): GPT-2-small
+#: with the ring and the Ulysses mixer through K1 (use_flash) at T = 4096
+#: over a (data 1, seq 4) mesh, and BERT-base with the ring mixer at
+#: T = 512 over (data 2, seq 2) — its non-causal hops
+SEQ_RANKS = 4
+SEQ_SPECS = [
+    {"name": "gpt-ring", "model": "gpt", "size": "small",
+     "attention": "ring", "use_flash": True, "mesh": [1, 4], "batch": 2,
+     "seq_len": 4096, "steps": 3},
+    {"name": "gpt-ulysses", "model": "gpt", "size": "small",
+     "attention": "ulysses", "use_flash": True, "mesh": [1, 4], "batch": 2,
+     "seq_len": 4096, "steps": 3},
+    {"name": "bert-ring", "model": "bert", "attention": "ring",
+     "use_flash": True, "mesh": [2, 2], "batch": 4, "seq_len": 512,
+     "steps": 2},
+]
+#: how far the ring may sit from one process: the larger of twice the gap
+#: between two correct one-process runs of the same model (GPT: flash
+#: against the plain mixer, what bf16 rounding in another order moves;
+#: BERT: its local mixer in bf16 against f32) and a floor. The step-1
+#: loss floors are relative, set from the gaps the ring showed on the
+#: H100 (GPT 3.5e-6, BERT 2.9e-5) with room; the gradient floor is on
+#: the relative L2 error of each sampled gradient (each ring hop rounds
+#: its output to bf16 before the merge: half an ulp, 2**-9, a hop)
+SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
+SEQ_GRAD_FLOOR = 2e-2
+#: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128, at B 2,
+#: T 256, H 4 in each mode; the fold launch: B 1100 x H 60 = 66000 > 65535
+K1_NEW = ([("float32", d) for d in (8, 16, 32, 64, 128)]
+          + [("bfloat16", d) for d in (16, 32, 96, 256)])
+K1_NEW_SHAPE = (2, 256, 4)
+K1_NEW_MODES = {"causal": (True, None), "full": (False, None),
+                "window": (True, 48)}
+K1_FOLD = (1100, 64, 60, 16)
+#: the SIMT family's shapes on the main path, where it is timed and held
+#: to its plain version: f32 at the flash benchmark's (e') (B 8, T 1024,
+#: H 12, d 64) and bf16 at the `tiny` GPT's training shape (e) (B 8,
+#: T 1024, H 8, d 16), both causal
+K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16)}
 
 #: R1: the bandwidth suite's stream shape (0.5 GiB of bf16)
 R1_SHAPE = (262144, 1024)
@@ -2106,7 +2180,8 @@ def phase_timing_k2(torch, fc):
     return out
 
 
-def k1_bound(kernel, b, t, h, d, causal, window):
+def k1_bound(kernel, b, t, h, d, causal, window, itemsize=2,
+             peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by, flops, bytes) of one K1 launch: each input
     read once and each output written once (bf16 [B, T, h, d] tensors,
     f32 [B*h, T] lse and delta): fwd reads q, k, v and writes o and lse;
@@ -2115,17 +2190,18 @@ def k1_bound(kernel, b, t, h, d, causal, window):
     products on the visible pairs (`flash_attention_flops`' count, 2 d
     FLOPs a pair a product): fwd q.k^T and p.v; dq q.k^T, dO.v^T and
     ds.k; dkv those two score products, p^T.dO and ds^T.q — against the
-    bf16 tensor-core peak."""
+    bf16 tensor-core peak (the SIMT family: inputs of `itemsize` bytes
+    and `peak` the card's rate for their type)."""
     from kungfu_tpu_torch.ops.flash import flash_attention_flops
 
-    seq = 2 * b * t * h * d                     # one bf16 [B, T, h, d]
+    seq = itemsize * b * t * h * d              # one [B, T, h, d]
     row = 4 * b * h * t                         # one f32 [B*h, T]
     pair_product = flash_attention_flops(b, t, h, d, causal, window) // 2
     nbytes, flops = {
         "fwd": (4 * seq + row, 2 * pair_product),
         "dq": (6 * seq + 2 * row, 3 * pair_product),
         "dkv": (6 * seq + 2 * row, 4 * pair_product)}[kernel]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
@@ -2236,6 +2312,404 @@ def phase_timing_k1(torch, fl):
             f"{json.dumps({k: v for k, v in res['sdpa'].items() if 'backend' in k})}")
         out[tag] = res
         del sets, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the seq phase: the sequence axis (ring and Ulysses through K1) and K1's
+# cases beyond bf16 at head dims 64 and 128
+# ---------------------------------------------------------------------------
+
+
+def _close(torch, got, ref, dtype):
+    """max |got - ref| and whether every element is within TOL[dtype]."""
+    atol, rtol = TOL[dtype]
+    err = (got.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= atol + rtol * ref.float().abs())
+                                  .all())
+
+
+def k1_new_cases(torch, fl):
+    """(d) every new case of K1 on the card against its plain versions on
+    the same inputs, within TOL for its dtype (o, dq, dk, dv; lse and
+    delta within TOL["float32"]), and a second launch bitwise equal:
+    `K1_NEW` in each of `K1_NEW_MODES`, then one fold launch of B*H >
+    65535 (within `kernel_error_bounds`, which covers both families).
+    Returns {(kernel, dtype): max_abs_err}."""
+    errs = {}
+    b, t, h = K1_NEW_SHAPE
+    for dtype, d in K1_NEW:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=DEVICE).manual_seed(d)
+        q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=DEVICE)
+                       .to(dt) for _ in range(4))
+        for mode, (causal, window) in K1_NEW_MODES.items():
+            runs = []
+            for _ in range(2):
+                o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+                dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None,
+                                        window)
+                dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None,
+                                      window)
+                runs.append((o, lse, dq, delta, dk, dv))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip(*runs)),
+                  f"K1 {dtype} d={d} {mode}: a second launch differs")
+            o, lse, dq, delta, dk, dv = runs[0]
+            ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
+            rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None,
+                                      window)
+            rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
+                                    window)
+            for kernel, pairs in (
+                    ("fwd", ((o, ro, dtype), (lse, rlse, "float32"))),
+                    ("dq", ((dq, rdq, dtype), (delta, rdelta, "float32"))),
+                    ("dkv", ((dk, rdk, dtype), (dv, rdv, dtype)))):
+                for got, ref, tol in pairs:
+                    err, ok = _close(torch, got, ref, tol)
+                    check(ok and bool(torch.isfinite(got).all()),
+                          f"K1 {kernel} {dtype} d={d} {mode}: outside TOL "
+                          f"(max_abs_err {err:.3e})")
+                    key = (kernel, dtype)
+                    errs[key] = max(errs.get(key, 0.0), err)
+        log(f"seq (d) K1 {dtype} d={d}: fwd, dq, dkv in {sorted(K1_NEW_MODES)}"
+            f" within TOL[{dtype}], second launch bitwise; route "
+            f"{fl.route(dt, d)}")
+    # B * H = 66000: the grid folds B * H into its first dimension
+    b, t, h, d = K1_FOLD
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fl.flash_fwd(q, k, v, True)
+    dq, dk, dv = fl.flash_bwd(q, k, v, o, lse, do, True)
+    o2, _ = fl.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2), "K1 fold: a second launch differs")
+    rows = lse.reshape(b, h, t)
+    worst = 0.0
+    for lo in (0, b - 50):
+        sl = slice(lo, lo + 50)
+        f = [x[sl].float() for x in (q, k, v, do)]
+        ls = rows[sl].reshape(-1, t)
+        ro, rlse = fl.plain_fwd(*f[:3], True)
+        rdq, _ = fl.plain_dq(*f[:3], o[sl].float(), ls, f[3], True)
+        bound = fl.kernel_error_bounds(*f[:3], o[sl], ls, f[3], True)
+        for name, got, ref in (("o", o[sl], ro), ("lse", ls, rlse),
+                               ("dq", dq[sl], rdq)):
+            err = (got.float() - ref.float()).abs()
+            lim = bound[name] + (2.0 ** -8 * ref.abs()
+                                 if name != "lse" else 0.0)
+            check(bool((err <= lim).all()), f"K1 fold {name}: outside the "
+                  f"bound (max_abs_err {float(err.max()):.3e})")
+            worst = max(worst, float(err.max()))
+    check(bool(torch.isfinite(dk).all() and torch.isfinite(dv).all()),
+          "K1 fold: non-finite dk/dv")
+    log(f"seq (d) K1 fold B={b} H={h} (B*H {b * h} > 65535) T={t} d={d} "
+        f"bf16 ({fl.route(torch.bfloat16, d)}): o, lse, dq within "
+        f"kernel_error_bounds on rows 0..49 and {b - 50}..{b - 1} "
+        f"(max_abs_err {worst:.3e}), second launch bitwise")
+    del q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return errs
+
+
+def seq_k1(spec: dict, seq_rank: int) -> int:
+    """K1's launches a rank a step, per kernel, in the seq phase's run
+    `spec`: Ulysses one a layer (one flash call over the full sequence
+    for H / P heads); the ring one a layer a visible hop — every hop
+    without the mask (BERT), and under GPT's causal mask the r + 1 hops
+    at or below the diagonal of seq rank r."""
+    if spec["attention"] == "ulysses":
+        return LAYERS
+    return LAYERS * (seq_rank + 1 if spec["model"] == "gpt"
+                     else spec["mesh"][1])
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+_SEQ_REFERENCES: dict = {}
+
+
+def seq_reference(torch, spec, attention, names, dtype=None):
+    """One process on the card over the whole global batch of `spec`:
+    the step-1 loss (before any update) and the gradients of `names`,
+    with `attention` (GPT: flash or local; BERT: local) and the compute
+    `dtype` (None: the run's, bf16). Runs of the same model, batch and
+    settings (the GPT ring's and Ulysses') share one reference run."""
+    from kungfu_tpu_torch.parallel import long_context as lc
+
+    key = (spec["model"], spec.get("size"), spec["seq_len"], spec["batch"],
+           attention, dtype, tuple(names))
+    if key in _SEQ_REFERENCES:
+        return _SEQ_REFERENCES[key]
+    model = lc.build_model(spec["model"], spec.get("size", "small"),
+                           spec["seq_len"], attention, False, DEVICE,
+                           dtype=dtype)
+    if spec["model"] == "bert":
+        names = [n.replace("SeqParallelAttention_0",
+                           "MultiHeadDotProductAttention_0") for n in names]
+    tokens = lc.batch(spec["model"], spec["batch"], spec["seq_len"]).to(
+        DEVICE)
+    loss = lc.reference_loss(spec["model"], model, tokens)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = [params[n].grad.float().cpu() for n in names]
+    _SEQ_REFERENCES[key] = float(loss.detach()), grads
+    del model, params, loss
+    torch.cuda.empty_cache()
+    return _SEQ_REFERENCES[key]
+
+
+def phase_seq(torch, fl, card: str) -> dict:
+    """The seq phase (see the module docstring); returns the K1 launches
+    of its main paths and (d)'s errors."""
+    from kungfu_tpu_torch.benchmarks.flash_eff import \
+        measure_flash_efficiency
+    from kungfu_tpu_torch.benchmarks.lm import measure_lm_rate
+    from kungfu_tpu_torch.dryrun import dryrun
+    from kungfu_tpu_torch.parallel import long_context as lc
+
+    t0 = time.perf_counter()
+    grads_dir = os.path.join(HERE, "build", "seq_grads")
+    os.makedirs(grads_dir, exist_ok=True)
+    rows = lc.run(SEQ_RANKS, SEQ_SPECS, DEVICE, grads_dir=grads_dir,
+                  timeout=600)
+    log(f"seq (a-c): {len(rows)} runs x ranks in "
+        f"{time.perf_counter() - t0:.1f} s; {SEQ_RANKS} ranks share one "
+        f"card ({card}) over gloo: their speeds are not multi-card speeds")
+    totals = {"fwd": 0, "dq": 0, "dkv": 0}
+    for spec in SEQ_SPECS:
+        mine = sorted((r for r in rows if r["run"] == spec["name"]),
+                      key=lambda r: r["rank"])
+        check(len(mine) == SEQ_RANKS, f"seq {spec['name']}: {len(mine)} "
+              f"ranks reported")
+        for r in mine:
+            n = seq_k1(spec, r["coords"][1]) * spec["steps"]
+            losses = r["losses"]
+            check(all(math.isfinite(x) for x in losses),
+                  f"seq {spec['name']} rank {r['rank']}: losses {losses}")
+            check(losses[-1] < losses[0], f"seq {spec['name']} rank "
+                  f"{r['rank']}: the loss did not fall {losses}")
+            check(losses == mine[0]["losses"], f"seq {spec['name']}: the "
+                  f"ranks' averaged losses differ")
+            want = {"fwd": n, "dq": n, "dkv": n, "plain": 0}
+            check(r["k1"] == want and r["untiled"] == 0,
+                  f"seq {spec['name']} rank {r['rank']}: K1 launches "
+                  f"{r['k1']} (untiled {r['untiled']}), expected {want}")
+            for key in totals:
+                totals[key] += r["k1"][key]
+            ex = r["exchange"]
+            ex_ms = sum(v["ms"] for v in ex.values())
+            ex_b = sum(v["bytes"] for v in ex.values())
+            staged = sum(v["staged_bytes"] for v in ex.values())
+            med = sorted(r["step_ms"])[len(r["step_ms"]) // 2]
+            mean = sum(r["step_ms"]) / len(r["step_ms"])
+            log(f"seq {spec['name']} rank {r['rank']} {r['coords']}: "
+                f"{med:.1f} ms/step (median of {r['step_ms']}), "
+                f"{r['tokens_per_s']:.1f} tokens/s [4 ranks share one "
+                f"card]; exchange a step {ex_ms:.1f} ms (mean; "
+                f"{100 * ex_ms / mean:.1f} % of the mean step), "
+                f"{ex_b / 1e6:.1f} "
+                f"MB, staged {staged / 1e6:.1f} MB through pinned host "
+                f"memory: {json.dumps({k: {f: round(x, 2) for f, x in v.items()} for k, v in ex.items()})}; "
+                f"K1 launches {r['k1']}; peak "
+                f"{r['peak_mem_gb']:.2f} GB; losses {losses}")
+        # step 1 against one process over the whole batch
+        sample = torch.load(os.path.join(grads_dir,
+                                          f"{spec['name']}-grads.pt"))
+        names = list(sample)
+        step1 = mine[0]["losses"][0]
+        # the reference run and a second correct run, whose gap to it is
+        # the noise of the comparison
+        if spec["model"] == "gpt":
+            ref_loss, ref_g = seq_reference(torch, spec, "flash", names)
+            alt_loss, alt_g = seq_reference(torch, spec, "local", names)
+            ref_name, alt_name = "flash", "local"
+        else:
+            ref_loss, ref_g = seq_reference(torch, spec, "local", names)
+            alt_loss, alt_g = seq_reference(torch, spec, "local", names,
+                                            torch.float32)
+            ref_name, alt_name = "local", "local f32"
+        loss_tol = max(2 * abs(alt_loss - ref_loss),
+                       SEQ_LOSS_FLOOR[spec["model"]] * abs(ref_loss))
+        check(abs(step1 - ref_loss) <= loss_tol,
+              f"seq {spec['name']}: step-1 loss {step1} against one "
+              f"process's {ref_name} {ref_loss} (tolerance {loss_tol})")
+        for name, ref, alt in zip(names, ref_g, alt_g):
+            err, noise = _rel(sample[name], ref), _rel(alt, ref)
+            tol = max(2 * noise, SEQ_GRAD_FLOOR)
+            log(f"seq {spec['name']} grad {name}: rel L2 to one process's "
+                f"{ref_name} {err:.3e} ({alt_name} vs {ref_name} "
+                f"{noise:.3e}; tolerance {tol:.3e})")
+            check(err <= tol, f"seq {spec['name']} grad {name}: "
+                  f"{err:.3e} > {tol:.3e}")
+        log(f"seq {spec['name']}: step-1 loss {step1:.6f}, one process "
+            f"{ref_name} {ref_loss:.6f}, {alt_name} {alt_loss:.6f} "
+            f"(tolerance {loss_tol:.3e})")
+    out = {"seq": totals}
+    out["new_case_errs"] = k1_new_cases(torch, fl)
+    # (e) the tiny GPT (d 16) through the benchmark's entry point
+    torch.cuda.synchronize()
+    fl.reset_launches()
+    rate, meta = measure_lm_rate("tiny", attention="flash")
+    torch.cuda.synchronize()
+    probe = meta.get("flash_kernel", {}).get("launches", {})
+    k1 = {n: c - probe.get(n, 0) for n, c in fl.LAUNCHES.items()}
+    simt = {k: c - probe.get(k.split(".")[0], 0)
+            for k, c in fl.SIMT_LAUNCHES.items()}
+    steps = len(meta["losses"])
+    want = {"fwd": 2 * steps, "dq": 2 * steps, "dkv": 2 * steps,
+            "plain": 0}
+    check(k1 == want and simt == {f"{n}.bfloat16": 2 * steps
+                                  for n in ("fwd", "dq", "dkv")},
+          f"seq (e): K1 launches {k1} / SIMT {simt} (probe {probe}), "
+          f"expected {want} on the SIMT family")
+    check(all(math.isfinite(x) for x in meta["losses"])
+          and meta["losses"][-1] < meta["losses"][0],
+          f"seq (e): losses {meta['losses']}")
+    log(f"seq (e) measure_lm_rate('tiny', attention='flash') (d 16, bf16, "
+        f"B {meta['per_data_batch']} T {meta['seq']}): {rate:.1f} tok/s, "
+        f"{meta['step_time_ms']:.2f} ms/step; K1 {k1}, SIMT {simt}")
+    out["tiny_simt"] = simt
+    # (e') the flash benchmark in f32 at its default shape (B 8, T 1024,
+    # h 12, d 64, causal): the SIMT family's f32 path
+    fl.reset_launches()
+    meta = measure_flash_efficiency(dtype="float32")
+    torch.cuda.synchronize()
+    simt = dict(fl.SIMT_LAUNCHES)
+    check(fl.LAUNCHES["plain"] == 0 and set(simt) == {
+        f"{n}.float32" for n in ("fwd", "dq", "dkv")},
+          f"seq (e'): K1 launches {fl.LAUNCHES}, SIMT {simt}")
+    log(f"seq (e') measure_flash_efficiency(dtype='float32') (B "
+        f"{meta['batch']} T {meta['seq']} h {meta['heads']} d "
+        f"{meta['head_dim']}, causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
+        f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
+        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
+    out["f32_simt"] = simt
+    # (f) the dry run's phase 2 on the card's ranks (gloo, staged): the
+    # reference's phase runs the plain ring (no use_flash), so it
+    # launches no K1
+    res = dryrun(4, DEVICE, phases=(2,))
+    line = res["lines"][-1]
+    check(line.startswith("dryrun: phase 2 (sp) n=4 mesh=2x2 device=cuda"),
+          f"seq (f): {line}")
+    log(f"seq (f) on the card's ranks (gloo, staged): {line}")
+    log(f"[{time.perf_counter() - T_START:.0f} s] seq phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_timing_k1_simt(torch, fl):
+    """The SIMT family's three kernels at `K1_SIMT_TIMING`'s shapes, the
+    main path's: first held to their plain versions on the same inputs
+    (o, dq, dk, dv within TOL of the dtype, lse and delta within
+    TOL["float32"]), then timed per launch by device time, cycling over
+    four input sets, beside the bound (its inputs' bytes; its products at
+    the card's peak for the input type: the f32 rate outside the tensor
+    cores for f32, the tensor-core rate for bf16), the plain version and
+    SDPA on the same shape (forward; backward alone against dq + dkv),
+    with the backend SDPA picks. Returns {dtype: {kernel: (ms, plain_ms,
+    bound_ms, bound_by), "sdpa": {...}, "errs": {kernel: max_abs_err}}}."""
+    import torch.nn.functional as F
+
+    out = {}
+    for dtype, (b, t, h, d) in K1_SIMT_TIMING.items():
+        dt = getattr(torch, dtype)
+        peak, peak_name = ((PEAK_F32_FLOPS, "the f32 peak outside the "
+                            "tensor cores") if dt == torch.float32 else
+                           (PEAK_BF16_FLOPS, "the bf16 tensor-core peak"))
+        sets = []
+        for seed in range(4):
+            g = torch.Generator(device=DEVICE).manual_seed(20 + seed)
+            q, k, v, do = (torch.randn(b, t, h, d, generator=g,
+                                       device=DEVICE).to(dt)
+                           for _ in range(4))
+            o, lse = fl.flash_fwd(q, k, v, True)
+            _, delta = fl.flash_dq(q, k, v, o, lse, do, True)
+            sets.append((q, k, v, do, o, lse, delta))
+        q, k, v, do, o, lse, delta = sets[0]
+        dq, _ = fl.flash_dq(q, k, v, o, lse, do, True)
+        dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, True)
+        ro, rlse = fl.plain_fwd(q, k, v, True)
+        rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, True)
+        rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, True)
+        errs = {}
+        for kernel, pairs in (
+                ("fwd", ((o, ro, dtype), (lse, rlse, "float32"))),
+                ("dq", ((dq, rdq, dtype), (delta, rdelta, "float32"))),
+                ("dkv", ((dk, rdk, dtype), (dv, rdv, dtype)))):
+            for got, ref, tol in pairs:
+                err, ok = _close(torch, got, ref, tol)
+                check(ok and bool(torch.isfinite(got).all()),
+                      f"K1 SIMT {kernel} {dtype} at B={b} T={t} h={h} d={d}"
+                      f" causal: outside TOL (max_abs_err {err:.3e})")
+                errs[kernel] = max(errs.get(kernel, 0.0), err)
+        log(f"K1 SIMT {dtype} at the main path's B={b} T={t} h={h} d={d} "
+            f"causal: fwd, dq, dkv within TOL[{dtype}] of plain (max_abs_err "
+            f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})})")
+        del dq, dk, dv, ro, rlse, rdq, rdelta, rdk, rdv
+        runs = {
+            "fwd": (lambda x: fl.flash_fwd(x[0], x[1], x[2], True),
+                    lambda x: fl.plain_fwd(x[0], x[1], x[2], True)),
+            "dq": (lambda x: fl.flash_dq(x[0], x[1], x[2], x[4], x[5],
+                                         x[3], True),
+                   lambda x: fl.plain_dq(x[0], x[1], x[2], x[4], x[5], x[3],
+                                         True)),
+            "dkv": (lambda x: fl.flash_dkv(x[0], x[1], x[2], x[3], x[5],
+                                           x[6], True),
+                    lambda x: fl.plain_dkv(x[0], x[1], x[2], x[3], x[5],
+                                           x[6], True)),
+        }
+        res = {}
+        for name, (kern, plain) in runs.items():
+            ms = time_device(torch, lambda i: kern(sets[i % 4]), 20)
+            plain_ms = time_device(torch, lambda i: plain(sets[0]), 2)
+            bound_ms, bound_by, flops, nbytes = k1_bound(
+                name, b, t, h, d, True, None, itemsize=dt.itemsize,
+                peak=peak)
+            res[name] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"timing K1 SIMT {dtype} (B={b} T={t} h={h} d={d} causal) "
+                f"{name:4s} {ms:.4f} ms/launch on the device; bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop "
+                f"at {peak_name}); {ms / bound_ms:.1f}x bound; plain "
+                f"{plain_ms:.4f} ms")
+        lib = [[x.transpose(1, 2).contiguous().requires_grad_()
+                for x in st[:4]] for st in sets]
+
+        def sdpa(x):
+            return F.scaled_dot_product_attention(x[0], x[1], x[2],
+                                                  is_causal=True)
+
+        def sdpa_fwd(i):
+            with torch.no_grad():
+                return sdpa(lib[i % 4])
+
+        sdpa_fwd.inputs = tuple(x.detach() for x in lib[0][:3]) + (None,
+                                                                    True)
+        outs = [sdpa(x) for x in lib]
+
+        def sdpa_bwd(i):
+            x = lib[i % 4]
+            return torch.autograd.grad(outs[i % 4], x[:3], x[3],
+                                       retain_graph=True)
+
+        lib_fwd = time_device(torch, sdpa_fwd, 20)
+        lib_bwd = time_device(torch, sdpa_bwd, 20)
+        picked, forced = sdpa_backends(torch, sdpa_fwd)
+        res["sdpa"] = {"fwd": lib_fwd, "bwd": lib_bwd, "backend": picked,
+                       "forced": forced, "bwd_node": outs[0].grad_fn.name()}
+        res["errs"] = errs
+        pair = res["dq"][0] + res["dkv"][0]
+        log(f"timing K1 SIMT {dtype} library sdpa forward {lib_fwd:.4f} ms "
+            f"({picked}; forced {json.dumps(forced)}; "
+            f"{res['fwd'][0] / lib_fwd:.1f}x library), backward "
+            f"alone {lib_bwd:.4f} ms ({res['sdpa']['bwd_node']}) against "
+            f"dq + dkv {pair:.4f} ms ({pair / lib_bwd:.1f}x library)")
+        out[dtype] = res
+        del sets, lib, outs
         torch.cuda.empty_cache()
     return out
 
@@ -2664,6 +3138,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] benchmarks done")
     zoo = phase_zoo(torch, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] zoo done")
+    seq = phase_seq(torch, fl, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] seq done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -2675,6 +3151,7 @@ def main() -> int:
     k3_times = phase_timing(torch, pa)
     k2_times = phase_timing_k2(torch, fc)
     k1_times = phase_timing_k1(torch, fl)
+    simt_times = phase_timing_k1_simt(torch, fl)
     r1_times = phase_timing_r1(torch, st)
     log(f"[{time.perf_counter() - T_START:.0f} s] timing done")
 
@@ -2726,6 +3203,7 @@ def main() -> int:
             "elastic_launches": elastic[f"flash.{name}"],
             "adaptive_launches": adaptive[f"flash.{name}"],
             "scenario_launches": scen[f"flash.{name}"],
+            "seq_launches": seq["seq"][name],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2737,6 +3215,36 @@ def main() -> int:
         if name != "fwd":
             row["library_ms_is_pair"] = "flash.dq + flash.dkv"
         kernels.append(row)
+    # the SIMT family, by input dtype: launched on the main path by the
+    # flash benchmark in f32 (d 64) and by the tiny GPT's training (bf16,
+    # d 16); timed at K1_SIMT_TIMING's shapes, the main path's;
+    # max_abs_err over (d)'s cases of that dtype and the main path's
+    # shape; library: SDPA as for the wgmma rows
+    for dtype, launched in (("float32", seq["f32_simt"]),
+                            ("bfloat16", seq["tiny_simt"])):
+        lib = simt_times[dtype]["sdpa"]
+        for name in ("fwd", "dq", "dkv"):
+            ms, plain_ms, bound_ms, bound_by = simt_times[dtype][name]
+            row = {
+                "name": f"flash.{name}.simt.{dtype}", "route": "cuda",
+                "source": "kungfu_tpu_torch/csrc/flash.cu",
+                "replaces": K1_REPLACES[name],
+                "launches": launched.get(f"{name}.{dtype}", 0),
+                "max_abs_err": max(seq["new_case_errs"][(name, dtype)],
+                                   simt_times[dtype]["errs"][name]),
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
+                "library_call": "scaled_dot_product_attention " + (
+                    f"forward ({lib['backend']})" if name == "fwd"
+                    else f"backward ({lib['bwd_node']})"),
+                "shape": "B={} T={} h={} d={} causal".format(
+                    *K1_SIMT_TIMING[dtype]),
+            }
+            if name != "fwd":
+                row["library_ms_is_pair"] = (f"flash.dq.simt.{dtype} + "
+                                             f"flash.dkv.simt.{dtype}")
+            kernels.append(row)
     # torch.neg is R1's plain version and the one library call computing
     # the same function: plain_ms and library_ms are the same timing
     # (device time, as ms)

@@ -484,7 +484,11 @@ def measure_takeover(mode: str, lease_ms: float) -> Dict[str, float]:
                 f"{[r.status() for r in tier.replicas]}")
         marks = dict(new_lead.mttr_marks)
         term = new_lead.status()["term"]
-        t_first = traffic.first_served_after(t_crash)
+        # the first write the NEW leader served: `die()` drains the dead
+        # leader's committer, so writes it accepted before the kill may
+        # still be acked just after it; none is served after the new
+        # leader's election but by the new leader
+        t_first = traffic.first_served_after(max(t_crash, marks["elected"]))
         if mode == "mid_resize":
             rt.join(timeout=35.0)
             if resize_err and resize_err[0] is not None:
@@ -705,7 +709,9 @@ def measure_tier_death(lease_ms: float) -> Dict[str, float]:
                 f"tier never re-elected: "
                 f"{[r.status() for r in tier.replicas]}")
         marks = dict(new_lead.mttr_marks)
-        t_first = traffic.first_served_after(t_crash)
+        # as `measure_takeover`: an ack stamped after the crash may be
+        # the old tier's; the relaunched tier serves after its election
+        t_first = traffic.first_served_after(max(t_crash, marks["elected"]))
         traffic.stop()
         traffic = None
         return {

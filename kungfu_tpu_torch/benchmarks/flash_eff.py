@@ -117,7 +117,8 @@ def measure_flash_efficiency(batch: int = 8, seq: int = 1024,
         "efficiency_vs_bf16_peak": (f_both / t_both / peak if peak
                                     else None),
         "device_kind": kind,
-        "plan": fl.flash_plan(seq, head_dim, causal=causal, window=window),
+        "plan": fl.flash_plan(seq, head_dim, causal=causal, window=window,
+                              dtype=dt),
         "launches": {n: fl.LAUNCHES[n] - before[n] for n in before},
     }
 

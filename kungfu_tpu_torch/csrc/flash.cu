@@ -74,13 +74,17 @@
 // C interface (bound with ctypes): every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
 // a negative code when a tensor map cannot be encoded (-1: the encoder
-// was not found; -1000 - CUresult: it refused the operand). D must be 64
-// or 128. `stages` and `smem` are the ring's depth and the dynamic
-// shared memory in bytes (`flash_plan`'s fwd_cta, dq_cta and dkv_cta);
-// a launcher refuses a byte count below what its layout needs.
+// was not found; -1000 - CUresult: it refused the operand). For k1_fwd,
+// k1_dq and k1_dkv D must be 64 or 128 and the inputs bf16; `stages` and
+// `smem` are the ring's depth and the dynamic shared memory in bytes
+// (`flash_plan`'s fwd_cta, dq_cta and dkv_cta). k1s_fwd, k1s_dq and
+// k1s_dkv (the SIMT family at the end of this file) take f32, bf16 or f16
+// at any D from 1 to 256 and `smem` from `simt_smem`. A launcher refuses
+// a byte count below what its layout needs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -835,8 +839,11 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
   }
 }
 
+// B * H folds into the grid's first dimension (2**31 - 1 CTAs), so it may
+// exceed 65535
 bool shape_ok(int b, int t, int h) {
-  return b > 0 && t > 0 && h > 0 && (long long)b * h <= 65535;
+  return b > 0 && t > 0 && h > 0 &&
+         (long long)b * h * ((t + kTile - 1) / kTile) <= 2147483647LL;
 }
 
 // a [B, T, H, D] bf16 tensor read in boxes of (64 of D, 1 head, 64
@@ -954,6 +961,477 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The SIMT family: every case the wgmma kernels above do not take — f32
+// and f16 inputs, and bf16 at a head dim other than 64 and 128; any head
+// dim D from 1 to 256 (the reference's kernels take any float dtype and
+// any head dim). The same functions as k1_fwd, k1_dq and k1_dkv, in f32
+// FMA arithmetic (f32 inputs compute in full f32: no TF32, no rounding of
+// p or ds), one simple shape for all three, templated on the input type
+// T and on C >= ceil(D / 32), the columns of a row each lane owns (1, 2,
+// 4 or 8). Making it fast is later work.
+//
+// A CTA is 4 warps and owns 16 rows of one (b, h): query rows for fwd and
+// dq, key rows for dkv; each warp owns 4 of them. The other side streams
+// through shared memory 32 rows at a time (f32, rows padded to D + 1 so
+// lane j reading row j is free of bank conflicts), lane j holding row j:
+// a lane computes its row's scores against the warp's 4 own rows (the own
+// rows broadcast from shared memory), the warp reduces the softmax
+// statistics with shuffles, and each lane accumulates its C columns of
+// the warp's 4 output rows, the 32 scores broadcast by shuffles. Causal
+// CTAs walk only the other side's rows they can see (and a window's).
+// The grid is ceil(T / 16) * B * H CTAs in the first dimension (B * H may
+// exceed 65535); fwd and dq launch the last rows first, dkv the first.
+// No atomics: results are deterministic.
+// ---------------------------------------------------------------------------
+
+constexpr int kSRows = 4;                  // rows a warp owns
+constexpr int kSWarps = 4;                 // warps a CTA
+constexpr int kSBlock = kSRows * kSWarps;  // rows a CTA owns (SIMT_ROWS)
+constexpr int kSKeys = 32;                 // rows a staged tile (SIMT_KEYS)
+constexpr int kSThreads = 32 * kSWarps;
+constexpr int kSMaxD = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// rows [r0, r0 + n) of head (bi, hd) of a [B, T, H, D] tensor into
+// shared rows of `ld` floats; rows past T as zeros
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* s, int ld, const T* g,
+                                           int bi, int hd, int r0, int n,
+                                           int t, int h, int d) {
+  for (int i = threadIdx.x; i < n * d; i += kSThreads) {
+    const int r = i / d, c = i - r * d, row = r0 + r;
+    s[r * ld + c] =
+        row < t ? to_f32(g[(((size_t)bi * t + row) * h + hd) * d + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ size_t row_at(int bi, int row, int t, int h,
+                                         int hd, int d) {
+  return (((size_t)bi * t + row) * h + hd) * d;
+}
+
+// the key rows [lo, hi) that query rows [q0, q0 + kSBlock) can see
+__device__ __forceinline__ void key_range(int q0, int t, int causal,
+                                          int window, int* lo, int* hi) {
+  *lo = 0;
+  *hi = t;
+  if (causal) {
+    *hi = min(t, q0 + kSBlock);
+    if (window >= 0) *lo = max(0, q0 - window);
+  }
+}
+
+// fwd: o = softmax(s) . v, lse = logsumexp(s), online over key tiles
+template <typename T, int C>
+__global__ void __launch_bounds__(kSThreads)
+    k1s_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o,
+                   float* __restrict__ lse, int t, int h, int d, int bhn,
+                   float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  const int ld = d + 1;
+  float* sk = sm;                     // [32][ld]
+  float* sv = sk + kSKeys * ld;       // [32][ld]
+  float* sq = sv + kSKeys * ld;       // [16][d]
+  const int ntiles = (t + kSBlock - 1) / kSBlock;
+  const int bh = blockIdx.x % bhn;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / bhn);
+  const int bi = bh / h, hd = bh % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = tile * kSBlock, r0 = q0 + warp * kSRows;
+  const float* qw = sq + warp * kSRows * d;
+  stage_rows(sq, d, q, bi, hd, q0, kSBlock, t, h, d);
+  int lo, hi;
+  key_range(q0, t, causal, window, &lo, &hi);
+  float m[kSRows], l[kSRows], acc[kSRows][C];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+  }
+  for (int k0 = lo; k0 < hi; k0 += kSKeys) {
+    __syncthreads();  // the previous tile is consumed
+    stage_rows(sk, ld, k, bi, hd, k0, kSKeys, t, h, d);
+    stage_rows(sv, ld, v, bi, hd, k0, kSKeys, t, h, d);
+    __syncthreads();
+    const int key = k0 + lane;
+    const float* kr = sk + lane * ld;
+    float s[kSRows];
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) s[r] = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float kc = kr[c];
+#pragma unroll
+      for (int r = 0; r < kSRows; ++r) s[r] = fmaf(qw[r * d + c], kc, s[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      const float sr = visible(r0 + r, key, t, causal, window)
+                           ? s[r] * scale : -CUDART_INF_F;
+      const float mx = warp_max(sr);
+      if (mx == -CUDART_INF_F) continue;  // nothing visible: warp-uniform
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);  // 0 while m[r] is -inf
+      const float p = expf(sr - m_new);
+      l[r] = l[r] * alpha + warp_sum(p);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] *= alpha;
+#pragma unroll 4
+      for (int j = 0; j < kSKeys; ++j) {
+        const float pj = __shfl_sync(kFull, p, j);
+        const float* vr = sv + j * ld;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int col = lane + 32 * c;
+          if (col < d) acc[r][c] = fmaf(pj, vr[col], acc[r][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    const int row = r0 + r;
+    if (row >= t) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    T* orow = o + row_at(bi, row, t, h, hd, d);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) orow[col] = from_f32<T>(acc[r][c] * inv);
+    }
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * t + row] = m[r] + logf(l[r]);
+  }
+}
+
+// dq: delta = rowsum(dO * o); p = exp(s - lse); dq = scale * (p * (dO.v^T
+// - delta)) . k
+template <typename T, int C>
+__global__ void __launch_bounds__(kSThreads)
+    k1s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ o,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  T* __restrict__ dq, float* __restrict__ delta, int t, int h,
+                  int d, int bhn, float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  const int ld = d + 1;
+  float* sk = sm;                     // [32][ld]
+  float* sv = sk + kSKeys * ld;       // [32][ld]
+  float* sq = sv + kSKeys * ld;       // [16][d]
+  float* sdo = sq + kSBlock * d;      // [16][d]
+  const int ntiles = (t + kSBlock - 1) / kSBlock;
+  const int bh = blockIdx.x % bhn;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / bhn);
+  const int bi = bh / h, hd = bh % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = tile * kSBlock, r0 = q0 + warp * kSRows;
+  stage_rows(sq, d, q, bi, hd, q0, kSBlock, t, h, d);
+  stage_rows(sdo, d, dout, bi, hd, q0, kSBlock, t, h, d);
+  __syncthreads();
+  const float* qw = sq + warp * kSRows * d;
+  const float* dow = sdo + warp * kSRows * d;
+  float dl[kSRows], ls[kSRows];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    const int row = r0 + r;
+    float part = 0.f;
+    if (row < t) {
+      const T* orow = o + row_at(bi, row, t, h, hd, d);
+      for (int c = lane; c < d; c += 32)
+        part = fmaf(dow[r * d + c], to_f32(orow[c]), part);
+    }
+    dl[r] = warp_sum(part);
+    ls[r] = row < t ? lse[(size_t)bh * t + row] : 0.f;
+    if (row < t && lane == 0) delta[(size_t)bh * t + row] = dl[r];
+  }
+  int lo, hi;
+  key_range(q0, t, causal, window, &lo, &hi);
+  float acc[kSRows][C];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+  for (int k0 = lo; k0 < hi; k0 += kSKeys) {
+    __syncthreads();
+    stage_rows(sk, ld, k, bi, hd, k0, kSKeys, t, h, d);
+    stage_rows(sv, ld, v, bi, hd, k0, kSKeys, t, h, d);
+    __syncthreads();
+    const int key = k0 + lane;
+    const float* kr = sk + lane * ld;
+    const float* vr = sv + lane * ld;
+    float s[kSRows], dp[kSRows];
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float kc = kr[c], vc = vr[c];
+#pragma unroll
+      for (int r = 0; r < kSRows; ++r) {
+        s[r] = fmaf(qw[r * d + c], kc, s[r]);
+        dp[r] = fmaf(dow[r * d + c], vc, dp[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      const float p = visible(r0 + r, key, t, causal, window)
+                          ? expf(s[r] * scale - ls[r]) : 0.f;
+      const float ds = p * (dp[r] - dl[r]);
+#pragma unroll 4
+      for (int j = 0; j < kSKeys; ++j) {
+        const float dsj = __shfl_sync(kFull, ds, j);
+        const float* kj = sk + j * ld;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int col = lane + 32 * c;
+          if (col < d) acc[r][c] = fmaf(dsj, kj[col], acc[r][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    const int row = r0 + r;
+    if (row >= t) continue;
+    T* out = dq + row_at(bi, row, t, h, hd, d);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) out[col] = from_f32<T>(scale * acc[r][c]);
+    }
+  }
+}
+
+// dkv, over the CTA's 16 key rows: dv = p^T . dO; dk = scale * (p * (dO.v^T
+// - delta))^T . q, the query rows streamed with their lse and delta
+template <typename T, int C>
+__global__ void __launch_bounds__(kSThreads)
+    k1s_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int t, int h, int d, int bhn,
+                   float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  const int ld = d + 1;
+  float* sq = sm;                     // [32][ld] query rows
+  float* sdo = sq + kSKeys * ld;      // [32][ld] their dO
+  float* skr = sdo + kSKeys * ld;     // [16][d] own key rows
+  float* svr = skr + kSBlock * d;     // [16][d] their values
+  float* sl = svr + kSBlock * d;      // [32] lse of the query rows
+  float* sdl = sl + kSKeys;           // [32] delta of the query rows
+  const int bh = blockIdx.x % bhn;
+  const int tile = (int)(blockIdx.x / bhn);
+  const int bi = bh / h, hd = bh % h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = tile * kSBlock, r0 = k0 + warp * kSRows;
+  stage_rows(skr, d, k, bi, hd, k0, kSBlock, t, h, d);
+  stage_rows(svr, d, v, bi, hd, k0, kSBlock, t, h, d);
+  const float* kw = skr + warp * kSRows * d;
+  const float* vw = svr + warp * kSRows * d;
+  // the query rows [lo, hi) that can see key rows [k0, k0 + kSBlock)
+  int lo = 0, hi = t;
+  if (causal) {
+    lo = k0;
+    if (window >= 0) hi = min(t, k0 + kSBlock + window);
+  }
+  float ak[kSRows][C], av[kSRows][C];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) ak[r][c] = av[r][c] = 0.f;
+  for (int q0 = lo; q0 < hi; q0 += kSKeys) {
+    __syncthreads();
+    stage_rows(sq, ld, q, bi, hd, q0, kSKeys, t, h, d);
+    stage_rows(sdo, ld, dout, bi, hd, q0, kSKeys, t, h, d);
+    if (threadIdx.x < kSKeys) {
+      const int row = q0 + threadIdx.x;
+      sl[threadIdx.x] = row < t ? lse[(size_t)bh * t + row] : 0.f;
+      sdl[threadIdx.x] = row < t ? delta[(size_t)bh * t + row] : 0.f;
+    }
+    __syncthreads();
+    const int qrow = q0 + lane;
+    const float* qr = sq + lane * ld;
+    const float* dor = sdo + lane * ld;
+    float s[kSRows], dp[kSRows];
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float qc = qr[c], doc = dor[c];
+#pragma unroll
+      for (int r = 0; r < kSRows; ++r) {
+        s[r] = fmaf(kw[r * d + c], qc, s[r]);
+        dp[r] = fmaf(vw[r * d + c], doc, dp[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      const float p = visible(qrow, r0 + r, t, causal, window)
+                          ? expf(s[r] * scale - sl[lane]) : 0.f;
+      const float ds = p * (dp[r] - sdl[lane]);
+#pragma unroll 4
+      for (int j = 0; j < kSKeys; ++j) {
+        const float pj = __shfl_sync(kFull, p, j);
+        const float dsj = __shfl_sync(kFull, ds, j);
+        const float* qj = sq + j * ld;
+        const float* doj = sdo + j * ld;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int col = lane + 32 * c;
+          if (col < d) {
+            av[r][c] = fmaf(pj, doj[col], av[r][c]);
+            ak[r][c] = fmaf(dsj, qj[col], ak[r][c]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    const int row = r0 + r;
+    if (row >= t) continue;
+    T* kout = dk + row_at(bi, row, t, h, hd, d);
+    T* vout = dv + row_at(bi, row, t, h, hd, d);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) {
+        kout[col] = from_f32<T>(scale * ak[r][c]);
+        vout[col] = from_f32<T>(av[r][c]);
+      }
+    }
+  }
+}
+
+// the shared memory a SIMT kernel needs, in bytes (`simt_smem`)
+long long simt_smem_bytes(int kernel, int d) {
+  const long long tile = 2LL * kSKeys * (d + 1);
+  const long long own = (kernel == 0 ? 1 : 2) * kSBlock * d;
+  return 4 * (tile + own + (kernel == 2 ? 2 * kSKeys : 0));
+}
+
+// grid of a SIMT launch; 0 for a shape it does not take
+long long simt_grid(int b, int t, int h, int d) {
+  if (b <= 0 || t <= 0 || h <= 0 || d < 1 || d > kSMaxD) return 0;
+  const long long g = (long long)b * h * ((t + kSBlock - 1) / kSBlock);
+  return g <= 2147483647LL ? g : 0;
+}
+
+template <typename T, int C>
+int simt_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+             int b, int t, int h, int d, float scale, int causal, int window,
+             long long smem, cudaStream_t stream) {
+  const long long grid = simt_grid(b, t, h, d);
+  if (grid == 0 || smem < simt_smem_bytes(0, d))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1s_fwd_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return e;
+  k1s_fwd_kernel<T, C><<<(unsigned)grid, kSThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      t, h, d, b * h, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int simt_dq(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const void* lse, void* dq_out, void* delta,
+            int b, int t, int h, int d, float scale, int causal, int window,
+            long long smem, cudaStream_t stream) {
+  const long long grid = simt_grid(b, t, h, d);
+  if (grid == 0 || smem < simt_smem_bytes(1, d))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1s_dq_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return e;
+  k1s_dq_kernel<T, C><<<(unsigned)grid, kSThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<T*>(dq_out), static_cast<float*>(delta), t, h, d, b * h,
+      scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int simt_dkv(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, int b,
+             int t, int h, int d, float scale, int causal, int window,
+             long long smem, cudaStream_t stream) {
+  const long long grid = simt_grid(b, t, h, d);
+  if (grid == 0 || smem < simt_smem_bytes(2, d))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1s_dkv_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return e;
+  k1s_dkv_kernel<T, C><<<(unsigned)grid, kSThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), t, h, d, b * h, scale,
+      causal, window);
+  return (int)cudaGetLastError();
+}
+
+// fn<T, C>(args...) for the input type of `dtype` (0 f32, 1 bf16, 2 f16)
+// and C = ceil(d / 32) rounded up to 1, 2, 4 or 8 (few instantiations:
+// the build time of the library)
+#define K1S_DISPATCH(fn, dtype, d, ...)                                     \
+  do {                                                                      \
+    const int c_ = (d) <= 32 ? 1 : (d) <= 64 ? 2 : (d) <= 128 ? 4 : 8;    \
+    switch ((dtype) * 16 + c_) {                                            \
+      case 1: return fn<float, 1>(__VA_ARGS__);                             \
+      case 2: return fn<float, 2>(__VA_ARGS__);                             \
+      case 4: return fn<float, 4>(__VA_ARGS__);                             \
+      case 8: return fn<float, 8>(__VA_ARGS__);                             \
+      case 17: return fn<bf16, 1>(__VA_ARGS__);                             \
+      case 18: return fn<bf16, 2>(__VA_ARGS__);                             \
+      case 20: return fn<bf16, 4>(__VA_ARGS__);                             \
+      case 24: return fn<bf16, 8>(__VA_ARGS__);                             \
+      case 33: return fn<__half, 1>(__VA_ARGS__);                           \
+      case 34: return fn<__half, 2>(__VA_ARGS__);                           \
+      case 36: return fn<__half, 4>(__VA_ARGS__);                           \
+      case 40: return fn<__half, 8>(__VA_ARGS__);                           \
+      default: return (int)cudaErrorInvalidValue;                           \
+    }                                                                       \
+  } while (0)
+
 }  // namespace
 
 extern "C" {
@@ -1008,6 +1486,35 @@ int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
     return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal,
                     window, stages, smem, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// the SIMT family: dtype 0 f32, 1 bf16, 2 f16; any d from 1 to 256; the
+// same operands, layouts and results as k1_fwd, k1_dq and k1_dkv, and
+// `smem` bytes of dynamic shared memory (`simt_smem`); a CTA per 16 rows
+// of each (b, h)
+int k1s_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+            void* lse, int b, int t, int h, int d, float scale, int causal,
+            int window, long long smem, void* stream) {
+  K1S_DISPATCH(simt_fwd, dtype, d, q, k, v, o, lse, b, t, h, d, scale, causal,
+               window, smem, static_cast<cudaStream_t>(stream));
+}
+
+int k1s_dq(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const void* lse, void* dq_out,
+           void* delta, int b, int t, int h, int d, float scale, int causal,
+           int window, long long smem, void* stream) {
+  K1S_DISPATCH(simt_dq, dtype, d, q, k, v, o, dout, lse, dq_out, delta, b, t,
+               h, d, scale, causal, window, smem,
+               static_cast<cudaStream_t>(stream));
+}
+
+int k1s_dkv(int dtype, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int b, int t, int h, int d, float scale, int causal,
+            int window, long long smem, void* stream) {
+  K1S_DISPATCH(simt_dkv, dtype, d, q, k, v, dout, lse, delta, dk, dv, b, t, h,
+               d, scale, causal, window, smem,
+               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

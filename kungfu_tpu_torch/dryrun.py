@@ -1,24 +1,39 @@
-"""Dry run: one data-parallel training step over an n-rank group.
+"""Dry run: one data-parallel training step over an n-rank group, and
+one sequence-parallel step on a (data, seq) mesh.
 
-The port of phase 1 of the JAX package's `__graft_entry__.dryrun_multichip`
-(the data-parallel phase): ResNet-18 (10 classes, bf16 compute) takes
-one S-SGD step (`sync_sgd(SGD(lr 0.1, momentum 0.9))`, the BatchNorm
-statistics synced) on a global batch of ``2 * n`` 32x32 images of ones,
-labels 0. Every rank checks that the loss is finite and that its
-parameters after the step equal rank 0's bit for bit (a max all-reduce
-of the difference).
+The port of phases 1 and 2 of the JAX package's
+`__graft_entry__.dryrun_multichip`:
+
+- phase 1 (dp): ResNet-18 (10 classes, bf16 compute) takes one S-SGD
+  step (`sync_sgd(SGD(lr 0.1, momentum 0.9))`, the BatchNorm statistics
+  synced) on a global batch of ``2 * n`` 32x32 images of ones, labels
+  0. Every rank checks that the loss is finite and that its parameters
+  after the step equal rank 0's bit for bit (a max all-reduce of the
+  difference);
+- phase 2 (sp, n >= 2): f32 BERT (vocab 64, hidden 32, one layer, 4
+  heads of 8, ring attention) on a ``(data, seq)`` mesh of ``d_data =
+  2`` (1 for an odd n) by ``d_seq = n / d_data`` ranks: one loss and
+  gradient on ``[2 d_data, 8 d_seq]`` zero tokens, rows over ``data``
+  and positions over ``seq``; the loss is ``mean(logits ** 2)``, the
+  loss and gradients averaged over ``seq`` then ``data``. The loss must
+  be finite and the summed |gradient| above 0.
 
 - ``n == 1``: one rank in this process, on the card unless
   ``device="cpu"``;
-- ``n > 1``: n processes joined over gloo on the CPU
+- ``n > 1``: n processes joined over gloo
   (``init_process_group(tcp://127.0.0.1:<port>)``; the port is a free
-  one unless given) — one card cannot hold two NCCL ranks.
+  one unless given) — on the CPU, or all on the one card (one card
+  cannot hold two NCCL ranks; gloo stages the card's tensors through
+  the host).
 
   python -m kungfu_tpu_torch.dryrun --n 1            # on the card
-  python -m kungfu_tpu_torch.dryrun --n 4            # gloo, 4 processes
+  python -m kungfu_tpu_torch.dryrun --n 4 --device cpu --phases 1,2
 
-Prints one line ``dryrun: n=<n> device=<d> loss=<x> params_equal=True``
-per run (rank 0's) and exits non-zero on any failed check.
+Prints, per phase run (rank 0's), ``dryrun: n=<n> device=<d> loss=<x>
+params_equal=True`` (phase 1) and ``dryrun: phase 2 (sp) n=<n>
+mesh=<data>x<seq> device=<d> loss=<x> gnorm=<g>``, and exits non-zero on
+any failed check. The JAX function runs phase 2 whenever it has two
+devices; here `phases` asks for it.
 """
 
 from __future__ import annotations
@@ -75,26 +90,85 @@ def _step(device, group_world: int) -> dict:
     return {"loss": loss, "params_equal": True}
 
 
-def run_rank(rank: int, n: int, port: int, device: str) -> dict:
-    """Join the n-rank group as `rank` and run the step."""
+def sp_mesh_shape(n: int):
+    """``(d_data, d_seq)`` of phase 2's mesh over n ranks."""
+    d_data = 2 if n % 2 == 0 else 1
+    return d_data, n // d_data
+
+
+def sp_step(device, n: int, state: Optional[dict] = None) -> dict:
+    """Phase 2 on the joined n-rank group: returns the averaged ``loss``
+    and ``gnorm`` (sum of |gradient| after the averages). `state` (a
+    state dict of the phase's BERT) replaces the seeded init, so a test
+    can run the JAX package's parameters."""
+    import torch
+
+    from .models import BertConfig, BertEncoder
+    from .ops.collective import all_reduce_mean
+    from .parallel.mesh import seq_mesh
+
+    d_data, d_seq = sp_mesh_shape(n)
+    mesh = seq_mesh(d_data, d_seq, device=device)
+    cfg = BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                     num_heads=4, intermediate_size=64,
+                     max_position=8 * d_seq, dtype=torch.float32,
+                     attention="ring")
+    model = BertEncoder(cfg, generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    model.to(device)
+    tokens = torch.zeros(2 * d_data, 8 * d_seq, dtype=torch.int64)
+    di, si = mesh.coords["data"], mesh.coords["seq"]
+    shard = tokens[2 * di:2 * di + 2, 8 * si:8 * si + 8].to(device)
+    with mesh:
+        loss = (model(shard).float() ** 2).mean()
+        loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    loss = loss.detach().reshape(1).clone()
+    for axis in ("seq", "data"):
+        all_reduce_mean(grads + [loss], mesh.axis(axis).group)
+    gnorm = float(sum(g.abs().sum() for g in grads))
+    loss = float(loss)
+    if not loss == loss:
+        raise RuntimeError("seq-parallel loss is NaN")
+    if not gnorm > 0:
+        raise RuntimeError("seq-parallel gradients are zero")
+    return {"loss": loss, "gnorm": gnorm, "mesh": (d_data, d_seq)}
+
+
+def run_rank(rank: int, n: int, port: int, device: str,
+             phases=(1,)) -> dict:
+    """Join the n-rank group as `rank` and run the `phases` (1: dp, 2:
+    sp). NCCL for one rank on a card, gloo otherwise."""
     import torch
     import torch.distributed as dist
 
     dev = torch.device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = "nccl" if dev.type == "cuda" and n == 1 else "gloo"
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=n)
+    out = {}
     try:
-        out = _step(dev, n)
+        if 1 in phases:
+            out = _step(dev, n)
+            if rank == 0:
+                print(f"dryrun: n={n} device={dev.type} "
+                      f"loss={out['loss']:.6f} "
+                      f"params_equal={out['params_equal']}", flush=True)
+        if 2 in phases:
+            sp = sp_step(dev, n)
+            out["sp"] = sp
+            if rank == 0:
+                print(f"dryrun: phase 2 (sp) n={n} mesh="
+                      f"{sp['mesh'][0]}x{sp['mesh'][1]} device={dev.type} "
+                      f"loss={sp['loss']:.6f} gnorm={sp['gnorm']:.6f}",
+                      flush=True)
     finally:
         dist.destroy_process_group()
-    if rank == 0:
-        print(f"dryrun: n={n} device={dev.type} loss={out['loss']:.6f} "
-              f"params_equal={out['params_equal']}", flush=True)
     return out
 
 
@@ -105,28 +179,29 @@ def _free_port() -> int:
 
 
 def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
-           timeout: float = 300.0) -> dict:
-    """One phase-1 step over `n` ranks; returns rank 0's figures
-    (``loss``, ``params_equal``) for ``n == 1``, and for ``n > 1``
-    ``{"n": n, "ok": True}`` after every rank process exited 0. Raises
+           timeout: float = 300.0, phases=(1,)) -> dict:
+    """The `phases` (1: dp; 2: sp, n >= 2) over `n` ranks; returns rank
+    0's figures for ``n == 1`` (phase 1's ``loss`` and ``params_equal``),
+    and for ``n > 1`` ``{"n": n, "ok": True}`` after every rank process
+    exited 0, with ``lines``, rank 0's ``dryrun:`` lines. Raises
     RuntimeError on any failed check, and without a card unless
-    ``device="cpu"``; ``n > 1`` needs ``device="cpu"``."""
+    ``device="cpu"``."""
     import torch
 
     if device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    if 2 in phases and n < 2:
+        raise ValueError("phase 2 (sp) needs n >= 2 ranks")
     port = port or _free_port()
     if n == 1:
-        return run_rank(0, 1, port, device)
-    if device != "cpu":
-        raise ValueError("n > 1 runs gloo ranks on the CPU (one card "
-                         "holds one NCCL rank): pass device='cpu'")
+        return run_rank(0, 1, port, device, phases)
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kungfu_tpu_torch.dryrun", "--n", str(n),
-         "--rank", str(r), "--port", str(port), "--device", "cpu"],
+         "--rank", str(r), "--port", str(port), "--device", device,
+         "--phases", ",".join(map(str, phases))],
         cwd=_REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
     outs = []
@@ -142,8 +217,10 @@ def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
     if bad:
         raise RuntimeError(f"dry-run ranks failed {bad}:\n"
                            + "\n".join(o[-1500:] for o in outs))
-    print(outs[0].strip().splitlines()[-1], flush=True)
-    return {"n": n, "ok": True}
+    lines = [x for x in outs[0].splitlines() if x.startswith("dryrun: ")]
+    for line in lines:
+        print(line, flush=True)
+    return {"n": n, "ok": True, "lines": lines}
 
 
 def main(argv=None) -> int:
@@ -151,13 +228,16 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1, help="ranks")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--phases", default="1",
+                    help="phases to run: 1 (dp), 2 (sp, n >= 2), or 1,2")
     ap.add_argument("--rank", type=int, default=None,
                     help="(internal) run one rank of an n-rank group")
     args = ap.parse_args(argv)
+    phases = tuple(int(x) for x in args.phases.split(","))
     if args.rank is not None:
-        run_rank(args.rank, args.n, args.port, args.device)
+        run_rank(args.rank, args.n, args.port, args.device, phases)
     else:
-        dryrun(args.n, args.device, args.port or None)
+        dryrun(args.n, args.device, args.port or None, phases=phases)
     return 0
 
 

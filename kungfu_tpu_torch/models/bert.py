@@ -19,8 +19,15 @@ What flax does that torch's defaults would not:
   module dtype. The mask is boolean, broadcast to ``[B, heads, T, T]``
   (``mask=None``: no masking).
 
-``attention="ring"`` and ``"ulysses"`` (the sequence-parallel mixers)
-raise NotImplementedError: they come with the parallel axes.
+Long context: ``attention="ring"`` or ``"ulysses"`` runs the
+bidirectional sequence-parallel mixers (`parallel.sequence`;
+``use_flash`` runs their local step through K1) over the axis
+``seq_axis`` of the current `parallel.mesh.ProcessMesh` (``with
+mesh:``). Token ids are then this rank's shard of the sequence, the
+positions are offset by its seq rank (the global length checked
+against ``max_position``), and each layer's attention is
+``SeqParallelAttention_0`` (flax's name in that mode, the same
+parameters). Padding masks are refused there, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,11 +67,6 @@ class BertConfig:
             raise ValueError(
                 "use_flash modifies the 'ring'/'ulysses' mixers; it "
                 "does nothing for attention='local'")
-        if self.attention != "local":
-            raise NotImplementedError(
-                f"attention={self.attention!r} (the sequence-parallel "
-                f"mixers) is not ported yet; it comes with the parallel "
-                f"axes (ROADMAP queue 1 item 9)")
 
 
 def _kernel(shape, fan_in: int, device, generator) -> nn.Parameter:
@@ -150,12 +152,40 @@ class MultiHeadDotProductAttention(nn.Module):
         return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
 
 
+class SeqParallelAttention(MultiHeadDotProductAttention):
+    """The reference's `SeqParallelAttention`: the same projections,
+    the positions mixed across the mesh's sequence axis (ring or
+    Ulysses), bidirectional."""
+
+    def __init__(self, c: BertConfig, device=None, generator=None):
+        super().__init__(c, device, generator)
+        self.config = c
+
+    def forward(self, x, mask=None):
+        from ..parallel.sequence import ring_attention, ulysses_attention
+
+        c = self.config
+        if mask is not None:
+            raise ValueError(
+                "padding masks are unsupported with sequence-parallel "
+                f"attention ({c.attention})")
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        mixer = (ring_attention if c.attention == "ring"
+                 else ulysses_attention)
+        return self.out(mixer(q, k, v, c.seq_axis, causal=False,
+                              use_flash=c.use_flash))
+
+
 class TransformerLayer(nn.Module):
     def __init__(self, c: BertConfig, device=None, generator=None):
         super().__init__()
         self.LayerNorm_0 = LayerNorm(c.hidden_size, device)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
-            c, device, generator)
+        self.attn_name = ("MultiHeadDotProductAttention_0"
+                          if c.attention == "local"
+                          else "SeqParallelAttention_0")
+        self.add_module(self.attn_name, (
+            MultiHeadDotProductAttention if c.attention == "local"
+            else SeqParallelAttention)(c, device, generator))
         self.LayerNorm_1 = LayerNorm(c.hidden_size, device)
         self.Dense_0 = Dense(c.hidden_size, c.intermediate_size, device,
                              generator, c.dtype)
@@ -163,7 +193,7 @@ class TransformerLayer(nn.Module):
                              generator, c.dtype)
 
     def forward(self, x, mask=None):
-        y = self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x), mask)
+        y = getattr(self, self.attn_name)(self.LayerNorm_0(x), mask)
         x = x + y
         y = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
         return x + self.Dense_1(y)
@@ -210,7 +240,19 @@ class BertEncoder(nn.Module):
 
     def forward(self, token_ids, mask=None):
         c = self.config
-        pos = torch.arange(token_ids.shape[-1], device=token_ids.device)
+        t = token_ids.shape[-1]
+        pos = torch.arange(t, device=token_ids.device)
+        if c.attention != "local":
+            # sequence-sharded: this rank holds positions
+            # [rank * t, (rank + 1) * t)
+            from ..parallel.mesh import mesh_axis
+
+            ax = mesh_axis(c.seq_axis)
+            if t * ax.size > c.max_position:
+                raise ValueError(
+                    f"global sequence {t * ax.size} exceeds max_position "
+                    f"{c.max_position}; raise BertConfig.max_position")
+            pos = pos + ax.rank * t
         x = self.Embed_0(token_ids) + self.Embed_1(pos)[None]
         x = self.LayerNorm_0(x)
         for i in range(c.num_layers):

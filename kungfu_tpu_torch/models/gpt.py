@@ -38,13 +38,18 @@ fused cross-entropy kernels (`ops.fused_ce`).
 
 Mixers: ``GPTConfig.attention`` picks the training forward's causal
 mixer, as in the JAX package: ``"local"``, the plain
-`dot_product_attention` above, or ``"flash"``, the K1 kernels
-(`ops.flash.flash_attention`, O(T) device memory in both directions).
-The prefill and decode branches come first and do not change with the
-mode, so serving is the same in both. The ``"ring"`` and ``"ulysses"``
-sequence-parallel mixers (and ``use_flash``, which modifies them) and
-the MoE FFN belong to the parallel-axes slice of the port and raise
-NotImplementedError.
+`dot_product_attention` above, ``"flash"``, the K1 kernels
+(`ops.flash.flash_attention`, O(T) device memory in both directions),
+or the sequence-parallel ``"ring"`` and ``"ulysses"``
+(`parallel.sequence`; ``use_flash`` runs their local step through K1)
+over the mesh axis ``seq_axis`` of the current `parallel.mesh.
+ProcessMesh` (``with mesh:``): token ids are then this rank's shard of
+the sequence and positions are offset by its seq rank, the
+``max_position`` check made against the global length. The prefill and
+decode branches come first and do not change with the mode, so serving
+is the same in all of them. The MoE FFN and remat belong to a later
+slice of the port (the expert and pipeline axes) and are not fields
+here.
 """
 
 from __future__ import annotations
@@ -74,7 +79,8 @@ class GPTConfig:
     # the compute dtype (serving), torch.float32 = flax's f32 master
     # weights cast at each use (training)
     param_dtype: Optional[torch.dtype] = None
-    attention: str = "local"  # local | flash (ring | ulysses: later)
+    attention: str = "local"  # local | flash | ring | ulysses
+    seq_axis: str = "seq"     # mesh axis of the sequence-parallel modes
     use_flash: bool = False   # the ring/ulysses mixers' flash step
 
     def __post_init__(self):
@@ -82,16 +88,16 @@ class GPTConfig:
             raise ValueError(
                 f"attention must be one of {_ATTN_MODES}, got "
                 f"{self.attention!r}")
-        if self.attention in ("ring", "ulysses") or self.use_flash:
-            what = (f"attention={self.attention!r}"
-                    if self.attention in ("ring", "ulysses")
-                    else "use_flash")
-            raise NotImplementedError(
-                f"{what} (the sequence-parallel mixers) is not ported yet; "
-                f"it comes with the parallel-axes slice of the port")
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden {self.hidden_size} % heads {self.num_heads} != 0")
+        if self.use_flash and self.attention not in ("ulysses", "ring",
+                                                     "flash"):
+            raise ValueError(
+                "use_flash modifies the 'ulysses' and 'ring' mixers; "
+                f"for attention={self.attention!r} use attention='flash' "
+                "instead (the non-sharded flash mode, where the flag is "
+                "redundant but accepted)")
 
     @property
     def head_dim(self) -> int:
@@ -243,6 +249,16 @@ class CausalSelfAttention(nn.Module):
             from ..ops.flash import flash_attention
 
             out = flash_attention(q, k, v, causal=True)
+        elif c.attention == "ring":
+            from ..parallel.sequence import ring_attention
+
+            out = ring_attention(q, k, v, c.seq_axis, causal=True,
+                                 use_flash=c.use_flash)
+        elif c.attention == "ulysses":
+            from ..parallel.sequence import ulysses_attention
+
+            out = ulysses_attention(q, k, v, c.seq_axis, causal=True,
+                                    use_flash=c.use_flash)
         else:
             out = dot_product_attention(q, k, v, c.dtype)
         return self.out(out)
@@ -336,6 +352,18 @@ class GPTLM(nn.Module):
                     f"decode processes one token per call, got {t}")
             pos = torch.full((1, 1), cache.index, dtype=torch.long,
                              device=token_ids.device)
+        elif c.attention in ("ring", "ulysses") and not prefill:
+            # sequence-sharded: this rank holds positions
+            # [rank * t, (rank + 1) * t)
+            from ..parallel.mesh import mesh_axis
+
+            ax = mesh_axis(c.seq_axis)
+            if t * ax.size > c.max_position:
+                raise ValueError(
+                    f"global sequence {t * ax.size} exceeds max_position "
+                    f"{c.max_position}; raise GPTConfig.max_position")
+            pos = ax.rank * t + torch.arange(t, device=token_ids.device)[
+                None, :]
         else:
             if t > c.max_position:
                 raise ValueError(
@@ -358,6 +386,36 @@ def gpt_loss(logits, token_ids):
     v = logits.shape[-1]
     return F.cross_entropy(logits[:, :-1].float().reshape(-1, v),
                            token_ids[:, 1:].reshape(-1).long())
+
+
+def gpt_seq_loss(model: GPTLM, token_ids, seq_axis=None):
+    """`gpt_loss` of a sequence-sharded batch, this rank's share.
+    `token_ids` is the GLOBAL ``[B, T]`` batch of this rank's data row;
+    the rank runs the model on its positions ``[r * Ts, (r + 1) * Ts)``
+    of the axis `seq_axis` (default the config's) and scores each
+    against the next GLOBAL token, so the targets cross the shards'
+    edges (the last global position has none). The sum is divided by
+    the global count ``B * (T - 1)`` and multiplied by the axis size:
+    its pmean over the axis is one process's `gpt_loss` over the whole
+    sequence, and the pmean of the ranks' gradients is that loss's
+    gradient (the per-shard partials of `__graft_entry__`'s
+    sequence-parallel step)."""
+    from ..parallel.mesh import mesh_axis
+
+    ax = mesh_axis(seq_axis or model.config.seq_axis)
+    b, t = token_ids.shape
+    if t % ax.size:
+        raise ValueError(f"a sequence of {t} does not split over "
+                         f"{ax.size} ranks")
+    ts = t // ax.size
+    lo = ax.rank * ts
+    logits = model(token_ids[:, lo:lo + ts])
+    targets = token_ids[:, lo + 1:lo + ts + 1]
+    n = targets.shape[1]
+    total = F.cross_entropy(
+        logits[:, :n].float().reshape(b * n, -1),
+        targets.reshape(-1).long(), reduction="sum")
+    return total * ax.size / (b * (t - 1))
 
 
 def gpt_fused_loss(model: GPTLM, token_ids, residual: bool = True,

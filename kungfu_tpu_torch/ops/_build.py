@@ -72,6 +72,16 @@ KERNELS = {
         # window, stages, smem, stream
         "k1_dkv": (_I, [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 3
                    + [_LL, _P]),
+        # the SIMT family: dtype code, then k1_fwd's operands and shape,
+        # scale, causal, window, smem, stream
+        "k1s_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float]
+                    + [_I] * 2 + [_LL, _P]),
+        # dtype code, then k1_dq's operands ... window, smem, stream
+        "k1s_dq": (_I, [_I] + [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+                   + [_I] * 2 + [_LL, _P]),
+        # dtype code, then k1_dkv's operands ... window, smem, stream
+        "k1s_dkv": (_I, [_I] + [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+                    + [_I] * 2 + [_LL, _P]),
     }),
     "stream": ("stream.cu", {
         # x, o, n, grid, chunk_bytes, stages, smem, chunks, tail,

@@ -25,7 +25,8 @@ into one pinned buffer, never a ``.cpu()`` a leaf.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import time
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,19 +39,12 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> int:
     """Average each tensor over `group` (the default group when None) in
     place, one all-reduce per tensor — the S-SGD gradient op (`pmean`
     per leaf). NCCL averages in the collective (``ReduceOp.AVG``); gloo
-    has no AVG, so there it is SUM, then a division by the world size.
+    has no AVG, so there it is SUM, then a division by the world size,
+    and a card's tensor is staged through pinned host memory (`staged`).
     A one-rank group runs the same collective. Returns the number of
     collectives issued."""
-    if not tensors:
-        return 0
-    avg = dist.get_backend(group) == "nccl"
-    world = dist.get_world_size(group)
     for t in tensors:
-        if avg:
-            dist.all_reduce(t, op=dist.ReduceOp.AVG, group=group)
-        else:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-            t.div_(world)
+        _all_reduce_(t, "pmean", group)
     return len(tensors)
 
 
@@ -88,26 +82,15 @@ def neighbor_exchange(tensors: Sequence[torch.Tensor], shift: int = 1,
     """Rotate the tensors around the ring by `shift`, in place: rank r
     takes the values rank ``(r - shift) mod n`` held — the JAX package's
     ``ppermute`` with the pairs ``(i, (i + shift) % n)``, which SENDS to
-    ``(r + shift) mod n``. One send and one receive a tensor, all in one
-    `dist.batch_isend_irecv`; the values sent are copies, since each
-    tensor is also the receive buffer. A shift that is a multiple of the
-    group's size leaves every tensor as it is and issues nothing.
-    Returns the number of collectives issued (one a tensor)."""
+    ``(r + shift) mod n``. Each tensor takes the result of `ppermute`'s
+    exchange (staged like it). A shift that is a multiple of the group's
+    size leaves every tensor as it is and issues nothing. Returns the
+    number of collectives issued (one a tensor)."""
     world = dist.get_world_size(group)
     if not tensors or shift % world == 0:
         return 0
-    rank = dist.get_rank(group)
-
-    def glob(r):
-        return r if group is None else dist.get_global_rank(group, r)
-
-    dst, src = glob((rank + shift) % world), glob((rank - shift) % world)
-    ops = []
     for t in tensors:
-        ops.append(dist.P2POp(dist.isend, t.clone(), dst, group))
-        ops.append(dist.P2POp(dist.irecv, t, src, group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+        t.copy_(_ppermute(t, shift, group))
     return len(tensors)
 
 
@@ -136,6 +119,228 @@ def broadcast(tensors: Sequence[torch.Tensor], src: int = 0,
 
 def _nbytes(t) -> int:
     return int(t.numel()) * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# axis collectives with gradients: the JAX package's `lax.ppermute`,
+# tiled `lax.all_to_all`, `psum`, `pmax` and `pmean` over one mesh axis's
+# group, as autograd Functions (the sequence-parallel mixers'
+# collectives). Each returns a new tensor. `all_reduce_mean` and
+# `neighbor_exchange` above run the same exchanges in place.
+#
+# Staging: where the group is gloo and the tensor lies on a card, the op
+# runs on pinned host copies — the tensor is copied to a page-locked
+# buffer, the gloo op runs on host tensors, the result is copied back —
+# decided by that rule before the op and never by catching an error.
+# One card holds one NCCL rank, so ranks that share a card (or a CPU
+# group) meet over gloo. `EXCHANGE` counts every call: its payload bytes
+# (what this rank hands the op), the bytes that went through staging and
+# the host wall time, copies included (`all_reduce_mean` counts as
+# ``pmean``, `neighbor_exchange` as ``ppermute``).
+# ---------------------------------------------------------------------------
+
+#: per op, since the process started: calls, payload bytes, staged
+#: bytes and host ms (copies included); a caller takes differences
+EXCHANGE: Dict[str, Dict[str, float]] = {
+    op: {"calls": 0, "bytes": 0, "staged_bytes": 0, "ms": 0.0}
+    for op in ("ppermute", "all_to_all", "psum", "pmax", "pmean")}
+
+
+def staged(x: torch.Tensor, group=None) -> bool:
+    """Whether an axis collective of `x` over `group` runs on pinned host
+    copies: a CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host
+
+
+class _Count:
+    """Times one call of `op` and adds it to `EXCHANGE`."""
+
+    def __init__(self, op: str, x: torch.Tensor, stage: bool):
+        self.row, self.n, self.stage = EXCHANGE[op], _nbytes(x), stage
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.row["calls"] += 1
+        self.row["bytes"] += self.n
+        self.row["staged_bytes"] += self.n if self.stage else 0
+        self.row["ms"] += (time.perf_counter() - self.t0) * 1e3
+
+
+def _global(group, r: int) -> int:
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _ppermute(x: torch.Tensor, shift: int, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    if shift % world == 0:
+        return x.clone()
+    rank = dist.get_rank(group)
+    stage = staged(x, group)
+    with _Count("ppermute", x, stage):
+        src = x.contiguous()
+        if stage:
+            src = _to_host(src)
+        out = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, _global(group, (rank + shift)
+                                                   % world), group),
+               dist.P2POp(dist.irecv, out, _global(group, (rank - shift)
+                                                   % world), group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if stage:
+            out = out.to(x.device)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, group):
+        ctx.args = (shift, group)
+        return _ppermute(x, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        shift, group = ctx.args
+        return _ppermute(g, -shift, group), None, None
+
+
+def ppermute(x: torch.Tensor, shift: int = 1, group=None) -> torch.Tensor:
+    """The JAX package's ``lax.ppermute`` with the pairs ``(i, (i +
+    shift) % n)``: rank r sends `x` to ``(r + shift) mod n`` and returns
+    the value rank ``(r - shift) mod n`` sent. Its gradient is the
+    inverse permutation of the output's gradient."""
+    return _PPermute.apply(x, shift, group)
+
+
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+                group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    if x.shape[split_axis] % world:
+        raise ValueError(f"axis {split_axis} of {tuple(x.shape)} does not "
+                         f"split over {world} ranks")
+    if world == 1:
+        return x.clone()
+    stage = staged(x, group)
+    with _Count("all_to_all", x, stage):
+        # chunk j of the split axis goes to rank j; chunk s of the result
+        # came from rank s
+        send = torch.stack(x.chunk(world, dim=split_axis))
+        if stage:
+            send = _to_host(send)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        if stage:
+            recv = recv.to(x.device)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.args = (split_axis, concat_axis, group)
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, group = ctx.args
+        return (_all_to_all(g.contiguous(), concat_axis, split_axis, group),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+               group=None) -> torch.Tensor:
+    """The JAX package's tiled ``lax.all_to_all``: `x` is cut into n equal
+    chunks along `split_axis`, chunk j goes to rank j, and the chunks
+    received are concatenated along `concat_axis` in rank order. Its
+    gradient is the inverse all-to-all (the axes swapped)."""
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+_REDUCE = {"psum": dist.ReduceOp.SUM, "pmax": dist.ReduceOp.MAX,
+           "pmean": dist.ReduceOp.SUM}
+
+
+def _all_reduce_(t: torch.Tensor, op: str, group) -> None:
+    """`op` of the contiguous `t` over `group`, in place: the one
+    reduction every mean, sum and max of this module runs."""
+    world = dist.get_world_size(group)
+    stage = staged(t, group)
+    with _Count(op, t, stage):
+        buf = _to_host(t) if stage else t
+        if op == "pmean" and dist.get_backend(group) == "nccl":
+            dist.all_reduce(buf, op=dist.ReduceOp.AVG, group=group)
+        else:
+            dist.all_reduce(buf, op=_REDUCE[op], group=group)
+            if op == "pmean":
+                buf.div_(world)
+        if stage:
+            t.copy_(buf)
+
+
+def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    if dist.get_world_size(group) == 1:
+        return x.clone()
+    out = x.clone(memory_format=torch.contiguous_format)
+    _all_reduce_(out, op, group)
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op, group):
+        ctx.args = (op, group)
+        return _reduce(x, op, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's output is the same reduction of every input: the
+        # input's gradient reduces the outputs' gradients the same way
+        op, group = ctx.args
+        return _reduce(g.contiguous(), op, group), None, None
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = _reduce(x, "pmax", group)
+        ctx.save_for_backward(x, out)
+        ctx.group = group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the summed gradient flows to every rank holding the maximum
+        x, out = ctx.saved_tensors
+        total = _reduce(g.contiguous(), "psum", ctx.group)
+        return torch.where(x == out, total, torch.zeros_like(total)), None
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.psum`` over `group`: every rank gets the sum of every rank's
+    `x`; the gradient is the psum of the outputs' gradients."""
+    return _PSum.apply(x, "psum", group)
+
+
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmean`` over `group`: psum divided by the group's size; the
+    gradient is the pmean of the outputs' gradients."""
+    return _PSum.apply(x, "pmean", group)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmax`` over `group`: the element-wise maximum over ranks. The
+    gradient, summed over ranks, goes to each rank whose `x` holds the
+    maximum."""
+    return _PMax.apply(x, group)
 
 
 def chunk_schedule(tensors: Sequence[torch.Tensor],

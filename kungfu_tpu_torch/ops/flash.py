@@ -14,7 +14,26 @@ Replaces the Pallas TPU kernels of `kungfu_tpu/ops/flash.py`:
 
 On the TPU the resident and stream schemes exist because of the 16 MB
 VMEM limit; on Hopper one kernel per direction replaces both, so there
-is no scheme to pick and no shape that falls back to plain attention.
+is no scheme to pick.
+
+Two families, picked by `route` from the dtype and the head dim (the
+reference's kernels take any float dtype and any head dim):
+
+- ``wgmma``: bf16 with head_dim 64 or 128 — the TMA + wgmma pipelines
+  (``k1_fwd``, ``k1_dq``, ``k1_dkv``);
+- ``simt``: f32, f16, and bf16 at any other head dim, every head dim
+  from 1 to `SIMT_MAX_D` (256) — one simple kernel family in f32 FMA
+  arithmetic (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``; f32 inputs compute
+  in full f32, no TF32), a CTA per 16 rows of one (b, h).
+
+Both fold B*H into the first grid dimension, so B*H may exceed 65535.
+
+The one way to plain attention is the reference's own rule: a length
+that does not tile (`tiles`, a copy of the reference's `_tiles` with its
+auto blocks) goes to plain attention in `flash_attention`, as
+`_flash_fwd_impl` does, and in the ring hops (`parallel.sequence`), as
+`_hop_flash_fwd` does. `UNTILED` counts those calls (each also counts in
+``LAUNCHES["plain"]``).
 
 Layouts are the JAX package's at every public function: q, k, v, o, dO
 and the gradients ``[B, T, H, D]``; lse and delta ``[B*H, T]`` f32, as
@@ -23,9 +42,11 @@ place through its row stride (no head-major copies).
 
 Dispatch: CPU tensors run the plain versions (`plain_fwd`, `plain_dq`,
 `plain_dkv`), which compute in f32 and return the input dtype. CUDA
-tensors launch the kernels, which take bf16 with head_dim 64 or 128, or
-raise ValueError: there is no fallback from the card to the plain
-versions. `LAUNCHES` counts kernel launches per kernel and plain calls.
+tensors launch a kernel of the family `route` picks, or raise
+ValueError (f64, a head dim above 256): there is no fallback from the
+card to the plain versions. `LAUNCHES` counts kernel launches per
+kernel (both families) and plain calls; `SIMT_LAUNCHES` the SIMT
+family's share by kernel and dtype.
 """
 
 from __future__ import annotations
@@ -63,14 +84,31 @@ _BOX = BLOCK_Q * 64 * 2
 #: a dkv stage's lse and delta rows, 64 f32 each (kRowsB)
 _ROWS = 2 * BLOCK_Q * 4
 
+#: the SIMT family (`route`): dtypes (and their codes in the C
+#: interface), the largest head dim, rows a CTA owns and keys a staged
+#: tile (kSBlock, kSKeys in the CUDA source), threads a CTA
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+SIMT_MAX_D = 256
+SIMT_ROWS, SIMT_KEYS, SIMT_THREADS = 16, 32, 128
+#: the reference's tile rule (`tiles`): the longest auto block and the
+#: smallest one it shrinks to, and its VMEM budget (`_VMEM_BUDGET`)
+TILE_CAP, TILE_FLOOR = 1024, 128
+VMEM_BUDGET = 15 * 1024 * 1024
+
 #: launch counts since the last `reset_launches()`: one per kernel
 #: launch, and one per call of any plain version
 LAUNCHES: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0, "plain": 0}
+#: the SIMT family's launches among LAUNCHES', as ``"fwd.float32"``
+SIMT_LAUNCHES: Dict[str, int] = {}
+#: calls the tile rule sent to plain attention
+UNTILED: Dict[str, int] = {"calls": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SIMT_LAUNCHES.clear()
+    UNTILED["calls"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +243,101 @@ def dkv_groups(t: int, d: int, causal: bool = False,
     return _groups(t, DKV_K_TILES[d], _q_span, causal, window, False)
 
 
+# ---------------------------------------------------------------------------
+# the reference's tile rule (copies of kungfu_tpu/ops/flash.py's `_tiles`,
+# auto blocks, and the stream-scheme VMEM estimates it shrinks against)
+# ---------------------------------------------------------------------------
+
+
+def _fwd_stream_vmem(bq, bk, d, isz):
+    inputs = 2 * (bq * d * isz + 2 * bk * d * isz)
+    outputs = 2 * (bq * d * isz + bq * 4)
+    scratch = bq * d * 4 + 2 * bq * 4
+    return inputs + outputs + scratch + 2 * bq * bk * 4
+
+
+def _dq_stream_vmem(bq, bk, d, isz):
+    inputs = 2 * (3 * bq * d * isz + 2 * bk * d * isz + 2 * bq * 4)
+    outputs = 2 * (bq * d * isz + bq * 4)
+    scratch = bq * d * 4 + 2 * bq * 4
+    return inputs + outputs + scratch + 3 * bq * bk * 4
+
+
+def _dkv_stream_vmem(bq, bk, d, isz, t):
+    inputs = 2 * (2 * bk * d * isz + 2 * bq * d * isz + 2 * t * 4)
+    outputs = 2 * (2 * bk * d * isz)
+    scratch = 2 * bk * d * 4
+    return inputs + outputs + scratch + 3 * bq * bk * 4
+
+
+def tiles(t: int, causal: bool = False, window: Optional[int] = None,
+          d: Optional[int] = None, itemsize: int = 4):
+    """The reference's tile rule with its auto blocks: ``(block_q,
+    block_k)``, or None where the reference runs plain attention. A
+    length up to the cap (1024, or with a `window` the largest power of
+    two <= window, at least 128) is one block; a longer one takes the
+    largest of 1024/512/256/128 under the cap that divides it, else
+    None. With `d` known, blocks halve (k first, floor 128) until the
+    worst stream kernel's VMEM estimate fits `VMEM_BUDGET`, else None.
+    The port's kernels tile by 64 (or 16) and take any length; the rule
+    only decides, as in the reference, which calls go to plain
+    attention."""
+    cap = TILE_CAP
+    if window is not None:
+        cap = min(max(TILE_FLOOR, 1 << max(7, window.bit_length() - 1)),
+                  TILE_CAP)
+    if t <= cap:
+        bq = bk = t
+    else:
+        bq = next((b for b in (1024, 512, 256, 128)
+                   if b <= cap and t % b == 0), None)
+        if bq is None:
+            return None
+        bk = bq
+    if d is not None:
+        def pow2(x):
+            return x & (x - 1) == 0
+
+        def worst(bq, bk):
+            return max(_fwd_stream_vmem(bq, bk, d, itemsize),
+                       _dq_stream_vmem(bq, bk, d, itemsize),
+                       _dkv_stream_vmem(bq, bk, d, itemsize, t))
+
+        while worst(bq, bk) > VMEM_BUDGET:
+            if bk > TILE_FLOOR and pow2(bk):
+                bk //= 2
+            elif bq > TILE_FLOOR and pow2(bq):
+                bq //= 2
+            else:
+                return None
+    return bq, bk
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel family of a call: ``"wgmma"`` for bf16 at head_dim 64
+    or 128, ``"simt"`` for f32, f16 and bf16 at any head dim from 1 to
+    `SIMT_MAX_D`; ValueError for anything else (f64, a wider head)."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        return "wgmma"
+    if dtype in SIMT_DTYPES and 1 <= d <= SIMT_MAX_D:
+        return "simt"
+    raise ValueError(f"no flash-attention kernel for {dtype} at head_dim "
+                     f"{d}: the kernels take float32, float16 or "
+                     f"bfloat16 with head_dim 1..{SIMT_MAX_D}")
+
+
+def simt_smem(kernel: str, d: int) -> int:
+    """Dynamic shared memory of a SIMT CTA at head dim `d` (f32 words):
+    a staged tile of 32 rows of K and V (dkv: Q and dO), rows padded to
+    d + 1; the CTA's own 16 rows of q (dq: q and dO; dkv: k and v); dkv
+    also the tile's 32 lse and 32 delta values."""
+    tile = 2 * SIMT_KEYS * (d + 1)
+    own = {"fwd": 1, "dq": 2, "dkv": 2}[kernel] * SIMT_ROWS * d
+    return 4 * (tile + own + (2 * SIMT_KEYS if kernel == "dkv" else 0))
+
+
 def flash_plan(t: int, d: int, causal: bool = False,
-               window: Optional[int] = None):
+               window: Optional[int] = None, dtype=torch.bfloat16):
     """The port's tiles at length `t` and head dim `d`, and the tiles
     each kernel visits (from `_k_span` / `_q_span`, the loop bounds the
     kernels use) beside the unskipped grid, and each kernel's CTA
@@ -215,7 +346,15 @@ def flash_plan(t: int, d: int, causal: bool = False,
     ring stages, shared memory and CTAs per (b, h) (`fwd_groups`,
     `dq_groups`, `dkv_groups`; None where `d` is not in HEAD_DIMS). One
     scheme per kernel: the TPU's resident/stream choice has no
-    counterpart here. Each grid is ctas_per_head x B x H."""
+    counterpart here. Each grid is ctas_per_head x B x H.
+
+    ``route`` is the family a call in `dtype` at head dim `d` launches
+    (`route`; None where none takes it): the wgmma CTAs above at bf16
+    with d 64 or 128, else ``simt_cta`` — every head dim from 1 to
+    `SIMT_MAX_D` in f32, f16 or bf16, 16 rows a CTA, 32 keys a staged
+    tile, 128 threads, shared memory by kernel (`simt_smem`). ``tiles``
+    is the reference's tile rule at this length (`tiles`): None sends
+    `flash_attention` to plain attention."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
     span = dict(causal=causal, window=window, block_q=BLOCK_Q,
@@ -229,19 +368,31 @@ def flash_plan(t: int, d: int, causal: bool = False,
     for name, visited in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
         plan[name] = {"visited_blocks": visited, "grid_blocks": nq * nk}
     ok = d in HEAD_DIMS
-    for name, tiles, resident, streamed, n, stages, smem in (
+    for name, per_d, resident, streamed, n, stages, smem in (
             ("fwd", FWD_Q_TILES, "q_tiles", "key_tile", nq, FWD_STAGES,
              fwd_smem),
             ("dq", DQ_Q_TILES, "q_tiles", "key_tile", nq, BWD_STAGES,
              dq_smem),
             ("dkv", DKV_K_TILES, "key_tiles", "query_tile", nk, BWD_STAGES,
              dkv_smem)):
-        g = tiles[d] if ok else None
+        g = per_d[d] if ok else None
         plan[f"{name}_cta"] = {
             resident: g, streamed: BLOCK_Q,
             "threads": (g + 1) * 128 if ok else None, "stages": stages,
             "smem": smem(d, stages) if ok else None,
             "ctas_per_head": -(-n // g) if ok else None}
+    try:
+        plan["route"] = route(dtype, d)
+    except ValueError:
+        plan["route"] = None
+    simt = 1 <= d <= SIMT_MAX_D
+    plan["simt_cta"] = {
+        "rows": SIMT_ROWS, "keys": SIMT_KEYS, "threads": SIMT_THREADS,
+        "smem": ({k: simt_smem(k, d) for k in ("fwd", "dq", "dkv")}
+                 if simt else None),
+        "ctas_per_head": -(-t // SIMT_ROWS) if simt else None}
+    plan["tiles"] = tiles(t, causal, window, d,
+                          torch.empty((), dtype=dtype).element_size())
     return plan
 
 
@@ -405,29 +556,32 @@ def _lib():
 
 
 def _check(q, seqs, rows=None):
-    """Validate a kernel's operands: every ``[B, T, H, D]`` tensor in
-    `seqs` bf16 like q, head_dim 64 or 128, every ``[B*H, T]`` tensor
-    in `rows` f32, all contiguous on q's CUDA device."""
+    """Validate a kernel's operands and pick its family: every ``[B, T,
+    H, D]`` tensor in `seqs` of q's dtype, which `route` must take at
+    q's head dim, every ``[B*H, T]`` tensor in `rows` f32, all
+    contiguous on q's CUDA device, and a grid of at most 2**31 - 1 CTAs.
+    Returns ``(b, t, h, d, family)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {dev}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
     b, t, h, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernels take bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
+    family = route(q.dtype, d)
+    rows_a_cta = BLOCK_Q if family == "wgmma" else SIMT_ROWS
+    if b * h * -(-t // rows_a_cta) > 2**31 - 1:
+        raise ValueError(f"B*H = {b * h} at T = {t} exceeds the grid's "
+                         f"2**31 - 1 CTAs")
     for name, x in seqs.items():
-        _build.require(x, name, torch.bfloat16, (b, t, h, d), dev)
+        _build.require(x, name, q.dtype, (b, t, h, d), dev)
     for name, x in (rows or {}).items():
         _build.require(x, name, torch.float32, (b * h, t), dev)
-    return b, t, h, d
+    return b, t, h, d, family
 
 
-def _launch(name, fn, *args):
+def _launch(name, fn, *args, dtype=None):
+    """Call launcher `fn` and count the launch (`dtype`: a SIMT launch,
+    counted in SIMT_LAUNCHES too)."""
     err = fn(*args)
     if err:
         why = ("cuTensorMapEncodeTiled not found in libcuda"
@@ -436,6 +590,9 @@ def _launch(name, fn, *args):
                if err <= -1000 else f"cudaError_t {err}")
         raise RuntimeError(f"flash {name} launch failed: {why}")
     LAUNCHES[name] += 1
+    if dtype is not None:
+        key = f"{name}.{str(dtype).split('.')[-1]}"
+        SIMT_LAUNCHES[key] = SIMT_LAUNCHES.get(key, 0) + 1
 
 
 def _common(q, causal, scale, window):
@@ -454,16 +611,21 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
     if q.device.type == "cpu":
         o, lse = plain_fwd(q, k, v, causal, scale, window)
         return o, (lse if save_lse else None)
-    b, t, h, d = _check(q, {"q": q, "k": k, "v": v})
+    b, t, h, d, family = _check(q, {"q": q, "k": k, "v": v})
     o = torch.empty_like(q)
     lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
            if save_lse else None)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if save_lse else None, b, t, h, d,
+            *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
-        _launch("fwd", _lib().k1_fwd, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(),
-                lse.data_ptr() if save_lse else None, b, t, h, d,
-                *_common(q, causal, scale, window), FWD_STAGES,
-                fwd_smem(d), _build.stream(q.device))
+        if family == "wgmma":
+            _launch("fwd", _lib().k1_fwd, *ptrs, FWD_STAGES, fwd_smem(d),
+                    _build.stream(q.device))
+        else:
+            _launch("fwd", _lib().k1s_fwd, SIMT_DTYPES[q.dtype], *ptrs,
+                    simt_smem("fwd", d), _build.stream(q.device),
+                    dtype=q.dtype)
     return o, lse
 
 
@@ -473,16 +635,21 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     `plain_dq`; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return plain_dq(q, k, v, o, lse, do, causal, scale, window)
-    b, t, h, d = _check(q, {"q": q, "k": k, "v": v, "o": o, "do": do},
-                        {"lse": lse})
+    b, t, h, d, family = _check(
+        q, {"q": q, "k": k, "v": v, "o": o, "do": do}, {"lse": lse})
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+            b, t, h, d, *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
-        _launch("dq", _lib().k1_dq, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                dq.data_ptr(), delta.data_ptr(), b, t, h, d,
-                *_common(q, causal, scale, window), BWD_STAGES, dq_smem(d),
-                _build.stream(q.device))
+        if family == "wgmma":
+            _launch("dq", _lib().k1_dq, *ptrs, BWD_STAGES, dq_smem(d),
+                    _build.stream(q.device))
+        else:
+            _launch("dq", _lib().k1s_dq, SIMT_DTYPES[q.dtype], *ptrs,
+                    simt_smem("dq", d), _build.stream(q.device),
+                    dtype=q.dtype)
     return dq, delta
 
 
@@ -493,16 +660,21 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
     the kernel."""
     if q.device.type == "cpu":
         return plain_dkv(q, k, v, do, lse, delta, causal, scale, window)
-    b, t, h, d = _check(q, {"q": q, "k": k, "v": v, "do": do},
-                        {"lse": lse, "delta": delta})
+    b, t, h, d, family = _check(q, {"q": q, "k": k, "v": v, "do": do},
+                                {"lse": lse, "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, d, *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
-        _launch("dkv", _lib().k1_dkv, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                *_common(q, causal, scale, window), BWD_STAGES,
-                dkv_smem(d), _build.stream(q.device))
+        if family == "wgmma":
+            _launch("dkv", _lib().k1_dkv, *ptrs, BWD_STAGES, dkv_smem(d),
+                    _build.stream(q.device))
+        else:
+            _launch("dkv", _lib().k1s_dkv, SIMT_DTYPES[q.dtype], *ptrs,
+                    simt_smem("dkv", d), _build.stream(q.device),
+                    dtype=q.dtype)
     return dk, dv
 
 
@@ -540,7 +712,17 @@ def flash_attention(q, k, v, causal: bool = False,
     scores, differentiable in (q, k, v). `scale` defaults to
     1/sqrt(D). `window` (requires causal=True): position q attends to
     keys [q - window, q]. Without a gradient to record (no_grad, or no
-    input that requires one), the forward skips the lse."""
+    input that requires one), the forward skips the lse. A length that
+    does not tile by the reference's rule (`tiles`) runs
+    `plain_attention`, differentiable through autograd, as the
+    reference's `_flash_fwd_impl` does; `UNTILED` and
+    ``LAUNCHES["plain"]`` count it."""
+    _check_window(causal, window)
+    if tiles(q.shape[1], causal, window, q.shape[-1],
+             q.element_size()) is None:
+        UNTILED["calls"] += 1
+        LAUNCHES["plain"] += 1
+        return plain_attention(q, k, v, causal, scale, window)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, scale, window)
     return flash_fwd(q, k, v, causal, scale, window, save_lse=False)[0]

@@ -22,13 +22,17 @@ from ..ops.collective import all_reduce_mean, bucket_schedule
 
 
 def bucketed_all_reduce_mean(tensors: Sequence[torch.Tensor], mesh,
-                             bucket_bytes: int = 1 << 20) -> int:
-    """Average `tensors` over `mesh` in place as `bucket_schedule`'s
-    dtype-homogeneous, reverse-order buckets: each bucket is ONE
-    all-reduce of the concatenated spans, copied back after. Bitwise
-    equal to the per-tensor form, since the reduction is elementwise:
-    bucketing changes the number of collectives, never a value. Returns
-    the number of collectives issued."""
+                             bucket_bytes: Optional[int] = 1 << 20) -> int:
+    """Average `tensors` over `mesh` (anything with a `group`) in place
+    as `bucket_schedule`'s dtype-homogeneous, reverse-order buckets:
+    each bucket is ONE all-reduce of the concatenated spans, copied back
+    after; `bucket_bytes` None makes one bucket of each run of one
+    dtype. Bitwise equal to the per-tensor form, since the reduction is
+    elementwise: bucketing changes the number of collectives, never a
+    value. Returns the number of collectives issued."""
+    if bucket_bytes is None:
+        bucket_bytes = max(1, sum(t.numel() * t.element_size()
+                                  for t in tensors))
     flat = [t.reshape(-1) for t in tensors]
     buckets = bucket_schedule(tensors, bucket_bytes)
     for _, spans in buckets:

@@ -15,14 +15,19 @@ the stacking helpers become collectives:
   device;
 - `axis_size`: the world size.
 
+`ProcessMesh` is the named N-D mesh beside it (`seq_mesh`: the
+``(data, seq)`` mesh of sequence-parallel training), a subgroup per
+axis.
+
 `init_worker_state` has no counterpart: torch optimizers create their
 state at their first step.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -93,3 +98,110 @@ def shard_batch(batch, mesh: DataMesh):
                          f"{mesh.world} ranks")
     per = n // mesh.world
     return batch[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+
+
+# ---------------------------------------------------------------------------
+# a named N-D process mesh: the ``(data, seq)`` mesh of sequence-parallel
+# training
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One axis of a `ProcessMesh` as this rank sees it: the `group` of
+    ranks that differ from it only along the axis, their number (`size`)
+    and this rank's coordinate along it (`rank`, its rank in `group`)."""
+
+    name: str
+    group: Any
+    size: int
+    rank: int
+
+
+class ProcessMesh:
+    """The counterpart of ``Mesh(devices.reshape(*sizes), names)`` over
+    the joined process group, rank-major: global rank g sits at the
+    coordinates of g in a C-order array of shape `sizes`, so along the
+    last axis neighbours are consecutive ranks. Each axis is a
+    subgroup (``dist.new_group``) of the ranks on one line along it;
+    every rank builds every subgroup, in the same order, as
+    ``new_group`` requires. The JAX package's ``axis_name`` inside
+    `shard_map` becomes a lookup in the mesh made current by ``with
+    mesh:`` (`current_mesh`). Sequence rank r of a `(data, seq)` mesh
+    holds positions ``[r * Ts, (r + 1) * Ts)`` of its data row's
+    sequences."""
+
+    def __init__(self, sizes, names, device: Optional[torch.device] = None):
+        sizes, names = tuple(int(s) for s in sizes), tuple(names)
+        if len(sizes) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {sizes} and names {names}")
+        world = dist.get_world_size()
+        if math.prod(sizes) != world:
+            raise ValueError(f"a {'x'.join(map(str, sizes))} mesh needs "
+                             f"{math.prod(sizes)} ranks, the group has "
+                             f"{world}")
+        self.sizes, self.names = sizes, names
+        self.device = device if device is not None else bootstrap.device()
+        me = dist.get_rank()
+        self.coords = dict(zip(names, _unravel(me, sizes)))
+        self.axes: Dict[str, Axis] = {}
+        for i, name in enumerate(names):
+            for line in _lines(sizes, i):
+                group = dist.new_group(line)
+                if me in line:
+                    self.axes[name] = Axis(name, group, sizes[i],
+                                           line.index(me))
+
+    def axis(self, name) -> Axis:
+        """The axis `name` (an `Axis` passes through)."""
+        if isinstance(name, Axis):
+            return name
+        if name not in self.axes:
+            raise ValueError(f"no mesh axis {name!r} (axes {self.names})")
+        return self.axes[name]
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE.remove(self)
+
+
+_ACTIVE: List[ProcessMesh] = []
+
+
+def _unravel(rank: int, sizes) -> List[int]:
+    out = []
+    for s in reversed(sizes):
+        out.append(rank % s)
+        rank //= s
+    return out[::-1]
+
+
+def _lines(sizes, axis: int) -> List[List[int]]:
+    """The global ranks of every line along `axis`, each in axis order."""
+    ranks = torch.arange(math.prod(sizes)).reshape(sizes).movedim(axis, -1)
+    return [r.tolist() for r in ranks.reshape(-1, sizes[axis])]
+
+
+def current_mesh() -> ProcessMesh:
+    """The innermost mesh entered with ``with mesh:``; RuntimeError
+    outside one (the JAX package's axis names exist only inside
+    `shard_map`)."""
+    if not _ACTIVE:
+        raise RuntimeError("no ProcessMesh is active: run the model "
+                           "inside `with mesh:`")
+    return _ACTIVE[-1]
+
+
+def mesh_axis(name) -> Axis:
+    """Axis `name` of the current mesh (an `Axis` passes through)."""
+    return name if isinstance(name, Axis) else current_mesh().axis(name)
+
+
+def seq_mesh(d_data: int, d_seq: int, device=None) -> ProcessMesh:
+    """The ``(data, seq)`` mesh of sequence-parallel training over the
+    joined group (``d_data * d_seq`` ranks; ``__graft_entry__``'s
+    ``Mesh(devices.reshape(d_data, d_seq), ("data", "seq"))``)."""
+    return ProcessMesh((d_data, d_seq), ("data", "seq"), device)

@@ -2,7 +2,8 @@
 
 The port of the builders of `kungfu_tpu/parallel/train.py` that the LM
 training benchmark (`build_gspmd_train_step`, and
-`build_dp_replicated_train_step` for its fused loss under dp) and the
+`build_dp_replicated_train_step` for its fused loss under dp), the
+sequence-parallel step (`build_sp_train_step`) and the
 image benchmarks (`build_train_step_with_state` with the BatchNorm
 statistics synced, `build_train_step`) use. In the JAX package a step
 is a jitted pure function ``step(params, opt_state, batch) -> (params, opt_state,
@@ -107,3 +108,37 @@ def build_dp_replicated_train_step(loss_fn: Callable, optimizer,
         return loss[0]
 
     return step
+
+
+def build_sp_train_step(loss_fn: Callable, optimizer, mesh,
+                        axes=("seq", "data")):
+    """Sequence-parallel step on a `ProcessMesh` (`parallel.mesh.seq_mesh`):
+    ``step(batch) -> loss``. `loss_fn(batch)` runs inside ``with mesh:``
+    (so the model's ring or Ulysses mixer finds its axis) and returns
+    this rank's per-shard loss; after the backward, the gradients and
+    the loss are averaged over `axes` in order — over ``seq``, then over
+    ``data``, as `__graft_entry__`'s sequence-parallel step does (the
+    global mean's gradient is the mean of the per-shard partials) — as
+    one bucket a run of one dtype (`bucketed_all_reduce_mean`; a card's
+    buffer is staged through pinned host memory on a gloo group). Then every rank
+    applies the same update; the averaged gradients stay in ``.grad``
+    until the next step. Returns the averaged loss as a device tensor.
+    The parameters must be equal on every rank at the start."""
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        with mesh:
+            loss = loss_fn(batch)
+            loss.backward()
+        grads = [p.grad for g in optimizer.param_groups
+                 for p in g["params"] if p.grad is not None]
+        loss = loss.detach().reshape(1).clone()
+        with torch.no_grad():
+            for ax in (mesh.axis(name) for name in axes):
+                if ax.size > 1:     # the mean over one rank is the identity
+                    bucketed_all_reduce_mean(grads + [loss], ax, None)
+        optimizer.step()
+        return loss[0]
+
+    return step
+

@@ -32,7 +32,10 @@ Design rules (the whole module is built around them):
   artifact.
 
 The port's copy of `kungfu_tpu/trace/recorder.py`, which imports no JAX:
-only its imports changed.
+its imports changed, and `flight_path` reserves the name it returns
+(two processes of one (rank, version) context exiting together picked
+the same name in the reference's version, and one record replaced the
+other).
 """
 
 from __future__ import annotations
@@ -251,6 +254,13 @@ class TraceRecorder:
     # -- flight recorder -----------------------------------------------------
 
     def flight_path(self, directory: Optional[str] = None) -> str:
+        """A new flight-record name in `directory`, reserved by creating
+        it empty (``O_EXCL``) so no other process takes it: processes
+        that share a (rank, version) context — a survivor and the
+        workers a shrink evicted, all exiting together — each get their
+        own ``.N`` suffix. A check for existence alone let two of them
+        pick the same name and the later rename replace the other's
+        record."""
         d = directory or self.directory
         rank = self._ctx.get("rank", -1)
         version = self._ctx.get("version", 0)
@@ -258,10 +268,14 @@ class TraceRecorder:
                else self.role)
         base = os.path.join(d, f"flight-{who}-{version}.jsonl")
         path, n = base, 1
-        while os.path.exists(path):
-            n += 1
-            path = f"{base}.{n}"
-        return path
+        while True:
+            try:
+                os.close(os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY,
+                                 0o644))
+                return path
+            except FileExistsError:
+                n += 1
+                path = f"{base}.{n}"
 
     def dump(self, reason: str = "", path: Optional[str] = None,
              directory: Optional[str] = None) -> Optional[str]:

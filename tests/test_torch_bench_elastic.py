@@ -93,6 +93,32 @@ def test_resize_phases_from_trace_equal_jax(cpu_env, tmp_path):
     assert rows[0]["bytes"] > 2**20 and rows[0]["total_ms"] > 0
 
 
+def test_flight_dumps_of_one_context_keep_every_record(tmp_path):
+    """The resize test's flight records: after a shrink the survivor and
+    the evicted workers exit together with the same (rank, version)
+    context. Each dump reserves its own name before writing, so names
+    taken before any record lands still differ and no record replaces
+    another (the race that dropped the survivor's resize spans under a
+    loaded run)."""
+    from kungfu_tpu_torch.trace.recorder import TraceRecorder
+
+    recs = [TraceRecorder(directory=str(tmp_path)) for _ in range(3)]
+    for i, rec in enumerate(recs):
+        rec.role = "worker"
+        rec.set_context(rank=0, version=2)
+        rec.event(f"e{i}")
+    paths = [rec.flight_path() for rec in recs]
+    assert len(set(paths)) == 3
+    for rec, path in zip(recs, paths):
+        assert rec.dump(reason="exit", path=path) == path
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == ["flight-r0-2.jsonl", "flight-r0-2.jsonl.2",
+                     "flight-r0-2.jsonl.3"]
+    seen = {json.loads(line)["name"] for p in tmp_path.iterdir()
+            for line in p.read_text().splitlines()[1:-1]}
+    assert seen == {"e0", "e1", "e2"}
+
+
 def test_sweep_completes(cpu_env, tmp_path, capsys):
     rc = adaptation.sweep(_args(chunk_mb_sweep="1",
                                 logdir=str(tmp_path / "logs")))

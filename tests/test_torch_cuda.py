@@ -524,18 +524,122 @@ def test_k1_autograd_on_the_card_launches_k1(cuda):
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):
+    """f64, a head dim above 256 and mixed dtypes are refused before any
+    launch (f32, f16 and any other head dim up to 256 go to the SIMT
+    family: `test_k1_simt_matches_plain_versions`)."""
     q, k, v, _ = _k1_inputs(cuda, 1, 64, 2, 64)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fl.flash_fwd(q.float(), k.float(), v.float(), True)
-    q48 = torch.zeros(1, 64, 2, 48, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        fl.flash_attention(q48, q48, q48, causal=True)
+    with pytest.raises(ValueError, match="float64"):
+        fl.flash_fwd(q.double(), k.double(), v.double(), True)
+    q288 = torch.zeros(1, 64, 2, 288, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 288"):
+        fl.flash_attention(q288, q288, q288, causal=True)
+    with pytest.raises(ValueError, match="k must be torch.bfloat16"):
+        fl.flash_fwd(q, k.float(), v, True)
     with pytest.raises(ValueError, match="contiguous"):
         fl.flash_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
                      True)
     _, lse = fl.flash_fwd(q, k, v, True)
     with pytest.raises(ValueError, match="lse"):
         fl.flash_bwd(q, k, v, q, lse[:1], q, True)
+
+
+#: the SIMT family's tolerance by input dtype, as TOL: its outputs round
+#: an f32 result once, as the plain versions' do, after sums in another
+#: order (f16: one ulp is 2**-10 of |ref|); lse and delta are f32
+SIMT_TOL = {**TOL, torch.float16: (1e-3, 2e-3)}
+
+
+def _simt_inputs(device, dtype, b, t, h, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g).to(device, dtype)
+            for _ in range(4)]
+
+
+def _close(name, got, ref, dtype):
+    atol, rtol = SIMT_TOL[dtype]
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), (
+        name, float(err.max()))
+
+
+@pytest.mark.parametrize("dtype,b,t,h,d,causal,window", [
+    (torch.float32, 2, 100, 3, 64, True, None),
+    (torch.float32, 1, 257, 2, 8, False, None),
+    (torch.float32, 2, 130, 2, 16, True, 20),
+    (torch.float32, 1, 70, 2, 32, True, None),
+    (torch.float32, 1, 90, 1, 128, False, None),
+    (torch.float32, 1, 50, 2, 256, True, None),
+    (torch.float32, 1, 40, 2, 7, True, 3),
+    (torch.bfloat16, 2, 100, 3, 16, True, None),
+    (torch.bfloat16, 1, 129, 2, 32, False, None),
+    (torch.bfloat16, 1, 200, 2, 96, True, 40),
+    (torch.bfloat16, 1, 64, 1, 256, True, None),
+    (torch.bfloat16, 1, 33, 2, 20, False, None),
+    (torch.float16, 1, 100, 2, 48, True, None)])
+def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
+                                        window):
+    """The SIMT family (f32, f16, and bf16 off d 64/128) against the plain
+    versions on the same inputs, within SIMT_TOL: fwd's o and lse, dq and
+    delta from the kernel's (o, lse), dk and dv from its delta; a second
+    launch of each bitwise equal to the first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _simt_inputs(cuda, dtype, b, t, h, d, seed=t + d)
+    fl.reset_launches()
+    runs = []
+    for _ in range(2):
+        o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+        dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+        dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None,
+                              window)
+        runs.append((o, lse, dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in
+                                ("fwd", "dq", "dkv")}
+    assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
+        {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+    o, lse, dq, delta, dk, dv = runs[0]
+    ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
+    rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
+    rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None, window)
+    for n, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                        ("dv", dv, rdv)):
+        assert got.dtype == dtype
+        _close(n, got, ref, dtype)
+    _close("lse", lse, rlse, torch.float32)
+    _close("delta", delta, rdelta, torch.float32)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_k1_folds_bh_above_65535(cuda, d):
+    """B * H = 66000 (B 1100, H 60, T 64): the grid folds B * H into its
+    first dimension. d 16 runs the SIMT family, d 64 the wgmma one; o,
+    lse and dq on two slices of rows within `fl.kernel_error_bounds`
+    (which covers both families) against the plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _simt_inputs(cuda, torch.bfloat16, 1100, 64, 60, d)
+    fl.reset_launches()
+    o, lse = fl.flash_fwd(q, k, v, True)
+    dq, dk, dv = fl.flash_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv")} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    rows = lse.reshape(1100, 60, 64)
+    for lo in (0, 1050):
+        sl = slice(lo, lo + 50)
+        f = [x[sl].float() for x in (q, k, v, do)]
+        ls = rows[sl].reshape(-1, 64)
+        ro, rlse = fl.plain_fwd(*f[:3], True)
+        bound = fl.kernel_error_bounds(*f[:3], ro, rlse, f[3], True)
+        _within("o", o[sl], ro, bound["o"])
+        _within("lse", ls, rlse, bound["lse"])
+        rdq, _ = fl.plain_dq(*f[:3], o[sl].float(), ls, f[3], True)
+        bound = fl.kernel_error_bounds(*f[:3], o[sl], ls, f[3], True)
+        _within("dq", dq[sl], rdq, bound["dq"])
+        assert bool(torch.isfinite(dk[sl]).all() and
+                    torch.isfinite(dv[sl]).all())
 
 
 # ---------------------------------------------------------------------------

@@ -358,10 +358,14 @@ def test_gpt_config_attention_modes():
     assert GPTConfig(attention="flash").attention == "flash"
     with pytest.raises(ValueError, match="attention must be one of"):
         GPTConfig(attention="sparse")
+    # the sequence-parallel mixers are ported; use_flash is validated as
+    # the JAX GPTConfig does it
     for kw in (dict(attention="ring"), dict(attention="ulysses"),
+               dict(attention="ring", use_flash=True),
                dict(attention="flash", use_flash=True)):
-        with pytest.raises(NotImplementedError, match="parallel-axes"):
-            GPTConfig(**kw)
+        assert GPTConfig(**kw).attention == kw["attention"]
+    with pytest.raises(ValueError, match="use_flash modifies"):
+        GPTConfig(use_flash=True)
 
 
 def test_flash_efficiency_cpu_smoke():
@@ -372,3 +376,104 @@ def test_flash_efficiency_cpu_smoke():
     assert meta["plan"]["fwd"]["visited_blocks"] == 10
     assert meta["launches"]["plain"] > 0
     assert meta["launches"]["fwd"] == meta["launches"]["dkv"] == 0
+
+
+# ---------------------------------------------------------------------------
+# every case the reference's kernels take: f32 and bf16 at the head dims
+# its configurations and tests use, the tile rule, the SIMT family's plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 16, 32, 96, 256])
+def test_plain_k1_matches_pallas_at_every_head_dim(pallas_interpret, d,
+                                                   dtype):
+    """The plain versions (the CPU route of every family and what the
+    card's kernels are held to) against the Pallas forward with its lse
+    and backward in interpret mode, causal, at head dims 8 (the dry
+    run's BERT), 16 (the `tiny` GPT and the sequence tests), 32 (the
+    flash tests), 96 and 256, in f32 (TOL / GTOL) and bf16 (both sides
+    round each output once: 2**-7 of the largest |value|)."""
+    q, k, v, do = _inputs(40 + d, (1, 64, 2, d))
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    ref_o, ref_lse = jfl._flash_fwd_impl(jq, jk, jv, True, None, None, None,
+                                         None, save_lse=True)
+    ref_g = jfl._flash_bwd_impl(jq, jk, jv, ref_o, ref_lse, jdo, True,
+                                1 / np.sqrt(d), None, None, None)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.tensor(np.asarray(x.astype(jnp.float32)))
+                       .to(tdt) for x in (jq, jk, jv, jdo))
+    o, lse = fl.flash_fwd(tq, tk, tv, True)
+    ro = torch.tensor(np.asarray(ref_o.astype(jnp.float32))).to(tdt)
+    got_g = fl.flash_bwd(tq, tk, tv, ro, lse, tdo, True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
+    for got, want, tol in ((o, ref_o, TOL),) + tuple(
+            zip(got_g, ref_g, (GTOL,) * 3)):
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.dtype == tdt
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), want, **tol)
+        else:
+            np.testing.assert_allclose(
+                got.float().numpy(), want, rtol=0,
+                atol=2.0 ** -7 * float(np.abs(want).max()))
+
+
+def test_tile_rule_is_the_references():
+    """`tiles` gives `_tiles`'s auto blocks (None: plain attention) for
+    lengths on and off the 128 grid, windows, head dims and itemsizes,
+    the VMEM shrink included."""
+    for t in (1, 64, 100, 1024, 1025, 1100, 1152, 2048, 3000, 4096, 8192,
+              16384):
+        for causal, window in ((False, None), (True, None), (True, 100),
+                               (True, 512), (True, 3000)):
+            for d, isz in ((None, 4), (8, 4), (64, 2), (256, 4), (256, 2)):
+                want = jfl._tiles(t, causal, None, None, window, d=d,
+                                  itemsize=isz)
+                assert fl.tiles(t, causal, window, d, isz) == want, (
+                    t, causal, window, d, isz)
+
+
+def test_untiled_lengths_take_plain_attention_and_are_counted():
+    """T = 1100 (> 1024, no power-of-two block divides it) goes to plain
+    attention in `flash_attention`, as in the reference, counted in
+    UNTILED and as a plain call; T = 1024 tiles."""
+    q, k, v, _ = _t(*_inputs(50, (1, 1100, 1, 8)))
+    fl.reset_launches()
+    out = fl.flash_attention(q, k, v, causal=True)
+    assert fl.UNTILED == {"calls": 1} and fl.LAUNCHES["plain"] == 1
+    ref = jfl.flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                              causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    fl.reset_launches()
+    fl.flash_attention(q[:, :1024], k[:, :1024], v[:, :1024], causal=True)
+    assert fl.UNTILED == {"calls": 0}
+
+
+def test_routes_and_the_simt_plan():
+    """bf16 at d 64/128 runs the wgmma family; f32, f16 and bf16 at any
+    other head dim up to 256 the SIMT family; f64 and wider heads
+    none. The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
+    memory by kernel within the 227 KB a block may use."""
+    assert fl.route(torch.bfloat16, 64) == fl.route(torch.bfloat16,
+                                                    128) == "wgmma"
+    for dt in (torch.float32, torch.float16):
+        for d in (1, 8, 64, 128, 256):
+            assert fl.route(dt, d) == "simt"
+    assert fl.route(torch.bfloat16, 16) == "simt"
+    for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
+        with pytest.raises(ValueError, match="no flash-attention kernel"):
+            fl.route(dt, d)
+    plan = fl.flash_plan(512, 256, True, dtype=torch.float32)
+    assert plan["route"] == "simt" and plan["tiles"] == (512, 512)
+    cta = plan["simt_cta"]
+    assert (cta["rows"], cta["keys"], cta["threads"]) == (16, 32, 128)
+    assert cta["ctas_per_head"] == 32
+    # the reference's VMEM rule: one 1000-row f32 block at d 256 does not
+    # fit and cannot halve, so that call is plain attention
+    assert fl.flash_plan(1000, 256, True, dtype=torch.float32)[
+        "tiles"] is None
+    assert max(cta["smem"].values()) == fl.simt_smem("dkv", 256) \
+        <= 227 * 1024
+    assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] is None

@@ -145,7 +145,11 @@ def test_importing_every_module_loads_no_jax():
             "kungfu_tpu_torch.benchmarks.allreduce",
             "kungfu_tpu_torch.benchmarks.convergence_cv",
             "kungfu_tpu_torch.benchmarks.publish",
-            "kungfu_tpu_torch.dryrun"} <= set(mods)
+            "kungfu_tpu_torch.dryrun",
+            "kungfu_tpu_torch.parallel.mesh",
+            "kungfu_tpu_torch.parallel.sequence",
+            "kungfu_tpu_torch.parallel.train",
+            "kungfu_tpu_torch.ops.collective"} <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
     assert [m for m in loaded if m == "sklearn"
             or m.startswith("sklearn.")] == []

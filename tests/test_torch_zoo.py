@@ -334,8 +334,19 @@ def test_bert_mlm_gradient_matches_flax():
 
 @pytest.mark.parametrize("attention", ["ring", "ulysses"])
 def test_bert_sequence_parallel_modes_raise(attention):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BertConfig(attention=attention)
+    """The sequence-parallel modes are ported (held to the JAX encoder in
+    tests/test_torch_long_context.py); outside a `ProcessMesh` they have
+    no sequence axis and raise, and `use_flash` still needs one of
+    them."""
+    cfg = BertConfig(vocab_size=16, hidden_size=8, num_layers=1,
+                     num_heads=2, intermediate_size=16, max_position=8,
+                     dtype=torch.float32, attention=attention)
+    model = BertEncoder(cfg)
+    assert hasattr(model.TransformerLayer_0, "SeqParallelAttention_0")
+    with pytest.raises(RuntimeError, match="no ProcessMesh is active"):
+        model(torch.zeros(1, 4, dtype=torch.int64))
+    with pytest.raises(ValueError, match="use_flash modifies"):
+        BertConfig(use_flash=True)
 
 
 def test_from_flax_refuses_a_tree_that_does_not_fit():
