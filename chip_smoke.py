@@ -235,12 +235,16 @@ failing on the first phase that fails:
    gap between that run in bf16 and in f32, or the same floors). Prints each rank's ms/step and tokens/s (marked:
    4 ranks share one card), the exchange's ms, bytes and staged bytes a
    step, and K1's launches. (d) K1's new cases against their plain
-   versions: f32 at d 8..128 and bf16 at d 16, 32, 96, 256, causal,
-   non-causal and windowed, within TOL and bitwise on a second launch,
-   and one launch of B*H = 66000 > 65535. (e)
-   `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
-   through the SIMT family; (e') `measure_flash_efficiency(dtype=
-   "float32")` at its default shape through the f32 SIMT kernels. (f)
+   versions: f32 at d 8..128 and bf16 at d 8..256 (`K1_NEW`), causal,
+   non-causal and windowed, the padded wgmma fwd and dkv (bf16, d % 8
+   == 0, d <= 128, off 64/128) within `kernel_error_bounds`, the SIMT
+   kernels within TOL, every case bitwise on a second launch, and one
+   launch of B*H = 66000 > 65535. (e) `measure_lm_rate("tiny",
+   attention="flash")`: the d-16 GPT trains through the padded wgmma fwd
+   and dkv and the SIMT dq; (e') `measure_flash_efficiency(dtype=
+   "float32")` at its default shape through the f32 SIMT kernels; (e'')
+   `measure_flash_efficiency` in bf16 at head dim 256 (Gemma's) through
+   the bf16 SIMT kernels. (f)
    `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
    BERT, d 8, the plain ring as the reference's) on the card's ranks;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
@@ -259,10 +263,12 @@ failing on the first phase that fails:
    forced; and R1 per
    launch at [262144, 1024] by device time (and by events) beside its
    byte bound and torch.neg (its plain version and the library call at
-   once), timed the same way; and the SIMT family of K1 (f32, and bf16
-   off d 64/128) per launch at `K1_SIMT_TIMING`'s shapes, the main
-   path's (e) and (e'), first held there to its plain version within
-   TOL, beside its bound at the peak of its input type, its plain
+   once), timed the same way; and K1 off bf16 d 64/128 (f32, bf16 at
+   d 16 and 256) per launch at `K1_SIMT_TIMING`'s shapes, the main
+   path's (e), (e') and (e''), first held there to its plain version within
+   TOL (the padded wgmma fwd and dkv at the tiny GPT's shape within
+   `kernel_error_bounds`), beside its bound at the peak of its input
+   type (and the exponentials at the special-function rate), its plain
    version and SDPA.
 
 Prints the card's name and power limit, the measurements, a
@@ -302,6 +308,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+#: the H100 SXM's special-function results a second (exp2 and the like),
+#: the FlashAttention-3 paper's figure (Shah et al., 2024) beside the
+#: 989 TFLOP/s of bf16
+PEAK_EXP_S = 3.9e12
 
 BT, HEADS, HEAD_DIM, BATCH, MAX_LEN = 16, 12, 64, 8, 1024
 MAX_BLOCKS = MAX_LEN // BT
@@ -382,19 +392,29 @@ SEQ_SPECS = [
 #: its output to bf16 before the merge: half an ulp, 2**-9, a hop)
 SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
 SEQ_GRAD_FLOOR = 2e-2
-#: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128, at B 2,
-#: T 256, H 4 in each mode; the fold launch: B 1100 x H 60 = 66000 > 65535
+#: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128 (the
+#: padded wgmma fwd and dkv at d % 8 == 0 up to 128; the SIMT family at
+#: d 20 and 256, and the SIMT dq at every one), at B 2, T 256, H 4 in
+#: each mode; the fold launch: B 1100 x H 60 = 66000 > 65535
 K1_NEW = ([("float32", d) for d in (8, 16, 32, 64, 128)]
-          + [("bfloat16", d) for d in (16, 32, 96, 256)])
+          + [("bfloat16", d) for d in (8, 16, 20, 24, 32, 40, 72, 96, 120,
+                                        256)])
 K1_NEW_SHAPE = (2, 256, 4)
 K1_NEW_MODES = {"causal": (True, None), "full": (False, None),
                 "window": (True, 48)}
 K1_FOLD = (1100, 64, 60, 16)
-#: the SIMT family's shapes on the main path, where it is timed and held
-#: to its plain version: f32 at the flash benchmark's (e') (B 8, T 1024,
-#: H 12, d 64) and bf16 at the `tiny` GPT's training shape (e) (B 8,
-#: T 1024, H 8, d 16), both causal
-K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16)}
+#: K1 off bf16 d 64/128 at its shapes on the main path, where each kernel
+#: is timed and held to its plain version, all causal: f32 at the flash
+#: benchmark's (e') (B 8, T 1024, H 12, d 64); bf16 at the `tiny` GPT's
+#: training shape (e) (B 8, T 1024, H 8, d 16: the padded wgmma fwd and
+#: dkv, the SIMT dq); bf16 at (e'')'s head dim 256 (B 4, T 1024, H 8:
+#: the SIMT fwd and dkv; its dq row is the d-16 one)
+K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16),
+                  "bfloat16.d256": (4, 1024, 8, 256)}
+#: (e'') the bf16 flash benchmark at head dim 256 (Gemma's): the shape
+#: of K1_SIMT_TIMING["bfloat16.d256"], a few timed calls
+K1_D256_BENCH = dict(batch=4, seq=1024, heads=8, head_dim=256, iters=4,
+                     warmup=1)
 
 #: R1: the bandwidth suite's stream shape (0.5 GiB of bf16)
 R1_SHAPE = (262144, 1024)
@@ -2182,28 +2202,33 @@ def phase_timing_k2(torch, fc):
 
 def k1_bound(kernel, b, t, h, d, causal, window, itemsize=2,
              peak=PEAK_BF16_FLOPS):
-    """(bound_ms, bound_by, flops, bytes) of one K1 launch: each input
-    read once and each output written once (bf16 [B, T, h, d] tensors,
-    f32 [B*h, T] lse and delta): fwd reads q, k, v and writes o and lse;
-    dq reads q, k, v, o, dO and lse and writes dq and delta; dkv reads
-    q, k, v, dO, lse and delta and writes dk and dv. Operations are the
-    products on the visible pairs (`flash_attention_flops`' count, 2 d
-    FLOPs a pair a product): fwd q.k^T and p.v; dq q.k^T, dO.v^T and
-    ds.k; dkv those two score products, p^T.dO and ds^T.q — against the
-    bf16 tensor-core peak (the SIMT family: inputs of `itemsize` bytes
-    and `peak` the card's rate for their type)."""
+    """(bound_ms, bound_by, flops, bytes) of one K1 launch: the largest
+    of three times. Bytes: each input read once and each output written
+    once (bf16 [B, T, h, d] tensors, f32 [B*h, T] lse and delta): fwd
+    reads q, k, v and writes o and lse; dq reads q, k, v, o, dO and lse
+    and writes dq and delta; dkv reads q, k, v, dO, lse and delta and
+    writes dk and dv. Operations: the products on the visible pairs
+    (`flash_attention_flops`' count, 2 d FLOPs a pair a product): fwd
+    q.k^T and p.v; dq q.k^T, dO.v^T and ds.k; dkv those two score
+    products, p^T.dO and ds^T.q — against the bf16 tensor-core peak (the
+    SIMT family: inputs of `itemsize` bytes and `peak` the card's rate
+    for their type). Exponentials: one a visible pair in each kernel
+    (p = exp(s - m) or exp(s - lse)), at `PEAK_EXP_S`; at a small head
+    dim they outlast the products. `bound_by` names the largest."""
     from kungfu_tpu_torch.ops.flash import flash_attention_flops
 
     seq = itemsize * b * t * h * d              # one [B, T, h, d]
     row = 4 * b * h * t                         # one f32 [B*h, T]
     pair_product = flash_attention_flops(b, t, h, d, causal, window) // 2
+    pairs = flash_attention_flops(b, t, h, 1, causal, window) // 4
     nbytes, flops = {
         "fwd": (4 * seq + row, 2 * pair_product),
         "dq": (6 * seq + 2 * row, 3 * pair_product),
         "dkv": (6 * seq + 2 * row, 4 * pair_product)}[kernel]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+    times = {"bytes": nbytes / PEAK_BYTES_S, "operations": flops / peak,
+             "exponentials": pairs / PEAK_EXP_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by, flops, nbytes
 
 
 def phase_timing_k1(torch, fl):
@@ -2330,17 +2355,73 @@ def _close(torch, got, ref, dtype):
                                   .all())
 
 
+def _bounded(torch, got, ref, bound, relative):
+    """max |got - ref| and whether every element is within `bound` (a
+    `kernel_error_bounds` entry), plus 2**-8 |ref| where `relative` (the
+    rounding of a bf16 output: o, dq, dk, dv)."""
+    err = (got.float() - ref.float()).abs()
+    lim = bound + (2.0 ** -8 * ref.float().abs() if relative else 0.0)
+    return float(err.max()), bool((err <= lim).all())
+
+
+def k1_held(torch, fl, family, x, causal, window):
+    """Each K1 kernel's outputs against its plain versions on the same
+    inputs `x` = (q, k, v, dO, o, lse, dq, delta, dk, dv): a kernel that
+    `family` (kernel -> "wgmma" | "simt") puts on the SIMT family within
+    TOL of the plain version in the input dtype (lse and delta within
+    TOL["float32"]); a wgmma kernel (bf16: at d 64/128, or fwd and dkv
+    padded) within `kernel_error_bounds` of the plain version in f32 (the
+    wgmma kernels round p and ds to bf16 before the second product). dq
+    and dkv get the kernels' own (o, lse) and delta. Returns {kernel:
+    (max_abs_err, every element within)}."""
+    q, k, v, do, o, lse, dq, delta, dk, dv = x
+    dtype = str(q.dtype).split(".")[-1]
+    f = [y.float() for y in (q, k, v, do)]
+    out = {}
+    for kernel, got in (("fwd", (o, lse)), ("dq", (dq, delta)),
+                        ("dkv", (dk, dv))):
+        wgmma = family[kernel] == "wgmma"
+        ins = f if wgmma else (q, k, v, do)
+        if kernel == "fwd":
+            ref = fl.plain_fwd(*ins[:3], causal, None, window)
+        elif kernel == "dq":
+            ref = fl.plain_dq(*ins[:3], o, lse, ins[3], causal, None, window)
+        else:
+            ref = fl.plain_dkv(*ins[:3], ins[3], lse, delta, causal, None,
+                               window)
+        names = {"fwd": ("o", "lse"), "dq": ("dq", "delta"),
+                 "dkv": ("dk", "dv")}[kernel]
+        if wgmma:
+            # the bound at the (o, lse) the kernel was given: the plain
+            # forward's own for fwd, the fwd kernel's for dq and dkv
+            bound = fl.kernel_error_bounds(
+                *f[:3], *(ref if kernel == "fwd" else (o, lse)), f[3],
+                causal, None, window)
+            res = [_bounded(torch, a, r, bound[n], n in ("o", "dq", "dk",
+                                                         "dv"))
+                   for a, r, n in zip(got, ref, names)]
+        else:
+            res = [_close(torch, a, r, dtype if n in ("o", "dq", "dk", "dv")
+                          else "float32")
+                   for a, r, n in zip(got, ref, names)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        out[kernel] = (max(e for e, _ in res),
+                       finite and all(ok for _, ok in res))
+    return out
+
+
 def k1_new_cases(torch, fl):
     """(d) every new case of K1 on the card against its plain versions on
-    the same inputs, within TOL for its dtype (o, dq, dk, dv; lse and
-    delta within TOL["float32"]), and a second launch bitwise equal:
-    `K1_NEW` in each of `K1_NEW_MODES`, then one fold launch of B*H >
-    65535 (within `kernel_error_bounds`, which covers both families).
-    Returns {(kernel, dtype): max_abs_err}."""
+    the same inputs (`k1_held`: the SIMT kernels within TOL, the padded
+    wgmma fwd and dkv within `kernel_error_bounds`), and a second launch
+    bitwise equal: `K1_NEW` in each of `K1_NEW_MODES`, then one fold
+    launch of B*H > 65535 (within `kernel_error_bounds`, which covers
+    both families). Returns {(kernel, dtype, family): max_abs_err}."""
     errs = {}
     b, t, h = K1_NEW_SHAPE
     for dtype, d in K1_NEW:
         dt = getattr(torch, dtype)
+        family = {n: fl.route(dt, d, n) for n in ("fwd", "dq", "dkv")}
         g = torch.Generator(device=DEVICE).manual_seed(d)
         q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=DEVICE)
                        .to(dt) for _ in range(4))
@@ -2356,26 +2437,18 @@ def k1_new_cases(torch, fl):
             torch.cuda.synchronize()
             check(all(torch.equal(a, c) for a, c in zip(*runs)),
                   f"K1 {dtype} d={d} {mode}: a second launch differs")
-            o, lse, dq, delta, dk, dv = runs[0]
-            ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
-            rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None,
-                                      window)
-            rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
-                                    window)
-            for kernel, pairs in (
-                    ("fwd", ((o, ro, dtype), (lse, rlse, "float32"))),
-                    ("dq", ((dq, rdq, dtype), (delta, rdelta, "float32"))),
-                    ("dkv", ((dk, rdk, dtype), (dv, rdv, dtype)))):
-                for got, ref, tol in pairs:
-                    err, ok = _close(torch, got, ref, tol)
-                    check(ok and bool(torch.isfinite(got).all()),
-                          f"K1 {kernel} {dtype} d={d} {mode}: outside TOL "
-                          f"(max_abs_err {err:.3e})")
-                    key = (kernel, dtype)
-                    errs[key] = max(errs.get(key, 0.0), err)
+            held = k1_held(torch, fl, family, (q, k, v, do) + runs[0],
+                           causal, window)
+            for kernel, (err, ok) in held.items():
+                check(ok, f"K1 {kernel} {dtype} d={d} {mode} "
+                      f"({family[kernel]}): outside its tolerance "
+                      f"(max_abs_err {err:.3e})")
+                key = (kernel, dtype, family[kernel])
+                errs[key] = max(errs.get(key, 0.0), err)
         log(f"seq (d) K1 {dtype} d={d}: fwd, dq, dkv in {sorted(K1_NEW_MODES)}"
-            f" within TOL[{dtype}], second launch bitwise; route "
-            f"{fl.route(dt, d)}")
+            f" within their tolerances (simt: TOL[{dtype}], wgmma: "
+            f"kernel_error_bounds), second launch bitwise; route "
+            f"{json.dumps(family)}")
     # B * H = 66000: the grid folds B * H into its first dimension
     b, t, h, d = K1_FOLD
     g = torch.Generator(device=DEVICE).manual_seed(3)
@@ -2397,16 +2470,16 @@ def k1_new_cases(torch, fl):
         bound = fl.kernel_error_bounds(*f[:3], o[sl], ls, f[3], True)
         for name, got, ref in (("o", o[sl], ro), ("lse", ls, rlse),
                                ("dq", dq[sl], rdq)):
-            err = (got.float() - ref.float()).abs()
-            lim = bound[name] + (2.0 ** -8 * ref.abs()
-                                 if name != "lse" else 0.0)
-            check(bool((err <= lim).all()), f"K1 fold {name}: outside the "
-                  f"bound (max_abs_err {float(err.max()):.3e})")
-            worst = max(worst, float(err.max()))
+            err, ok = _bounded(torch, got, ref, bound[name], name != "lse")
+            check(ok, f"K1 fold {name}: outside the bound (max_abs_err "
+                  f"{err:.3e})")
+            worst = max(worst, err)
     check(bool(torch.isfinite(dk).all() and torch.isfinite(dv).all()),
           "K1 fold: non-finite dk/dv")
+    family = {n: fl.route(torch.bfloat16, d, n)
+              for n in ("fwd", "dq", "dkv")}
     log(f"seq (d) K1 fold B={b} H={h} (B*H {b * h} > 65535) T={t} d={d} "
-        f"bf16 ({fl.route(torch.bfloat16, d)}): o, lse, dq within "
+        f"bf16 ({json.dumps(family)}): o, lse, dq within "
         f"kernel_error_bounds on rows 0..49 and {b - 50}..{b - 1} "
         f"(max_abs_err {worst:.3e}), second launch bitwise")
     del q, k, v, do, o, lse, dq, dk, dv
@@ -2563,17 +2636,20 @@ def phase_seq(torch, fl, card: str) -> dict:
     steps = len(meta["losses"])
     want = {"fwd": 2 * steps, "dq": 2 * steps, "dkv": 2 * steps,
             "plain": 0}
-    check(k1 == want and simt == {f"{n}.bfloat16": 2 * steps
-                                  for n in ("fwd", "dq", "dkv")},
+    # fwd and dkv on the padded wgmma kernels (none of them SIMT), dq on
+    # the SIMT family
+    check(k1 == want and simt == {"dq.bfloat16": 2 * steps},
           f"seq (e): K1 launches {k1} / SIMT {simt} (probe {probe}), "
-          f"expected {want} on the SIMT family")
+          f"expected {want} with only dq on the SIMT family")
     check(all(math.isfinite(x) for x in meta["losses"])
           and meta["losses"][-1] < meta["losses"][0],
           f"seq (e): losses {meta['losses']}")
     log(f"seq (e) measure_lm_rate('tiny', attention='flash') (d 16, bf16, "
         f"B {meta['per_data_batch']} T {meta['seq']}): {rate:.1f} tok/s, "
         f"{meta['step_time_ms']:.2f} ms/step; K1 {k1}, SIMT {simt}")
-    out["tiny_simt"] = simt
+    out["tiny"] = {"padded": {n: k1[n] - simt.get(f"{n}.bfloat16", 0)
+                              for n in ("fwd", "dq", "dkv")},
+                   "simt": simt}
     # (e') the flash benchmark in f32 at its default shape (B 8, T 1024,
     # h 12, d 64, causal): the SIMT family's f32 path
     fl.reset_launches()
@@ -2589,6 +2665,23 @@ def phase_seq(torch, fl, card: str) -> dict:
         f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
         f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
     out["f32_simt"] = simt
+    # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): above the
+    # padded kernels' 128, so all three on the bf16 SIMT family
+    fl.reset_launches()
+    meta = measure_flash_efficiency(**K1_D256_BENCH)
+    torch.cuda.synchronize()
+    simt = dict(fl.SIMT_LAUNCHES)
+    check(fl.LAUNCHES["plain"] == 0 and set(simt) == {
+        f"{n}.bfloat16" for n in ("fwd", "dq", "dkv")}
+        and all(simt[f"{n}.bfloat16"] == fl.LAUNCHES[n]
+                for n in ("fwd", "dq", "dkv")),
+          f"seq (e''): K1 launches {fl.LAUNCHES}, SIMT {simt}")
+    log(f"seq (e'') measure_flash_efficiency(dtype='bfloat16', head_dim="
+        f"256) (B {meta['batch']} T {meta['seq']} h {meta['heads']}, "
+        f"causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
+        f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
+        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
+    out["d256_simt"] = simt
     # (f) the dry run's phase 2 on the card's ranks (gloo, staged): the
     # reference's phase runs the plain ring (no use_flash), so it
     # launches no K1
@@ -2603,20 +2696,28 @@ def phase_seq(torch, fl, card: str) -> dict:
 
 
 def phase_timing_k1_simt(torch, fl):
-    """The SIMT family's three kernels at `K1_SIMT_TIMING`'s shapes, the
-    main path's: first held to their plain versions on the same inputs
-    (o, dq, dk, dv within TOL of the dtype, lse and delta within
-    TOL["float32"]), then timed per launch by device time, cycling over
-    four input sets, beside the bound (its inputs' bytes; its products at
-    the card's peak for the input type: the f32 rate outside the tensor
-    cores for f32, the tensor-core rate for bf16), the plain version and
-    SDPA on the same shape (forward; backward alone against dq + dkv),
-    with the backend SDPA picks. Returns {dtype: {kernel: (ms, plain_ms,
-    bound_ms, bound_by), "sdpa": {...}, "errs": {kernel: max_abs_err}}}."""
+    """K1 off bf16 d 64/128 at `K1_SIMT_TIMING`'s shapes, the main path's,
+    each kernel on the family its wrapper picks (read from
+    `SIMT_LAUNCHES`, so an older checkout's `ops.flash` runs here too,
+    for `benchmarks/kernel_ab.py`): first held to its plain versions on
+    the same inputs (`k1_held`: a SIMT kernel within TOL, a wgmma one
+    within `kernel_error_bounds`), then timed per launch by device time,
+    cycling over four input sets, beside the bound (its inputs' bytes;
+    its products at the card's peak for the input type: the f32 rate
+    outside the tensor cores for f32, the tensor-core rate for bf16; its
+    exponentials), the plain version and SDPA on the same shape (forward;
+    backward alone against dq + dkv), with the backend SDPA picks.
+    Returns {tag: {kernel: (ms, plain_ms, bound_ms, bound_by), "family":
+    {kernel: "simt" | "wgmma"}, "sdpa": {...}, "errs": {kernel:
+    max_abs_err}}}."""
     import torch.nn.functional as F
 
+    def simt_count():
+        return sum(fl.SIMT_LAUNCHES.values())
+
     out = {}
-    for dtype, (b, t, h, d) in K1_SIMT_TIMING.items():
+    for tag, (b, t, h, d) in K1_SIMT_TIMING.items():
+        dtype = tag.split(".")[0]
         dt = getattr(torch, dtype)
         peak, peak_name = ((PEAK_F32_FLOPS, "the f32 peak outside the "
                             "tensor cores") if dt == torch.float32 else
@@ -2631,26 +2732,31 @@ def phase_timing_k1_simt(torch, fl):
             _, delta = fl.flash_dq(q, k, v, o, lse, do, True)
             sets.append((q, k, v, do, o, lse, delta))
         q, k, v, do, o, lse, delta = sets[0]
+        family = {}
+        n = simt_count()
+        fl.flash_fwd(q, k, v, True)
+        family["fwd"] = "simt" if simt_count() > n else "wgmma"
+        n = simt_count()
         dq, _ = fl.flash_dq(q, k, v, o, lse, do, True)
+        family["dq"] = "simt" if simt_count() > n else "wgmma"
+        n = simt_count()
         dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, True)
-        ro, rlse = fl.plain_fwd(q, k, v, True)
-        rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, True)
-        rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, True)
+        family["dkv"] = "simt" if simt_count() > n else "wgmma"
+        torch.cuda.synchronize()
+        held = k1_held(torch, fl, family,
+                       (q, k, v, do, o, lse, dq, delta, dk, dv), True, None)
         errs = {}
-        for kernel, pairs in (
-                ("fwd", ((o, ro, dtype), (lse, rlse, "float32"))),
-                ("dq", ((dq, rdq, dtype), (delta, rdelta, "float32"))),
-                ("dkv", ((dk, rdk, dtype), (dv, rdv, dtype)))):
-            for got, ref, tol in pairs:
-                err, ok = _close(torch, got, ref, tol)
-                check(ok and bool(torch.isfinite(got).all()),
-                      f"K1 SIMT {kernel} {dtype} at B={b} T={t} h={h} d={d}"
-                      f" causal: outside TOL (max_abs_err {err:.3e})")
-                errs[kernel] = max(errs.get(kernel, 0.0), err)
-        log(f"K1 SIMT {dtype} at the main path's B={b} T={t} h={h} d={d} "
-            f"causal: fwd, dq, dkv within TOL[{dtype}] of plain (max_abs_err "
+        for kernel, (err, ok) in held.items():
+            check(ok, f"K1 {kernel} ({family[kernel]}) {dtype} at B={b} "
+                  f"T={t} h={h} d={d} causal: outside its tolerance "
+                  f"(max_abs_err {err:.3e})")
+            errs[kernel] = err
+        log(f"K1 {dtype} at the main path's B={b} T={t} h={h} d={d} "
+            f"causal: families {json.dumps(family)}; fwd, dq, dkv within "
+            f"their tolerances (simt: TOL[{dtype}], wgmma: "
+            f"kernel_error_bounds) of plain (max_abs_err "
             f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})})")
-        del dq, dk, dv, ro, rlse, rdq, rdelta, rdk, rdv
+        del dq, dk, dv
         runs = {
             "fwd": (lambda x: fl.flash_fwd(x[0], x[1], x[2], True),
                     lambda x: fl.plain_fwd(x[0], x[1], x[2], True)),
@@ -2663,7 +2769,7 @@ def phase_timing_k1_simt(torch, fl):
                     lambda x: fl.plain_dkv(x[0], x[1], x[2], x[3], x[5],
                                            x[6], True)),
         }
-        res = {}
+        res = {"family": family}
         for name, (kern, plain) in runs.items():
             ms = time_device(torch, lambda i: kern(sets[i % 4]), 20)
             plain_ms = time_device(torch, lambda i: plain(sets[0]), 2)
@@ -2671,10 +2777,11 @@ def phase_timing_k1_simt(torch, fl):
                 name, b, t, h, d, True, None, itemsize=dt.itemsize,
                 peak=peak)
             res[name] = (ms, plain_ms, bound_ms, bound_by)
-            log(f"timing K1 SIMT {dtype} (B={b} T={t} h={h} d={d} causal) "
-                f"{name:4s} {ms:.4f} ms/launch on the device; bound "
+            log(f"timing K1 {family[name]} {dtype} (B={b} T={t} h={h} d={d} "
+                f"causal) {name:4s} {ms:.4f} ms/launch on the device; bound "
                 f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop "
-                f"at {peak_name}); {ms / bound_ms:.1f}x bound; plain "
+                f"at {peak_name}, one exponential a visible pair at "
+                f"{PEAK_EXP_S:.2e}/s); {ms / bound_ms:.1f}x bound; plain "
                 f"{plain_ms:.4f} ms")
         lib = [[x.transpose(1, 2).contiguous().requires_grad_()
                 for x in st[:4]] for st in sets]
@@ -2703,12 +2810,12 @@ def phase_timing_k1_simt(torch, fl):
                        "forced": forced, "bwd_node": outs[0].grad_fn.name()}
         res["errs"] = errs
         pair = res["dq"][0] + res["dkv"][0]
-        log(f"timing K1 SIMT {dtype} library sdpa forward {lib_fwd:.4f} ms "
+        log(f"timing K1 {tag} library sdpa forward {lib_fwd:.4f} ms "
             f"({picked}; forced {json.dumps(forced)}; "
             f"{res['fwd'][0] / lib_fwd:.1f}x library), backward "
             f"alone {lib_bwd:.4f} ms ({res['sdpa']['bwd_node']}) against "
             f"dq + dkv {pair:.4f} ms ({pair / lib_bwd:.1f}x library)")
-        out[dtype] = res
+        out[tag] = res
         del sets, lib, outs
         torch.cuda.empty_cache()
     return out
@@ -3215,23 +3322,42 @@ def main() -> int:
         if name != "fwd":
             row["library_ms_is_pair"] = "flash.dq + flash.dkv"
         kernels.append(row)
-    # the SIMT family, by input dtype: launched on the main path by the
-    # flash benchmark in f32 (d 64) and by the tiny GPT's training (bf16,
-    # d 16); timed at K1_SIMT_TIMING's shapes, the main path's;
-    # max_abs_err over (d)'s cases of that dtype and the main path's
-    # shape; library: SDPA as for the wgmma rows
-    for dtype, launched in (("float32", seq["f32_simt"]),
-                            ("bfloat16", seq["tiny_simt"])):
-        lib = simt_times[dtype]["sdpa"]
+    # K1 off bf16 d 64/128, a row per kernel, family and dtype: the f32
+    # SIMT kernels launched on the main path by the flash benchmark (e')
+    # (d 64); the padded wgmma fwd and dkv and the bf16 SIMT dq by the
+    # tiny GPT's training (e) (d 16); the bf16 SIMT fwd and dkv by the
+    # bf16 flash benchmark at d 256 (e''). Each timed at its shape in
+    # K1_SIMT_TIMING, the main path's (the first shape that runs it);
+    # max_abs_err over (d)'s cases of that kernel, family and dtype and
+    # the main path's shape; library: SDPA as for the wgmma rows
+    launched = {
+        ("float32", "simt"): seq["f32_simt"],
+        ("bfloat16", "simt"): {**seq["d256_simt"],
+                               "dq.bfloat16": seq["tiny"]["simt"][
+                                   "dq.bfloat16"]},
+        ("bfloat16", "wgmma"): {f"{n}.bfloat16": c for n, c in
+                                seq["tiny"]["padded"].items()}}
+    seen = set()
+    for tag, timed in simt_times.items():
+        dtype = tag.split(".")[0]
+        lib = timed["sdpa"]
         for name in ("fwd", "dq", "dkv"):
-            ms, plain_ms, bound_ms, bound_by = simt_times[dtype][name]
+            family = timed["family"][name]
+            label = "padded" if family == "wgmma" else "simt"
+            row_name = f"flash.{name}.{label}.{dtype}"
+            if row_name in seen:
+                continue
+            seen.add(row_name)
+            ms, plain_ms, bound_ms, bound_by = timed[name]
             row = {
-                "name": f"flash.{name}.simt.{dtype}", "route": "cuda",
+                "name": row_name, "route": "cuda",
                 "source": "kungfu_tpu_torch/csrc/flash.cu",
                 "replaces": K1_REPLACES[name],
-                "launches": launched.get(f"{name}.{dtype}", 0),
-                "max_abs_err": max(seq["new_case_errs"][(name, dtype)],
-                                   simt_times[dtype]["errs"][name]),
+                "launches": launched[(dtype, family)].get(
+                    f"{name}.{dtype}", 0),
+                "max_abs_err": max(
+                    seq["new_case_errs"].get((name, dtype, family), 0.0),
+                    timed["errs"][name]),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
@@ -3239,11 +3365,14 @@ def main() -> int:
                     f"forward ({lib['backend']})" if name == "fwd"
                     else f"backward ({lib['bwd_node']})"),
                 "shape": "B={} T={} h={} d={} causal".format(
-                    *K1_SIMT_TIMING[dtype]),
+                    *K1_SIMT_TIMING[tag]),
             }
             if name != "fwd":
-                row["library_ms_is_pair"] = (f"flash.dq.simt.{dtype} + "
-                                             f"flash.dkv.simt.{dtype}")
+                fam = {n: "padded" if timed["family"][n] == "wgmma"
+                       else "simt" for n in ("dq", "dkv")}
+                row["library_ms_is_pair"] = (
+                    f"flash.dq.{fam['dq']}.{dtype} + "
+                    f"flash.dkv.{fam['dkv']}.{dtype} at this shape")
             kernels.append(row)
     # torch.neg is R1's plain version and the one library call computing
     # the same function: plain_ms and library_ms are the same timing

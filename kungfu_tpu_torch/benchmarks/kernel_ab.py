@@ -2,7 +2,7 @@
 card.
 
     python3 -m kungfu_tpu_torch.benchmarks.kernel_ab BEFORE_DIR AFTER_DIR
-        [--phases k3,k2,k1,r1]
+        [--phases k3,k2,k1,k1s,r1]
 
 Each turn is a process of its own that imports the checkout's kernels
 (built from that checkout's sources into its own `build/`) and times
@@ -13,7 +13,9 @@ with THIS checkout's `chip_smoke.phase_timing`, `phase_timing_k1` and
 `ops.flash` and `ops.stream` (K3: both schemes
 per launch at full 1023-token rows and at the serve run's mixed
 lengths; K1: every kernel per launch at shapes (a) and (b) by device
-time, beside SDPA's forward and backward; R1: per launch at the suite's
+time, beside SDPA's forward and backward; ``k1s``: K1 off bf16 d 64/128
+with `phase_timing_k1_simt`, each kernel on the family the checkout's
+`ops.flash` picks, at `K1_SIMT_TIMING`'s shapes; R1: per launch at the suite's
 shape by device time and by events, beside torch.neg timed the same way
 in the same turn; so both trees are timed by the same code, whichever
 has the newer yardstick). The four turns
@@ -21,7 +23,8 @@ run before, after, after, before, so a drift of the card over the call
 shows as a difference between the two turns of one checkout. Prints the
 card's name and power limit, one JSON line per turn (``{"turn",
 "tree", "k3": {shape: {...}}, "k2": {kernel: [ms, plain_ms, library_ms,
-bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}, "r1": {"ms",
+bound_ms, bound_by]}, "k1": {shape: {kernel: ...}}, "k1s": {shape:
+{kernel: ..., "family": ...}}, "r1": {"ms",
 "plain_ms", "ratio", "event_ms", "plain_event_ms", "bound_ms"}}``),
 R1 / torch.neg per turn, and a table of
 each kernel's ms per turn. Needs one CUDA card.
@@ -50,18 +53,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 names = {"k3": "paged_attn", "k2": "fused_ce", "k1": "flash",
          "r1": "stream"}
-cs.build_all(_build, [n for k, n in names.items() if k in sys.argv[1]])
+phases = sys.argv[1].split(",")
+cs.build_all(_build, sorted({n for k, n in names.items()
+                             if any(p.startswith(k) for p in phases)}))
 out = {}
 spec = importlib.util.spec_from_file_location("runner_smoke", sys.argv[2])
 runner = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(runner)
-if "k3" in sys.argv[1]:
+if "k3" in phases:
     out["k3"] = runner.phase_timing(torch, pa)
-if "k2" in sys.argv[1]:
+if "k2" in phases:
     out["k2"] = cs.phase_timing_k2(torch, fc)
-if "k1" in sys.argv[1]:
+if "k1" in phases:
     out["k1"] = runner.phase_timing_k1(torch, fl)
-if "r1" in sys.argv[1]:
+if "k1s" in phases:
+    out["k1s"] = runner.phase_timing_k1_simt(torch, fl)
+if "r1" in phases:
     out["r1"] = runner.phase_timing_r1(torch, st)
 print("AB_RESULT " + json.dumps(out))
 """
@@ -86,7 +93,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("before")
     ap.add_argument("after")
-    ap.add_argument("--phases", default="k3,k2,k1,r1")
+    ap.add_argument("--phases", default="k3,k2,k1,r1",
+                    help="comma-separated: k3, k2, k1, k1s, r1")
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -103,13 +111,17 @@ def main() -> int:
                 rows.setdefault(f"K3 ({shape}) {name}", []).append(r[name])
         for name, v in res.get("k2", {}).items():
             rows.setdefault(f"K2 {name}", []).append(v[0])
-        for shape, kern in res.get("k1", {}).items():
-            for name, v in kern.items():
-                if name != "sdpa":
-                    rows.setdefault(f"K1 ({shape}) {name}", []).append(v[0])
-            for name in ("fwd", "bwd"):
-                rows.setdefault(f"K1 ({shape}) sdpa {name}", []).append(
-                    kern["sdpa"][name])
+        for key in ("k1", "k1s"):
+            for shape, kern in res.get(key, {}).items():
+                for name in ("fwd", "dq", "dkv"):
+                    rows.setdefault(f"K1 ({shape}) {name}", []).append(
+                        kern[name][0])
+                for name in ("fwd", "bwd"):
+                    rows.setdefault(f"K1 ({shape}) sdpa {name}", []).append(
+                        kern["sdpa"][name])
+                if "family" in kern:
+                    print(f"turn {i}: K1 ({shape}) families "
+                          f"{json.dumps(kern['family'])}", flush=True)
         if "r1" in res:
             r1 = res["r1"]
             print(f"turn {i}: R1 / torch.neg {r1['ratio']:.4f} by device "

@@ -71,16 +71,28 @@
 // The PTX building blocks (mbarriers, TMA, wgmma) are in hopper.cuh,
 // shared with fused_ce.cu and paged_attn.cu.
 //
+// Head dims other than 64 and 128 (fwd and dkv only): a call at head
+// dim d with d % 8 == 0 runs the kernel compiled for D = 64 (d <= 64) or
+// D = 128 (64 < d <= 128). Its tensor maps have the caller's d as their
+// innermost extent, so a 64-column box runs past d and TMA fills the
+// columns past d with zeros (the box's full bytes still arrive on the
+// mbarrier); zero columns add nothing to any of the products, so the
+// padded kernel computes the same function. The epilogues write rows of
+// stride H * d and only their first d columns: the columns past d are
+// the next head's. d % 8 == 0 is TMA's rule that every global stride
+// (here d * 2 bytes) be a multiple of 16 bytes.
+//
 // C interface (bound with ctypes): every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
 // a negative code when a tensor map cannot be encoded (-1: the encoder
-// was not found; -1000 - CUresult: it refused the operand). For k1_fwd,
-// k1_dq and k1_dkv D must be 64 or 128 and the inputs bf16; `stages` and
-// `smem` are the ring's depth and the dynamic shared memory in bytes
-// (`flash_plan`'s fwd_cta, dq_cta and dkv_cta). k1s_fwd, k1s_dq and
-// k1s_dkv (the SIMT family at the end of this file) take f32, bf16 or f16
-// at any D from 1 to 256 and `smem` from `simt_smem`. A launcher refuses
-// a byte count below what its layout needs.
+// was not found; -1000 - CUresult: it refused the operand). The inputs
+// of k1_fwd, k1_dq and k1_dkv are bf16; k1_dq takes d 64 or 128, k1_fwd
+// and k1_dkv any d from 8 to 128 with d % 8 == 0; `stages` and `smem`
+// are the ring's depth and the dynamic shared memory in bytes
+// (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at the padded D). k1s_fwd,
+// k1s_dq and k1s_dkv (the SIMT family at the end of this file) take f32,
+// bf16 or f16 at any D from 1 to 256 and `smem` from `simt_smem`. A
+// launcher refuses a byte count below what its layout needs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -205,11 +217,12 @@ __device__ __forceinline__ void scores(float (&s)[32], uint64_t da,
 }
 
 // rows r and r + 8 (register halves) of a warpgroup's [64, D]
-// accumulator, times `mul`, as bf16 into [T, D] rows of stride ld; rows
-// at or past T are dropped
+// accumulator, times `mul`, as bf16 into [T, d] rows of stride ld (the
+// first d of the D columns; d % 8 == 0); rows at or past T are dropped
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* g, long long ld, int r,
-                                          int t, const float (&acc)[D / 2],
+                                          int t, int d,
+                                          const float (&acc)[D / 2],
                                           float mul) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -218,10 +231,11 @@ __device__ __forceinline__ void store_acc(bf16* g, long long ld, int r,
     if (row >= t) continue;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(g + (size_t)row * ld + 8 * i +
-                                   2 * (lane & 3)) =
-          pack_bf16(acc[4 * i + 2 * half] * mul,
-                    acc[4 * i + 2 * half + 1] * mul);
+      if (8 * i < d)
+        *reinterpret_cast<uint32_t*>(g + (size_t)row * ld + 8 * i +
+                                     2 * (lane & 3)) =
+            pack_bf16(acc[4 * i + 2 * half] * mul,
+                      acc[4 * i + 2 * half + 1] * mul);
   }
 }
 
@@ -261,12 +275,11 @@ __device__ __forceinline__ void pv_step(float (&o)[D / 2],
 // of the warpgroups' `_k_span`s, [lo, hi), through a ring of `stages`
 // stages (K and V [64, D] each, 128-byte swizzled boxes of 64 columns:
 // two per tile at D = 128), each guarded by a full and an empty
-// mbarrier. TMA
-// reads [B, T, H, D] in place through 4-D tensor maps and zero-fills
-// rows past T. Every warpgroup walks the whole union, so every wgmma
-// runs the same number of times in all (none in a divergent branch); a
-// tile outside a warpgroup's own span is masked out entirely and adds
-// nothing. Per key tile, a warpgroup:
+// mbarrier. TMA reads [B, T, H, d] in place through 4-D tensor maps and
+// zero-fills rows past T and columns past d. Every warpgroup walks the
+// whole union, so every wgmma runs the same number of times in all (none
+// in a divergent branch); a tile outside a warpgroup's own span is masked
+// out entirely and adds nothing. Per key tile, a warpgroup:
 //   1. S[64, 64] = Q K^T: wgmma m64n64k16 over D, both operands K-major;
 //   2. masks S only on a tile that holds keys past T, the causal
 //      diagonal or the window's edge, and runs the online softmax on the
@@ -284,7 +297,7 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
     k1_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, bf16* o,
-                  float* lse, int t, int h, float scale, int causal,
+                  float* lse, int t, int h, int d, float scale, int causal,
                   int window, int stages) {
   constexpr int kTileB = tile_bytes<D>();
   constexpr int kQT = fwd_q_tiles<D>();
@@ -431,8 +444,10 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
       if (lane == 0) mbar_arrive(&empty[st]);
       if (++st == stages) { st = 0; ph ^= 1; }
     }
-    const long long ld = (long long)h * D;
-    bf16* ob = o + (size_t)bi * t * ld + (size_t)hd * D;
+    // o's rows have the caller's stride h d; only its first d columns
+    // are written (those past d belong to the next head)
+    const long long ld = (long long)h * d;
+    bf16* ob = o + (size_t)bi * t * ld + (size_t)hd * d;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = row + 8 * half;
@@ -443,10 +458,11 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
         lse[(size_t)bh * t + r] = m[half] * kLn2 + logf(l[half]);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r * ld + 8 * i +
-                                     2 * (lane & 3)) =
-            pack_bf16(acc[4 * i + 2 * half] * inv,
-                      acc[4 * i + 2 * half + 1] * inv);
+        if (8 * i < d)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)r * ld + 8 * i +
+                                       2 * (lane & 3)) =
+              pack_bf16(acc[4 * i + 2 * half] * inv,
+                        acc[4 * i + 2 * half + 1] * inv);
     }
   }
 }
@@ -638,8 +654,8 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
     wgmma_wait<0>();
     fence_acc(acc);
     const long long ld = (long long)h * D;
-    store_acc<D>(dq + (size_t)bi * t * ld + (size_t)hd * D, ld, row, t, acc,
-                 scale);
+    store_acc<D>(dq + (size_t)bi * t * ld + (size_t)hd * D, ld, row, t, D,
+                 acc, scale);
   }
 }
 
@@ -674,7 +690,7 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
                   const __grid_constant__ CUtensorMap tm_v,
                   const __grid_constant__ CUtensorMap tm_do,
                   const float* lse, const float* delta, bf16* dk, bf16* dv,
-                  int t, int h, float scale, int causal, int window,
+                  int t, int h, int d, float scale, int causal, int window,
                   int stages) {
   constexpr int kTileB = tile_bytes<D>();
   constexpr int kG = dkv_k_tiles<D>();
@@ -832,10 +848,10 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
       if (lane == 0) mbar_arrive(&empty[st]);
       if (++st == stages) { st = 0; ph ^= 1; }
     }
-    const long long ld = (long long)h * D;
-    const size_t base = (size_t)bi * t * ld + (size_t)hd * D;
-    store_acc<D>(dk + base, ld, key, t, gk, scale);
-    store_acc<D>(dv + base, ld, key, t, gv, 1.f);
+    const long long ld = (long long)h * d;  // the caller's d, as in k1_fwd
+    const size_t base = (size_t)bi * t * ld + (size_t)hd * d;
+    store_acc<D>(dk + base, ld, key, t, d, gk, scale);
+    store_acc<D>(dv + base, ld, key, t, d, gv, 1.f);
   }
 }
 
@@ -846,9 +862,13 @@ bool shape_ok(int b, int t, int h) {
          (long long)b * h * ((t + kTile - 1) / kTile) <= 2147483647LL;
 }
 
-// a [B, T, H, D] bf16 tensor read in boxes of (64 of D, 1 head, 64
-// rows, 1 batch), 128-byte swizzled, rows past T read as zeros; 0, or
-// the negative code of the C interface
+// a head dim k1_fwd and k1_dkv take: TMA's 16-byte stride rule (d * 2
+// bytes), at most the 128 columns of the wider kernel
+bool padded_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+
+// a [B, T, H, d] bf16 tensor read in boxes of (64 of d, 1 head, 64
+// rows, 1 batch), 128-byte swizzled, rows past T and columns past d
+// read as zeros; 0, or the negative code of the C interface
 int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return -1;
@@ -877,8 +897,8 @@ bool smem_short(long long smem, int tiles, int bytes, int bars) {
 
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int b, int t, int h, float scale, int causal, int window, int stages,
-        long long smem, void* stream) {
+        int b, int t, int h, int d, float scale, int causal, int window,
+        int stages, long long smem, void* stream) {
   constexpr int kQT = fwd_q_tiles<D>();
   if (stages < 2 || stages > kStagesMax ||
       smem_short<D>(smem, kQT + 2 * stages, 0, 2 * stages + 1))
@@ -891,14 +911,14 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       (int)smem);
   if (e) return e;
   CUtensorMap tq, tk, tv;
-  e = seq_map(&tq, q, b, t, h, D);
-  if (!e) e = seq_map(&tk, k, b, t, h, D);
-  if (!e) e = seq_map(&tv, v, b, t, h, D);
+  e = seq_map(&tq, q, b, t, h, d);
+  if (!e) e = seq_map(&tk, k, b, t, h, d);
+  if (!e) e = seq_map(&tv, v, b, t, h, d);
   if (e) return e;
   const int nq = (t + kTile - 1) / kTile;
   k1_fwd_kernel<D><<<(nq + kQT - 1) / kQT * b * h, fwd_threads<D>(), smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), t, h,
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), t, h, d,
       scale, causal, window, stages);
   return (int)cudaGetLastError();
 }
@@ -935,7 +955,7 @@ int dq(const void* q, const void* k, const void* v, const void* o,
 template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int b, int t,
-        int h, float scale, int causal, int window, int stages,
+        int h, int d, float scale, int causal, int window, int stages,
         long long smem, void* stream) {
   constexpr int kG = dkv_k_tiles<D>();
   if (stages < 2 || stages > kStagesMax ||
@@ -947,26 +967,27 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
       (int)smem);  // first, as in fwd
   if (e) return e;
   CUtensorMap tq, tk, tv, tdo;
-  e = seq_map(&tq, q, b, t, h, D);
-  if (!e) e = seq_map(&tk, k, b, t, h, D);
-  if (!e) e = seq_map(&tv, v, b, t, h, D);
-  if (!e) e = seq_map(&tdo, dout, b, t, h, D);
+  e = seq_map(&tq, q, b, t, h, d);
+  if (!e) e = seq_map(&tk, k, b, t, h, d);
+  if (!e) e = seq_map(&tv, v, b, t, h, d);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, d);
   if (e) return e;
   const int nk = (t + kTile - 1) / kTile;
   k1_dkv_kernel<D><<<(nk + kG - 1) / kG * b * h, (kG + 1) * 128, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), t, h, scale, causal, window, stages);
+      static_cast<bf16*>(dv), t, h, d, scale, causal, window, stages);
   return (int)cudaGetLastError();
 }
 
 
 // ---------------------------------------------------------------------------
 // The SIMT family: every case the wgmma kernels above do not take — f32
-// and f16 inputs, and bf16 at a head dim other than 64 and 128; any head
-// dim D from 1 to 256 (the reference's kernels take any float dtype and
-// any head dim). The same functions as k1_fwd, k1_dq and k1_dkv, in f32
+// and f16 inputs; bf16 dq at a head dim other than 64 and 128; bf16 fwd
+// and dkv at a head dim that is not a multiple of 8 or above 128; any
+// head dim D from 1 to 256 (the reference's kernels take any float dtype
+// and any head dim). The same functions as k1_fwd, k1_dq and k1_dkv, in f32
 // FMA arithmetic (f32 inputs compute in full f32: no TF32, no rounding of
 // p or ds), one simple shape for all three, templated on the input type
 // T and on C >= ceil(D / 32), the columns of a row each lane owns (1, 2,
@@ -1436,21 +1457,21 @@ int simt_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// o [B, T, H, D] bf16 and, unless lse is null, lse [B*H, T] f32.
-// window < 0: no window. A CTA per group of query tiles of each (b, h)
-// (three at D = 64, two at D = 128), each a ring of `stages` K/V stages
-// in `smem` bytes of dynamic shared memory (`flash_plan`'s fwd_cta)
+// o [B, T, H, d] bf16 and, unless lse is null, lse [B*H, T] f32, at
+// any d from 8 to 128 with d % 8 == 0 (the kernel of D = 64 up to d 64,
+// of D = 128 above). window < 0: no window. A CTA per group of query
+// tiles of each (b, h) (three at D = 64, two at D = 128), each a ring of
+// `stages` K/V stages in `smem` bytes of dynamic shared memory
+// (`flash_plan`'s fwd_cta)
 int k1_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return fwd<64>(q, k, v, o, lse, b, t, h, scale, causal, window, stages,
-                   smem, stream);
-  if (d == 128)
-    return fwd<128>(q, k, v, o, lse, b, t, h, scale, causal, window, stages,
-                    smem, stream);
-  return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, t, h) || !padded_ok(d)) return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return fwd<64>(q, k, v, o, lse, b, t, h, d, scale, causal, window,
+                   stages, smem, stream);
+  return fwd<128>(q, k, v, o, lse, b, t, h, d, scale, causal, window, stages,
+                  smem, stream);
 }
 
 // dq [B, T, H, D] bf16 and delta [B*H, T] f32 from the caller's (o, lse).
@@ -1470,22 +1491,20 @@ int k1_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// dk, dv [B, T, H, D] bf16 from lse and k1_dq's delta. A CTA per group
-// of key tiles of each (b, h) (two at D = 64, one at D = 128), a ring of
-// `stages` (Q, dO, lse, delta) stages in `smem` bytes (`flash_plan`'s
-// dkv_cta)
+// dk, dv [B, T, H, d] bf16 from lse and the delta of k1_dq (or k1s_dq:
+// the same layout), at the d k1_fwd takes. A CTA per group of key tiles
+// of each (b, h) (two at D = 64, one at D = 128), a ring of `stages` (Q,
+// dO, lse, delta) stages in `smem` bytes (`flash_plan`'s dkv_cta)
 int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int b,
            int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal,
-                   window, stages, smem, stream);
-  if (d == 128)
-    return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, scale, causal,
-                    window, stages, smem, stream);
-  return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, t, h) || !padded_ok(d)) return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
+                   causal, window, stages, smem, stream);
+  return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
+                  causal, window, stages, smem, stream);
 }
 
 // the SIMT family: dtype 0 f32, 1 bf16, 2 f16; any d from 1 to 256; the

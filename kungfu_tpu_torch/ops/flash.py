@@ -16,15 +16,23 @@ On the TPU the resident and stream schemes exist because of the 16 MB
 VMEM limit; on Hopper one kernel per direction replaces both, so there
 is no scheme to pick.
 
-Two families, picked by `route` from the dtype and the head dim (the
-reference's kernels take any float dtype and any head dim):
+Two families, picked per kernel by `route` from the dtype and the head
+dim (the reference's kernels take any float dtype and any head dim):
 
-- ``wgmma``: bf16 with head_dim 64 or 128 — the TMA + wgmma pipelines
-  (``k1_fwd``, ``k1_dq``, ``k1_dkv``);
-- ``simt``: f32, f16, and bf16 at any other head dim, every head dim
-  from 1 to `SIMT_MAX_D` (256) — one simple kernel family in f32 FMA
-  arithmetic (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``; f32 inputs compute
-  in full f32, no TF32), a CTA per 16 rows of one (b, h).
+- ``wgmma``: bf16 — the TMA + wgmma pipelines (``k1_fwd``, ``k1_dq``,
+  ``k1_dkv``), compiled for head dims 64 and 128. dq takes those two;
+  fwd and dkv take any head dim d <= 128 with d % 8 == 0 on the kernel
+  of the padded head dim (`padded_dim`: 64 up to d 64, else 128),
+  whose tensor maps read the true d and zero-fill the columns past it
+  (TMA's stride rule, d * 2 bytes a multiple of 16, is why d % 8 == 0);
+- ``simt``: f32, f16, and every bf16 case the wgmma kernels do not
+  take, every head dim from 1 to `SIMT_MAX_D` (256) — one simple kernel
+  family in f32 FMA arithmetic (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``;
+  f32 inputs compute in full f32, no TF32), a CTA per 16 rows of one
+  (b, h).
+
+A bf16 backward at such a head dim mixes the families: the SIMT dq
+writes the delta the wgmma dkv reads (one layout).
 
 Both fold B*H into the first grid dimension, so B*H may exceed 65535.
 
@@ -61,8 +69,11 @@ from . import _build
 #: query rows and key rows of one tile, in every kernel (kTile in the
 #: CUDA source)
 BLOCK_Q = BLOCK_K = 64
-#: head dims the kernels are compiled for
+#: head dims the wgmma kernels are compiled for (dq takes only these;
+#: fwd and dkv also any d % 8 == 0 below 128, at `padded_dim`)
 HEAD_DIMS = (64, 128)
+#: the kernels of the wgmma family that take a padded head dim
+PADDED_KERNELS = ("fwd", "dkv")
 #: the forward's CTA (k1_fwd_kernel): by head dim, its consumer
 #: warpgroups, each one 64-row query tile of a group, beside a producer
 #: warpgroup; key/value tiles stream through a ring of FWD_STAGES stages
@@ -178,8 +189,19 @@ def _smem(d: int, tiles: int, stages: int, extra: int = 0) -> int:
     return tiles * (d // 64 * _BOX) + extra + -(-bars // 128) * 128 + 1024
 
 
+def padded_dim(d: int) -> int:
+    """The compiled head dim of the wgmma fwd and dkv kernels that take
+    head dim `d` (8 <= d <= 128, d % 8 == 0): 64 up to d 64, else 128."""
+    if not (8 <= d <= 128 and d % 8 == 0):
+        raise ValueError(f"no padded wgmma kernel at head_dim {d}: it "
+                         f"takes multiples of 8 from 8 to 128")
+    return 64 if d <= 64 else 128
+
+
 def fwd_smem(d: int, stages: int = FWD_STAGES) -> int:
-    """One forward CTA: its query tiles and `stages` (K, V) pairs."""
+    """One forward CTA at head dim `d` (sized at `padded_dim`): its
+    query tiles and `stages` (K, V) pairs."""
+    d = padded_dim(d)
     return _smem(d, FWD_Q_TILES[d] + 2 * stages, stages)
 
 
@@ -190,8 +212,10 @@ def dq_smem(d: int, stages: int = BWD_STAGES) -> int:
 
 
 def dkv_smem(d: int, stages: int = BWD_STAGES) -> int:
-    """One dkv CTA: K and V of each of its key tiles, `stages` (Q, dO)
-    pairs and each stage's lse and delta rows."""
+    """One dkv CTA at head dim `d` (sized at `padded_dim`): K and V of
+    each of its key tiles, `stages` (Q, dO) pairs and each stage's lse
+    and delta rows."""
+    d = padded_dim(d)
     return _smem(d, 2 * DKV_K_TILES[d] + 2 * stages, stages,
                  stages * _ROWS)
 
@@ -220,11 +244,12 @@ def _groups(t, g, span, causal, window, last_first):
 def fwd_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The forward's CTAs for one (b, h) at head dim `d` (`_groups`):
-    query tiles, g = FWD_Q_TILES[d], and the key tiles of their
-    `_k_span`s. The last groups, whose causal spans are the longest,
-    come first: CTA i of the grid is group ngroups - 1 - i // (B H) of
-    head i % (B H)."""
-    return _groups(t, FWD_Q_TILES[d], _k_span, causal, window, True)
+    query tiles, g = FWD_Q_TILES[padded_dim(d)], and the key tiles of
+    their `_k_span`s. The last groups, whose causal spans are the
+    longest, come first: CTA i of the grid is group ngroups - 1 - i //
+    (B H) of head i % (B H)."""
+    return _groups(t, FWD_Q_TILES[padded_dim(d)], _k_span, causal, window,
+                   True)
 
 
 def dq_groups(t: int, d: int, causal: bool = False,
@@ -236,11 +261,12 @@ def dq_groups(t: int, d: int, causal: bool = False,
 def dkv_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The dkv kernel's CTAs for one (b, h) at head dim `d` (`_groups`):
-    key tiles, g = DKV_K_TILES[d], and the query tiles of their
-    `_q_span`s. The first groups, whose causal spans are the longest,
-    come first: CTA i of the grid is group i // (B H) of head i %
-    (B H)."""
-    return _groups(t, DKV_K_TILES[d], _q_span, causal, window, False)
+    key tiles, g = DKV_K_TILES[padded_dim(d)], and the query tiles of
+    their `_q_span`s. The first groups, whose causal spans are the
+    longest, come first: CTA i of the grid is group i // (B H) of head i
+    % (B H)."""
+    return _groups(t, DKV_K_TILES[padded_dim(d)], _q_span, causal, window,
+                   False)
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +339,29 @@ def tiles(t: int, causal: bool = False, window: Optional[int] = None,
     return bq, bk
 
 
-def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel family of a call: ``"wgmma"`` for bf16 at head_dim 64
-    or 128, ``"simt"`` for f32, f16 and bf16 at any head dim from 1 to
-    `SIMT_MAX_D`; ValueError for anything else (f64, a wider head)."""
-    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+def wgmma_dim(dtype: torch.dtype, d: int, kernel: str) -> Optional[int]:
+    """The compiled head dim of the wgmma kernel that takes `kernel`
+    (``"fwd"``, ``"dq"`` or ``"dkv"``) in `dtype` at head dim `d`, or
+    None where the wgmma family does not take it: bf16 only; d itself at
+    64 and 128; for fwd and dkv also `padded_dim(d)` at any d <= 128
+    with d % 8 == 0."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"no flash-attention kernel {kernel!r}")
+    if dtype != torch.bfloat16:
+        return None
+    if kernel not in PADDED_KERNELS:
+        return d if d in HEAD_DIMS else None
+    return padded_dim(d) if 8 <= d <= 128 and d % 8 == 0 else None
+
+
+def route(dtype: torch.dtype, d: int, kernel: str) -> str:
+    """The family that runs `kernel` (``"fwd"``, ``"dq"`` or ``"dkv"``)
+    in `dtype` at head dim `d`: ``"wgmma"`` where `wgmma_dim` names a
+    kernel (bf16: every kernel at d 64 and 128, fwd and dkv at any d <=
+    128 with d % 8 == 0), ``"simt"`` for every other f32, f16 and bf16
+    call at a head dim from 1 to `SIMT_MAX_D`; ValueError for anything
+    else (f64, a wider head)."""
+    if wgmma_dim(dtype, d, kernel) is not None:
         return "wgmma"
     if dtype in SIMT_DTYPES and 1 <= d <= SIMT_MAX_D:
         return "simt"
@@ -340,21 +384,22 @@ def flash_plan(t: int, d: int, causal: bool = False,
                window: Optional[int] = None, dtype=torch.bfloat16):
     """The port's tiles at length `t` and head dim `d`, and the tiles
     each kernel visits (from `_k_span` / `_q_span`, the loop bounds the
-    kernels use) beside the unskipped grid, and each kernel's CTA
-    (``fwd_cta``, ``dq_cta``, ``dkv_cta``): its resident tiles
+    kernels use) beside the unskipped grid, and each kernel's wgmma CTA
+    (``fwd_cta``, ``dq_cta``, ``dkv_cta``) at the head dim it is compiled
+    for (``head_dim``: `wgmma_dim`, the padded D): its resident tiles
     (``q_tiles``, or ``key_tiles`` for dkv), the streamed tile, threads,
     ring stages, shared memory and CTAs per (b, h) (`fwd_groups`,
-    `dq_groups`, `dkv_groups`; None where `d` is not in HEAD_DIMS). One
-    scheme per kernel: the TPU's resident/stream choice has no
-    counterpart here. Each grid is ctas_per_head x B x H.
+    `dq_groups`, `dkv_groups`; None where the SIMT family runs that
+    kernel in `dtype`). One scheme per kernel: the TPU's resident/stream
+    choice has no counterpart here. Each grid is ctas_per_head x B x H.
 
-    ``route`` is the family a call in `dtype` at head dim `d` launches
-    (`route`; None where none takes it): the wgmma CTAs above at bf16
-    with d 64 or 128, else ``simt_cta`` — every head dim from 1 to
-    `SIMT_MAX_D` in f32, f16 or bf16, 16 rows a CTA, 32 keys a staged
-    tile, 128 threads, shared memory by kernel (`simt_smem`). ``tiles``
-    is the reference's tile rule at this length (`tiles`): None sends
-    `flash_attention` to plain attention."""
+    ``route`` is the family each kernel launches in `dtype` at head dim
+    `d` (`route`; None where none takes it): the wgmma CTAs above, else
+    ``simt_cta`` — every head dim from 1 to `SIMT_MAX_D` in f32, f16 or
+    bf16, 16 rows a CTA, 32 keys a staged tile, 128 threads, shared
+    memory by kernel (`simt_smem`). ``tiles`` is the reference's tile
+    rule at this length (`tiles`): None sends `flash_attention` to plain
+    attention."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
     span = dict(causal=causal, window=window, block_q=BLOCK_Q,
@@ -363,11 +408,9 @@ def flash_plan(t: int, d: int, causal: bool = False,
                                      for i in range(nq)))
     dkv = sum(hi - lo for lo, hi in (_q_span(j, nq, **span)
                                      for j in range(nk)))
-    plan = {"block_q": BLOCK_Q, "block_k": BLOCK_K, "nq": nq, "nk": nk,
-            "head_dim_supported": d in HEAD_DIMS}
+    plan = {"block_q": BLOCK_Q, "block_k": BLOCK_K, "nq": nq, "nk": nk}
     for name, visited in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
         plan[name] = {"visited_blocks": visited, "grid_blocks": nq * nk}
-    ok = d in HEAD_DIMS
     for name, per_d, resident, streamed, n, stages, smem in (
             ("fwd", FWD_Q_TILES, "q_tiles", "key_tile", nq, FWD_STAGES,
              fwd_smem),
@@ -375,16 +418,19 @@ def flash_plan(t: int, d: int, causal: bool = False,
              dq_smem),
             ("dkv", DKV_K_TILES, "key_tiles", "query_tile", nk, BWD_STAGES,
              dkv_smem)):
-        g = per_d[d] if ok else None
+        dd = wgmma_dim(dtype, d, name)
+        g = per_d[dd] if dd else None
         plan[f"{name}_cta"] = {
-            resident: g, streamed: BLOCK_Q,
-            "threads": (g + 1) * 128 if ok else None, "stages": stages,
-            "smem": smem(d, stages) if ok else None,
-            "ctas_per_head": -(-n // g) if ok else None}
-    try:
-        plan["route"] = route(dtype, d)
-    except ValueError:
-        plan["route"] = None
+            "head_dim": dd, resident: g, streamed: BLOCK_Q,
+            "threads": (g + 1) * 128 if dd else None, "stages": stages,
+            "smem": smem(dd, stages) if dd else None,
+            "ctas_per_head": -(-n // g) if dd else None}
+    plan["route"] = {}
+    for name in ("fwd", "dq", "dkv"):
+        try:
+            plan["route"][name] = route(dtype, d, name)
+        except ValueError:
+            plan["route"][name] = None
     simt = 1 <= d <= SIMT_MAX_D
     plan["simt_cta"] = {
         "rows": SIMT_ROWS, "keys": SIMT_KEYS, "threads": SIMT_THREADS,
@@ -555,19 +601,22 @@ def _lib():
     return _build.load("flash")
 
 
-def _check(q, seqs, rows=None):
-    """Validate a kernel's operands and pick its family: every ``[B, T,
+def _check(kernel, q, seqs, rows=None):
+    """Validate `kernel`'s operands and pick its family: every ``[B, T,
     H, D]`` tensor in `seqs` of q's dtype, which `route` must take at
     q's head dim, every ``[B*H, T]`` tensor in `rows` f32, all
-    contiguous on q's CUDA device, and a grid of at most 2**31 - 1 CTAs.
-    Returns ``(b, t, h, d, family)``."""
+    contiguous and 16-byte aligned on q's CUDA device (`_build.require`:
+    the base address of a tensor map must be a multiple of 16 bytes, so
+    a view at another storage offset raises here, before any launch),
+    and a grid of at most 2**31 - 1 CTAs. Returns ``(b, t, h, d,
+    family)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {dev}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
     b, t, h, d = q.shape
-    family = route(q.dtype, d)
+    family = route(q.dtype, d, kernel)
     rows_a_cta = BLOCK_Q if family == "wgmma" else SIMT_ROWS
     if b * h * -(-t // rows_a_cta) > 2**31 - 1:
         raise ValueError(f"B*H = {b * h} at T = {t} exceeds the grid's "
@@ -611,7 +660,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
     if q.device.type == "cpu":
         o, lse = plain_fwd(q, k, v, causal, scale, window)
         return o, (lse if save_lse else None)
-    b, t, h, d, family = _check(q, {"q": q, "k": k, "v": v})
+    b, t, h, d, family = _check("fwd", q, {"q": q, "k": k, "v": v})
     o = torch.empty_like(q)
     lse = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
            if save_lse else None)
@@ -636,7 +685,7 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     if q.device.type == "cpu":
         return plain_dq(q, k, v, o, lse, do, causal, scale, window)
     b, t, h, d, family = _check(
-        q, {"q": q, "k": k, "v": v, "o": o, "do": do}, {"lse": lse})
+        "dq", q, {"q": q, "k": k, "v": v, "o": o, "do": do}, {"lse": lse})
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -660,7 +709,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
     the kernel."""
     if q.device.type == "cpu":
         return plain_dkv(q, k, v, do, lse, delta, causal, scale, window)
-    b, t, h, d, family = _check(q, {"q": q, "k": k, "v": v, "do": do},
+    b, t, h, d, family = _check("dkv", q,
+                                {"q": q, "k": k, "v": v, "do": do},
                                 {"lse": lse, "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

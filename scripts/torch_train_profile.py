@@ -3,10 +3,10 @@
 
     python3 scripts/torch_train_profile.py [--ce-variant residual]
         [--attention local|flash] [--steps 5] [--batch 8] [--seq 1024]
-        [--trace PATH]
+        [--size small|tiny|medium] [--trace PATH]
 
-GPT-2-small (f32 master weights, bf16 compute, random weights from a
-seed) trained by the LM benchmark's step (`benchmarks.lm.build_lm_train`:
+GPT-2-small (or `--size`; f32 master weights, bf16 compute, random
+weights from a seed) trained by the LM benchmark's step (`benchmarks.lm.build_lm_train`:
 `gpt_fused_loss` with the K2 kernels, the benchmark's AdamW, the plain
 causal mixer or the K1 flash kernels). After two warmup steps,
 `--steps` steps are timed without the profiler (host
@@ -50,7 +50,7 @@ def _group(name: str) -> str:
     """A kernel's group: K1, K2, cuBLAS products, the optimizer, or
     other."""
     low = name.lower()
-    if "k1_" in name:
+    if "k1_" in name or "k1s_" in name:
         return "k1"
     if "k2_" in name:
         return "k2"
@@ -70,6 +70,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--size", default="small",
+                    choices=("tiny", "small", "medium"))
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
 
@@ -88,7 +90,7 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    _, _, step, tokens = build_lm_train("small", args.batch, args.seq,
+    _, _, step, tokens = build_lm_train(args.size, args.batch, args.seq,
                                         args.ce_variant, "cuda",
                                         args.attention)
     for _ in range(2):
@@ -125,7 +127,7 @@ def main() -> int:
         by_group[g] = by_group.get(g, 0.0) + us
     n = args.steps
     summary = {
-        "card": card, "torch": torch.__version__,
+        "card": card, "torch": torch.__version__, "size": args.size,
         "ce_variant": args.ce_variant, "attention": args.attention,
         "batch": args.batch, "seq": args.seq, "steps": n,
         "host_wall_ms_per_step": plain_wall_us / n / 1e3,

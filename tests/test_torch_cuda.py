@@ -578,10 +578,13 @@ def _close(name, got, ref, dtype):
     (torch.float16, 1, 100, 2, 48, True, None)])
 def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                         window):
-    """The SIMT family (f32, f16, and bf16 off d 64/128) against the plain
-    versions on the same inputs, within SIMT_TOL: fwd's o and lse, dq and
-    delta from the kernel's (o, lse), dk and dv from its delta; a second
-    launch of each bitwise equal to the first."""
+    """The SIMT family (f32, f16, bf16 dq off d 64/128, bf16 fwd and dkv
+    at d % 8 != 0 or d > 128) against the plain versions on the same
+    inputs, within SIMT_TOL: fwd's o and lse, dq and delta from the
+    kernel's (o, lse), dk and dv from its delta; a second launch of each
+    bitwise equal to the first. Where `fl.route` puts a bf16 fwd or dkv
+    on the padded wgmma kernels (d 16, 32, 96) those are held within
+    `fl.kernel_error_bounds` of the plain versions in f32 instead."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, dtype, b, t, h, d, seed=t + d)
     fl.reset_launches()
@@ -594,30 +597,52 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
         runs.append((o, lse, dq, delta, dk, dv))
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
-    assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in
-                                ("fwd", "dq", "dkv")}
+    simt = [n for n in ("fwd", "dq", "dkv")
+            if fl.route(dtype, d, n) == "simt"]
+    assert "dq" in simt
+    assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in simt}
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
     o, lse, dq, delta, dk, dv = runs[0]
-    ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
     rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
-    rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None, window)
-    for n, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
-                        ("dv", dv, rdv)):
+    f = [x.float() for x in (q, k, v, do)]
+    if "fwd" in simt:
+        ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
+        _close("o", o, ro, dtype)
+        _close("lse", lse, rlse, torch.float32)
+    else:
+        ro, rlse = fl.plain_fwd(*f[:3], causal, None, window)
+        bound = fl.kernel_error_bounds(*f[:3], ro, rlse, f[3], causal,
+                                       None, window)
+        _within("o", o, ro, bound["o"])
+        _within("lse", lse, rlse, bound["lse"])
+    if "dkv" in simt:
+        rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
+                                window)
+        _close("dk", dk, rdk, dtype)
+        _close("dv", dv, rdv, dtype)
+    else:
+        rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None,
+                                window)
+        bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
+                                       window)
+        _within("dk", dk, rdk, bound["dk"])
+        _within("dv", dv, rdv, bound["dv"])
+    for got in (o, dq, dk, dv):
         assert got.dtype == dtype
-        _close(n, got, ref, dtype)
-    _close("lse", lse, rlse, torch.float32)
+    _close("dq", dq, rdq, dtype)
     _close("delta", delta, rdelta, torch.float32)
 
 
 @pytest.mark.parametrize("d", [16, 64])
 def test_k1_folds_bh_above_65535(cuda, d):
     """B * H = 66000 (B 1100, H 60, T 64): the grid folds B * H into its
-    first dimension. d 16 runs the SIMT family, d 64 the wgmma one; o,
-    lse and dq on two slices of rows within `fl.kernel_error_bounds`
-    (which covers both families) against the plain versions."""
+    first dimension. d 16 runs the padded wgmma fwd and dkv and the SIMT
+    dq, d 64 the wgmma family throughout; o, lse and dq on two slices of
+    rows within `fl.kernel_error_bounds` (which covers both families)
+    against the plain versions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, torch.bfloat16, 1100, 64, 60, d)
     fl.reset_launches()
@@ -640,6 +665,117 @@ def test_k1_folds_bh_above_65535(cuda, d):
         _within("dq", dq[sl], rdq, bound["dq"])
         assert bool(torch.isfinite(dk[sl]).all() and
                     torch.isfinite(dv[sl]).all())
+
+
+#: the padded cases' modes: causal, full and a sliding window
+PADDED_MODES = {"causal": (True, None), "full": (False, None),
+                "window": (True, 40)}
+#: the sentinel the padded launches' outputs and guards start from (a
+#: bf16 NaN pattern no kernel writes)
+SENTINEL = -0x0040
+
+
+def _guarded(like, tail=256):
+    """A view shaped as `like` at the start of a buffer filled with
+    SENTINEL bits, and the buffer's `tail` elements past it."""
+    buf = torch.full((like.numel() + tail,), SENTINEL, dtype=torch.int16,
+                     device=like.device).view(torch.bfloat16)
+    return buf[:like.numel()].view(like.shape), buf[like.numel():]
+
+
+@pytest.mark.parametrize("mode", sorted(PADDED_MODES))
+@pytest.mark.parametrize("d", [8, 16, 40, 72, 120])
+def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
+    """bf16 at a head dim the wgmma kernels take by padding (d % 8 == 0,
+    d <= 128, not 64 or 128): fwd and dkv launch `k1_fwd` and `k1_dkv`
+    at D = 64 or 128 (TMA zero-fills the columns past d), dq the SIMT
+    kernel. o, lse, dk and dv within `fl.kernel_error_bounds` of the
+    plain versions in f32; a second launch bitwise equal. Launched
+    straight through the C interface into outputs whose every element
+    and a tail past the last row start as SENTINEL: every element is
+    written with the wrapper's value and the tail is untouched, so no
+    row's columns past d (the next head's, or past the tensor) are
+    written."""
+    causal, window = PADDED_MODES[mode]
+    b, t, h = 2, 200, 3
+    q, k, v, do = _k1_inputs(cuda, b, t, h, d, seed=d)
+    fl.reset_launches()
+    runs = []
+    for _ in range(2):
+        o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+        dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+        dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None,
+                              window)
+        runs.append((o, lse, dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
+        {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
+    assert fl.SIMT_LAUNCHES == {"dq.bfloat16": 2}
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+    o, lse, dq, delta, dk, dv = runs[0]
+    f = [x.float() for x in (q, k, v, do)]
+    ro, rlse = fl.plain_fwd(*f[:3], causal, None, window)
+    bound = fl.kernel_error_bounds(*f[:3], ro, rlse, f[3], causal, None,
+                                   window)
+    _within("o", o, ro, bound["o"])
+    _within("lse", lse, rlse, bound["lse"])
+    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None, window)
+    bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
+                                   window)
+    _within("dk", dk, rdk, bound["dk"])
+    _within("dv", dv, rdv, bound["dv"])
+    # the same launches into sentinel-filled outputs with a guard tail
+    lib, stream = fl._lib(), _build.stream(cuda)
+    common = (b, t, h, d, 1 / d ** 0.5, int(causal),
+              -1 if window is None else window)
+    go, gtail = _guarded(o)
+    lse2 = torch.empty_like(lse)
+    assert lib.k1_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      go.data_ptr(), lse2.data_ptr(), *common,
+                      fl.FWD_STAGES, fl.fwd_smem(d), stream) == 0
+    gk, ktail = _guarded(dk)
+    gv, vtail = _guarded(dv)
+    assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      gk.data_ptr(), gv.data_ptr(), *common,
+                      fl.BWD_STAGES, fl.dkv_smem(d), stream) == 0
+    torch.cuda.synchronize()
+    for got, want, tail in ((go, o, gtail), (gk, dk, ktail),
+                            (gv, dv, vtail)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert bool((tail.view(torch.int16) == SENTINEL).all())
+    assert torch.equal(lse2, lse)
+
+
+def test_k1_padded_refuses_what_tma_cannot_read(cuda):
+    """A view whose base address is not a multiple of 16 bytes raises
+    before any launch (a tensor map cannot read it); the C interface
+    refuses a head dim off the padded rule (d % 8 != 0, d > 128) for
+    fwd and dkv and any d but 64 and 128 for dq."""
+    b, t, h, d = 1, 64, 2, 16
+    q, k, v, do = _k1_inputs(cuda, b, t, h, d)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:q.numel() + 1].view(q.shape)
+    shifted.copy_(q)
+    fl.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_fwd(shifted, k, v, True)
+    o, lse = fl.flash_fwd(q, k, v, True)
+    _, delta = fl.flash_dq(q, k, v, o, lse, do, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_dkv(q, k, v, shifted, lse, delta, True)
+    assert fl.LAUNCHES["dkv"] == 0
+    lib, stream = fl._lib(), _build.stream(cuda)
+    out = torch.empty_like(q)
+    for dd in (20, 136, 4):
+        assert lib.k1_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr(), b, t, h, dd, 0.25,
+                          1, -1, fl.FWD_STAGES, fl.fwd_smem(64), stream) != 0
+    assert lib.k1_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), out.data_ptr(),
+                     delta.data_ptr(), b, t, h, d, 0.25, 1, -1,
+                     fl.BWD_STAGES, fl.dq_smem(64), stream) != 0
 
 
 # ---------------------------------------------------------------------------

@@ -307,13 +307,20 @@ def test_bwd_smem_fits_the_deepest_ring():
     """The backward's rings at their largest head dim: dq at d 128 holds
     Q, dO and O of two query tiles and four (K, V) stages, 230,528
     bytes, inside the 232,448 a block may use; dkv's rows (lse, delta)
-    add 512 bytes a stage."""
+    add 512 bytes a stage. At bf16 d 48 the forward and dkv CTAs are the
+    d-64 kernels' (padded) and dq has none (the SIMT dq runs); in f32 no
+    kernel has a wgmma CTA."""
     assert fl.dq_smem(128) == 230528 <= 232448
     assert fl.dkv_smem(64) - fl._smem(64, 2 * 2 + 2 * 4, 4) == 4 * 512
     assert fl.fwd_smem(64) == 91264 and fl.fwd_smem(128) == 164992
-    plan = fl.flash_plan(1024, 48)
+    plan, at64 = fl.flash_plan(1024, 48), fl.flash_plan(1024, 64)
+    assert plan["fwd_cta"] == at64["fwd_cta"]
+    assert plan["dkv_cta"] == at64["dkv_cta"]
+    assert all(plan["dq_cta"][f] is None
+               for f in ("head_dim", "threads", "smem", "ctas_per_head"))
+    plan = fl.flash_plan(1024, 48, dtype=torch.float32)
     assert all(plan[k][f] is None for k in ("fwd_cta", "dq_cta", "dkv_cta")
-               for f in ("threads", "smem", "ctas_per_head"))
+               for f in ("head_dim", "threads", "smem", "ctas_per_head"))
 
 
 def test_window_contract():
@@ -451,22 +458,93 @@ def test_untiled_lengths_take_plain_attention_and_are_counted():
     assert fl.UNTILED == {"calls": 0}
 
 
+_SIMT3 = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
+_PADDED = {"fwd": "wgmma", "dq": "simt", "dkv": "wgmma"}
+_ROUTES = ([(torch.bfloat16, d, dict.fromkeys(_SIMT3, "wgmma"))
+            for d in (64, 128)]
+           + [(torch.bfloat16, d, _PADDED)
+              for d in (8, 16, 24, 40, 48, 72, 96, 120)]
+           + [(torch.bfloat16, d, _SIMT3) for d in (1, 20, 136, 256)]
+           + [(dt, d, _SIMT3) for dt in (torch.float32, torch.float16)
+              for d in (1, 8, 16, 64, 128, 256)]
+           + [(torch.float64, 64, None), (torch.bfloat16, 257, None),
+              (torch.float32, 257, None)])
+
+
+@pytest.mark.parametrize("dtype,d,want", _ROUTES,
+                         ids=[f"{str(dt)[6:]}-{d}" for dt, d, _ in _ROUTES])
+def test_route_per_kernel(dtype, d, want):
+    """The family of each kernel: bf16 runs the wgmma family at d 64 and
+    128, and for fwd and dkv at any d <= 128 with d % 8 == 0 (padded to
+    64 or 128), where dq stays on the SIMT family; bf16 at any other d
+    up to 256, and f32 and f16 at every d up to 256, run the SIMT family;
+    f64 and wider heads raise. `flash_plan` reports the same routes and
+    sizes each wgmma CTA at its padded head dim."""
+    for kernel in ("fwd", "dq", "dkv"):
+        if want is None:
+            with pytest.raises(ValueError, match="no flash-attention"):
+                fl.route(dtype, d, kernel)
+            continue
+        assert fl.route(dtype, d, kernel) == want[kernel]
+        dd = fl.wgmma_dim(dtype, d, kernel)
+        assert (dd is not None) == (want[kernel] == "wgmma")
+        if dd is not None:
+            assert dd == (d if d in fl.HEAD_DIMS else fl.padded_dim(d))
+            assert dd == (64 if d <= 64 else 128)
+    plan = fl.flash_plan(256, d, True, dtype=dtype)
+    assert plan["route"] == (want or dict.fromkeys(_SIMT3))
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 56, 72, 96, 120])
+@pytest.mark.parametrize("t,causal,window", [(64, True, None),
+                                             (1000, True, 200),
+                                             (257, False, None)])
+def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
+    """A bf16 call at a head dim the wgmma fwd and dkv take by padding
+    plans the CTA of the kernel compiled for 64 (d <= 64) or 128: the
+    same tiles, threads, shared memory and groups, with ``head_dim`` the
+    padded one; the SIMT dq's CTA is the SIMT plan's."""
+    big = 64 if d <= 64 else 128
+    plan = fl.flash_plan(t, d, causal, window)
+    ref = fl.flash_plan(t, big, causal, window)
+    for name in ("fwd", "dkv"):
+        assert plan[f"{name}_cta"] == ref[f"{name}_cta"]
+        assert plan[f"{name}_cta"]["head_dim"] == big
+    assert fl.fwd_smem(d) == fl.fwd_smem(big)
+    assert fl.dkv_smem(d) == fl.dkv_smem(big)
+    assert fl.fwd_groups(t, d, causal, window) == \
+        fl.fwd_groups(t, big, causal, window)
+    assert fl.dkv_groups(t, d, causal, window) == \
+        fl.dkv_groups(t, big, causal, window)
+    assert plan["dq_cta"]["threads"] is None
+    assert plan["simt_cta"]["smem"]["dq"] == fl.simt_smem("dq", d)
+    for bad in (4, 20, 136):
+        with pytest.raises(ValueError, match="no padded wgmma kernel"):
+            fl.padded_dim(bad)
+
+
 def test_routes_and_the_simt_plan():
-    """bf16 at d 64/128 runs the wgmma family; f32, f16 and bf16 at any
-    other head dim up to 256 the SIMT family; f64 and wider heads
-    none. The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
+    """bf16 at d 64/128 runs the wgmma family for every kernel, and at d
+    16 for fwd and dkv; f32, f16 and the rest of bf16 up to 256 the SIMT
+    family; f64 and wider heads none (`test_route_per_kernel` has every
+    case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
     memory by kernel within the 227 KB a block may use."""
-    assert fl.route(torch.bfloat16, 64) == fl.route(torch.bfloat16,
-                                                    128) == "wgmma"
-    for dt in (torch.float32, torch.float16):
-        for d in (1, 8, 64, 128, 256):
-            assert fl.route(dt, d) == "simt"
-    assert fl.route(torch.bfloat16, 16) == "simt"
-    for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
-        with pytest.raises(ValueError, match="no flash-attention kernel"):
-            fl.route(dt, d)
+    for kernel in ("fwd", "dq", "dkv"):
+        assert fl.route(torch.bfloat16, 64, kernel) == fl.route(
+            torch.bfloat16, 128, kernel) == "wgmma"
+        for dt in (torch.float32, torch.float16):
+            for d in (1, 8, 64, 128, 256):
+                assert fl.route(dt, d, kernel) == "simt"
+        assert fl.route(torch.bfloat16, 16, kernel) == (
+            "simt" if kernel == "dq" else "wgmma")
+        for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
+            with pytest.raises(ValueError,
+                               match="no flash-attention kernel"):
+                fl.route(dt, d, kernel)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fl.route(torch.bfloat16, 64, "plain")
     plan = fl.flash_plan(512, 256, True, dtype=torch.float32)
-    assert plan["route"] == "simt" and plan["tiles"] == (512, 512)
+    assert plan["route"] == _SIMT3 and plan["tiles"] == (512, 512)
     cta = plan["simt_cta"]
     assert (cta["rows"], cta["keys"], cta["threads"]) == (16, 32, 128)
     assert cta["ctas_per_head"] == 32
@@ -476,4 +554,5 @@ def test_routes_and_the_simt_plan():
         "tiles"] is None
     assert max(cta["smem"].values()) == fl.simt_smem("dkv", 256) \
         <= 227 * 1024
-    assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] is None
+    assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] == \
+        dict.fromkeys(_SIMT3)
