@@ -236,15 +236,17 @@ failing on the first phase that fails:
    4 ranks share one card), the exchange's ms, bytes and staged bytes a
    step, and K1's launches. (d) K1's new cases against their plain
    versions: f32 at d 8..128 and bf16 at d 8..256 (`K1_NEW`), causal,
-   non-causal and windowed, the padded wgmma fwd and dkv (bf16, d % 8
-   == 0, d <= 128, off 64/128) within `kernel_error_bounds`, the SIMT
-   kernels within TOL, every case bitwise on a second launch, and one
-   launch of B*H = 66000 > 65535. (e) `measure_lm_rate("tiny",
-   attention="flash")`: the d-16 GPT trains through the padded wgmma fwd
-   and dkv and the SIMT dq; (e') `measure_flash_efficiency(dtype=
-   "float32")` at its default shape through the f32 SIMT kernels; (e'')
-   `measure_flash_efficiency` in bf16 at head dim 256 (Gemma's) through
-   the bf16 SIMT kernels. (f)
+   non-causal and windowed, the padded wgmma kernels (bf16, d % 8 == 0,
+   off 64/128: fwd and dq up to 256, dkv up to 128) within
+   `kernel_error_bounds`, the SIMT kernels within TOL, every case bitwise
+   on a second launch, and one launch of B*H = 66000 > 65535. (e)
+   `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
+   through the padded wgmma fwd, dq and dkv (no SIMT launch); (e')
+   `measure_flash_efficiency(dtype="float32")` at its default shape
+   through the f32 SIMT kernels; (e'') `measure_flash_efficiency` in bf16
+   at head dim 256 (Gemma's) through the D-256 wgmma fwd and dq and the
+   bf16 SIMT dkv; (e''') the same at head dim 252 (d % 8 != 0) through
+   the bf16 SIMT fwd, dq and dkv. (f)
    `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
    BERT, d 8, the plain ring as the reference's) on the card's ranks;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
@@ -264,12 +266,11 @@ failing on the first phase that fails:
    launch at [262144, 1024] by device time (and by events) beside its
    byte bound and torch.neg (its plain version and the library call at
    once), timed the same way; and K1 off bf16 d 64/128 (f32, bf16 at
-   d 16 and 256) per launch at `K1_SIMT_TIMING`'s shapes, the main
-   path's (e), (e') and (e''), first held there to its plain version within
-   TOL (the padded wgmma fwd and dkv at the tiny GPT's shape within
-   `kernel_error_bounds`), beside its bound at the peak of its input
-   type (and the exponentials at the special-function rate), its plain
-   version and SDPA.
+   d 16, 256 and 252) per launch at `K1_SIMT_TIMING`'s shapes, the main
+   path's (e), (e'), (e'') and (e'''), first held there to its plain
+   version within TOL (a wgmma kernel within `kernel_error_bounds`),
+   beside its bound at the peak of its input type (and the exponentials
+   at the special-function rate), its plain version and SDPA.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
@@ -393,12 +394,13 @@ SEQ_SPECS = [
 SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
 SEQ_GRAD_FLOOR = 2e-2
 #: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128 (the
-#: padded wgmma fwd and dkv at d % 8 == 0 up to 128; the SIMT family at
-#: d 20 and 256, and the SIMT dq at every one), at B 2, T 256, H 4 in
-#: each mode; the fold launch: B 1100 x H 60 = 66000 > 65535
+#: padded wgmma kernels at d % 8 == 0: fwd, dq and dkv up to 128, fwd
+#: and dq of D 256 at 136, 184, 200 and 256, where dkv is SIMT; the SIMT
+#: family throughout at d 20), at B 2, T 256, H 4 in each mode; the fold
+#: launch: B 1100 x H 60 = 66000 > 65535
 K1_NEW = ([("float32", d) for d in (8, 16, 32, 64, 128)]
           + [("bfloat16", d) for d in (8, 16, 20, 24, 32, 40, 72, 96, 120,
-                                        256)])
+                                        136, 184, 200, 256)])
 K1_NEW_SHAPE = (2, 256, 4)
 K1_NEW_MODES = {"causal": (True, None), "full": (False, None),
                 "window": (True, 48)}
@@ -406,15 +408,19 @@ K1_FOLD = (1100, 64, 60, 16)
 #: K1 off bf16 d 64/128 at its shapes on the main path, where each kernel
 #: is timed and held to its plain version, all causal: f32 at the flash
 #: benchmark's (e') (B 8, T 1024, H 12, d 64); bf16 at the `tiny` GPT's
-#: training shape (e) (B 8, T 1024, H 8, d 16: the padded wgmma fwd and
-#: dkv, the SIMT dq); bf16 at (e'')'s head dim 256 (B 4, T 1024, H 8:
-#: the SIMT fwd and dkv; its dq row is the d-16 one)
+#: training shape (e) (B 8, T 1024, H 8, d 16: the wgmma fwd, dq and dkv
+#: padded to 64); bf16 at (e'')'s head dim 256 (B 4, T 1024, H 8: the
+#: D-256 wgmma fwd and dq, the SIMT dkv); bf16 at (e''')'s head dim 252
+#: (the same B, T, H: the SIMT fwd and dq; its dkv row is the d-256 one)
 K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16),
-                  "bfloat16.d256": (4, 1024, 8, 256)}
-#: (e'') the bf16 flash benchmark at head dim 256 (Gemma's): the shape
-#: of K1_SIMT_TIMING["bfloat16.d256"], a few timed calls
+                  "bfloat16.d256": (4, 1024, 8, 256),
+                  "bfloat16.d252": (4, 1024, 8, 252)}
+#: (e'') and (e''') the bf16 flash benchmark at head dim 256 (Gemma's)
+#: and 252: the shapes of K1_SIMT_TIMING["bfloat16.d256"] and
+#: ["bfloat16.d252"], a few timed calls
 K1_D256_BENCH = dict(batch=4, seq=1024, heads=8, head_dim=256, iters=4,
                      warmup=1)
+K1_D252_BENCH = dict(K1_D256_BENCH, head_dim=252)
 
 #: R1: the bandwidth suite's stream shape (0.5 GiB of bf16)
 R1_SHAPE = (262144, 1024)
@@ -2410,13 +2416,21 @@ def k1_held(torch, fl, family, x, causal, window):
     return out
 
 
+def k1_label(fl, dtype, d, kernel):
+    """The kernels line's family label of K1 `kernel` in `dtype` at head
+    dim `d` off bf16 d 64/128: ``"simt"``, ``"padded"`` (the wgmma kernel
+    of D 64 or 128) or ``"d256"`` (the wgmma kernel of D 256)."""
+    dd = fl.wgmma_dim(dtype, d, kernel)
+    return "simt" if dd is None else "d256" if dd == 256 else "padded"
+
+
 def k1_new_cases(torch, fl):
     """(d) every new case of K1 on the card against its plain versions on
     the same inputs (`k1_held`: the SIMT kernels within TOL, the padded
     wgmma fwd and dkv within `kernel_error_bounds`), and a second launch
     bitwise equal: `K1_NEW` in each of `K1_NEW_MODES`, then one fold
     launch of B*H > 65535 (within `kernel_error_bounds`, which covers
-    both families). Returns {(kernel, dtype, family): max_abs_err}."""
+    both families). Returns {(kernel, dtype, `k1_label`): max_abs_err}."""
     errs = {}
     b, t, h = K1_NEW_SHAPE
     for dtype, d in K1_NEW:
@@ -2443,7 +2457,7 @@ def k1_new_cases(torch, fl):
                 check(ok, f"K1 {kernel} {dtype} d={d} {mode} "
                       f"({family[kernel]}): outside its tolerance "
                       f"(max_abs_err {err:.3e})")
-                key = (kernel, dtype, family[kernel])
+                key = (kernel, dtype, k1_label(fl, dt, d, kernel))
                 errs[key] = max(errs.get(key, 0.0), err)
         log(f"seq (d) K1 {dtype} d={d}: fwd, dq, dkv in {sorted(K1_NEW_MODES)}"
             f" within their tolerances (simt: TOL[{dtype}], wgmma: "
@@ -2636,20 +2650,17 @@ def phase_seq(torch, fl, card: str) -> dict:
     steps = len(meta["losses"])
     want = {"fwd": 2 * steps, "dq": 2 * steps, "dkv": 2 * steps,
             "plain": 0}
-    # fwd and dkv on the padded wgmma kernels (none of them SIMT), dq on
-    # the SIMT family
-    check(k1 == want and simt == {"dq.bfloat16": 2 * steps},
+    # fwd, dq and dkv on the wgmma kernels padded to 64: none SIMT
+    check(k1 == want and not any(simt.values()),
           f"seq (e): K1 launches {k1} / SIMT {simt} (probe {probe}), "
-          f"expected {want} with only dq on the SIMT family")
+          f"expected {want} and none on the SIMT family")
     check(all(math.isfinite(x) for x in meta["losses"])
           and meta["losses"][-1] < meta["losses"][0],
           f"seq (e): losses {meta['losses']}")
     log(f"seq (e) measure_lm_rate('tiny', attention='flash') (d 16, bf16, "
         f"B {meta['per_data_batch']} T {meta['seq']}): {rate:.1f} tok/s, "
         f"{meta['step_time_ms']:.2f} ms/step; K1 {k1}, SIMT {simt}")
-    out["tiny"] = {"padded": {n: k1[n] - simt.get(f"{n}.bfloat16", 0)
-                              for n in ("fwd", "dq", "dkv")},
-                   "simt": simt}
+    out["tiny"] = {n: k1[n] for n in ("fwd", "dq", "dkv")}
     # (e') the flash benchmark in f32 at its default shape (B 8, T 1024,
     # h 12, d 64, causal): the SIMT family's f32 path
     fl.reset_launches()
@@ -2664,24 +2675,30 @@ def phase_seq(torch, fl, card: str) -> dict:
         f"{meta['head_dim']}, causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
         f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
         f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
-    out["f32_simt"] = simt
-    # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): above the
-    # padded kernels' 128, so all three on the bf16 SIMT family
-    fl.reset_launches()
-    meta = measure_flash_efficiency(**K1_D256_BENCH)
-    torch.cuda.synchronize()
-    simt = dict(fl.SIMT_LAUNCHES)
-    check(fl.LAUNCHES["plain"] == 0 and set(simt) == {
-        f"{n}.bfloat16" for n in ("fwd", "dq", "dkv")}
-        and all(simt[f"{n}.bfloat16"] == fl.LAUNCHES[n]
-                for n in ("fwd", "dq", "dkv")),
-          f"seq (e''): K1 launches {fl.LAUNCHES}, SIMT {simt}")
-    log(f"seq (e'') measure_flash_efficiency(dtype='bfloat16', head_dim="
-        f"256) (B {meta['batch']} T {meta['seq']} h {meta['heads']}, "
-        f"causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
-        f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
-        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
-    out["d256_simt"] = simt
+    out["f32_simt"] = {n: simt[f"{n}.float32"] for n in ("fwd", "dq", "dkv")}
+    # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): fwd and dq
+    # on the D-256 wgmma kernels, dkv (above its 128) on the SIMT family;
+    # (e''') at head dim 252 (d % 8 != 0): all three SIMT
+    for tag, bench, simt_kernels in (("e''", K1_D256_BENCH, ("dkv",)),
+                                     ("e'''", K1_D252_BENCH,
+                                      ("fwd", "dq", "dkv"))):
+        fl.reset_launches()
+        meta = measure_flash_efficiency(**bench)
+        torch.cuda.synchronize()
+        simt = dict(fl.SIMT_LAUNCHES)
+        check(fl.LAUNCHES["plain"] == 0 and simt == {
+            f"{n}.bfloat16": fl.LAUNCHES[n] for n in simt_kernels}
+            and all(fl.LAUNCHES[n] > 0 for n in ("fwd", "dq", "dkv")),
+              f"seq ({tag}): K1 launches {fl.LAUNCHES}, SIMT {simt}, "
+              f"expected SIMT launches of {simt_kernels} only")
+        log(f"seq ({tag}) measure_flash_efficiency(dtype='bfloat16', "
+            f"head_dim={bench['head_dim']}) (B {meta['batch']} T "
+            f"{meta['seq']} h {meta['heads']}, causal): fwd "
+            f"{meta['fwd_ms']:.3f} ms, fwd+bwd {meta['fwdbwd_ms']:.3f} ms, "
+            f"{meta['fwdbwd_tflops']:.2f} TFLOP/s (slope-timed); route "
+            f"{meta['plan']['route']}; K1 {dict(fl.LAUNCHES)}, SIMT {simt}")
+        out[f"d{bench['head_dim']}"] = {n: fl.LAUNCHES[n]
+                                        for n in ("fwd", "dq", "dkv")}
     # (f) the dry run's phase 2 on the card's ranks (gloo, staged): the
     # reference's phase runs the plain ring (no use_flash), so it
     # launches no K1
@@ -3322,28 +3339,30 @@ def main() -> int:
         if name != "fwd":
             row["library_ms_is_pair"] = "flash.dq + flash.dkv"
         kernels.append(row)
-    # K1 off bf16 d 64/128, a row per kernel, family and dtype: the f32
-    # SIMT kernels launched on the main path by the flash benchmark (e')
-    # (d 64); the padded wgmma fwd and dkv and the bf16 SIMT dq by the
-    # tiny GPT's training (e) (d 16); the bf16 SIMT fwd and dkv by the
-    # bf16 flash benchmark at d 256 (e''). Each timed at its shape in
-    # K1_SIMT_TIMING, the main path's (the first shape that runs it);
-    # max_abs_err over (d)'s cases of that kernel, family and dtype and
-    # the main path's shape; library: SDPA as for the wgmma rows
-    launched = {
-        ("float32", "simt"): seq["f32_simt"],
-        ("bfloat16", "simt"): {**seq["d256_simt"],
-                               "dq.bfloat16": seq["tiny"]["simt"][
-                                   "dq.bfloat16"]},
-        ("bfloat16", "wgmma"): {f"{n}.bfloat16": c for n, c in
-                                seq["tiny"]["padded"].items()}}
+    # K1 off bf16 d 64/128, a row per kernel, family label and dtype: the
+    # f32 SIMT kernels launched on the main path by the flash benchmark
+    # (e') (d 64); the wgmma fwd, dq and dkv padded to 64 by the tiny
+    # GPT's training (e) (d 16); the D-256 wgmma fwd and dq and the bf16
+    # SIMT dkv by the bf16 flash benchmark at d 256 (e''); the bf16 SIMT
+    # fwd and dq by the same at d 252 (e'''). Each timed at its shape in
+    # K1_SIMT_TIMING, the main path's (the first shape that runs it),
+    # with the launches of the run at that shape; max_abs_err over (d)'s
+    # cases of that kernel, label and dtype and the main path's shape;
+    # library: SDPA as for the wgmma rows
+    launched = {"float32": seq["f32_simt"], "bfloat16": seq["tiny"],
+                "bfloat16.d256": seq["d256"], "bfloat16.d252": seq["d252"]}
     seen = set()
     for tag, timed in simt_times.items():
         dtype = tag.split(".")[0]
+        d = K1_SIMT_TIMING[tag][3]
         lib = timed["sdpa"]
+        labels = {n: k1_label(fl, getattr(torch, dtype), d, n)
+                  for n in ("fwd", "dq", "dkv")}
+        check(all((labels[n] == "simt") == (timed["family"][n] == "simt")
+                  for n in labels),
+              f"K1 {tag}: launched {timed['family']}, routed {labels}")
         for name in ("fwd", "dq", "dkv"):
-            family = timed["family"][name]
-            label = "padded" if family == "wgmma" else "simt"
+            label = labels[name]
             row_name = f"flash.{name}.{label}.{dtype}"
             if row_name in seen:
                 continue
@@ -3353,10 +3372,9 @@ def main() -> int:
                 "name": row_name, "route": "cuda",
                 "source": "kungfu_tpu_torch/csrc/flash.cu",
                 "replaces": K1_REPLACES[name],
-                "launches": launched[(dtype, family)].get(
-                    f"{name}.{dtype}", 0),
+                "launches": launched[tag][name],
                 "max_abs_err": max(
-                    seq["new_case_errs"].get((name, dtype, family), 0.0),
+                    seq["new_case_errs"].get((name, dtype, label), 0.0),
                     timed["errs"][name]),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3368,11 +3386,9 @@ def main() -> int:
                     *K1_SIMT_TIMING[tag]),
             }
             if name != "fwd":
-                fam = {n: "padded" if timed["family"][n] == "wgmma"
-                       else "simt" for n in ("dq", "dkv")}
                 row["library_ms_is_pair"] = (
-                    f"flash.dq.{fam['dq']}.{dtype} + "
-                    f"flash.dkv.{fam['dkv']}.{dtype} at this shape")
+                    f"flash.dq.{labels['dq']}.{dtype} + "
+                    f"flash.dkv.{labels['dkv']}.{dtype} at this shape")
             kernels.append(row)
     # torch.neg is R1's plain version and the one library call computing
     # the same function: plain_ms and library_ms are the same timing

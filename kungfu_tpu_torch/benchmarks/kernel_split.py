@@ -593,8 +593,9 @@ def _time_k1(cs, fns, out):
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), lse.data_ptr(), bb, tt, hh, d,
                          d ** -0.5, int(causal),
-                         -1 if window is None else window, fl.FWD_STAGES,
-                         fl.fwd_smem(d), _build.stream(q.device))
+                         -1 if window is None else window,
+                         fl.FWD_STAGES[d], fl.fwd_smem(d),
+                         _build.stream(q.device))
                 if err:
                     raise RuntimeError(f"{name}: launch error {err}")
             out[f"{name} ({tag})"] = cs.time_device(torch, go, 40)
@@ -615,7 +616,7 @@ def _time_k1_bwd(cs, fns, out, kernel):
         outs = [torch.empty_like(sets[0][0]) for _ in range(2)]
         delta_out = torch.empty_like(sets[0][6])
         common = (bb, tt, hh, d, d ** -0.5, int(causal),
-                  -1 if window is None else window, fl.BWD_STAGES)
+                  -1 if window is None else window, fl.BWD_STAGES[d])
         for name in VARIANTS[kernel][2]:
             def go(i, fn=fns[name]):
                 q, k, v, do, o, lse, delta = (x.data_ptr() for x in sets[i % 4])

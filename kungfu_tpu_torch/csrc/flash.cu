@@ -71,12 +71,14 @@
 // The PTX building blocks (mbarriers, TMA, wgmma) are in hopper.cuh,
 // shared with fused_ce.cu and paged_attn.cu.
 //
-// Head dims other than 64 and 128 (fwd and dkv only): a call at head
-// dim d with d % 8 == 0 runs the kernel compiled for D = 64 (d <= 64) or
-// D = 128 (64 < d <= 128). Its tensor maps have the caller's d as their
-// innermost extent, so a 64-column box runs past d and TMA fills the
-// columns past d with zeros (the box's full bytes still arrive on the
-// mbarrier); zero columns add nothing to any of the products, so the
+// Head dims other than the compiled ones: a call at head dim d with d %
+// 8 == 0 runs the kernel compiled for D = 64 (d <= 64), D = 128 (64 < d
+// <= 128) or, for fwd and dq, D = 256 (128 < d <= 256; dkv takes d <=
+// 128 only). Its tensor maps have the caller's d as their innermost
+// extent, so a 64-column box runs past d and TMA fills the columns past
+// d with zeros (the box's full bytes still arrive on the mbarrier, also
+// for a box wholly past d, as the fourth of a D = 256 tile at d <= 192);
+// zero columns add nothing to any of the products or to delta, so the
 // padded kernel computes the same function. The epilogues write rows of
 // stride H * d and only their first d columns: the columns past d are
 // the next head's. d % 8 == 0 is TMA's rule that every global stride
@@ -86,9 +88,9 @@
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
 // a negative code when a tensor map cannot be encoded (-1: the encoder
 // was not found; -1000 - CUresult: it refused the operand). The inputs
-// of k1_fwd, k1_dq and k1_dkv are bf16; k1_dq takes d 64 or 128, k1_fwd
-// and k1_dkv any d from 8 to 128 with d % 8 == 0; `stages` and `smem`
-// are the ring's depth and the dynamic shared memory in bytes
+// of k1_fwd, k1_dq and k1_dkv are bf16; k1_fwd and k1_dq take any d from
+// 8 to 256 with d % 8 == 0, k1_dkv any such d up to 128; `stages` and
+// `smem` are the ring's depth and the dynamic shared memory in bytes
 // (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at the padded D). k1s_fwd,
 // k1s_dq and k1s_dkv (the SIMT family at the end of this file) take f32,
 // bf16 or f16 at any D from 1 to 256 and `smem` from `simt_smem`. A
@@ -124,20 +126,26 @@ __host__ __device__ constexpr int tile_bytes() {
 // warpgroup. At D = 64 (32 accumulators for O and 32 for S a thread)
 // three fit: setmaxnreg 160 for 3 x 128 consumer threads and 32 for the
 // producers fill the 64K registers; at D = 128 (64 for O) two, at 232
-// and 40
+// and 40. At D = 256 (128 for O, 32 for S, 16 for P) one, which may use
+// 255 registers without setmaxnreg: with two, ptxas held the kernel to
+// the launch's 168 registers a thread and spilled 412 bytes
 template <int D>
-__host__ __device__ constexpr int fwd_q_tiles() { return D == 64 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_q_tiles() {
+  return D == 64 ? 3 : D == 128 ? 2 : 1;
+}
 template <int D>
 __host__ __device__ constexpr int fwd_threads() {
   return (fwd_q_tiles<D>() + 1) * 128;
 }
 
-// dq: query tiles a CTA, two at either head dim (dQ, S and dP: 96
+// dq: query tiles a CTA, two at D = 64 and 128 (dQ, S and dP: 96
 // accumulator registers a thread at D = 64, 128 at D = 128). Three at
 // D = 64, at setmaxnreg 160, spilled and were slower at the training
-// shape on the H100
+// shape on the H100. At D = 256 one: Q, dO and O of a second tile do not
+// fit beside the ring (7 tiles of 32 KB take 229,376 of the 232,448
+// bytes a block may use), and dQ alone is 128 registers a thread
 template <int D>
-__host__ __device__ constexpr int dq_q_tiles() { return 2; }
+__host__ __device__ constexpr int dq_q_tiles() { return D == 256 ? 1 : 2; }
 
 // dkv: key tiles a CTA. dK, dV, S^T and dP^T take 128 accumulator
 // registers a thread at D = 64: two warpgroups beside the producer (three,
@@ -146,17 +154,18 @@ __host__ __device__ constexpr int dq_q_tiles() { return 2; }
 template <int D>
 __host__ __device__ constexpr int dkv_k_tiles() { return D == 64 ? 2 : 1; }
 
-// the backward's CTAs: G consumer warpgroups and a producer. With three
-// warpgroups the producer gives registers to the consumers (2 x 128 x
-// 232 + 128 x 40 = 64,512 of the 65,536; ptxas allocates the consumers'
-// code to the raised count, though -v reports the launch's 168); with
-// two no thread needs more than the 255 it has
+// every CTA: G consumer warpgroups and a producer. With three or four
+// warpgroups the producer gives registers to the consumers (3 x 128 x
+// 160 + 128 x 32 = 65,536; 2 x 128 x 232 + 128 x 40 = 64,512); with two
+// no thread needs more than the 255 it has
 template <int G>
 __device__ __forceinline__ void producer_regs() {
+  if constexpr (G == 3) setmaxnreg_dec<32>();
   if constexpr (G == 2) setmaxnreg_dec<40>();
 }
 template <int G>
 __device__ __forceinline__ void consumer_regs() {
+  if constexpr (G == 3) setmaxnreg_inc<160>();
   if constexpr (G == 2) setmaxnreg_inc<232>();
 }
 
@@ -262,8 +271,10 @@ __device__ __forceinline__ void pv_step(float (&o)[D / 2],
                                         const uint32_t (&a)[4], uint64_t dv) {
   if constexpr (D == 64)
     wgmma_n64_ra<1>(o, a, dv);
-  else
+  else if constexpr (D == 128)
     wgmma_n128_ra<1>(o, a, dv);
+  else
+    wgmma_n256_ra<1>(o, a, dv);
 }
 
 // One CTA: warpgroups 0 .. QT - 1 consume (QT = fwd_q_tiles<D>()), each
@@ -274,7 +285,7 @@ __device__ __forceinline__ void pv_step(float (&o)[D / 2],
 // are never stored), then streams the key and value tiles of the union
 // of the warpgroups' `_k_span`s, [lo, hi), through a ring of `stages`
 // stages (K and V [64, D] each, 128-byte swizzled boxes of 64 columns:
-// two per tile at D = 128), each guarded by a full and an empty
+// D / 64 per tile), each guarded by a full and an empty
 // mbarrier. TMA reads [B, T, H, d] in place through 4-D tensor maps and
 // zero-fills rows past T and columns past d. Every warpgroup walks the
 // whole union, so every wgmma runs the same number of times in all (none
@@ -333,7 +344,7 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {  // ------------------------ producer
-    setmaxnreg_dec<kQT == 3 ? 32 : 40>();
+    producer_regs<kQT>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(qfull, kQT * kTileB);
       for (int g = 0; g < kQT; ++g)
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
       }
     }
   } else {  // ------------------------------------------------ consumers
-    setmaxnreg_inc<kQT == 3 ? 160 : 232>();
+    consumer_regs<kQT>();
     const int g = threadIdx.x >> 7;
     const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int iq = kQT * grp + g;
@@ -475,9 +486,11 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
 // then streams the K and V tiles of the union of the tiles' `_k_span`s
 // through a ring of `stages` stages, as k1_fwd does. A warpgroup first
 // forms delta = rowsum(dO * O) of its rows from the two swizzled tiles
-// (a row lives on the 4 lanes of a quad, each summing D / 4 products)
-// and writes it for dkv; then, per key tile:
-//   1. S = Q K^T and, issued right behind it, dP = dO V^T: wgmma
+// (a row lives on the 4 lanes of a quad, each summing D / 4 products;
+// at D = 256 the diagonal of a wgmma dO O^T) and writes it for dkv;
+// then, per key tile:
+//   1. S = Q K^T and, issued right behind it (at D = 256 once the
+//      previous tile's dQ product has retired), dP = dO V^T: wgmma
 //      m64n64k16 over D, every operand K-major, two commit groups;
 //   2. once S has retired (dP still running), P = exp2(S scale log2e -
 //      lse log2e) on the accumulators, masked only on an edge tile;
@@ -488,8 +501,9 @@ __global__ void __launch_bounds__(fwd_threads<D>(), 1)
 //      left running while the next tile's S and dP are issued behind it;
 //   5. releases the stage once that product has retired (the last
 //      stage is never waited for again and is not released).
-// dq = scale dQ is written in bf16. CTAs are numbered so that the last
-// groups, whose causal spans are the longest, launch first.
+// dq = scale dQ is written in bf16, d columns of each row at stride H d
+// (as k1_fwd's o). CTAs are numbered so that the last groups, whose
+// causal spans are the longest, launch first.
 template <int D>
 __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
     k1_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -498,7 +512,7 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
                  const __grid_constant__ CUtensorMap tm_o,
                  const __grid_constant__ CUtensorMap tm_do,
                  const float* lse, bf16* dq, float* delta, int t, int h,
-                 float scale, int causal, int window, int stages) {
+                 int d, float scale, int causal, int window, int stages) {
   constexpr int kTileB = tile_bytes<D>();
   constexpr int kG = dq_q_tiles<D>();
   constexpr int kConsumers = kG * 128;
@@ -570,22 +584,56 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
     const unsigned char* tq = sq + 3 * g * kTileB;
     const float sl2 = scale * kLog2e;
     mbar_wait(qfull, 0);
-    // delta = rowsum(dO * O): lane l of a quad sums 16-byte chunks
-    // 2 (l % 4) and + 1 of each 64-column box of the row
+    const uint64_t dqd = sw128_desc(tq, 16);
+    const uint64_t dod = sw128_desc(tq + kTileB, 16);
+    // delta = rowsum(dO * O). At D = 64 and 128: lane l of a quad sums
+    // 16-byte chunks 2 (l % 4) and + 1 of each 64-column box of the row.
+    // At D = 256: the diagonal of dO O^T from the tensor cores, the
+    // product and summation order of dP = dO V^T, so a row whose o is one
+    // v row (a single visible key) gets dP - delta exactly 0, as in exact
+    // arithmetic; two f32 sums of 256 products in different orders
+    // differ there by more than `kernel_error_bounds` allows
+    // (scripts/torch_k1_cancellation.py)
     float dl[2], ls[2];
+    if constexpr (D == 256) {
+      float dd[32];
+      wgmma_fence();
+      scores<D>(dd, dod, sw128_desc(tq + 2 * kTileB, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dd);
+      // row r0 + 8 half's column: register 4 (2 wq + half) + 2 half +
+      // (r0 % 2) of quad lane (r0 % 8) / 2, picked by 0/1 weights (a
+      // select by index would put dd in local memory)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            x = fmaf(i == 2 * wq + half && c == ((lane >> 2) & 1) ? 1.f : 0.f,
+                     dd[4 * i + 2 * half + c], x);
+        dl[half] = __shfl_sync(0xffffffffu, x, (lane & ~3) | (lane >> 3));
+      }
+    } else {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float sum = 0.f;
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int off =
+                p * kBox + sw128_off(r0 + 8 * half, 8 * (2 * (lane & 3) + j));
+            sum += dot8(*reinterpret_cast<const uint4*>(tq + kTileB + off),
+                        *reinterpret_cast<const uint4*>(tq + 2 * kTileB + off));
+          }
+        dl[half] = quad_sum(sum);
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half;
-      float sum = 0.f;
-#pragma unroll
-      for (int p = 0; p < D / 64; ++p)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int off = p * kBox + sw128_off(r, 8 * (2 * (lane & 3) + j));
-          sum += dot8(*reinterpret_cast<const uint4*>(tq + kTileB + off),
-                      *reinterpret_cast<const uint4*>(tq + 2 * kTileB + off));
-        }
-      dl[half] = quad_sum(sum);
       const bool live = row + 8 * half < t;
       if (live && (lane & 3) == 0)
         delta[(size_t)bh * t + row + 8 * half] = dl[half];
@@ -594,8 +642,6 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    const uint64_t dqd = sw128_desc(tq, 16);
-    const uint64_t dod = sw128_desc(tq + kTileB, 16);
     uint32_t da[4][4];  // dS fragments, read by a dQ product in flight
     int st = 0, prev = -1;
     uint32_t ph = 0;
@@ -607,6 +653,13 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
       wgmma_fence();
       scores<D>(sc, dqd, sw128_desc(s, 16));
       wgmma_commit();
+      if constexpr (D == 256) {
+        // dQ, dS, S and dP together would pass the 255 registers a
+        // thread has (ptxas spilled): dP is issued once the previous dQ
+        // product, and with it dS, has retired
+        wgmma_wait<1>();
+        wgmma_fence();
+      }
       scores<D>(dp, dod, sw128_desc(s + kTileB, 16));
       wgmma_commit();
       // the previous tile's dQ product ran behind these two: once it has
@@ -653,8 +706,8 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    const long long ld = (long long)h * D;
-    store_acc<D>(dq + (size_t)bi * t * ld + (size_t)hd * D, ld, row, t, D,
+    const long long ld = (long long)h * d;  // the caller's d, as in k1_fwd
+    store_acc<D>(dq + (size_t)bi * t * ld + (size_t)hd * d, ld, row, t, d,
                  acc, scale);
   }
 }
@@ -862,9 +915,10 @@ bool shape_ok(int b, int t, int h) {
          (long long)b * h * ((t + kTile - 1) / kTile) <= 2147483647LL;
 }
 
-// a head dim k1_fwd and k1_dkv take: TMA's 16-byte stride rule (d * 2
-// bytes), at most the 128 columns of the wider kernel
-bool padded_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+// a head dim a wgmma kernel takes: TMA's 16-byte stride rule (d * 2
+// bytes), at most the `top` columns of its widest instantiation (256 for
+// k1_fwd and k1_dq, 128 for k1_dkv)
+bool padded_ok(int d, int top) { return d >= 8 && d <= top && d % 8 == 0; }
 
 // a [B, T, H, d] bf16 tensor read in boxes of (64 of d, 1 head, 64
 // rows, 1 batch), 128-byte swizzled, rows past T and columns past d
@@ -926,7 +980,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const void* dout, const void* lse, void* dq_out, void* delta, int b,
-       int t, int h, float scale, int causal, int window, int stages,
+       int t, int h, int d, float scale, int causal, int window, int stages,
        long long smem, void* stream) {
   constexpr int kG = dq_q_tiles<D>();
   if (stages < 2 || stages > kStagesMax ||
@@ -937,17 +991,17 @@ int dq(const void* q, const void* k, const void* v, const void* o,
       (int)smem);  // first, as in fwd
   if (e) return e;
   CUtensorMap tq, tk, tv, to, tdo;
-  e = seq_map(&tq, q, b, t, h, D);
-  if (!e) e = seq_map(&tk, k, b, t, h, D);
-  if (!e) e = seq_map(&tv, v, b, t, h, D);
-  if (!e) e = seq_map(&to, o, b, t, h, D);
-  if (!e) e = seq_map(&tdo, dout, b, t, h, D);
+  e = seq_map(&tq, q, b, t, h, d);
+  if (!e) e = seq_map(&tk, k, b, t, h, d);
+  if (!e) e = seq_map(&tv, v, b, t, h, d);
+  if (!e) e = seq_map(&to, o, b, t, h, d);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, d);
   if (e) return e;
   const int nq = (t + kTile - 1) / kTile;
   k1_dq_kernel<D><<<(nq + kG - 1) / kG * b * h, (kG + 1) * 128, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, to, tdo, static_cast<const float*>(lse),
-      static_cast<bf16*>(dq_out), static_cast<float*>(delta), t, h, scale,
+      static_cast<bf16*>(dq_out), static_cast<float*>(delta), t, h, d, scale,
       causal, window, stages);
   return (int)cudaGetLastError();
 }
@@ -984,14 +1038,13 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // ---------------------------------------------------------------------------
 // The SIMT family: every case the wgmma kernels above do not take — f32
-// and f16 inputs; bf16 dq at a head dim other than 64 and 128; bf16 fwd
-// and dkv at a head dim that is not a multiple of 8 or above 128; any
-// head dim D from 1 to 256 (the reference's kernels take any float dtype
-// and any head dim). The same functions as k1_fwd, k1_dq and k1_dkv, in f32
-// FMA arithmetic (f32 inputs compute in full f32: no TF32, no rounding of
-// p or ds), one simple shape for all three, templated on the input type
-// T and on C >= ceil(D / 32), the columns of a row each lane owns (1, 2,
-// 4 or 8). Making it fast is later work.
+// and f16 inputs; bf16 at a head dim that is not a multiple of 8; bf16
+// dkv above 128; any head dim D from 1 to 256 (the reference's kernels
+// take any float dtype and any head dim). The same functions as k1_fwd,
+// k1_dq and k1_dkv, in f32 FMA arithmetic (f32 inputs compute in full
+// f32: no TF32, no rounding of p or ds), one simple shape for all three,
+// templated on the input type T and on C >= ceil(D / 32), the columns of
+// a row each lane owns (1, 2, 4 or 8). Making it fast is later work.
 //
 // A CTA is 4 warps and owns 16 rows of one (b, h): query rows for fwd and
 // dq, key rows for dkv; each warp owns 4 of them. The other side streams
@@ -1458,48 +1511,57 @@ int simt_dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // o [B, T, H, d] bf16 and, unless lse is null, lse [B*H, T] f32, at
-// any d from 8 to 128 with d % 8 == 0 (the kernel of D = 64 up to d 64,
-// of D = 128 above). window < 0: no window. A CTA per group of query
-// tiles of each (b, h) (three at D = 64, two at D = 128), each a ring of
-// `stages` K/V stages in `smem` bytes of dynamic shared memory
-// (`flash_plan`'s fwd_cta)
+// any d from 8 to 256 with d % 8 == 0 (the kernel of D = 64 up to d 64,
+// of D = 128 up to 128, of D = 256 above). window < 0: no window. A CTA
+// per group of query tiles of each (b, h) (three at D = 64, two at 128,
+// one at 256), each a ring of `stages` K/V stages in `smem` bytes of
+// dynamic shared memory (`flash_plan`'s fwd_cta)
 int k1_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h) || !padded_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, t, h) || !padded_ok(d, 256))
+    return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return fwd<64>(q, k, v, o, lse, b, t, h, d, scale, causal, window,
                    stages, smem, stream);
-  return fwd<128>(q, k, v, o, lse, b, t, h, d, scale, causal, window, stages,
+  if (d <= 128)
+    return fwd<128>(q, k, v, o, lse, b, t, h, d, scale, causal, window,
+                    stages, smem, stream);
+  return fwd<256>(q, k, v, o, lse, b, t, h, d, scale, causal, window, stages,
                   smem, stream);
 }
 
-// dq [B, T, H, D] bf16 and delta [B*H, T] f32 from the caller's (o, lse).
-// A CTA per pair of query tiles of each (b, h), a ring of `stages` K/V
-// stages in `smem` bytes (`flash_plan`'s dq_cta)
+// dq [B, T, H, d] bf16 and delta [B*H, T] f32 from the caller's (o, lse),
+// at the d k1_fwd takes. A CTA per pair of query tiles of each (b, h)
+// (one tile at D = 256), a ring of `stages` K/V stages in `smem` bytes
+// (`flash_plan`'s dq_cta)
 int k1_dq(const void* q, const void* k, const void* v, const void* o,
           const void* dout, const void* lse, void* dq_out, void* delta, int b,
           int t, int h, int d, float scale, int causal, int window,
           int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h)) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return dq<64>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, scale, causal,
-                  window, stages, smem, stream);
-  if (d == 128)
-    return dq<128>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, scale,
+  if (!shape_ok(b, t, h) || !padded_ok(d, 256))
+    return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return dq<64>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, d, scale,
+                  causal, window, stages, smem, stream);
+  if (d <= 128)
+    return dq<128>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, d, scale,
                    causal, window, stages, smem, stream);
-  return (int)cudaErrorInvalidValue;
+  return dq<256>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, d, scale,
+                 causal, window, stages, smem, stream);
 }
 
 // dk, dv [B, T, H, d] bf16 from lse and the delta of k1_dq (or k1s_dq:
-// the same layout), at the d k1_fwd takes. A CTA per group of key tiles
-// of each (b, h) (two at D = 64, one at D = 128), a ring of `stages` (Q,
-// dO, lse, delta) stages in `smem` bytes (`flash_plan`'s dkv_cta)
+// the same layout), at any d from 8 to 128 with d % 8 == 0. A CTA per
+// group of key tiles of each (b, h) (two at D = 64, one at D = 128), a
+// ring of `stages` (Q, dO, lse, delta) stages in `smem` bytes
+// (`flash_plan`'s dkv_cta)
 int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int b,
            int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h) || !padded_ok(d)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, t, h) || !padded_ok(d, 128))
+    return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
                    causal, window, stages, smem, stream);

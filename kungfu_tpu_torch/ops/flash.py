@@ -20,19 +20,20 @@ Two families, picked per kernel by `route` from the dtype and the head
 dim (the reference's kernels take any float dtype and any head dim):
 
 - ``wgmma``: bf16 — the TMA + wgmma pipelines (``k1_fwd``, ``k1_dq``,
-  ``k1_dkv``), compiled for head dims 64 and 128. dq takes those two;
-  fwd and dkv take any head dim d <= 128 with d % 8 == 0 on the kernel
-  of the padded head dim (`padded_dim`: 64 up to d 64, else 128),
-  whose tensor maps read the true d and zero-fill the columns past it
-  (TMA's stride rule, d * 2 bytes a multiple of 16, is why d % 8 == 0);
+  ``k1_dkv``), compiled for head dims 64, 128 and (fwd and dq) 256.
+  Each takes any head dim d % 8 == 0 up to its widest (`PADDED_KERNELS`:
+  256 for fwd and dq, 128 for dkv) on the kernel of the padded head dim
+  (`padded_dim`: the least compiled one >= d), whose tensor maps read
+  the true d and zero-fill the columns past it (TMA's stride rule, d * 2
+  bytes a multiple of 16, is why d % 8 == 0);
 - ``simt``: f32, f16, and every bf16 case the wgmma kernels do not
-  take, every head dim from 1 to `SIMT_MAX_D` (256) — one simple kernel
-  family in f32 FMA arithmetic (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``;
-  f32 inputs compute in full f32, no TF32), a CTA per 16 rows of one
-  (b, h).
+  take (d % 8 != 0; dkv above 128), every head dim from 1 to
+  `SIMT_MAX_D` (256) — one simple kernel family in f32 FMA arithmetic
+  (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``; f32 inputs compute in full
+  f32, no TF32), a CTA per 16 rows of one (b, h).
 
-A bf16 backward at such a head dim mixes the families: the SIMT dq
-writes the delta the wgmma dkv reads (one layout).
+A bf16 backward above d 128 mixes the families: the wgmma dq writes the
+delta the SIMT dkv reads (one layout).
 
 Both fold B*H into the first grid dimension, so B*H may exceed 65535.
 
@@ -49,7 +50,8 @@ and the gradients ``[B, T, H, D]``; lse and delta ``[B*H, T]`` f32, as
 place through its row stride (no head-major copies).
 
 Dispatch: CPU tensors run the plain versions (`plain_fwd`, `plain_dq`,
-`plain_dkv`), which compute in f32 and return the input dtype. CUDA
+`plain_dkv`), which compute in f32 (the backward's dp and delta in f64)
+and return the input dtype. CUDA
 tensors launch a kernel of the family `route` picks, or raise
 ValueError (f64, a head dim above 256): there is no fallback from the
 card to the plain versions. `LAUNCHES` counts kernel launches per
@@ -69,26 +71,30 @@ from . import _build
 #: query rows and key rows of one tile, in every kernel (kTile in the
 #: CUDA source)
 BLOCK_Q = BLOCK_K = 64
-#: head dims the wgmma kernels are compiled for (dq takes only these;
-#: fwd and dkv also any d % 8 == 0 below 128, at `padded_dim`)
-HEAD_DIMS = (64, 128)
-#: the kernels of the wgmma family that take a padded head dim
-PADDED_KERNELS = ("fwd", "dkv")
+#: head dims the wgmma kernels are compiled for (dkv: 64 and 128); a
+#: call at any other d % 8 == 0 runs the next one up (`padded_dim`)
+HEAD_DIMS = (64, 128, 256)
+#: the widest head dim each wgmma kernel takes, padded
+PADDED_KERNELS = {"fwd": 256, "dq": 256, "dkv": 128}
 #: the forward's CTA (k1_fwd_kernel): by head dim, its consumer
 #: warpgroups, each one 64-row query tile of a group, beside a producer
-#: warpgroup; key/value tiles stream through a ring of FWD_STAGES stages
-#: (fwd_q_tiles and the launcher's checks in the CUDA source)
-FWD_Q_TILES = {64: 3, 128: 2}
-FWD_STAGES = 4
+#: warpgroup; key/value tiles stream through a ring of FWD_STAGES[D]
+#: stages (fwd_q_tiles and the launcher's checks in the CUDA source; at
+#: D 256 one tile and three stages are 7 of 32 KB)
+FWD_Q_TILES = {64: 3, 128: 2, 256: 1}
+FWD_STAGES = {64: 4, 128: 4, 256: 3}
 #: the backward's CTAs (k1_dq_kernel, k1_dkv_kernel): by head dim, the
 #: consumer warpgroups, each owning one resident 64-row tile (query
 #: tiles for dq, key tiles for dkv), beside a producer warpgroup; the
-#: other side's tiles stream through a ring of BWD_STAGES stages
+#: other side's tiles stream through a ring of BWD_STAGES[D] stages
 #: (dq_q_tiles, dkv_k_tiles and the launchers' checks in the CUDA
-#: source)
-DQ_Q_TILES = {64: 2, 128: 2}
+#: source; dq at D 256 holds Q, dO and O of one tile and two stages, 7
+#: of 32 KB)
+DQ_Q_TILES = {64: 2, 128: 2, 256: 1}
 DKV_K_TILES = {64: 2, 128: 1}
-BWD_STAGES = 4
+BWD_STAGES = {64: 4, 128: 4, 256: 2}
+#: the dynamic shared memory a block may use on the H100 (227 KB)
+SMEM_MAX = 232448
 #: one [64, 64] bf16 box under the 128-byte swizzle (kBox); a [64, D]
 #: tile is D / 64 of them
 _BOX = BLOCK_Q * 64 * 2
@@ -189,33 +195,42 @@ def _smem(d: int, tiles: int, stages: int, extra: int = 0) -> int:
     return tiles * (d // 64 * _BOX) + extra + -(-bars // 128) * 128 + 1024
 
 
-def padded_dim(d: int) -> int:
-    """The compiled head dim of the wgmma fwd and dkv kernels that take
-    head dim `d` (8 <= d <= 128, d % 8 == 0): 64 up to d 64, else 128."""
-    if not (8 <= d <= 128 and d % 8 == 0):
-        raise ValueError(f"no padded wgmma kernel at head_dim {d}: it "
-                         f"takes multiples of 8 from 8 to 128")
-    return 64 if d <= 64 else 128
+def padded_dim(d: int, kernel: str) -> int:
+    """The compiled head dim of the wgmma `kernel` (``"fwd"``, ``"dq"``
+    or ``"dkv"``) that takes head dim `d` (d % 8 == 0, 8 <= d <=
+    ``PADDED_KERNELS[kernel]``): the least of `HEAD_DIMS` at or above d
+    — 64 up to d 64, 128 up to 128, 256 above (fwd and dq)."""
+    top = PADDED_KERNELS[kernel]
+    if not (8 <= d <= top and d % 8 == 0):
+        raise ValueError(f"no padded wgmma {kernel} kernel at head_dim "
+                         f"{d}: it takes multiples of 8 from 8 to {top}")
+    return next(dd for dd in HEAD_DIMS if d <= dd)
 
 
-def fwd_smem(d: int, stages: int = FWD_STAGES) -> int:
+def fwd_smem(d: int, stages: Optional[int] = None) -> int:
     """One forward CTA at head dim `d` (sized at `padded_dim`): its
-    query tiles and `stages` (K, V) pairs."""
-    d = padded_dim(d)
+    query tiles and `stages` (default FWD_STAGES at that D) (K, V)
+    pairs."""
+    d = padded_dim(d, "fwd")
+    stages = FWD_STAGES[d] if stages is None else stages
     return _smem(d, FWD_Q_TILES[d] + 2 * stages, stages)
 
 
-def dq_smem(d: int, stages: int = BWD_STAGES) -> int:
-    """One dq CTA: Q, dO and O of each of its query tiles and `stages`
-    (K, V) pairs."""
+def dq_smem(d: int, stages: Optional[int] = None) -> int:
+    """One dq CTA at head dim `d` (sized at `padded_dim`): Q, dO and O
+    of each of its query tiles and `stages` (default BWD_STAGES at that
+    D) (K, V) pairs."""
+    d = padded_dim(d, "dq")
+    stages = BWD_STAGES[d] if stages is None else stages
     return _smem(d, 3 * DQ_Q_TILES[d] + 2 * stages, stages)
 
 
-def dkv_smem(d: int, stages: int = BWD_STAGES) -> int:
+def dkv_smem(d: int, stages: Optional[int] = None) -> int:
     """One dkv CTA at head dim `d` (sized at `padded_dim`): K and V of
-    each of its key tiles, `stages` (Q, dO) pairs and each stage's lse
-    and delta rows."""
-    d = padded_dim(d)
+    each of its key tiles, `stages` (default BWD_STAGES at that D) (Q,
+    dO) pairs and each stage's lse and delta rows."""
+    d = padded_dim(d, "dkv")
+    stages = BWD_STAGES[d] if stages is None else stages
     return _smem(d, 2 * DKV_K_TILES[d] + 2 * stages, stages,
                  stages * _ROWS)
 
@@ -244,29 +259,31 @@ def _groups(t, g, span, causal, window, last_first):
 def fwd_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The forward's CTAs for one (b, h) at head dim `d` (`_groups`):
-    query tiles, g = FWD_Q_TILES[padded_dim(d)], and the key tiles of
-    their `_k_span`s. The last groups, whose causal spans are the
+    query tiles, g = FWD_Q_TILES[padded_dim(d, "fwd")], and the key tiles
+    of their `_k_span`s. The last groups, whose causal spans are the
     longest, come first: CTA i of the grid is group ngroups - 1 - i //
     (B H) of head i % (B H)."""
-    return _groups(t, FWD_Q_TILES[padded_dim(d)], _k_span, causal, window,
-                   True)
+    return _groups(t, FWD_Q_TILES[padded_dim(d, "fwd")], _k_span, causal,
+                   window, True)
 
 
 def dq_groups(t: int, d: int, causal: bool = False,
               window: Optional[int] = None):
-    """The dq kernel's CTAs, as `fwd_groups` with g = DQ_Q_TILES[d]."""
-    return _groups(t, DQ_Q_TILES[d], _k_span, causal, window, True)
+    """The dq kernel's CTAs, as `fwd_groups` with g =
+    DQ_Q_TILES[padded_dim(d, "dq")]."""
+    return _groups(t, DQ_Q_TILES[padded_dim(d, "dq")], _k_span, causal,
+                   window, True)
 
 
 def dkv_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The dkv kernel's CTAs for one (b, h) at head dim `d` (`_groups`):
-    key tiles, g = DKV_K_TILES[padded_dim(d)], and the query tiles of
-    their `_q_span`s. The first groups, whose causal spans are the
+    key tiles, g = DKV_K_TILES[padded_dim(d, "dkv")], and the query tiles
+    of their `_q_span`s. The first groups, whose causal spans are the
     longest, come first: CTA i of the grid is group i // (B H) of head i
     % (B H)."""
-    return _groups(t, DKV_K_TILES[padded_dim(d)], _q_span, causal, window,
-                   False)
+    return _groups(t, DKV_K_TILES[padded_dim(d, "dkv")], _q_span, causal,
+                   window, False)
 
 
 # ---------------------------------------------------------------------------
@@ -342,25 +359,25 @@ def tiles(t: int, causal: bool = False, window: Optional[int] = None,
 def wgmma_dim(dtype: torch.dtype, d: int, kernel: str) -> Optional[int]:
     """The compiled head dim of the wgmma kernel that takes `kernel`
     (``"fwd"``, ``"dq"`` or ``"dkv"``) in `dtype` at head dim `d`, or
-    None where the wgmma family does not take it: bf16 only; d itself at
-    64 and 128; for fwd and dkv also `padded_dim(d)` at any d <= 128
-    with d % 8 == 0."""
-    if kernel not in ("fwd", "dq", "dkv"):
+    None where the wgmma family does not take it: bf16 only, at any d %
+    8 == 0 up to ``PADDED_KERNELS[kernel]`` (256 for fwd and dq, 128 for
+    dkv), `padded_dim(d, kernel)`."""
+    if kernel not in PADDED_KERNELS:
         raise ValueError(f"no flash-attention kernel {kernel!r}")
     if dtype != torch.bfloat16:
         return None
-    if kernel not in PADDED_KERNELS:
-        return d if d in HEAD_DIMS else None
-    return padded_dim(d) if 8 <= d <= 128 and d % 8 == 0 else None
+    if 8 <= d <= PADDED_KERNELS[kernel] and d % 8 == 0:
+        return padded_dim(d, kernel)
+    return None
 
 
 def route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The family that runs `kernel` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     in `dtype` at head dim `d`: ``"wgmma"`` where `wgmma_dim` names a
-    kernel (bf16: every kernel at d 64 and 128, fwd and dkv at any d <=
-    128 with d % 8 == 0), ``"simt"`` for every other f32, f16 and bf16
-    call at a head dim from 1 to `SIMT_MAX_D`; ValueError for anything
-    else (f64, a wider head)."""
+    kernel (bf16 at any d % 8 == 0: fwd and dq up to 256, dkv up to
+    128), ``"simt"`` for every other f32, f16 and bf16 call at a head dim
+    from 1 to `SIMT_MAX_D`; ValueError for anything else (f64, a wider
+    head)."""
     if wgmma_dim(dtype, d, kernel) is not None:
         return "wgmma"
     if dtype in SIMT_DTYPES and 1 <= d <= SIMT_MAX_D:
@@ -388,10 +405,11 @@ def flash_plan(t: int, d: int, causal: bool = False,
     (``fwd_cta``, ``dq_cta``, ``dkv_cta``) at the head dim it is compiled
     for (``head_dim``: `wgmma_dim`, the padded D): its resident tiles
     (``q_tiles``, or ``key_tiles`` for dkv), the streamed tile, threads,
-    ring stages, shared memory and CTAs per (b, h) (`fwd_groups`,
-    `dq_groups`, `dkv_groups`; None where the SIMT family runs that
-    kernel in `dtype`). One scheme per kernel: the TPU's resident/stream
-    choice has no counterpart here. Each grid is ctas_per_head x B x H.
+    ring stages, shared memory (within `SMEM_MAX`) and CTAs per (b, h)
+    (`fwd_groups`, `dq_groups`, `dkv_groups`; None where the SIMT family
+    runs that kernel in `dtype`). One scheme per kernel: the TPU's
+    resident/stream choice has no counterpart here. Each grid is
+    ctas_per_head x B x H.
 
     ``route`` is the family each kernel launches in `dtype` at head dim
     `d` (`route`; None where none takes it): the wgmma CTAs above, else
@@ -422,8 +440,9 @@ def flash_plan(t: int, d: int, causal: bool = False,
         g = per_d[dd] if dd else None
         plan[f"{name}_cta"] = {
             "head_dim": dd, resident: g, streamed: BLOCK_Q,
-            "threads": (g + 1) * 128 if dd else None, "stages": stages,
-            "smem": smem(dd, stages) if dd else None,
+            "threads": (g + 1) * 128 if dd else None,
+            "stages": stages[dd] if dd else None,
+            "smem": smem(dd) if dd else None,
             "ctas_per_head": -(-n // g) if dd else None}
     plan["route"] = {}
     for name in ("fwd", "dq", "dkv"):
@@ -451,7 +470,8 @@ def _check_window(causal, window):
 
 
 # ---------------------------------------------------------------------------
-# the plain versions (f32 arithmetic, the input dtype out)
+# the plain versions (f32 arithmetic, the backward's dp and delta in f64;
+# the input dtype out)
 # ---------------------------------------------------------------------------
 
 
@@ -520,32 +540,42 @@ def _probs(q, k, lse, causal, scale, window):
     return p if keep is None else torch.where(keep, p, 0.0)
 
 
+def _score_grad(p, dp, delta):
+    """ds = p * (dp - delta) in f32 from dp and delta in f64: where o is
+    one v row (a single visible key) dp - delta is exactly 0, and two f32
+    sums of D products in different orders leave up to ~1e-5 there at d
+    256, as much as `kernel_error_bounds` allows a kernel for it; in f64
+    the plain versions stay the exact reference the bound assumes."""
+    return (p * (dp - delta)).float()
+
+
 def plain_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     """The plain dq: ``(dq, delta)`` from the caller's (o, lse) — dq in
-    q's dtype, delta = rowsum(dO * o) ``[B*H, T]`` f32."""
+    q's dtype, delta = rowsum(dO * o) ``[B*H, T]`` f32 (dp and delta in
+    f64: `_score_grad`)."""
     LAUNCHES["plain"] += 1
     _check_window(causal, window)
     b, t, h, _ = q.shape
     scale = _scale(q, scale)
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # [B, H, T]
+    delta = (do.double() * o.double()).sum(-1).permute(0, 2, 1)  # [B, H, T]
     p = _probs(q, k, lse, causal, scale, window)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+    ds = _score_grad(p, dp, delta[..., None])
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
-    return dq.to(q.dtype), delta.reshape(b * h, t)
+    return dq.to(q.dtype), delta.float().reshape(b * h, t)
 
 
 def plain_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
               window=None):
     """The plain dk/dv: ``(dk, dv)`` in k's and v's dtypes from lse and
-    delta ``[B*H, T]``."""
+    delta ``[B*H, T]`` (dp in f64: `_score_grad`)."""
     LAUNCHES["plain"] += 1
     _check_window(causal, window)
     b, _, h, _ = q.shape
     scale = _scale(q, scale)
     p = _probs(q, k, lse, causal, scale, window)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - _rows(delta, b, h))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+    ds = _score_grad(p, dp, _rows(delta, b, h))
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -554,7 +584,8 @@ def plain_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
 def kernel_error_bounds(q, k, v, o, lse, do, causal=False, scale=None,
                         window=None):
     """The element-wise tolerance the bf16 kernels are held to against
-    the plain versions run in f32 on the same values: ``|kernel - plain|
+    the plain versions run on the same values (in f32; dp - delta in f64,
+    `_score_grad`): ``|kernel - plain|
     <= 2**-8 * |plain| + bound[name]`` for o, dq, dk and dv, and
     ``<= bound[name]`` for lse and delta. (o, lse) are the ones the
     backward is given.
@@ -669,7 +700,8 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
             *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
         if family == "wgmma":
-            _launch("fwd", _lib().k1_fwd, *ptrs, FWD_STAGES, fwd_smem(d),
+            _launch("fwd", _lib().k1_fwd, *ptrs,
+                    FWD_STAGES[padded_dim(d, "fwd")], fwd_smem(d),
                     _build.stream(q.device))
         else:
             _launch("fwd", _lib().k1s_fwd, SIMT_DTYPES[q.dtype], *ptrs,
@@ -693,7 +725,8 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
             b, t, h, d, *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
         if family == "wgmma":
-            _launch("dq", _lib().k1_dq, *ptrs, BWD_STAGES, dq_smem(d),
+            _launch("dq", _lib().k1_dq, *ptrs,
+                    BWD_STAGES[padded_dim(d, "dq")], dq_smem(d),
                     _build.stream(q.device))
         else:
             _launch("dq", _lib().k1s_dq, SIMT_DTYPES[q.dtype], *ptrs,
@@ -719,7 +752,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
             b, t, h, d, *_common(q, causal, scale, window))
     with torch.cuda.device(q.device):
         if family == "wgmma":
-            _launch("dkv", _lib().k1_dkv, *ptrs, BWD_STAGES, dkv_smem(d),
+            _launch("dkv", _lib().k1_dkv, *ptrs,
+                    BWD_STAGES[padded_dim(d, "dkv")], dkv_smem(d),
                     _build.stream(q.device))
         else:
             _launch("dkv", _lib().k1s_dkv, SIMT_DTYPES[q.dtype], *ptrs,

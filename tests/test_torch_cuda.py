@@ -489,7 +489,7 @@ def test_k1_launchers_refuse_short_shared_memory(cuda):
     delta = torch.empty_like(lse)
     out = [torch.empty_like(q) for _ in range(2)]
     lib, st = fl._lib(), _build.stream(cuda)
-    common = (1, 128, 2, 64, 0.125, 1, -1, fl.BWD_STAGES)
+    common = (1, 128, 2, 64, 0.125, 1, -1, fl.BWD_STAGES[64])
     ptrs = [x.data_ptr() for x in (q, k, v, o, do, lse)]
     assert lib.k1_dq(*ptrs, out[0].data_ptr(), delta.data_ptr(), *common,
                      fl.dq_smem(64) - 1200, st) != 0
@@ -575,15 +575,17 @@ def _close(name, got, ref, dtype):
     (torch.bfloat16, 1, 200, 2, 96, True, 40),
     (torch.bfloat16, 1, 64, 1, 256, True, None),
     (torch.bfloat16, 1, 33, 2, 20, False, None),
-    (torch.float16, 1, 100, 2, 48, True, None)])
+    (torch.float16, 1, 100, 2, 48, True, None),
+    (torch.bfloat16, 1, 200, 2, 100, True, 40),
+    (torch.bfloat16, 2, 130, 2, 252, True, None)])
 def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                         window):
-    """The SIMT family (f32, f16, bf16 dq off d 64/128, bf16 fwd and dkv
-    at d % 8 != 0 or d > 128) against the plain versions on the same
-    inputs, within SIMT_TOL: fwd's o and lse, dq and delta from the
-    kernel's (o, lse), dk and dv from its delta; a second launch of each
-    bitwise equal to the first. Where `fl.route` puts a bf16 fwd or dkv
-    on the padded wgmma kernels (d 16, 32, 96) those are held within
+    """The SIMT family (f32, f16, bf16 at d % 8 != 0, bf16 dkv above d
+    128) against the plain versions on the same inputs, within SIMT_TOL:
+    fwd's o and lse, dq and delta from the kernel's (o, lse), dk and dv
+    from its delta; a second launch of each bitwise equal to the first.
+    Where `fl.route` puts a bf16 kernel on the wgmma family (fwd, dq and
+    dkv at d 16, 32 and 96; fwd and dq at d 256) it is held within
     `fl.kernel_error_bounds` of the plain versions in f32 instead."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, dtype, b, t, h, d, seed=t + d)
@@ -599,14 +601,12 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
     name = str(dtype).split(".")[-1]
     simt = [n for n in ("fwd", "dq", "dkv")
             if fl.route(dtype, d, n) == "simt"]
-    assert "dq" in simt
     assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in simt}
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
     o, lse, dq, delta, dk, dv = runs[0]
-    rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
     f = [x.float() for x in (q, k, v, do)]
     if "fwd" in simt:
         ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
@@ -630,19 +630,27 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                        window)
         _within("dk", dk, rdk, bound["dk"])
         _within("dv", dv, rdv, bound["dv"])
+    if "dq" in simt:
+        rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
+        _close("dq", dq, rdq, dtype)
+        _close("delta", delta, rdelta, torch.float32)
+    else:
+        rdq, rdelta = fl.plain_dq(*f[:3], o.float(), lse, f[3], causal,
+                                  None, window)
+        bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
+                                       window)
+        _within("dq", dq, rdq, bound["dq"])
+        _within("delta", delta, rdelta, bound["delta"])
     for got in (o, dq, dk, dv):
         assert got.dtype == dtype
-    _close("dq", dq, rdq, dtype)
-    _close("delta", delta, rdelta, torch.float32)
 
 
 @pytest.mark.parametrize("d", [16, 64])
 def test_k1_folds_bh_above_65535(cuda, d):
     """B * H = 66000 (B 1100, H 60, T 64): the grid folds B * H into its
-    first dimension. d 16 runs the padded wgmma fwd and dkv and the SIMT
-    dq, d 64 the wgmma family throughout; o, lse and dq on two slices of
-    rows within `fl.kernel_error_bounds` (which covers both families)
-    against the plain versions."""
+    first dimension. d 16 runs the wgmma kernels padded to 64, d 64 the
+    wgmma family unpadded; o, lse and dq on two slices of rows within
+    `fl.kernel_error_bounds` against the plain versions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, torch.bfloat16, 1100, 64, 60, d)
     fl.reset_launches()
@@ -684,13 +692,16 @@ def _guarded(like, tail=256):
 
 
 @pytest.mark.parametrize("mode", sorted(PADDED_MODES))
-@pytest.mark.parametrize("d", [8, 16, 40, 72, 120])
+@pytest.mark.parametrize("d", [8, 16, 40, 72, 120, 136, 184, 200, 256])
 def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     """bf16 at a head dim the wgmma kernels take by padding (d % 8 == 0,
-    d <= 128, not 64 or 128): fwd and dkv launch `k1_fwd` and `k1_dkv`
-    at D = 64 or 128 (TMA zero-fills the columns past d), dq the SIMT
-    kernel. o, lse, dk and dv within `fl.kernel_error_bounds` of the
-    plain versions in f32; a second launch bitwise equal. Launched
+    not 64 or 128): fwd and dq launch `k1_fwd` and `k1_dq` at D = 64, 128
+    or 256, dkv `k1_dkv` at D = 64 or 128 (TMA zero-fills the columns
+    past d; at d 136 and 184 the fourth 64-column box of a D-256 tile
+    lies wholly past d) and above d 128 the SIMT dkv. o, lse, dq, delta,
+    dk and dv within `fl.kernel_error_bounds` of the plain versions in
+    f32 (a SIMT dkv within SIMT_TOL of the plain version in bf16); a
+    second launch bitwise equal. Every wgmma kernel is launched again
     straight through the C interface into outputs whose every element
     and a tail past the last row start as SENTINEL: every element is
     written with the wrapper's value and the tail is untouched, so no
@@ -710,7 +721,8 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     torch.cuda.synchronize()
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
-    assert fl.SIMT_LAUNCHES == {"dq.bfloat16": 2}
+    wide = d > fl.PADDED_KERNELS["dkv"]
+    assert fl.SIMT_LAUNCHES == ({"dkv.bfloat16": 2} if wide else {})
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
     o, lse, dq, delta, dk, dv = runs[0]
@@ -720,11 +732,22 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
                                    window)
     _within("o", o, ro, bound["o"])
     _within("lse", lse, rlse, bound["lse"])
-    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None, window)
+    rdq, rdelta = fl.plain_dq(*f[:3], o.float(), lse, f[3], causal, None,
+                              window)
     bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal, None,
                                    window)
-    _within("dk", dk, rdk, bound["dk"])
-    _within("dv", dv, rdv, bound["dv"])
+    _within("dq", dq, rdq, bound["dq"])
+    _within("delta", delta, rdelta, bound["delta"])
+    if wide:
+        rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
+                                window)
+        _close("dk", dk, rdk, torch.bfloat16)
+        _close("dv", dv, rdv, torch.bfloat16)
+    else:
+        rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None,
+                                window)
+        _within("dk", dk, rdk, bound["dk"])
+        _within("dv", dv, rdv, bound["dv"])
     # the same launches into sentinel-filled outputs with a guard tail
     lib, stream = fl._lib(), _build.stream(cuda)
     common = (b, t, h, d, 1 / d ** 0.5, int(causal),
@@ -733,26 +756,37 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     lse2 = torch.empty_like(lse)
     assert lib.k1_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       go.data_ptr(), lse2.data_ptr(), *common,
-                      fl.FWD_STAGES, fl.fwd_smem(d), stream) == 0
-    gk, ktail = _guarded(dk)
-    gv, vtail = _guarded(dv)
-    assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      gk.data_ptr(), gv.data_ptr(), *common,
-                      fl.BWD_STAGES, fl.dkv_smem(d), stream) == 0
+                      fl.FWD_STAGES[fl.padded_dim(d, "fwd")],
+                      fl.fwd_smem(d), stream) == 0
+    gq, qtail = _guarded(dq)
+    delta2 = torch.empty_like(delta)
+    assert lib.k1_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), gq.data_ptr(),
+                     delta2.data_ptr(), *common,
+                     fl.BWD_STAGES[fl.padded_dim(d, "dq")], fl.dq_smem(d),
+                     stream) == 0
+    guarded = [(go, o, gtail), (gq, dq, qtail)]
+    if not wide:
+        gk, ktail = _guarded(dk)
+        gv, vtail = _guarded(dv)
+        assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          gk.data_ptr(), gv.data_ptr(), *common,
+                          fl.BWD_STAGES[fl.padded_dim(d, "dkv")],
+                          fl.dkv_smem(d), stream) == 0
+        guarded += [(gk, dk, ktail), (gv, dv, vtail)]
     torch.cuda.synchronize()
-    for got, want, tail in ((go, o, gtail), (gk, dk, ktail),
-                            (gv, dv, vtail)):
+    for got, want, tail in guarded:
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
         assert bool((tail.view(torch.int16) == SENTINEL).all())
-    assert torch.equal(lse2, lse)
+    assert torch.equal(lse2, lse) and torch.equal(delta2, delta)
 
 
 def test_k1_padded_refuses_what_tma_cannot_read(cuda):
     """A view whose base address is not a multiple of 16 bytes raises
     before any launch (a tensor map cannot read it); the C interface
-    refuses a head dim off the padded rule (d % 8 != 0, d > 128) for
-    fwd and dkv and any d but 64 and 128 for dq."""
+    refuses a head dim off the padded rule: d % 8 != 0 or d > 256 for
+    fwd and dq, and also d > 128 for dkv."""
     b, t, h, d = 1, 64, 2, 16
     q, k, v, do = _k1_inputs(cuda, b, t, h, d)
     buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
@@ -764,18 +798,25 @@ def test_k1_padded_refuses_what_tma_cannot_read(cuda):
     o, lse = fl.flash_fwd(q, k, v, True)
     _, delta = fl.flash_dq(q, k, v, o, lse, do, True)
     with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_dq(q, k, v, o, lse, shifted, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fl.flash_dkv(q, k, v, shifted, lse, delta, True)
-    assert fl.LAUNCHES["dkv"] == 0
+    assert fl.LAUNCHES["dq"] == 1 and fl.LAUNCHES["dkv"] == 0
     lib, stream = fl._lib(), _build.stream(cuda)
-    out = torch.empty_like(q)
-    for dd in (20, 136, 4):
+    out, out2 = torch.empty_like(q), torch.empty_like(q)
+    for dd in (20, 252, 264, 4):
         assert lib.k1_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), lse.data_ptr(), b, t, h, dd, 0.25,
-                          1, -1, fl.FWD_STAGES, fl.fwd_smem(64), stream) != 0
-    assert lib.k1_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), out.data_ptr(),
-                     delta.data_ptr(), b, t, h, d, 0.25, 1, -1,
-                     fl.BWD_STAGES, fl.dq_smem(64), stream) != 0
+                          1, -1, 2, fl.fwd_smem(256), stream) != 0
+        assert lib.k1_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         out.data_ptr(), delta.data_ptr(), b, t, h, dd, 0.25,
+                         1, -1, 2, fl.dq_smem(256), stream) != 0
+    for dd in (20, 136, 256):
+        assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          out.data_ptr(), out2.data_ptr(), b, t, h, dd, 0.25,
+                          1, -1, 4, fl.dkv_smem(128), stream) != 0
 
 
 # ---------------------------------------------------------------------------

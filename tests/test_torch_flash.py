@@ -206,7 +206,7 @@ def test_plan_visits_exactly_the_tiles_with_a_visible_pair(t, causal,
         assert tiles == 136           # the lower triangle of 16 x 16
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 136, 256])
 @pytest.mark.parametrize("t,causal,window", [(64, True, None),
                                              (200, False, None),
                                              (960, True, None),
@@ -216,13 +216,14 @@ def test_plan_visits_exactly_the_tiles_with_a_visible_pair(t, causal,
 def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
         t, causal, window, d):
     """The forward kernel's CTA takes g consecutive query tiles (g = 3 at
-    d 64, 2 at d 128): every tile once (a count that g does not divide
-    leaves the last CTA fewer), the last groups (the longest causal
-    spans) first, and a key walk that is the union of the tiles' spans —
-    at most g - 1 tiles longer than any one's, so the visited-tile count
-    of the plan stays each tile's own."""
+    d 64, 2 at d 128, 1 at d 136 and 256, the D-256 kernel): every tile
+    once (a count that g does not divide leaves the last CTA fewer), the
+    last groups (the longest causal spans) first, and a key walk that is
+    the union of the tiles' spans — at most g - 1 tiles longer than any
+    one's, so the visited-tile count of the plan stays each tile's
+    own."""
     plan = fl.flash_plan(t, d, causal=causal, window=window)
-    nq, g = plan["nq"], fl.FWD_Q_TILES[d]
+    nq, g = plan["nq"], fl.FWD_Q_TILES[fl.padded_dim(d, "fwd")]
     ctas = fl.fwd_groups(t, d, causal, window)
     assert plan["fwd_cta"]["ctas_per_head"] == len(ctas) == -(-nq // g)
     assert all(len(group) == g for group, _ in ctas)
@@ -244,10 +245,11 @@ def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
     cta = plan["fwd_cta"]
     assert (cta["q_tiles"], cta["key_tile"], cta["threads"]) == \
         (g, 64, 128 * (g + 1))
-    assert cta["smem"] == fl.fwd_smem(d, cta["stages"]) <= 227 * 1024
+    assert cta["smem"] == fl.fwd_smem(d, cta["stages"]) <= fl.SMEM_MAX
+    assert cta["stages"] == fl.FWD_STAGES[cta["head_dim"]]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 136, 256])
 @pytest.mark.parametrize("t,causal,window", [(1, True, None),
                                              (64, False, None),
                                              (64, True, 0),
@@ -261,27 +263,35 @@ def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
                                              (4096, True, 512)])
 def test_bwd_ctas_walk_the_union_of_the_jax_spans(t, causal, window, d):
     """The dq and dkv kernels' CTAs against the JAX package's `_k_span`
-    and `_q_span`: dq takes DQ_Q_TILES[d] consecutive query tiles, the
-    last groups first, and streams the union of their key spans; dkv
-    takes DKV_K_TILES[d] consecutive key tiles, the first groups first,
-    and streams the union of their query spans. Every tile once, a union
-    at most g - 1 tiles longer than any one span (a one-tile span stays
-    one tile in a group of one), and each CTA's shared memory within the
-    227 KB a block may use."""
+    and `_q_span`: dq takes DQ_Q_TILES[D] consecutive query tiles (D the
+    padded head dim: one tile at d 136 and 256), the last groups first,
+    and streams the union of their key spans; dkv takes DKV_K_TILES[D]
+    consecutive key tiles, the first groups first, and streams the union
+    of their query spans (above d 128 dkv has no wgmma CTA: the SIMT
+    kernel runs it). Every tile once, a union at most g - 1 tiles longer
+    than any one span (a one-tile span stays one tile in a group of one),
+    and each CTA's shared memory within the 227 KB a block may use."""
     nq = -(-t // 64)
     span = dict(causal=causal, window=window, block_q=64, block_k=64)
     plan = fl.flash_plan(t, d, causal=causal, window=window)
-    for kind, groups, g, jspan, last_first in (
-            ("dq", fl.dq_groups(t, d, causal, window), fl.DQ_Q_TILES[d],
-             jfl._k_span, True),
-            ("dkv", fl.dkv_groups(t, d, causal, window), fl.DKV_K_TILES[d],
-             jfl._q_span, False)):
+    kinds = [("dq", fl.dq_groups, fl.DQ_Q_TILES, jfl._k_span, True)]
+    if d <= 128:
+        kinds.append(("dkv", fl.dkv_groups, fl.DKV_K_TILES, jfl._q_span,
+                      False))
+    else:
+        assert plan["dkv_cta"]["head_dim"] is None
+        assert plan["route"]["dkv"] == "simt"
+    for kind, grouping, per_d, jspan, last_first in kinds:
+        groups = grouping(t, d, causal, window)
+        dd = fl.padded_dim(d, kind)
+        g = per_d[dd]
         cta = plan[f"{kind}_cta"]
+        assert cta["head_dim"] == dd
         assert cta["ctas_per_head"] == len(groups) == -(-nq // g)
         assert cta["threads"] == 128 * (g + 1)
-        assert cta["stages"] == fl.BWD_STAGES
+        assert cta["stages"] == fl.BWD_STAGES[dd]
         assert cta["q_tiles" if kind == "dq" else "key_tiles"] == g
-        assert cta["smem"] == getattr(fl, f"{kind}_smem")(d) <= 227 * 1024
+        assert cta["smem"] == getattr(fl, f"{kind}_smem")(d) <= fl.SMEM_MAX
         tiles = [i for group, _ in groups for i in group if i is not None]
         assert sorted(tiles) == list(range(nq))
         firsts = [group[0] for group, _ in groups]
@@ -304,20 +314,22 @@ def test_bwd_ctas_walk_the_union_of_the_jax_spans(t, causal, window, d):
 
 
 def test_bwd_smem_fits_the_deepest_ring():
-    """The backward's rings at their largest head dim: dq at d 128 holds
+    """The backward's rings at their largest head dims: dq at d 128 holds
     Q, dO and O of two query tiles and four (K, V) stages, 230,528
-    bytes, inside the 232,448 a block may use; dkv's rows (lse, delta)
-    add 512 bytes a stage. At bf16 d 48 the forward and dkv CTAs are the
-    d-64 kernels' (padded) and dq has none (the SIMT dq runs); in f32 no
-    kernel has a wgmma CTA."""
-    assert fl.dq_smem(128) == 230528 <= 232448
+    bytes, and at d 256 those of one tile and two stages (7 tiles of 32
+    KB), the same 230,528, inside the 232,448 a block may use; dkv's
+    rows (lse, delta) add 512 bytes a stage. The D-256 forward holds one
+    query tile and three stages (7 tiles). At bf16 d 48 all three CTAs
+    are the d-64 kernels' (padded); in f32 no kernel has a wgmma CTA."""
+    assert fl.dq_smem(128) == fl.dq_smem(256) == 230528 <= fl.SMEM_MAX
+    assert fl.dq_smem(256) == fl._smem(256, 3 + 2 * 2, 2)
     assert fl.dkv_smem(64) - fl._smem(64, 2 * 2 + 2 * 4, 4) == 4 * 512
     assert fl.fwd_smem(64) == 91264 and fl.fwd_smem(128) == 164992
+    assert fl.fwd_smem(256) == fl._smem(256, 1 + 2 * 3, 3) == 230528
     plan, at64 = fl.flash_plan(1024, 48), fl.flash_plan(1024, 64)
-    assert plan["fwd_cta"] == at64["fwd_cta"]
-    assert plan["dkv_cta"] == at64["dkv_cta"]
-    assert all(plan["dq_cta"][f] is None
-               for f in ("head_dim", "threads", "smem", "ctas_per_head"))
+    for kind in ("fwd", "dq", "dkv"):
+        assert plan[f"{kind}_cta"] == at64[f"{kind}_cta"]
+        assert plan[f"{kind}_cta"]["head_dim"] == 64
     plan = fl.flash_plan(1024, 48, dtype=torch.float32)
     assert all(plan[k][f] is None for k in ("fwd_cta", "dq_cta", "dkv_cta")
                for f in ("head_dim", "threads", "smem", "ctas_per_head"))
@@ -392,14 +404,15 @@ def test_flash_efficiency_cpu_smoke():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [8, 16, 32, 96, 256])
+@pytest.mark.parametrize("d", [8, 16, 32, 96, 200, 256])
 def test_plain_k1_matches_pallas_at_every_head_dim(pallas_interpret, d,
                                                    dtype):
     """The plain versions (the CPU route of every family and what the
     card's kernels are held to) against the Pallas forward with its lse
     and backward in interpret mode, causal, at head dims 8 (the dry
     run's BERT), 16 (the `tiny` GPT and the sequence tests), 32 (the
-    flash tests), 96 and 256, in f32 (TOL / GTOL) and bf16 (both sides
+    flash tests), 96, 200 (a padded D-256 case) and 256, in f32 (TOL /
+    GTOL) and bf16 (both sides
     round each output once: 2**-7 of the largest |value|)."""
     q, k, v, do = _inputs(40 + d, (1, 64, 2, d))
     jdt = getattr(jnp, dtype)
@@ -459,12 +472,13 @@ def test_untiled_lengths_take_plain_attention_and_are_counted():
 
 
 _SIMT3 = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
-_PADDED = {"fwd": "wgmma", "dq": "simt", "dkv": "wgmma"}
-_ROUTES = ([(torch.bfloat16, d, dict.fromkeys(_SIMT3, "wgmma"))
-            for d in (64, 128)]
-           + [(torch.bfloat16, d, _PADDED)
+_WGMMA3 = dict.fromkeys(_SIMT3, "wgmma")
+_WIDE = {"fwd": "wgmma", "dq": "wgmma", "dkv": "simt"}
+_ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
+           + [(torch.bfloat16, d, _WGMMA3)
               for d in (8, 16, 24, 40, 48, 72, 96, 120)]
-           + [(torch.bfloat16, d, _SIMT3) for d in (1, 20, 136, 256)]
+           + [(torch.bfloat16, d, _SIMT3) for d in (1, 20, 252)]
+           + [(torch.bfloat16, d, _WIDE) for d in (136, 200, 248, 256)]
            + [(dt, d, _SIMT3) for dt in (torch.float32, torch.float16)
               for d in (1, 8, 16, 64, 128, 256)]
            + [(torch.float64, 64, None), (torch.bfloat16, 257, None),
@@ -474,12 +488,12 @@ _ROUTES = ([(torch.bfloat16, d, dict.fromkeys(_SIMT3, "wgmma"))
 @pytest.mark.parametrize("dtype,d,want", _ROUTES,
                          ids=[f"{str(dt)[6:]}-{d}" for dt, d, _ in _ROUTES])
 def test_route_per_kernel(dtype, d, want):
-    """The family of each kernel: bf16 runs the wgmma family at d 64 and
-    128, and for fwd and dkv at any d <= 128 with d % 8 == 0 (padded to
-    64 or 128), where dq stays on the SIMT family; bf16 at any other d
-    up to 256, and f32 and f16 at every d up to 256, run the SIMT family;
-    f64 and wider heads raise. `flash_plan` reports the same routes and
-    sizes each wgmma CTA at its padded head dim."""
+    """The family of each kernel: bf16 runs the wgmma family at any d %
+    8 == 0 — fwd and dq up to 256 (padded to 64, 128 or 256), dkv up to
+    128 (padded to 64 or 128); bf16 at any other d up to 256 (d % 8 != 0,
+    or dkv above 128), and f32 and f16 at every d up to 256, run the SIMT
+    family; f64 and wider heads raise. `flash_plan` reports the same
+    routes and sizes each wgmma CTA at its padded head dim."""
     for kernel in ("fwd", "dq", "dkv"):
         if want is None:
             with pytest.raises(ValueError, match="no flash-attention"):
@@ -489,43 +503,47 @@ def test_route_per_kernel(dtype, d, want):
         dd = fl.wgmma_dim(dtype, d, kernel)
         assert (dd is not None) == (want[kernel] == "wgmma")
         if dd is not None:
-            assert dd == (d if d in fl.HEAD_DIMS else fl.padded_dim(d))
-            assert dd == (64 if d <= 64 else 128)
+            assert dd == fl.padded_dim(d, kernel) in fl.HEAD_DIMS
+            assert dd == (64 if d <= 64 else 128 if d <= 128 else 256)
+            assert dd <= fl.PADDED_KERNELS[kernel]
     plan = fl.flash_plan(256, d, True, dtype=dtype)
     assert plan["route"] == (want or dict.fromkeys(_SIMT3))
 
 
-@pytest.mark.parametrize("d", [8, 16, 40, 56, 72, 96, 120])
+@pytest.mark.parametrize("d", [8, 16, 40, 56, 72, 96, 120, 136, 200, 248])
 @pytest.mark.parametrize("t,causal,window", [(64, True, None),
                                              (1000, True, 200),
                                              (257, False, None)])
 def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
-    """A bf16 call at a head dim the wgmma fwd and dkv take by padding
-    plans the CTA of the kernel compiled for 64 (d <= 64) or 128: the
-    same tiles, threads, shared memory and groups, with ``head_dim`` the
-    padded one; the SIMT dq's CTA is the SIMT plan's."""
-    big = 64 if d <= 64 else 128
+    """A bf16 call at a head dim the wgmma kernels take by padding plans
+    the CTA of the kernel compiled for 64 (d <= 64), 128 (d <= 128) or,
+    for fwd and dq, 256: the same tiles, threads, shared memory and
+    groups, with ``head_dim`` the padded one. Above d 128 dkv has no
+    wgmma CTA (the SIMT dkv's is the SIMT plan's)."""
     plan = fl.flash_plan(t, d, causal, window)
-    ref = fl.flash_plan(t, big, causal, window)
-    for name in ("fwd", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
+        if d > fl.PADDED_KERNELS[name]:
+            assert plan[f"{name}_cta"]["threads"] is None
+            assert plan["simt_cta"]["smem"][name] == fl.simt_smem(name, d)
+            continue
+        big = 64 if d <= 64 else 128 if d <= 128 else 256
+        ref = fl.flash_plan(t, big, causal, window)
         assert plan[f"{name}_cta"] == ref[f"{name}_cta"]
         assert plan[f"{name}_cta"]["head_dim"] == big
-    assert fl.fwd_smem(d) == fl.fwd_smem(big)
-    assert fl.dkv_smem(d) == fl.dkv_smem(big)
-    assert fl.fwd_groups(t, d, causal, window) == \
-        fl.fwd_groups(t, big, causal, window)
-    assert fl.dkv_groups(t, d, causal, window) == \
-        fl.dkv_groups(t, big, causal, window)
-    assert plan["dq_cta"]["threads"] is None
-    assert plan["simt_cta"]["smem"]["dq"] == fl.simt_smem("dq", d)
-    for bad in (4, 20, 136):
-        with pytest.raises(ValueError, match="no padded wgmma kernel"):
-            fl.padded_dim(bad)
+        assert getattr(fl, f"{name}_smem")(d) == \
+            getattr(fl, f"{name}_smem")(big)
+        assert getattr(fl, f"{name}_groups")(t, d, causal, window) == \
+            getattr(fl, f"{name}_groups")(t, big, causal, window)
+    for name, bad in (("fwd", (4, 20, 252, 264)), ("dq", (4, 20, 252, 264)),
+                      ("dkv", (4, 20, 136, 256))):
+        for dd in bad:
+            with pytest.raises(ValueError, match="no padded wgmma"):
+                fl.padded_dim(dd, name)
 
 
 def test_routes_and_the_simt_plan():
     """bf16 at d 64/128 runs the wgmma family for every kernel, and at d
-    16 for fwd and dkv; f32, f16 and the rest of bf16 up to 256 the SIMT
+    16 too (padded); f32, f16 and the rest of bf16 up to 256 the SIMT
     family; f64 and wider heads none (`test_route_per_kernel` has every
     case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
     memory by kernel within the 227 KB a block may use."""
@@ -535,8 +553,7 @@ def test_routes_and_the_simt_plan():
         for dt in (torch.float32, torch.float16):
             for d in (1, 8, 64, 128, 256):
                 assert fl.route(dt, d, kernel) == "simt"
-        assert fl.route(torch.bfloat16, 16, kernel) == (
-            "simt" if kernel == "dq" else "wgmma")
+        assert fl.route(torch.bfloat16, 16, kernel) == "wgmma"
         for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
             with pytest.raises(ValueError,
                                match="no flash-attention kernel"):
@@ -556,3 +573,30 @@ def test_routes_and_the_simt_plan():
         <= 227 * 1024
     assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] == \
         dict.fromkeys(_SIMT3)
+
+
+def test_every_wgmma_cta_fits_the_block_limit():
+    """Every wgmma CTA `flash_plan` can name — each kernel at every head
+    dim its route takes (d % 8 == 0 up to 256 for fwd and dq, 128 for
+    dkv), causal or not, short or long — asks for at most the 232,448
+    bytes of dynamic shared memory a block may use on the H100, and its
+    threads are 128 a warpgroup with one producer; the SIMT CTAs fit
+    too."""
+    sizes = set()
+    for d in range(8, 257, 8):
+        for t, causal in ((64, True), (1000, False), (4096, True)):
+            plan = fl.flash_plan(t, d, causal)
+            for name in ("fwd", "dq", "dkv"):
+                cta = plan[f"{name}_cta"]
+                if d > fl.PADDED_KERNELS[name]:
+                    assert cta["smem"] is None
+                    continue
+                per_d = {"fwd": fl.FWD_Q_TILES, "dq": fl.DQ_Q_TILES,
+                         "dkv": fl.DKV_K_TILES}[name][cta["head_dim"]]
+                assert cta["threads"] == 128 * (per_d + 1)
+                assert 0 < cta["smem"] <= fl.SMEM_MAX
+                sizes.add((name, cta["head_dim"], cta["smem"]))
+            assert max(plan["simt_cta"]["smem"].values()) <= fl.SMEM_MAX
+    assert {(n, dd) for n, dd, _ in sizes} == {
+        (n, dd) for n in ("fwd", "dq") for dd in (64, 128, 256)} | {
+        ("dkv", 64), ("dkv", 128)}
