@@ -235,18 +235,19 @@ failing on the first phase that fails:
    gap between that run in bf16 and in f32, or the same floors). Prints each rank's ms/step and tokens/s (marked:
    4 ranks share one card), the exchange's ms, bytes and staged bytes a
    step, and K1's launches. (d) K1's new cases against their plain
-   versions: f32 at d 8..128 and bf16 at d 8..256 (`K1_NEW`), causal,
-   non-causal and windowed, the padded wgmma kernels (bf16, d % 8 == 0,
-   off 64/128: fwd and dq up to 256, dkv up to 128) within
-   `kernel_error_bounds`, the SIMT kernels within TOL, every case bitwise
-   on a second launch, and one launch of B*H = 66000 > 65535. (e)
+   versions: f32 at d 8..128 and bf16 at d 1..256 (`K1_NEW`), causal,
+   non-causal and windowed, the padded wgmma kernels (bf16 off 64/128,
+   padded by TMA to D 64, 128 or 256; at d % 8 != 0 through a
+   zero-padded copy first) within `kernel_error_bounds`, the f32 SIMT
+   kernels within TOL, every case bitwise on a second launch, and one
+   launch of B*H = 66000 > 65535. (e)
    `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
    through the padded wgmma fwd, dq and dkv (no SIMT launch); (e')
    `measure_flash_efficiency(dtype="float32")` at its default shape
    through the f32 SIMT kernels; (e'') `measure_flash_efficiency` in bf16
-   at head dim 256 (Gemma's) through the D-256 wgmma fwd and dq and the
-   bf16 SIMT dkv; (e''') the same at head dim 252 (d % 8 != 0) through
-   the bf16 SIMT fwd, dq and dkv. (f)
+   at head dim 256 (Gemma's) through the D-256 wgmma fwd, dq and dkv;
+   (e''') the same at head dim 252 (d % 8 != 0) through the same kernels
+   on a zero-padded copy; neither launches the SIMT family. (f)
    `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
    BERT, d 8, the plain ring as the reference's) on the card's ranks;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
@@ -394,13 +395,13 @@ SEQ_SPECS = [
 SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
 SEQ_GRAD_FLOOR = 2e-2
 #: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128 (the
-#: padded wgmma kernels at d % 8 == 0: fwd, dq and dkv up to 128, fwd
-#: and dq of D 256 at 136, 184, 200 and 256, where dkv is SIMT; the SIMT
-#: family throughout at d 20), at B 2, T 256, H 4 in each mode; the fold
-#: launch: B 1100 x H 60 = 66000 > 65535
+#: padded wgmma kernels: fwd, dq and dkv of D 64 and 128 up to d 128, of
+#: D 256 at 136, 184, 200 and 256; at d 1, 4 and 20 on a zero-padded
+#: copy of 8, 8 and 24 columns), at B 2, T 256, H 4 in each mode; the
+#: fold launch: B 1100 x H 60 = 66000 > 65535
 K1_NEW = ([("float32", d) for d in (8, 16, 32, 64, 128)]
-          + [("bfloat16", d) for d in (8, 16, 20, 24, 32, 40, 72, 96, 120,
-                                        136, 184, 200, 256)])
+          + [("bfloat16", d) for d in (1, 4, 8, 16, 20, 24, 32, 40, 72, 96,
+                                        120, 136, 184, 200, 256)])
 K1_NEW_SHAPE = (2, 256, 4)
 K1_NEW_MODES = {"causal": (True, None), "full": (False, None),
                 "window": (True, 48)}
@@ -410,8 +411,8 @@ K1_FOLD = (1100, 64, 60, 16)
 #: benchmark's (e') (B 8, T 1024, H 12, d 64); bf16 at the `tiny` GPT's
 #: training shape (e) (B 8, T 1024, H 8, d 16: the wgmma fwd, dq and dkv
 #: padded to 64); bf16 at (e'')'s head dim 256 (B 4, T 1024, H 8: the
-#: D-256 wgmma fwd and dq, the SIMT dkv); bf16 at (e''')'s head dim 252
-#: (the same B, T, H: the SIMT fwd and dq; its dkv row is the d-256 one)
+#: D-256 wgmma fwd, dq and dkv); bf16 at (e''')'s head dim 252 (the same
+#: B, T, H: the same kernels on a zero-padded copy, timed with the copy)
 K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16),
                   "bfloat16.d256": (4, 1024, 8, 256),
                   "bfloat16.d252": (4, 1024, 8, 252)}
@@ -2237,8 +2238,10 @@ def k1_bound(kernel, b, t, h, d, causal, window, itemsize=2,
     return 1e3 * times[by], by, flops, nbytes
 
 
-def phase_timing_k1(torch, fl):
-    """Each K1 kernel per launch at shapes (a) and (b), cycling over four
+def phase_timing_k1(torch, fl, tags=("a", "b")):
+    """Each K1 kernel per launch at the `K1_SHAPES` named by `tags` (the
+    smoke's (a) and (b); `benchmarks/kernel_ab.py` adds (c), the d-128
+    kernels), cycling over four
     input sets (4 x 4 x 12.6 MB at (a): L2's 50 MB holds none of a
     launch's inputs from its previous visit), beside its bound, its plain
     version and the library yardstick scaled_dot_product_attention: its
@@ -2256,7 +2259,7 @@ def phase_timing_k1(torch, fl):
     import torch.nn.functional as F
 
     out = {}
-    for tag in ("a", "b"):
+    for tag in tags:
         b, t, h, d, causal, window = K1_SHAPES[tag]
         sets = []
         for seed in range(4):
@@ -2419,9 +2422,13 @@ def k1_held(torch, fl, family, x, causal, window):
 def k1_label(fl, dtype, d, kernel):
     """The kernels line's family label of K1 `kernel` in `dtype` at head
     dim `d` off bf16 d 64/128: ``"simt"``, ``"padded"`` (the wgmma kernel
-    of D 64 or 128) or ``"d256"`` (the wgmma kernel of D 256)."""
+    of D 64 or 128) or ``"d256"`` (the wgmma kernel of D 256), with
+    ``".copy"`` where the wrapper reaches it through a zero-padded copy
+    (bf16 at d % 8 != 0)."""
     dd = fl.wgmma_dim(dtype, d, kernel)
-    return "simt" if dd is None else "d256" if dd == 256 else "padded"
+    if dd is None:
+        return "simt"
+    return ("d256" if dd == 256 else "padded") + (".copy" if d % 8 else "")
 
 
 def k1_new_cases(torch, fl):
@@ -2676,21 +2683,19 @@ def phase_seq(torch, fl, card: str) -> dict:
         f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
         f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
     out["f32_simt"] = {n: simt[f"{n}.float32"] for n in ("fwd", "dq", "dkv")}
-    # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): fwd and dq
-    # on the D-256 wgmma kernels, dkv (above its 128) on the SIMT family;
-    # (e''') at head dim 252 (d % 8 != 0): all three SIMT
-    for tag, bench, simt_kernels in (("e''", K1_D256_BENCH, ("dkv",)),
-                                     ("e'''", K1_D252_BENCH,
-                                      ("fwd", "dq", "dkv"))):
+    # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): fwd, dq
+    # and dkv on the D-256 wgmma kernels; (e''') at head dim 252 (d % 8
+    # != 0): the same kernels on a zero-padded copy. No SIMT launch
+    for tag, bench in (("e''", K1_D256_BENCH), ("e'''", K1_D252_BENCH)):
         fl.reset_launches()
         meta = measure_flash_efficiency(**bench)
         torch.cuda.synchronize()
         simt = dict(fl.SIMT_LAUNCHES)
-        check(fl.LAUNCHES["plain"] == 0 and simt == {
-            f"{n}.bfloat16": fl.LAUNCHES[n] for n in simt_kernels}
-            and all(fl.LAUNCHES[n] > 0 for n in ("fwd", "dq", "dkv")),
+        check(fl.LAUNCHES["plain"] == 0 and not simt
+              and all(fl.LAUNCHES[n] > 0 for n in ("fwd", "dq", "dkv")),
               f"seq ({tag}): K1 launches {fl.LAUNCHES}, SIMT {simt}, "
-              f"expected SIMT launches of {simt_kernels} only")
+              f"expected every kernel launched and none on the SIMT "
+              f"family")
         log(f"seq ({tag}) measure_flash_efficiency(dtype='bfloat16', "
             f"head_dim={bench['head_dim']}) (B {meta['batch']} T "
             f"{meta['seq']} h {meta['heads']}, causal): fwd "
@@ -3342,9 +3347,10 @@ def main() -> int:
     # K1 off bf16 d 64/128, a row per kernel, family label and dtype: the
     # f32 SIMT kernels launched on the main path by the flash benchmark
     # (e') (d 64); the wgmma fwd, dq and dkv padded to 64 by the tiny
-    # GPT's training (e) (d 16); the D-256 wgmma fwd and dq and the bf16
-    # SIMT dkv by the bf16 flash benchmark at d 256 (e''); the bf16 SIMT
-    # fwd and dq by the same at d 252 (e'''). Each timed at its shape in
+    # GPT's training (e) (d 16); the D-256 wgmma fwd, dq and dkv by the
+    # bf16 flash benchmark at d 256 (e''); the same kernels on the
+    # zero-padded copy by the same at d 252 (e'''), timed with the copies
+    # and slices the wrappers add (label ".copy"). Each timed at its shape in
     # K1_SIMT_TIMING, the main path's (the first shape that runs it),
     # with the launches of the run at that shape; max_abs_err over (d)'s
     # cases of that kernel, label and dtype and the main path's shape;
@@ -3385,6 +3391,10 @@ def main() -> int:
                 "shape": "B={} T={} h={} d={} causal".format(
                     *K1_SIMT_TIMING[tag]),
             }
+            if label.endswith(".copy"):
+                row["ms_includes"] = (
+                    f"the zero-padded copies to {fl.tma_dim(d)} columns "
+                    f"and the slice of the outputs to {d}")
             if name != "fwd":
                 row["library_ms_is_pair"] = (
                     f"flash.dq.{labels['dq']}.{dtype} + "

@@ -12,8 +12,8 @@ with THIS checkout's `chip_smoke.phase_timing`, `phase_timing_k1` and
 `phase_timing_r1` run on the other checkout's `ops.paged_attn`,
 `ops.flash` and `ops.stream` (K3: both schemes
 per launch at full 1023-token rows and at the serve run's mixed
-lengths; K1: every kernel per launch at shapes (a) and (b) by device
-time, beside SDPA's forward and backward; ``k1s``: K1 off bf16 d 64/128
+lengths; K1: every kernel per launch at shapes (a), (b) and (c), the
+last at d 128, by device time, beside SDPA's forward and backward; ``k1s``: K1 off bf16 d 64/128
 with `phase_timing_k1_simt`, each kernel on the family the checkout's
 `ops.flash` picks, at `K1_SIMT_TIMING`'s shapes; R1: per launch at the suite's
 shape by device time and by events, beside torch.neg timed the same way
@@ -65,7 +65,7 @@ if "k3" in phases:
 if "k2" in phases:
     out["k2"] = cs.phase_timing_k2(torch, fc)
 if "k1" in phases:
-    out["k1"] = runner.phase_timing_k1(torch, fl)
+    out["k1"] = runner.phase_timing_k1(torch, fl, ("a", "b", "c"))
 if "k1s" in phases:
     out["k1s"] = runner.phase_timing_k1_simt(torch, fl)
 if "r1" in phases:

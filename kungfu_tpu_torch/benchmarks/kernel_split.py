@@ -172,9 +172,9 @@ def _bwd_pipeline_only(s, kernel):
         return _span(s, "      const unsigned char* s = ring + st * 2 * "
                      "kTileB;\n      float sc[32], dp[32];", "      prev = st;",
                      "      if (lane == 0) mbar_arrive(&empty[st]);\n")
-    return _span(s, "      const unsigned char* s = ring + st * 2 * kTileB;"
-                 "\n      const float* lr",
-                 "      if (lane == 0) mbar_arrive(&empty[st]);")
+    return _span(s, "    const unsigned char* s = ring + st * 2 * kTileB;"
+                 "\n    const float* lr",
+                 "    if (lane == 0) mbar_arrive(&empty[st]);")
 
 
 def _no_copies(s):

@@ -63,7 +63,9 @@
 //   tile S^T = K Q^T and dP^T = V dO^T, p^T from the lse row that the
 //   producer streams with the tile, dV += p^T dO, ds^T = p^T (dP^T -
 //   delta), dK += ds^T Q; dk and dv accumulate in f32 registers of the
-//   warpgroup that owns the keys. It runs after dq on the same stream.
+//   warpgroup that owns the keys (at D = 256 two CTAs own each key tile,
+//   one forming dV and one dK, each from its own S^T). It runs after dq
+//   on the same stream.
 // p and ds are rounded to bf16 before their products
 // (`ops.flash.kernel_error_bounds` gives the tolerance). No atomics:
 // every result is deterministic.
@@ -73,28 +75,31 @@
 //
 // Head dims other than the compiled ones: a call at head dim d with d %
 // 8 == 0 runs the kernel compiled for D = 64 (d <= 64), D = 128 (64 < d
-// <= 128) or, for fwd and dq, D = 256 (128 < d <= 256; dkv takes d <=
-// 128 only). Its tensor maps have the caller's d as their innermost
-// extent, so a 64-column box runs past d and TMA fills the columns past
-// d with zeros (the box's full bytes still arrive on the mbarrier, also
-// for a box wholly past d, as the fourth of a D = 256 tile at d <= 192);
-// zero columns add nothing to any of the products or to delta, so the
-// padded kernel computes the same function. The epilogues write rows of
-// stride H * d and only their first d columns: the columns past d are
-// the next head's. d % 8 == 0 is TMA's rule that every global stride
-// (here d * 2 bytes) be a multiple of 16 bytes.
+// <= 128) or D = 256 (128 < d <= 256). Its tensor maps have the caller's
+// d as their innermost extent, so a 64-column box runs past d and TMA
+// fills the columns past d with zeros (the box's full bytes still arrive
+// on the mbarrier, also for a box wholly past d, as the fourth of a D =
+// 256 tile at d <= 192); zero columns add nothing to any of the products
+// or to delta, so the padded kernel computes the same function. The
+// epilogues write rows of stride H * d and only their first d columns:
+// the columns past d are the next head's. d % 8 == 0 is TMA's rule that
+// every global stride (here d * 2 bytes) be a multiple of 16 bytes: a
+// bf16 call at any other d from 1 to 255 reaches these kernels through a
+// copy of its operands zero-padded to ceil(d / 8) * 8 columns, made by
+// the wrappers (`ops.flash`), which keep the caller's scale and return
+// the caller's d columns.
 //
 // C interface (bound with ctypes): every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError(), or
 // a negative code when a tensor map cannot be encoded (-1: the encoder
 // was not found; -1000 - CUresult: it refused the operand). The inputs
-// of k1_fwd, k1_dq and k1_dkv are bf16; k1_fwd and k1_dq take any d from
-// 8 to 256 with d % 8 == 0, k1_dkv any such d up to 128; `stages` and
-// `smem` are the ring's depth and the dynamic shared memory in bytes
-// (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at the padded D). k1s_fwd,
-// k1s_dq and k1s_dkv (the SIMT family at the end of this file) take f32,
-// bf16 or f16 at any D from 1 to 256 and `smem` from `simt_smem`. A
-// launcher refuses a byte count below what its layout needs.
+// of k1_fwd, k1_dq and k1_dkv are bf16 at any d from 8 to 256 with d %
+// 8 == 0; `stages` and `smem` are the ring's depth and the dynamic
+// shared memory in bytes (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at
+// the padded D). k1s_fwd, k1s_dq and k1s_dkv (the SIMT family at the end
+// of this file) take f32 or f16 at any D from 1 to 256 and `smem` from
+// `simt_smem`. A launcher refuses a byte count below what its layout
+// needs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -148,11 +153,18 @@ template <int D>
 __host__ __device__ constexpr int dq_q_tiles() { return D == 256 ? 1 : 2; }
 
 // dkv: key tiles a CTA. dK, dV, S^T and dP^T take 128 accumulator
-// registers a thread at D = 64: two warpgroups beside the producer (three,
-// at setmaxnreg 160, spilled and were no faster); at D = 128 they take
-// 192, so one warpgroup, which may use 255
+// registers a thread at D = 64: two warpgroups beside the producer
+// (three, at setmaxnreg 160, spilled and were no faster); at D = 128 they
+// take 192, so one warpgroup, which may use 255. At D = 256 dK and dV
+// alone take 256, more than a thread has, so each key tile has two CTAs
+// (`dkv_roles`), one forming dV (S^T, P^T: dV 128 + S^T 32 + P^T 16
+// registers) and one dK (S^T, dP^T, dS^T: dK 128 + 32 + 32 + 16), each
+// one warpgroup beside the producer, which may use 255 (k1_dkv_kernel's
+// comment gives why not two warpgroups of one CTA)
 template <int D>
 __host__ __device__ constexpr int dkv_k_tiles() { return D == 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int dkv_roles() { return D == 256 ? 2 : 1; }
 
 // every CTA: G consumer warpgroups and a producer. With three or four
 // warpgroups the producer gives registers to the consumers (3 x 128 x
@@ -712,30 +724,139 @@ __global__ void __launch_bounds__((dq_q_tiles<D>() + 1) * 128, 1)
   }
 }
 
+// dkv's loop over the streamed query tiles [lo, hi) for key tile jk (the
+// steps are k1_dkv_kernel's): kRole 3 forms dK and dV (D 64 and 128), 1
+// only dV and 2 only dK (D 256: a CTA a role, and gk and gv are then one
+// array, of which only the role's product is formed). Every stage is
+// released by each consumer warp once its products have retired
+template <int D, int kRole>
+__device__ __forceinline__ void dkv_tiles(
+    float (&gk)[D / 2], float (&gv)[D / 2], const unsigned char* ring,
+    const unsigned char* rows, uint64_t* full, uint64_t* empty, uint64_t kd,
+    uint64_t vd, int jk, int key, int lo, int hi, int t, int causal,
+    int window, float sl2, int stages) {
+  constexpr bool kV = kRole & 1, kK = kRole & 2;
+  constexpr int kTileB = tile_bytes<D>();
+  const int lane = threadIdx.x & 31;
+  int st = 0;
+  uint32_t ph = 0;
+  for (int iq = lo; iq < hi; ++iq) {
+    mbar_wait(&full[st], ph);
+    __syncwarp();
+    const unsigned char* s = ring + st * 2 * kTileB;
+    const float* lr = reinterpret_cast<const float*>(rows + st * kRowsB);
+    const float* dr = lr + kTile;
+    float sc[32], dp[32];
+    wgmma_fence();
+    scores<D>(sc, kd, sw128_desc(s, 16));
+    wgmma_commit();
+    if constexpr (kK) {
+      scores<D>(dp, vd, sw128_desc(s + kTileB, 16));
+      wgmma_commit();
+    }
+    wgmma_wait<kK ? 1 : 0>();
+    fence_acc(sc);
+    // register 4i + 2 half + c: key `key` + 8 half, query 8 i + 2 (lane
+    // % 4) + c of the tile
+    const bool edge = edge_tile(iq, jk, t, causal, window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c0 = 8 * i + 2 * (lane & 3);
+      const float2 l = *reinterpret_cast<const float2*>(lr + c0);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = sc[4 * i + 2 * half + c];
+          x = !edge || visible(iq * kTile + c0 + c, key + 8 * half, t,
+                               causal, window)
+                  ? exp2f(fmaf(x, sl2, -(c ? l.y : l.x) * kLog2e))
+                  : 0.f;
+        }
+    }
+    if constexpr (kK) {
+      wgmma_wait<0>();
+      fence_acc(dp);
+    }
+    // P^T and dS^T as wgmma's A fragments: 16-query step kc is
+    // accumulator columns 16 kc .. 16 kc + 15; register pair 8 kc + 2 e
+    // is columns 8 (2 kc + e / 2) + 2 (lane % 4) and + 1
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * kc + 2 * e;
+        if constexpr (kV) pa[kc][e] = pack_bf16(sc[j], sc[j + 1]);
+        if constexpr (kK) {
+          const float2 d = *reinterpret_cast<const float2*>(
+              dr + 8 * (2 * kc + e / 2) + 2 * (lane & 3));
+          da[kc][e] = pack_bf16(sc[j] * (dp[j] - d.x),
+                                sc[j + 1] * (dp[j + 1] - d.y));
+        }
+      }
+    wgmma_fence();
+    const uint64_t qn = sw128_desc(s, kBox), don = sw128_desc(s + kTileB, kBox);
+    if constexpr (kV) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gv, pa[kc], don + 128 * kc);
+    }
+    if constexpr (kK) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gk, da[kc], qn + 128 * kc);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if constexpr (kV) fence_acc(gv);
+    if constexpr (kK) fence_acc(gk);
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == stages) { st = 0; ph ^= 1; }
+  }
+}
+
 // One CTA: warpgroups 0 .. G - 1 consume (G = dkv_k_tiles<D>()), each
 // owning one 64-row key tile of the group (G p, ..., G p + G - 1) of one
 // (b, h), whose K and V the producer loads once (past the last tile,
-// tile nk - 1 again: never stored); warpgroup G produces. The producer
-// streams the query tiles of the union of the key tiles' `_q_span`s:
-// per stage, its first thread copies Q and dO [64, D] by TMA (4-D
-// tensor maps, as k1_fwd) and its second warp the tile's 64 lse and 64
-// delta values with plain loads (0 past T), each lane arriving on the
-// stage's full barrier after its stores (a head's row of lse starts at
-// b h T floats, which TMA cannot read from an address that is not a
-// multiple of 16 bytes). Per query tile, a warpgroup, in the
-// transposed score space (its 64 keys on rows, the 64 queries on
-// columns):
-//   1. S^T = K Q^T and, issued right behind it, dP^T = V dO^T (wgmma
-//      m64n64k16 over D, every operand K-major), two commit groups;
+// tile nk - 1 again: never stored); warpgroup G produces. At D = 256 the
+// group is one tile and has two CTAs, a role each: role 0 forms dV
+// (and is loaded no V), role 1 dK. The producer streams the query tiles
+// of the union of the key tiles' `_q_span`s: per stage, its first
+// thread copies Q and dO [64, D] by TMA (4-D tensor maps, as k1_fwd) and
+// its second warp the tile's 64 lse and 64 delta values with plain loads
+// (0 past T), each lane arriving on the stage's full barrier after its
+// stores (a head's row of lse starts at b h T floats, which TMA cannot
+// read from an address that is not a multiple of 16 bytes). Per query
+// tile, a warpgroup, in the transposed score space (its 64 keys on rows,
+// the 64 queries on columns):
+//   1. S^T = K Q^T and, issued right behind it where dK is formed, dP^T
+//      = V dO^T (wgmma m64n64k16 over D, every operand K-major), a
+//      commit group each;
 //   2. once S^T has retired, P^T = exp2(S^T scale log2e - lse log2e),
 //      lse by column from the stage, masked only on an edge tile;
 //   3. once dP^T has retired, P^T and dS^T = P^T (dP^T - delta) rounded
-//      to bf16 as register A fragments;
+//      to bf16 as register A fragments (P^T where dV is formed, dS^T
+//      where dK is);
 //   4. dV += P^T dO and dK += dS^T Q (dO and Q from the ring N-major,
 //      the transpose bit; m64nDk16), one commit group;
-//   5. releases the stage once both products have retired.
+//   5. releases the stage once its products have retired.
 // dk = scale dK and dv = dV are written in bf16. The first groups,
-// whose causal spans are the longest, launch first.
+// whose causal spans are the longest, launch first (at D = 256 both
+// roles of a group together, so the second reads Q and dO from L2).
+// D = 256, why two CTAs: two consumer warpgroups of one CTA sharing the
+// key tile, one a role, each recomputing S^T (five products a query
+// tile), spilled 932 bytes: ptxas held that 384-thread kernel to the
+// launch's 168 registers a thread despite setmaxnreg 232, as it did a
+// two-warpgroup k1_fwd<256>, and a 288-thread form (a producer warp, no
+// setmaxnreg) was held to the same 168 and spilled 1012. FlashAttention-
+// 3's hdim-256 backward (P^T and dS^T through shared memory behind a
+// named barrier, dK^T and dV^T with D as the row dimension split over
+// two warpgroups) needs those 384 threads too, and a second pipeline
+// and operand layout. Two CTAs of 256 threads do the same five
+// products, may use 255 registers, and run the D = 64 and 128 loop with
+// a product left out; they read Q and dO twice (the second mostly from
+// L2). Shared memory: K and V (64 KB), two (Q, dO) stages (128 KB) and
+// their rows, 198,784 of the 232,448 bytes a block may use; a third
+// stage does not fit.
 template <int D>
 __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
     k1_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -747,6 +868,7 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
                   int stages) {
   constexpr int kTileB = tile_bytes<D>();
   constexpr int kG = dkv_k_tiles<D>();
+  constexpr int kRoles = dkv_roles<D>();
   constexpr int kConsumers = kG * 128;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -758,8 +880,9 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
   uint64_t* kvfull = empty + stages;
   const int nk = (t + kTile - 1) / kTile;
   const int ngroups = (nk + kG - 1) / kG;
-  const int bhn = gridDim.x / ngroups;
-  const int grp = (int)(blockIdx.x / bhn);
+  const int bhn = gridDim.x / (ngroups * kRoles);
+  const int grp = (int)(blockIdx.x / (bhn * kRoles));
+  const int role = (int)(blockIdx.x / bhn) % kRoles;  // D = 256: 1 forms dK
   const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
   int lo = nk, hi = 0;
   for (int g = 0; g < kG; ++g) {
@@ -782,13 +905,15 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
   if (threadIdx.x >= kConsumers) {  // ------------------------ producer
     producer_regs<kG>();
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(kvfull, kG * 2 * kTileB);
+      const bool with_v = kRoles == 1 || role == 1;  // dV's role needs none
+      mbar_expect_tx(kvfull, kG * (with_v ? 2 : 1) * kTileB);
       for (int g = 0; g < kG; ++g) {
         const int r = min(kG * grp + g, nk - 1) * kTile;
         for (int p = 0; p < D / 64; ++p) {
           unsigned char* s = skv + 2 * g * kTileB + p * kBox;
           tma_load_4d(s, &tm_k, p * 64, hd, r, bi, kvfull);
-          tma_load_4d(s + kTileB, &tm_v, p * 64, hd, r, bi, kvfull);
+          if (with_v)
+            tma_load_4d(s + kTileB, &tm_v, p * 64, hd, r, bi, kvfull);
         }
       }
       int st = 0;
@@ -833,78 +958,31 @@ __global__ void __launch_bounds__((dkv_k_tiles<D>() + 1) * 128, 1)
     const float sl2 = scale * kLog2e;
     const uint64_t kd = sw128_desc(skv + 2 * g * kTileB, 16);
     const uint64_t vd = sw128_desc(skv + (2 * g + 1) * kTileB, 16);
-    float gk[D / 2], gv[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
-    mbar_wait(kvfull, 0);
-    int st = 0;
-    uint32_t ph = 0;
-    for (int iq = lo; iq < hi; ++iq) {
-      mbar_wait(&full[st], ph);
-      __syncwarp();
-      const unsigned char* s = ring + st * 2 * kTileB;
-      const float* lr = reinterpret_cast<const float*>(rows + st * kRowsB);
-      const float* dr = lr + kTile;
-      float sc[32], dp[32];
-      wgmma_fence();
-      scores<D>(sc, kd, sw128_desc(s, 16));
-      wgmma_commit();
-      scores<D>(dp, vd, sw128_desc(s + kTileB, 16));
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_acc(sc);
-      // register 4i + 2 half + c: key `key` + 8 half, query 8 i + 2 (lane
-      // % 4) + c of the tile
-      const bool edge = edge_tile(iq, jk, t, causal, window);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c0 = 8 * i + 2 * (lane & 3);
-        const float2 l = *reinterpret_cast<const float2*>(lr + c0);
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float& x = sc[4 * i + 2 * half + c];
-            x = !edge || visible(iq * kTile + c0 + c, key + 8 * half, t,
-                                 causal, window)
-                    ? exp2f(fmaf(x, sl2, -(c ? l.y : l.x) * kLog2e))
-                    : 0.f;
-          }
-      }
-      wgmma_wait<0>();
-      fence_acc(dp);
-      // P^T and dS^T as wgmma's A fragments: 16-query step kc is
-      // accumulator columns 16 kc .. 16 kc + 15; register pair 8 kc + 2 e
-      // is columns 8 (2 kc + e / 2) + 2 (lane % 4) and + 1
-      uint32_t pa[4][4], da[4][4];
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = 8 * kc + 2 * e;
-          const float2 d = *reinterpret_cast<const float2*>(
-              dr + 8 * (2 * kc + e / 2) + 2 * (lane & 3));
-          pa[kc][e] = pack_bf16(sc[j], sc[j + 1]);
-          da[kc][e] = pack_bf16(sc[j] * (dp[j] - d.x),
-                                sc[j + 1] * (dp[j + 1] - d.y));
-        }
-      wgmma_fence();
-      const uint64_t qn = sw128_desc(s, kBox), don = sw128_desc(s + kTileB, kBox);
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gv, pa[kc], don + 128 * kc);
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) pv_step<D>(gk, da[kc], qn + 128 * kc);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(gv);
-      fence_acc(gk);
-      if (lane == 0) mbar_arrive(&empty[st]);
-      if (++st == stages) { st = 0; ph ^= 1; }
-    }
     const long long ld = (long long)h * d;  // the caller's d, as in k1_fwd
     const size_t base = (size_t)bi * t * ld + (size_t)hd * d;
-    store_acc<D>(dk + base, ld, key, t, d, gk, scale);
-    store_acc<D>(dv + base, ld, key, t, d, gv, 1.f);
+    mbar_wait(kvfull, 0);
+    if constexpr (kRoles == 1) {
+      float gk[D / 2], gv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+      dkv_tiles<D, 3>(gk, gv, ring, rows, full, empty, kd, vd, jk, key, lo,
+                      hi, t, causal, window, sl2, stages);
+      store_acc<D>(dk + base, ld, key, t, d, gk, scale);
+      store_acc<D>(dv + base, ld, key, t, d, gv, 1.f);
+    } else {
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      if (role == 0) {
+        dkv_tiles<D, 1>(acc, acc, ring, rows, full, empty, kd, vd, jk, key,
+                        lo, hi, t, causal, window, sl2, stages);
+        store_acc<D>(dv + base, ld, key, t, d, acc, 1.f);
+      } else {
+        dkv_tiles<D, 2>(acc, acc, ring, rows, full, empty, kd, vd, jk, key,
+                        lo, hi, t, causal, window, sl2, stages);
+        store_acc<D>(dk + base, ld, key, t, d, acc, scale);
+      }
+    }
   }
 }
 
@@ -915,10 +993,9 @@ bool shape_ok(int b, int t, int h) {
          (long long)b * h * ((t + kTile - 1) / kTile) <= 2147483647LL;
 }
 
-// a head dim a wgmma kernel takes: TMA's 16-byte stride rule (d * 2
-// bytes), at most the `top` columns of its widest instantiation (256 for
-// k1_fwd and k1_dq, 128 for k1_dkv)
-bool padded_ok(int d, int top) { return d >= 8 && d <= top && d % 8 == 0; }
+// a head dim the wgmma kernels take: TMA's 16-byte stride rule (d * 2
+// bytes), at most the 256 columns of their widest instantiation
+bool padded_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
 // a [B, T, H, d] bf16 tensor read in boxes of (64 of d, 1 head, 64
 // rows, 1 batch), 128-byte swizzled, rows past T and columns past d
@@ -1027,7 +1104,10 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!e) e = seq_map(&tdo, dout, b, t, h, d);
   if (e) return e;
   const int nk = (t + kTile - 1) / kTile;
-  k1_dkv_kernel<D><<<(nk + kG - 1) / kG * b * h, (kG + 1) * 128, smem,
+  const long long grid =
+      (long long)((nk + kG - 1) / kG) * dkv_roles<D>() * b * h;
+  if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+  k1_dkv_kernel<D><<<(unsigned)grid, (kG + 1) * 128, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -1037,10 +1117,9 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 
 // ---------------------------------------------------------------------------
-// The SIMT family: every case the wgmma kernels above do not take — f32
-// and f16 inputs; bf16 at a head dim that is not a multiple of 8; bf16
-// dkv above 128; any head dim D from 1 to 256 (the reference's kernels
-// take any float dtype and any head dim). The same functions as k1_fwd,
+// The SIMT family: the f32 and f16 inputs, which the bf16 wgmma kernels
+// above do not take, at any head dim D from 1 to 256 (the reference's
+// kernels take any float dtype and any head dim). The same functions as k1_fwd,
 // k1_dq and k1_dkv, in f32 FMA arithmetic (f32 inputs compute in full
 // f32: no TF32, no rounding of p or ds), one simple shape for all three,
 // templated on the input type T and on C >= ceil(D / 32), the columns of
@@ -1069,17 +1148,12 @@ constexpr int kSMaxD = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
@@ -1483,9 +1557,10 @@ int simt_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// fn<T, C>(args...) for the input type of `dtype` (0 f32, 1 bf16, 2 f16)
-// and C = ceil(d / 32) rounded up to 1, 2, 4 or 8 (few instantiations:
-// the build time of the library)
+// fn<T, C>(args...) for the input type of `dtype` (0 f32, 2 f16; code 1,
+// bf16, runs on the wgmma kernels and is refused here) and C = ceil(d /
+// 32) rounded up to 1, 2, 4 or 8 (few instantiations: the build time of
+// the library)
 #define K1S_DISPATCH(fn, dtype, d, ...)                                     \
   do {                                                                      \
     const int c_ = (d) <= 32 ? 1 : (d) <= 64 ? 2 : (d) <= 128 ? 4 : 8;    \
@@ -1494,10 +1569,6 @@ int simt_dkv(const void* q, const void* k, const void* v, const void* dout,
       case 2: return fn<float, 2>(__VA_ARGS__);                             \
       case 4: return fn<float, 4>(__VA_ARGS__);                             \
       case 8: return fn<float, 8>(__VA_ARGS__);                             \
-      case 17: return fn<bf16, 1>(__VA_ARGS__);                             \
-      case 18: return fn<bf16, 2>(__VA_ARGS__);                             \
-      case 20: return fn<bf16, 4>(__VA_ARGS__);                             \
-      case 24: return fn<bf16, 8>(__VA_ARGS__);                             \
       case 33: return fn<__half, 1>(__VA_ARGS__);                           \
       case 34: return fn<__half, 2>(__VA_ARGS__);                           \
       case 36: return fn<__half, 4>(__VA_ARGS__);                           \
@@ -1519,7 +1590,7 @@ extern "C" {
 int k1_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h) || !padded_ok(d, 256))
+  if (!shape_ok(b, t, h) || !padded_ok(d))
     return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return fwd<64>(q, k, v, o, lse, b, t, h, d, scale, causal, window,
@@ -1539,7 +1610,7 @@ int k1_dq(const void* q, const void* k, const void* v, const void* o,
           const void* dout, const void* lse, void* dq_out, void* delta, int b,
           int t, int h, int d, float scale, int causal, int window,
           int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h) || !padded_ok(d, 256))
+  if (!shape_ok(b, t, h) || !padded_ok(d))
     return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return dq<64>(q, k, v, o, dout, lse, dq_out, delta, b, t, h, d, scale,
@@ -1551,26 +1622,30 @@ int k1_dq(const void* q, const void* k, const void* v, const void* o,
                  causal, window, stages, smem, stream);
 }
 
-// dk, dv [B, T, H, d] bf16 from lse and the delta of k1_dq (or k1s_dq:
-// the same layout), at any d from 8 to 128 with d % 8 == 0. A CTA per
-// group of key tiles of each (b, h) (two at D = 64, one at D = 128), a
-// ring of `stages` (Q, dO, lse, delta) stages in `smem` bytes
+// dk, dv [B, T, H, d] bf16 from lse and the delta of k1_dq, at the d
+// k1_fwd takes. A CTA per group of key tiles of each (b, h) (two at D =
+// 64, one at D = 128; at D = 256 two CTAs per tile, one forming dv and
+// one dk), a ring of `stages` (Q, dO, lse, delta) stages in `smem` bytes
 // (`flash_plan`'s dkv_cta)
 int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int b,
            int t, int h, int d, float scale, int causal, int window,
            int stages, long long smem, void* stream) {
-  if (!shape_ok(b, t, h) || !padded_ok(d, 128))
+  if (!shape_ok(b, t, h) || !padded_ok(d))
     return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
                    causal, window, stages, smem, stream);
-  return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
+  if (d <= 128)
+    return dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
+                    causal, window, stages, smem, stream);
+  return dkv<256>(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
                   causal, window, stages, smem, stream);
 }
 
-// the SIMT family: dtype 0 f32, 1 bf16, 2 f16; any d from 1 to 256; the
-// same operands, layouts and results as k1_fwd, k1_dq and k1_dkv, and
+// the SIMT family: dtype 0 f32, 2 f16 (1, bf16, is refused: it runs on
+// the wgmma kernels); any d from 1 to 256; the same operands, layouts
+// and results as k1_fwd, k1_dq and k1_dkv, and
 // `smem` bytes of dynamic shared memory (`simt_smem`); a CTA per 16 rows
 // of each (b, h)
 int k1s_fwd(int dtype, const void* q, const void* k, const void* v, void* o,

@@ -19,21 +19,22 @@ is no scheme to pick.
 Two families, picked per kernel by `route` from the dtype and the head
 dim (the reference's kernels take any float dtype and any head dim):
 
-- ``wgmma``: bf16 — the TMA + wgmma pipelines (``k1_fwd``, ``k1_dq``,
-  ``k1_dkv``), compiled for head dims 64, 128 and (fwd and dq) 256.
-  Each takes any head dim d % 8 == 0 up to its widest (`PADDED_KERNELS`:
-  256 for fwd and dq, 128 for dkv) on the kernel of the padded head dim
-  (`padded_dim`: the least compiled one >= d), whose tensor maps read
-  the true d and zero-fill the columns past it (TMA's stride rule, d * 2
-  bytes a multiple of 16, is why d % 8 == 0);
-- ``simt``: f32, f16, and every bf16 case the wgmma kernels do not
-  take (d % 8 != 0; dkv above 128), every head dim from 1 to
-  `SIMT_MAX_D` (256) — one simple kernel family in f32 FMA arithmetic
-  (``k1s_fwd``, ``k1s_dq``, ``k1s_dkv``; f32 inputs compute in full
-  f32, no TF32), a CTA per 16 rows of one (b, h).
-
-A bf16 backward above d 128 mixes the families: the wgmma dq writes the
-delta the SIMT dkv reads (one layout).
+- ``wgmma``: bf16 at every head dim from 1 to 256 — the TMA + wgmma
+  pipelines (``k1_fwd``, ``k1_dq``, ``k1_dkv``), compiled for head dims
+  64, 128 and 256. A call at head dim d runs the kernel of the padded
+  head dim (`padded_dim`: the least compiled one >= d), whose tensor
+  maps read `tma_dim(d)` columns and zero-fill the rest. TMA reads a row
+  stride of d * 2 bytes only when it is a multiple of 16 (d % 8 == 0):
+  at any other d the wrappers copy their operands zero-padded to
+  ``tma_dim(d) = ceil(d / 8) * 8`` columns (`pad_heads`), keep the
+  caller's scale 1/sqrt(d), and return the caller's d columns — the
+  same function, since zero columns add nothing to the scores, dP or
+  delta. The copy runs on every device, so the CPU's plain versions see
+  the operands the card's kernels see;
+- ``simt``: f32 and f16, every head dim from 1 to `SIMT_MAX_D` (256) —
+  one simple kernel family in f32 FMA arithmetic (``k1s_fwd``,
+  ``k1s_dq``, ``k1s_dkv``; f32 inputs compute in full f32, no TF32), a
+  CTA per 16 rows of one (b, h).
 
 Both fold B*H into the first grid dimension, so B*H may exceed 65535.
 
@@ -71,11 +72,11 @@ from . import _build
 #: query rows and key rows of one tile, in every kernel (kTile in the
 #: CUDA source)
 BLOCK_Q = BLOCK_K = 64
-#: head dims the wgmma kernels are compiled for (dkv: 64 and 128); a
-#: call at any other d % 8 == 0 runs the next one up (`padded_dim`)
+#: head dims the wgmma kernels are compiled for; a call at any other d
+#: up to the widest runs the next one up (`padded_dim`)
 HEAD_DIMS = (64, 128, 256)
-#: the widest head dim each wgmma kernel takes, padded
-PADDED_KERNELS = {"fwd": 256, "dq": 256, "dkv": 128}
+#: the three kernels, as `route` and `LAUNCHES` name them
+KERNELS = ("fwd", "dq", "dkv")
 #: the forward's CTA (k1_fwd_kernel): by head dim, its consumer
 #: warpgroups, each one 64-row query tile of a group, beside a producer
 #: warpgroup; key/value tiles stream through a ring of FWD_STAGES[D]
@@ -89,9 +90,13 @@ FWD_STAGES = {64: 4, 128: 4, 256: 3}
 #: other side's tiles stream through a ring of BWD_STAGES[D] stages
 #: (dq_q_tiles, dkv_k_tiles and the launchers' checks in the CUDA
 #: source; dq at D 256 holds Q, dO and O of one tile and two stages, 7
-#: of 32 KB)
+#: of 32 KB; dkv K and V of one tile and two stages, 6). DKV_ROLES: the
+#: CTAs of one dkv tile group — at D 256 two, one forming dV and one dK
+#: (dkv_roles in the CUDA source: dK and dV of one tile do not fit one
+#: warpgroup's registers)
 DQ_Q_TILES = {64: 2, 128: 2, 256: 1}
-DKV_K_TILES = {64: 2, 128: 1}
+DKV_K_TILES = {64: 2, 128: 1, 256: 1}
+DKV_ROLES = {64: 1, 128: 1, 256: 2}
 BWD_STAGES = {64: 4, 128: 4, 256: 2}
 #: the dynamic shared memory a block may use on the H100 (227 KB)
 SMEM_MAX = 232448
@@ -102,9 +107,10 @@ _BOX = BLOCK_Q * 64 * 2
 _ROWS = 2 * BLOCK_Q * 4
 
 #: the SIMT family (`route`): dtypes (and their codes in the C
-#: interface), the largest head dim, rows a CTA owns and keys a staged
-#: tile (kSBlock, kSKeys in the CUDA source), threads a CTA
-SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: interface, where bf16's 1 is refused), the largest head dim, rows a
+#: CTA owns and keys a staged tile (kSBlock, kSKeys in the CUDA source),
+#: threads a CTA
+SIMT_DTYPES = {torch.float32: 0, torch.float16: 2}
 SIMT_MAX_D = 256
 SIMT_ROWS, SIMT_KEYS, SIMT_THREADS = 16, 32, 128
 #: the reference's tile rule (`tiles`): the longest auto block and the
@@ -195,15 +201,22 @@ def _smem(d: int, tiles: int, stages: int, extra: int = 0) -> int:
     return tiles * (d // 64 * _BOX) + extra + -(-bars // 128) * 128 + 1024
 
 
-def padded_dim(d: int, kernel: str) -> int:
-    """The compiled head dim of the wgmma `kernel` (``"fwd"``, ``"dq"``
-    or ``"dkv"``) that takes head dim `d` (d % 8 == 0, 8 <= d <=
-    ``PADDED_KERNELS[kernel]``): the least of `HEAD_DIMS` at or above d
-    — 64 up to d 64, 128 up to 128, 256 above (fwd and dq)."""
-    top = PADDED_KERNELS[kernel]
-    if not (8 <= d <= top and d % 8 == 0):
-        raise ValueError(f"no padded wgmma {kernel} kernel at head_dim "
-                         f"{d}: it takes multiples of 8 from 8 to {top}")
+def tma_dim(d: int) -> int:
+    """The head dim the wgmma kernels' tensor maps read for a caller's
+    head dim `d`: d itself where d % 8 == 0 (TMA's 16-byte rule for the
+    row stride of d bf16 values), else the ``ceil(d / 8) * 8`` columns of
+    the zero-padded copy the wrappers make (`pad_heads`)."""
+    return -(-d // 8) * 8
+
+
+def padded_dim(d: int) -> int:
+    """The compiled head dim of the wgmma kernels that takes head dim
+    `d` (1 <= d <= 256, through a zero-padded copy where d % 8 != 0): the
+    least of `HEAD_DIMS` at or above d — 64 up to d 64, 128 up to 128,
+    256 above."""
+    if not 1 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(f"no padded wgmma kernel at head_dim {d}: they "
+                         f"take head dims from 1 to {HEAD_DIMS[-1]}")
     return next(dd for dd in HEAD_DIMS if d <= dd)
 
 
@@ -211,7 +224,7 @@ def fwd_smem(d: int, stages: Optional[int] = None) -> int:
     """One forward CTA at head dim `d` (sized at `padded_dim`): its
     query tiles and `stages` (default FWD_STAGES at that D) (K, V)
     pairs."""
-    d = padded_dim(d, "fwd")
+    d = padded_dim(d)
     stages = FWD_STAGES[d] if stages is None else stages
     return _smem(d, FWD_Q_TILES[d] + 2 * stages, stages)
 
@@ -220,7 +233,7 @@ def dq_smem(d: int, stages: Optional[int] = None) -> int:
     """One dq CTA at head dim `d` (sized at `padded_dim`): Q, dO and O
     of each of its query tiles and `stages` (default BWD_STAGES at that
     D) (K, V) pairs."""
-    d = padded_dim(d, "dq")
+    d = padded_dim(d)
     stages = BWD_STAGES[d] if stages is None else stages
     return _smem(d, 3 * DQ_Q_TILES[d] + 2 * stages, stages)
 
@@ -228,8 +241,9 @@ def dq_smem(d: int, stages: Optional[int] = None) -> int:
 def dkv_smem(d: int, stages: Optional[int] = None) -> int:
     """One dkv CTA at head dim `d` (sized at `padded_dim`): K and V of
     each of its key tiles, `stages` (default BWD_STAGES at that D) (Q,
-    dO) pairs and each stage's lse and delta rows."""
-    d = padded_dim(d, "dkv")
+    dO) pairs and each stage's lse and delta rows (at D 256, 198,784
+    bytes; a third stage would pass `SMEM_MAX`)."""
+    d = padded_dim(d)
     stages = BWD_STAGES[d] if stages is None else stages
     return _smem(d, 2 * DKV_K_TILES[d] + 2 * stages, stages,
                  stages * _ROWS)
@@ -259,30 +273,31 @@ def _groups(t, g, span, causal, window, last_first):
 def fwd_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
     """The forward's CTAs for one (b, h) at head dim `d` (`_groups`):
-    query tiles, g = FWD_Q_TILES[padded_dim(d, "fwd")], and the key tiles
+    query tiles, g = FWD_Q_TILES[padded_dim(d)], and the key tiles
     of their `_k_span`s. The last groups, whose causal spans are the
     longest, come first: CTA i of the grid is group ngroups - 1 - i //
     (B H) of head i % (B H)."""
-    return _groups(t, FWD_Q_TILES[padded_dim(d, "fwd")], _k_span, causal,
+    return _groups(t, FWD_Q_TILES[padded_dim(d)], _k_span, causal,
                    window, True)
 
 
 def dq_groups(t: int, d: int, causal: bool = False,
               window: Optional[int] = None):
     """The dq kernel's CTAs, as `fwd_groups` with g =
-    DQ_Q_TILES[padded_dim(d, "dq")]."""
-    return _groups(t, DQ_Q_TILES[padded_dim(d, "dq")], _k_span, causal,
+    DQ_Q_TILES[padded_dim(d)]."""
+    return _groups(t, DQ_Q_TILES[padded_dim(d)], _k_span, causal,
                    window, True)
 
 
 def dkv_groups(t: int, d: int, causal: bool = False,
                window: Optional[int] = None):
-    """The dkv kernel's CTAs for one (b, h) at head dim `d` (`_groups`):
-    key tiles, g = DKV_K_TILES[padded_dim(d, "dkv")], and the query tiles
-    of their `_q_span`s. The first groups, whose causal spans are the
-    longest, come first: CTA i of the grid is group i // (B H) of head i
-    % (B H)."""
-    return _groups(t, DKV_K_TILES[padded_dim(d, "dkv")], _q_span, causal,
+    """The dkv kernel's tile groups for one (b, h) at head dim `d`
+    (`_groups`): key tiles, g = DKV_K_TILES[padded_dim(d)], and
+    the query tiles of their `_q_span`s, each group run by DKV_ROLES[D]
+    CTAs. The first groups, whose causal spans are the longest, come
+    first: CTA i of the grid is group i // (R B H), role (i // (B H)) %
+    R, of head i % (B H), R the roles."""
+    return _groups(t, DKV_K_TILES[padded_dim(d)], _q_span, causal,
                    window, False)
 
 
@@ -359,25 +374,22 @@ def tiles(t: int, causal: bool = False, window: Optional[int] = None,
 def wgmma_dim(dtype: torch.dtype, d: int, kernel: str) -> Optional[int]:
     """The compiled head dim of the wgmma kernel that takes `kernel`
     (``"fwd"``, ``"dq"`` or ``"dkv"``) in `dtype` at head dim `d`, or
-    None where the wgmma family does not take it: bf16 only, at any d %
-    8 == 0 up to ``PADDED_KERNELS[kernel]`` (256 for fwd and dq, 128 for
-    dkv), `padded_dim(d, kernel)`."""
-    if kernel not in PADDED_KERNELS:
+    None where the wgmma family does not take it: bf16 only, at any d
+    from 1 to 256, `padded_dim(d)` (d % 8 != 0 through the zero-padded
+    copy of `tma_dim(d)` columns)."""
+    if kernel not in KERNELS:
         raise ValueError(f"no flash-attention kernel {kernel!r}")
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 or not 1 <= d <= HEAD_DIMS[-1]:
         return None
-    if 8 <= d <= PADDED_KERNELS[kernel] and d % 8 == 0:
-        return padded_dim(d, kernel)
-    return None
+    return padded_dim(d)
 
 
 def route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The family that runs `kernel` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     in `dtype` at head dim `d`: ``"wgmma"`` where `wgmma_dim` names a
-    kernel (bf16 at any d % 8 == 0: fwd and dq up to 256, dkv up to
-    128), ``"simt"`` for every other f32, f16 and bf16 call at a head dim
-    from 1 to `SIMT_MAX_D`; ValueError for anything else (f64, a wider
-    head)."""
+    kernel (bf16 at any d from 1 to 256), ``"simt"`` for f32 and f16 at a
+    head dim from 1 to `SIMT_MAX_D`; ValueError for anything else (f64, a
+    wider head)."""
     if wgmma_dim(dtype, d, kernel) is not None:
         return "wgmma"
     if dtype in SIMT_DTYPES and 1 <= d <= SIMT_MAX_D:
@@ -385,6 +397,35 @@ def route(dtype: torch.dtype, d: int, kernel: str) -> str:
     raise ValueError(f"no flash-attention kernel for {dtype} at head_dim "
                      f"{d}: the kernels take float32, float16 or "
                      f"bfloat16 with head_dim 1..{SIMT_MAX_D}")
+
+
+def copy_width(dtype: torch.dtype, d: int) -> int:
+    """The head dim a wrapper hands its kernel (or, on the CPU, its
+    plain version) for operands of `dtype` at head dim `d`: `tma_dim(d)`
+    for bf16 up to 256, the wgmma route, where a d % 8 != 0 is copied
+    zero-padded; d for everything else, read in place."""
+    return tma_dim(d) if wgmma_dim(dtype, d, "fwd") else d
+
+
+def pad_heads(width: int, *xs):
+    """``[B, T, H, d]`` tensors of one shape, each zero-padded to
+    `width` head columns (a new contiguous tensor), or as they are where
+    `width` is d: the copy that takes a head dim d % 8 != 0 to the wgmma
+    kernels."""
+    shape = xs[0].shape
+    for x in xs:
+        if x.shape != shape:
+            raise ValueError(f"shape {tuple(x.shape)} != {tuple(shape)}")
+    if shape[-1] == width:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, width - shape[-1]))
+                 for x in xs)
+
+
+def _narrow(x, d):
+    """The caller's first `d` head columns of a padded result, contiguous
+    as the caller's tensors are."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def simt_smem(kernel: str, d: int) -> int:
@@ -404,19 +445,23 @@ def flash_plan(t: int, d: int, causal: bool = False,
     kernels use) beside the unskipped grid, and each kernel's wgmma CTA
     (``fwd_cta``, ``dq_cta``, ``dkv_cta``) at the head dim it is compiled
     for (``head_dim``: `wgmma_dim`, the padded D): its resident tiles
-    (``q_tiles``, or ``key_tiles`` for dkv), the streamed tile, threads,
-    ring stages, shared memory (within `SMEM_MAX`) and CTAs per (b, h)
-    (`fwd_groups`, `dq_groups`, `dkv_groups`; None where the SIMT family
-    runs that kernel in `dtype`). One scheme per kernel: the TPU's
-    resident/stream choice has no counterpart here. Each grid is
+    (``q_tiles``, or ``key_tiles`` for dkv), the streamed tile, the CTAs
+    of a group of resident tiles (``roles``: 1, but 2 for dkv at D 256,
+    one forming dV and one dK), threads, ring stages, shared memory
+    (within `SMEM_MAX`) and CTAs per (b, h) (the groups of `fwd_groups`,
+    `dq_groups`, `dkv_groups` times ``roles``; None where the SIMT family
+    runs that kernel in `dtype`). ``tma_dim`` is the head dim their
+    tensor maps read (`tma_dim`: d, or the zero-padded copy's width at d
+    % 8 != 0; None off the wgmma route). One scheme per kernel: the
+    TPU's resident/stream choice has no counterpart here. Each grid is
     ctas_per_head x B x H.
 
     ``route`` is the family each kernel launches in `dtype` at head dim
     `d` (`route`; None where none takes it): the wgmma CTAs above, else
-    ``simt_cta`` — every head dim from 1 to `SIMT_MAX_D` in f32, f16 or
-    bf16, 16 rows a CTA, 32 keys a staged tile, 128 threads, shared
-    memory by kernel (`simt_smem`). ``tiles`` is the reference's tile
-    rule at this length (`tiles`): None sends `flash_attention` to plain
+    ``simt_cta`` — every head dim from 1 to `SIMT_MAX_D` in f32 or f16,
+    16 rows a CTA, 32 keys a staged tile, 128 threads, shared memory by
+    kernel (`simt_smem`). ``tiles`` is the reference's tile rule at this
+    length (`tiles`): None sends `flash_attention` to plain
     attention."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
@@ -429,23 +474,26 @@ def flash_plan(t: int, d: int, causal: bool = False,
     plan = {"block_q": BLOCK_Q, "block_k": BLOCK_K, "nq": nq, "nk": nk}
     for name, visited in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
         plan[name] = {"visited_blocks": visited, "grid_blocks": nq * nk}
-    for name, per_d, resident, streamed, n, stages, smem in (
-            ("fwd", FWD_Q_TILES, "q_tiles", "key_tile", nq, FWD_STAGES,
+    one = dict.fromkeys(HEAD_DIMS, 1)
+    for name, per_d, roles, resident, streamed, n, stages, smem in (
+            ("fwd", FWD_Q_TILES, one, "q_tiles", "key_tile", nq, FWD_STAGES,
              fwd_smem),
-            ("dq", DQ_Q_TILES, "q_tiles", "key_tile", nq, BWD_STAGES,
+            ("dq", DQ_Q_TILES, one, "q_tiles", "key_tile", nq, BWD_STAGES,
              dq_smem),
-            ("dkv", DKV_K_TILES, "key_tiles", "query_tile", nk, BWD_STAGES,
-             dkv_smem)):
+            ("dkv", DKV_K_TILES, DKV_ROLES, "key_tiles", "query_tile", nk,
+             BWD_STAGES, dkv_smem)):
         dd = wgmma_dim(dtype, d, name)
         g = per_d[dd] if dd else None
         plan[f"{name}_cta"] = {
             "head_dim": dd, resident: g, streamed: BLOCK_Q,
+            "roles": roles[dd] if dd else None,
             "threads": (g + 1) * 128 if dd else None,
             "stages": stages[dd] if dd else None,
             "smem": smem(dd) if dd else None,
-            "ctas_per_head": -(-n // g) if dd else None}
+            "ctas_per_head": -(-n // g) * roles[dd] if dd else None}
+    plan["tma_dim"] = tma_dim(d) if plan["fwd_cta"]["head_dim"] else None
     plan["route"] = {}
-    for name in ("fwd", "dq", "dkv"):
+    for name in KERNELS:
         try:
             plan["route"][name] = route(dtype, d, name)
         except ValueError:
@@ -687,7 +735,15 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
               save_lse=True):
     """`_flash_fwd_impl`: ``(o, lse | None)`` — o like q, lse ``[B*H,
     T]`` f32 when `save_lse` (the no-grad forward skips it). CPU tensors
-    run `plain_fwd`; CUDA tensors launch the kernel."""
+    run `plain_fwd`; CUDA tensors launch the kernel. A bf16 head dim d %
+    8 != 0 runs on a zero-padded copy (`copy_width`) at the caller's
+    scale, 1/sqrt(d) by default, and o keeps the caller's d."""
+    d = q.shape[-1]
+    width = copy_width(q.dtype, d)
+    if width != d:
+        o, lse = flash_fwd(*pad_heads(width, q, k, v), causal,
+                           _scale(q, scale), window, save_lse)
+        return _narrow(o, d), lse
     if q.device.type == "cpu":
         o, lse = plain_fwd(q, k, v, causal, scale, window)
         return o, (lse if save_lse else None)
@@ -701,7 +757,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
     with torch.cuda.device(q.device):
         if family == "wgmma":
             _launch("fwd", _lib().k1_fwd, *ptrs,
-                    FWD_STAGES[padded_dim(d, "fwd")], fwd_smem(d),
+                    FWD_STAGES[padded_dim(d)], fwd_smem(d),
                     _build.stream(q.device))
         else:
             _launch("fwd", _lib().k1s_fwd, SIMT_DTYPES[q.dtype], *ptrs,
@@ -713,7 +769,15 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
 def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     """The dq kernel: ``(dq, delta)`` — dq like q, delta = rowsum(dO * o)
     ``[B*H, T]`` f32 — from the caller's (o, lse). CPU tensors run
-    `plain_dq`; CUDA tensors launch the kernel."""
+    `plain_dq`; CUDA tensors launch the kernel (a bf16 d % 8 != 0 on a
+    zero-padded copy, as `flash_fwd`)."""
+    d = q.shape[-1]
+    width = copy_width(q.dtype, d)
+    if width != d:
+        scale = _scale(q, scale)
+        q, k, v, o, do = pad_heads(width, q, k, v, o, do)
+        dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale, window)
+        return _narrow(dq, d), delta
     if q.device.type == "cpu":
         return plain_dq(q, k, v, o, lse, do, causal, scale, window)
     b, t, h, d, family = _check(
@@ -726,7 +790,7 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     with torch.cuda.device(q.device):
         if family == "wgmma":
             _launch("dq", _lib().k1_dq, *ptrs,
-                    BWD_STAGES[padded_dim(d, "dq")], dq_smem(d),
+                    BWD_STAGES[padded_dim(d)], dq_smem(d),
                     _build.stream(q.device))
         else:
             _launch("dq", _lib().k1s_dq, SIMT_DTYPES[q.dtype], *ptrs,
@@ -739,7 +803,14 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
               window=None):
     """The dk/dv kernel: ``(dk, dv)`` like k and v, from lse and
     `flash_dq`'s delta. CPU tensors run `plain_dkv`; CUDA tensors launch
-    the kernel."""
+    the kernel (a bf16 d % 8 != 0 on a zero-padded copy, as
+    `flash_fwd`)."""
+    d = q.shape[-1]
+    width = copy_width(q.dtype, d)
+    if width != d:
+        dk, dv = flash_dkv(*pad_heads(width, q, k, v, do), lse, delta,
+                           causal, _scale(q, scale), window)
+        return _narrow(dk, d), _narrow(dv, d)
     if q.device.type == "cpu":
         return plain_dkv(q, k, v, do, lse, delta, causal, scale, window)
     b, t, h, d, family = _check("dkv", q,
@@ -753,7 +824,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
     with torch.cuda.device(q.device):
         if family == "wgmma":
             _launch("dkv", _lib().k1_dkv, *ptrs,
-                    BWD_STAGES[padded_dim(d, "dkv")], dkv_smem(d),
+                    BWD_STAGES[padded_dim(d)], dkv_smem(d),
                     _build.stream(q.device))
         else:
             _launch("dkv", _lib().k1s_dkv, SIMT_DTYPES[q.dtype], *ptrs,
@@ -766,27 +837,39 @@ def flash_bwd(q, k, v, o, lse, do, causal=False, scale=None, window=None):
     """`_flash_bwd_impl`: ``(dq, dk, dv)`` like q, k, v from an EXTERNAL
     (o, lse) — the forward's own, or a ring's merged global ones, which
     turn this into one hop's exact share of the gradient. Runs dq (which
-    writes delta) and then dk/dv, in order on one stream."""
+    writes delta) and then dk/dv, in order on one stream; a bf16 d % 8
+    != 0 is copied zero-padded once for both."""
+    d = q.shape[-1]
+    scale = _scale(q, scale)
+    q, k, v, o, do = pad_heads(copy_width(q.dtype, d), q, k, v, o, do)
     dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale, window)
     dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale, window)
-    return dq, dk, dv
+    return _narrow(dq, d), _narrow(dk, d), _narrow(dv, d)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, o, lse); backward is `flash_bwd`."""
+    """Forward saves (q, k, v, o, lse); backward is `flash_bwd`. A bf16
+    head dim d % 8 != 0 is copied zero-padded once in the forward (the
+    copies are what it saves) and dO once in the backward; the scale is
+    the caller's, 1/sqrt(d) by default."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
+        d = q.shape[-1]
+        scale = _scale(q, scale)
+        q, k, v = pad_heads(copy_width(q.dtype, d), q, k, v)
         o, lse = flash_fwd(q, k, v, causal, scale, window, save_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, scale, window)
-        return o
+        return _narrow(o, d)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, g.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None
+        d = g.shape[-1]
+        (g,) = pad_heads(q.shape[-1], g.contiguous())
+        grads = flash_bwd(q, k, v, o, lse, g, *ctx.args)
+        return (*(_narrow(x, d) for x in grads), None, None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False,

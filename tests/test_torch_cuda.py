@@ -463,7 +463,8 @@ def test_k1_forward_groups_and_tails(cuda, t, d, window):
 
 @pytest.mark.parametrize("t,d,causal,window", [
     (1000, 64, True, None), (333, 128, True, 90), (260, 64, False, None),
-    (130, 128, False, None)])
+    (130, 128, False, None), (1000, 256, True, None),
+    (333, 200, True, 90), (260, 252, False, None)])
 def test_k1_backward_second_launch_is_bitwise_equal(cuda, t, d, causal,
                                                     window):
     """dq, delta, dk and dv of a second launch equal the first's bit for
@@ -499,13 +500,26 @@ def test_k1_launchers_refuse_short_shared_memory(cuda):
                       st) != 0
     assert lib.k1_dq(*ptrs, out[0].data_ptr(), delta.data_ptr(),
                      *common[:-1], 1, fl.dq_smem(64), st) != 0
+    # dkv's D-256 layout (K and V of one tile, two (Q, dO) stages with
+    # their rows), asked at d 256 and at d 136 (padded to it)
+    for d in (256, 136):
+        q2, k2, v2, do2 = _k1_inputs(cuda, 1, 128, 2, d)
+        out2 = [torch.empty_like(q2) for _ in range(2)]
+        assert lib.k1_dkv(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                          do2.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          out2[0].data_ptr(), out2[1].data_ptr(), 1, 128, 2,
+                          d, d ** -0.5, 1, -1, fl.BWD_STAGES[256],
+                          fl.dkv_smem(256) - 1200, st) != 0
 
 
-def test_k1_autograd_on_the_card_launches_k1(cuda):
+@pytest.mark.parametrize("d", [64, 20, 252])
+def test_k1_autograd_on_the_card_launches_k1(cuda, d):
     """`flash_attention`'s Function on the card: one launch per kernel
-    and none of the plain versions; its output is the forward kernel's,
-    and its gradients are the plain backward's from that (o, lse)."""
-    q, k, v, g = _k1_inputs(cuda, 2, 150, 2, 64, seed=1)
+    and none of the plain versions (at d 20 and 252 on a zero-padded
+    copy, made once in the forward and once for dO); its output is the
+    forward kernel's, and its gradients are the plain backward's from
+    that (o, lse) at the caller's d, with the caller's scale."""
+    q, k, v, g = _k1_inputs(cuda, 2, 150, 2, d, seed=1)
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
     fl.reset_launches()
     out = fl.flash_attention(*xs, causal=True)
@@ -577,16 +591,20 @@ def _close(name, got, ref, dtype):
     (torch.bfloat16, 1, 33, 2, 20, False, None),
     (torch.float16, 1, 100, 2, 48, True, None),
     (torch.bfloat16, 1, 200, 2, 100, True, 40),
-    (torch.bfloat16, 2, 130, 2, 252, True, None)])
+    (torch.bfloat16, 2, 130, 2, 252, True, None),
+    (torch.bfloat16, 2, 100, 3, 1, True, None),
+    (torch.bfloat16, 1, 150, 2, 4, False, None),
+    (torch.bfloat16, 1, 200, 2, 20, True, 40)])
 def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                         window):
-    """The SIMT family (f32, f16, bf16 at d % 8 != 0, bf16 dkv above d
-    128) against the plain versions on the same inputs, within SIMT_TOL:
-    fwd's o and lse, dq and delta from the kernel's (o, lse), dk and dv
-    from its delta; a second launch of each bitwise equal to the first.
-    Where `fl.route` puts a bf16 kernel on the wgmma family (fwd, dq and
-    dkv at d 16, 32 and 96; fwd and dq at d 256) it is held within
-    `fl.kernel_error_bounds` of the plain versions in f32 instead."""
+    """The SIMT family (f32 and f16) against the plain versions on the
+    same inputs, within SIMT_TOL: fwd's o and lse, dq and delta from the
+    kernel's (o, lse), dk and dv from its delta; a second launch of each
+    bitwise equal to the first. bf16 runs on the wgmma family at every
+    head dim (d 16, 32, 96, 256 padded by TMA; d 1, 4, 20, 100 and 252
+    through a zero-padded copy of ceil(d / 8) * 8 columns at the
+    caller's scale), held within `fl.kernel_error_bounds` of the plain
+    versions in f32 at the caller's d, with no SIMT launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, dtype, b, t, h, d, seed=t + d)
     fl.reset_launches()
@@ -695,13 +713,13 @@ def _guarded(like, tail=256):
 @pytest.mark.parametrize("d", [8, 16, 40, 72, 120, 136, 184, 200, 256])
 def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     """bf16 at a head dim the wgmma kernels take by padding (d % 8 == 0,
-    not 64 or 128): fwd and dq launch `k1_fwd` and `k1_dq` at D = 64, 128
-    or 256, dkv `k1_dkv` at D = 64 or 128 (TMA zero-fills the columns
-    past d; at d 136 and 184 the fourth 64-column box of a D-256 tile
-    lies wholly past d) and above d 128 the SIMT dkv. o, lse, dq, delta,
-    dk and dv within `fl.kernel_error_bounds` of the plain versions in
-    f32 (a SIMT dkv within SIMT_TOL of the plain version in bf16); a
-    second launch bitwise equal. Every wgmma kernel is launched again
+    not 64 or 128): fwd, dq and dkv launch `k1_fwd`, `k1_dq` and
+    `k1_dkv` at D = 64, 128 or 256 (TMA zero-fills the columns past d;
+    at d 136 and 184 the fourth 64-column box of a D-256 tile lies wholly
+    past d; dkv at D 256 shares each key tile between a dV and a dK
+    warpgroup). o, lse, dq, delta, dk and dv within
+    `fl.kernel_error_bounds` of the plain versions in f32, no SIMT
+    launch; a second launch bitwise equal. Every kernel is launched again
     straight through the C interface into outputs whose every element
     and a tail past the last row start as SENTINEL: every element is
     written with the wrapper's value and the tail is untouched, so no
@@ -721,8 +739,7 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     torch.cuda.synchronize()
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
-    wide = d > fl.PADDED_KERNELS["dkv"]
-    assert fl.SIMT_LAUNCHES == ({"dkv.bfloat16": 2} if wide else {})
+    assert fl.SIMT_LAUNCHES == {}
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
     o, lse, dq, delta, dk, dv = runs[0]
@@ -738,16 +755,9 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
                                    window)
     _within("dq", dq, rdq, bound["dq"])
     _within("delta", delta, rdelta, bound["delta"])
-    if wide:
-        rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
-                                window)
-        _close("dk", dk, rdk, torch.bfloat16)
-        _close("dv", dv, rdv, torch.bfloat16)
-    else:
-        rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None,
-                                window)
-        _within("dk", dk, rdk, bound["dk"])
-        _within("dv", dv, rdv, bound["dv"])
+    rdk, rdv = fl.plain_dkv(*f[:3], f[3], lse, delta, causal, None, window)
+    _within("dk", dk, rdk, bound["dk"])
+    _within("dv", dv, rdv, bound["dv"])
     # the same launches into sentinel-filled outputs with a guard tail
     lib, stream = fl._lib(), _build.stream(cuda)
     common = (b, t, h, d, 1 / d ** 0.5, int(causal),
@@ -756,27 +766,25 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
     lse2 = torch.empty_like(lse)
     assert lib.k1_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       go.data_ptr(), lse2.data_ptr(), *common,
-                      fl.FWD_STAGES[fl.padded_dim(d, "fwd")],
+                      fl.FWD_STAGES[fl.padded_dim(d)],
                       fl.fwd_smem(d), stream) == 0
     gq, qtail = _guarded(dq)
     delta2 = torch.empty_like(delta)
     assert lib.k1_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), gq.data_ptr(),
                      delta2.data_ptr(), *common,
-                     fl.BWD_STAGES[fl.padded_dim(d, "dq")], fl.dq_smem(d),
+                     fl.BWD_STAGES[fl.padded_dim(d)], fl.dq_smem(d),
                      stream) == 0
-    guarded = [(go, o, gtail), (gq, dq, qtail)]
-    if not wide:
-        gk, ktail = _guarded(dk)
-        gv, vtail = _guarded(dv)
-        assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          gk.data_ptr(), gv.data_ptr(), *common,
-                          fl.BWD_STAGES[fl.padded_dim(d, "dkv")],
-                          fl.dkv_smem(d), stream) == 0
-        guarded += [(gk, dk, ktail), (gv, dv, vtail)]
+    gk, ktail = _guarded(dk)
+    gv, vtail = _guarded(dv)
+    assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      gk.data_ptr(), gv.data_ptr(), *common,
+                      fl.BWD_STAGES[fl.padded_dim(d)],
+                      fl.dkv_smem(d), stream) == 0
     torch.cuda.synchronize()
-    for got, want, tail in guarded:
+    for got, want, tail in ((go, o, gtail), (gq, dq, qtail),
+                            (gk, dk, ktail), (gv, dv, vtail)):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
         assert bool((tail.view(torch.int16) == SENTINEL).all())
     assert torch.equal(lse2, lse) and torch.equal(delta2, delta)
@@ -785,8 +793,11 @@ def test_k1_padded_fwd_dkv_match_plain_versions(cuda, d, mode):
 def test_k1_padded_refuses_what_tma_cannot_read(cuda):
     """A view whose base address is not a multiple of 16 bytes raises
     before any launch (a tensor map cannot read it); the C interface
-    refuses a head dim off the padded rule: d % 8 != 0 or d > 256 for
-    fwd and dq, and also d > 128 for dkv."""
+    refuses a head dim off the padded rule, d % 8 != 0 or d > 256, for
+    every kernel (the wrappers bring a bf16 d % 8 != 0 to it through a
+    zero-padded copy), and dkv takes d 136 and 256 (its D-256 kernel).
+    The SIMT family refuses bf16 (dtype code 1): the wgmma kernels run
+    every bf16 call."""
     b, t, h, d = 1, 64, 2, 16
     q, k, v, do = _k1_inputs(cuda, b, t, h, d)
     buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
@@ -812,11 +823,26 @@ def test_k1_padded_refuses_what_tma_cannot_read(cuda):
                          o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          out.data_ptr(), delta.data_ptr(), b, t, h, dd, 0.25,
                          1, -1, 2, fl.dq_smem(256), stream) != 0
-    for dd in (20, 136, 256):
         assert lib.k1_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           out.data_ptr(), out2.data_ptr(), b, t, h, dd, 0.25,
-                          1, -1, 4, fl.dkv_smem(128), stream) != 0
+                          1, -1, 2, fl.dkv_smem(256), stream) != 0
+    assert lib.k1s_fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), lse.data_ptr(), b, t, h, d, 0.25, 1,
+                       -1, fl.simt_smem("fwd", d), stream) != 0
+    assert lib.k1s_dkv(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       out.data_ptr(), out2.data_ptr(), b, t, h, d, 0.25, 1,
+                       -1, fl.simt_smem("dkv", d), stream) != 0
+    for dd in (136, 256):
+        q2, k2, v2, do2 = _k1_inputs(cuda, b, t, h, dd)
+        dk2, dv2 = torch.empty_like(q2), torch.empty_like(q2)
+        assert lib.k1_dkv(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                          do2.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dk2.data_ptr(), dv2.data_ptr(), b, t, h, dd, 0.25,
+                          1, -1, fl.BWD_STAGES[256], fl.dkv_smem(256),
+                          stream) == 0
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

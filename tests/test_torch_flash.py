@@ -223,7 +223,7 @@ def test_fwd_ctas_group_query_tiles_and_walk_the_union_of_their_spans(
     one's, so the visited-tile count of the plan stays each tile's
     own."""
     plan = fl.flash_plan(t, d, causal=causal, window=window)
-    nq, g = plan["nq"], fl.FWD_Q_TILES[fl.padded_dim(d, "fwd")]
+    nq, g = plan["nq"], fl.FWD_Q_TILES[fl.padded_dim(d)]
     ctas = fl.fwd_groups(t, d, causal, window)
     assert plan["fwd_cta"]["ctas_per_head"] == len(ctas) == -(-nq // g)
     assert all(len(group) == g for group, _ in ctas)
@@ -266,28 +266,26 @@ def test_bwd_ctas_walk_the_union_of_the_jax_spans(t, causal, window, d):
     and `_q_span`: dq takes DQ_Q_TILES[D] consecutive query tiles (D the
     padded head dim: one tile at d 136 and 256), the last groups first,
     and streams the union of their key spans; dkv takes DKV_K_TILES[D]
-    consecutive key tiles, the first groups first, and streams the union
-    of their query spans (above d 128 dkv has no wgmma CTA: the SIMT
-    kernel runs it). Every tile once, a union at most g - 1 tiles longer
-    than any one span (a one-tile span stays one tile in a group of one),
-    and each CTA's shared memory within the 227 KB a block may use."""
+    consecutive key tiles (one at d 136 and 256, run by two CTAs, one
+    forming dV and one dK), the first groups first, and streams the
+    union of their query spans. Every tile once, a union at most g - 1 tiles longer than
+    any one span (a one-tile span stays one tile in a group of one), and
+    each CTA's shared memory within the 227 KB a block may use."""
     nq = -(-t // 64)
     span = dict(causal=causal, window=window, block_q=64, block_k=64)
     plan = fl.flash_plan(t, d, causal=causal, window=window)
-    kinds = [("dq", fl.dq_groups, fl.DQ_Q_TILES, jfl._k_span, True)]
-    if d <= 128:
-        kinds.append(("dkv", fl.dkv_groups, fl.DKV_K_TILES, jfl._q_span,
-                      False))
-    else:
-        assert plan["dkv_cta"]["head_dim"] is None
-        assert plan["route"]["dkv"] == "simt"
+    assert plan["route"]["dkv"] == "wgmma"
+    kinds = [("dq", fl.dq_groups, fl.DQ_Q_TILES, jfl._k_span, True),
+             ("dkv", fl.dkv_groups, fl.DKV_K_TILES, jfl._q_span, False)]
     for kind, grouping, per_d, jspan, last_first in kinds:
         groups = grouping(t, d, causal, window)
-        dd = fl.padded_dim(d, kind)
+        dd = fl.padded_dim(d)
         g = per_d[dd]
         cta = plan[f"{kind}_cta"]
-        assert cta["head_dim"] == dd
-        assert cta["ctas_per_head"] == len(groups) == -(-nq // g)
+        roles = 2 if (kind, dd) == ("dkv", 256) else 1
+        assert cta["head_dim"] == dd and cta["roles"] == roles
+        assert cta["ctas_per_head"] == roles * len(groups) == \
+            roles * -(-nq // g)
         assert cta["threads"] == 128 * (g + 1)
         assert cta["stages"] == fl.BWD_STAGES[dd]
         assert cta["q_tiles" if kind == "dq" else "key_tiles"] == g
@@ -318,12 +316,17 @@ def test_bwd_smem_fits_the_deepest_ring():
     Q, dO and O of two query tiles and four (K, V) stages, 230,528
     bytes, and at d 256 those of one tile and two stages (7 tiles of 32
     KB), the same 230,528, inside the 232,448 a block may use; dkv's
-    rows (lse, delta) add 512 bytes a stage. The D-256 forward holds one
-    query tile and three stages (7 tiles). At bf16 d 48 all three CTAs
-    are the d-64 kernels' (padded); in f32 no kernel has a wgmma CTA."""
+    rows (lse, delta) add 512 bytes a stage, and at d 256 it holds K and
+    V of one key tile and two (Q, dO) stages, 198,784 bytes (a third
+    stage, 264,832, does not fit). The D-256 forward holds one query tile
+    and three stages (7 tiles). At bf16 d 48 all three CTAs are the d-64
+    kernels' (padded); in f32 no kernel has a wgmma CTA."""
     assert fl.dq_smem(128) == fl.dq_smem(256) == 230528 <= fl.SMEM_MAX
     assert fl.dq_smem(256) == fl._smem(256, 3 + 2 * 2, 2)
     assert fl.dkv_smem(64) - fl._smem(64, 2 * 2 + 2 * 4, 4) == 4 * 512
+    assert fl.dkv_smem(256) == fl._smem(256, 2 + 2 * 2, 2, 2 * 512) \
+        == 198784
+    assert fl.dkv_smem(256, 3) == 264832 > fl.SMEM_MAX
     assert fl.fwd_smem(64) == 91264 and fl.fwd_smem(128) == 164992
     assert fl.fwd_smem(256) == fl._smem(256, 1 + 2 * 3, 3) == 230528
     plan, at64 = fl.flash_plan(1024, 48), fl.flash_plan(1024, 64)
@@ -440,6 +443,80 @@ def test_plain_k1_matches_pallas_at_every_head_dim(pallas_interpret, d,
                 atol=2.0 ** -7 * float(np.abs(want).max()))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [4, 20, 252])
+def test_padded_copy_matches_pallas(pallas_interpret, monkeypatch, d,
+                                    dtype):
+    """The wgmma route at a head dim d % 8 != 0: q, k, v, o and dO
+    zero-padded to d8 = `tma_dim(d)` = ceil(d / 8) * 8 columns
+    (`pad_heads`), the plain versions (what the kernels are held to on
+    the card) run at d8 with the caller's scale 1/sqrt(d), and the
+    caller's d columns kept — forward with its lse, and the backward —
+    against the JAX package's `_flash_fwd_impl` and `_flash_bwd_impl`
+    (Pallas in interpret mode) at the unpadded d, causal. In f32 the
+    composition is spelled out here, at TOL / GTOL, and the columns past
+    d of every padded result are exactly 0. In bf16 it is the wrappers'
+    own (`copy_width` pads bf16 on every device, so the CPU runs what the
+    card runs): the plain versions must be handed d8-wide operands and
+    the caller's scale, and the results are held at 2**-7 of the largest
+    |value|, as in `test_plain_k1_matches_pallas_at_every_head_dim`; the
+    autograd Function (one copy in its forward, one of dO in its
+    backward) gives the wrappers' o and gradients bit for bit."""
+    d8 = fl.tma_dim(d)
+    assert d8 % 8 == 0 and d < d8 < d + 8
+    scale = 1 / np.sqrt(d)
+    q, k, v, do = _inputs(60 + d, (1, 64, 2, d))
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    ref_o, ref_lse = jfl._flash_fwd_impl(jq, jk, jv, True, None, None, None,
+                                         None, save_lse=True)
+    ref_g = jfl._flash_bwd_impl(jq, jk, jv, ref_o, ref_lse, jdo, True,
+                                scale, None, None, None)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo, ro = (torch.tensor(np.asarray(x.astype(jnp.float32)))
+                           .to(tdt) for x in (jq, jk, jv, jdo, ref_o))
+    if dtype == "float32":
+        assert fl.copy_width(tdt, d) == d
+        pq, pk, pv, pro, pdo = fl.pad_heads(d8, tq, tk, tv, ro, tdo)
+        o8, lse = fl.plain_fwd(pq, pk, pv, True, scale)
+        dq8, delta = fl.plain_dq(pq, pk, pv, pro, lse, pdo, True, scale)
+        dk8, dv8 = fl.plain_dkv(pq, pk, pv, pdo, lse, delta, True, scale)
+        for x in (o8, dq8, dk8, dv8):
+            assert x.shape[-1] == d8 and not bool(x[..., d:].any())
+        np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
+        np.testing.assert_allclose(o8[..., :d].numpy(), np.asarray(ref_o),
+                                   **TOL)
+        for got, want in zip((dq8, dk8, dv8), ref_g):
+            np.testing.assert_allclose(got[..., :d].numpy(),
+                                       np.asarray(want), **GTOL)
+        return
+    seen = []
+    for name, at in (("plain_fwd", 4), ("plain_dq", 7), ("plain_dkv", 7)):
+        def spy(*a, _f=getattr(fl, name), _n=name, _at=at):
+            seen.append((_n, a[0].shape[-1], a[_at]))
+            return _f(*a)
+        monkeypatch.setattr(fl, name, spy)
+    assert fl.copy_width(tdt, d) == d8
+    o, lse = fl.flash_fwd(tq, tk, tv, True)
+    got_g = fl.flash_bwd(tq, tk, tv, ro, lse, tdo, True)
+    assert [n for n, _, _ in seen] == ["plain_fwd", "plain_dq", "plain_dkv"]
+    assert all(w == d8 and sc == pytest.approx(scale, rel=1e-12)
+               for _, w, sc in seen)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **TOL)
+    for got, want in ((o, ref_o),) + tuple(zip(got_g, ref_g)):
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.dtype == tdt and got.shape == tq.shape
+        assert got.is_contiguous()
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=2.0 ** -7 * float(np.abs(want).max()))
+    xs = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = fl.flash_attention(*xs, causal=True)
+    out.backward(tdo)
+    assert torch.equal(out.detach(), o)
+    for x, want in zip(xs, fl.flash_bwd(tq, tk, tv, o, lse, tdo, True)):
+        assert torch.equal(x.grad, want)
+
+
 def test_tile_rule_is_the_references():
     """`tiles` gives `_tiles`'s auto blocks (None: plain attention) for
     lengths on and off the 128 grid, windows, head dims and itemsizes,
@@ -473,12 +550,12 @@ def test_untiled_lengths_take_plain_attention_and_are_counted():
 
 _SIMT3 = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
 _WGMMA3 = dict.fromkeys(_SIMT3, "wgmma")
-_WIDE = {"fwd": "wgmma", "dq": "wgmma", "dkv": "simt"}
 _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
            + [(torch.bfloat16, d, _WGMMA3)
               for d in (8, 16, 24, 40, 48, 72, 96, 120)]
-           + [(torch.bfloat16, d, _SIMT3) for d in (1, 20, 252)]
-           + [(torch.bfloat16, d, _WIDE) for d in (136, 200, 248, 256)]
+           + [(torch.bfloat16, d, _WGMMA3) for d in (1, 20, 252)]
+           + [(torch.bfloat16, d, _WGMMA3) for d in (136, 200, 248, 256)]
+           + [(torch.bfloat16, d, _WGMMA3) for d in (4, 100, 255)]
            + [(dt, d, _SIMT3) for dt in (torch.float32, torch.float16)
               for d in (1, 8, 16, 64, 128, 256)]
            + [(torch.float64, 64, None), (torch.bfloat16, 257, None),
@@ -488,12 +565,12 @@ _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
 @pytest.mark.parametrize("dtype,d,want", _ROUTES,
                          ids=[f"{str(dt)[6:]}-{d}" for dt, d, _ in _ROUTES])
 def test_route_per_kernel(dtype, d, want):
-    """The family of each kernel: bf16 runs the wgmma family at any d %
-    8 == 0 — fwd and dq up to 256 (padded to 64, 128 or 256), dkv up to
-    128 (padded to 64 or 128); bf16 at any other d up to 256 (d % 8 != 0,
-    or dkv above 128), and f32 and f16 at every d up to 256, run the SIMT
-    family; f64 and wider heads raise. `flash_plan` reports the same
-    routes and sizes each wgmma CTA at its padded head dim."""
+    """The family of each kernel: bf16 runs the wgmma family at every d
+    from 1 to 256 (padded to 64, 128 or 256; a d % 8 != 0 through a
+    zero-padded copy of ceil(d / 8) * 8 columns, `tma_dim`), f32 and f16
+    the SIMT family at every d up to 256; f64 and wider heads raise.
+    `flash_plan` reports the same routes, sizes each wgmma CTA at its
+    padded head dim and names the width its tensor maps read."""
     for kernel in ("fwd", "dq", "dkv"):
         if want is None:
             with pytest.raises(ValueError, match="no flash-attention"):
@@ -503,29 +580,30 @@ def test_route_per_kernel(dtype, d, want):
         dd = fl.wgmma_dim(dtype, d, kernel)
         assert (dd is not None) == (want[kernel] == "wgmma")
         if dd is not None:
-            assert dd == fl.padded_dim(d, kernel) in fl.HEAD_DIMS
+            assert dd == fl.padded_dim(d) in fl.HEAD_DIMS
             assert dd == (64 if d <= 64 else 128 if d <= 128 else 256)
-            assert dd <= fl.PADDED_KERNELS[kernel]
+            assert dd <= fl.HEAD_DIMS[-1] == 256
     plan = fl.flash_plan(256, d, True, dtype=dtype)
     assert plan["route"] == (want or dict.fromkeys(_SIMT3))
+    wgmma = want is not None and want["fwd"] == "wgmma"
+    assert plan["tma_dim"] == (-(-d // 8) * 8 if wgmma else None)
+    assert fl.copy_width(dtype, d) == (plan["tma_dim"] if wgmma else d)
 
 
-@pytest.mark.parametrize("d", [8, 16, 40, 56, 72, 96, 120, 136, 200, 248])
+@pytest.mark.parametrize("d", [4, 8, 16, 20, 40, 56, 72, 96, 100, 120,
+                               136, 200, 248, 252])
 @pytest.mark.parametrize("t,causal,window", [(64, True, None),
                                              (1000, True, 200),
                                              (257, False, None)])
 def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
-    """A bf16 call at a head dim the wgmma kernels take by padding plans
-    the CTA of the kernel compiled for 64 (d <= 64), 128 (d <= 128) or,
-    for fwd and dq, 256: the same tiles, threads, shared memory and
-    groups, with ``head_dim`` the padded one. Above d 128 dkv has no
-    wgmma CTA (the SIMT dkv's is the SIMT plan's)."""
+    """A bf16 call at a head dim the wgmma kernels take by padding (TMA's
+    zero fill past d, and at d % 8 != 0 first a zero-padded copy) plans
+    the CTA of the kernel compiled for 64 (d <= 64), 128 (d <= 128) or
+    256: the same tiles, roles, threads, shared memory and groups,
+    with ``head_dim`` the padded one, for all three kernels. Head dims
+    outside 1..256 have no padded kernel."""
     plan = fl.flash_plan(t, d, causal, window)
     for name in ("fwd", "dq", "dkv"):
-        if d > fl.PADDED_KERNELS[name]:
-            assert plan[f"{name}_cta"]["threads"] is None
-            assert plan["simt_cta"]["smem"][name] == fl.simt_smem(name, d)
-            continue
         big = 64 if d <= 64 else 128 if d <= 128 else 256
         ref = fl.flash_plan(t, big, causal, window)
         assert plan[f"{name}_cta"] == ref[f"{name}_cta"]
@@ -534,26 +612,27 @@ def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
             getattr(fl, f"{name}_smem")(big)
         assert getattr(fl, f"{name}_groups")(t, d, causal, window) == \
             getattr(fl, f"{name}_groups")(t, big, causal, window)
-    for name, bad in (("fwd", (4, 20, 252, 264)), ("dq", (4, 20, 252, 264)),
-                      ("dkv", (4, 20, 136, 256))):
-        for dd in bad:
-            with pytest.raises(ValueError, match="no padded wgmma"):
-                fl.padded_dim(dd, name)
+    for dd in (0, 257, 264):
+        with pytest.raises(ValueError, match="no padded wgmma"):
+            fl.padded_dim(dd)
 
 
 def test_routes_and_the_simt_plan():
-    """bf16 at d 64/128 runs the wgmma family for every kernel, and at d
-    16 too (padded); f32, f16 and the rest of bf16 up to 256 the SIMT
-    family; f64 and wider heads none (`test_route_per_kernel` has every
+    """bf16 at d 64/128 runs the wgmma family for every kernel, and at
+    every other d up to 256 too (padded, through a zero-padded copy at d
+    % 8 != 0); f32 and f16 up to 256 the SIMT family, which takes no
+    bf16; f64 and wider heads none (`test_route_per_kernel` has every
     case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
     memory by kernel within the 227 KB a block may use."""
+    assert torch.bfloat16 not in fl.SIMT_DTYPES
     for kernel in ("fwd", "dq", "dkv"):
         assert fl.route(torch.bfloat16, 64, kernel) == fl.route(
             torch.bfloat16, 128, kernel) == "wgmma"
         for dt in (torch.float32, torch.float16):
             for d in (1, 8, 64, 128, 256):
                 assert fl.route(dt, d, kernel) == "simt"
-        assert fl.route(torch.bfloat16, 16, kernel) == "wgmma"
+        for d in (1, 16, 20, 136, 252, 256):
+            assert fl.route(torch.bfloat16, d, kernel) == "wgmma"
         for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
             with pytest.raises(ValueError,
                                match="no flash-attention kernel"):
@@ -577,26 +656,27 @@ def test_routes_and_the_simt_plan():
 
 def test_every_wgmma_cta_fits_the_block_limit():
     """Every wgmma CTA `flash_plan` can name — each kernel at every head
-    dim its route takes (d % 8 == 0 up to 256 for fwd and dq, 128 for
-    dkv), causal or not, short or long — asks for at most the 232,448
-    bytes of dynamic shared memory a block may use on the H100, and its
-    threads are 128 a warpgroup with one producer; the SIMT CTAs fit
-    too."""
+    dim its route takes (1 to 256: the kernels of D 64, 128 and 256),
+    causal or not, short or long — asks for at most the 232,448 bytes of
+    dynamic shared memory a block may use on the H100, and its threads
+    are 128 a warpgroup with one producer (dkv at D 256: two CTAs a key
+    tile, one forming dV and one dK); the SIMT CTAs fit too."""
     sizes = set()
-    for d in range(8, 257, 8):
+    for d in range(1, 257):
         for t, causal in ((64, True), (1000, False), (4096, True)):
             plan = fl.flash_plan(t, d, causal)
             for name in ("fwd", "dq", "dkv"):
                 cta = plan[f"{name}_cta"]
-                if d > fl.PADDED_KERNELS[name]:
-                    assert cta["smem"] is None
-                    continue
+                dd = cta["head_dim"]
                 per_d = {"fwd": fl.FWD_Q_TILES, "dq": fl.DQ_Q_TILES,
-                         "dkv": fl.DKV_K_TILES}[name][cta["head_dim"]]
+                         "dkv": fl.DKV_K_TILES}[name][dd]
                 assert cta["threads"] == 128 * (per_d + 1)
+                assert cta["roles"] == (2 if (name, dd) == ("dkv", 256)
+                                        else 1)
                 assert 0 < cta["smem"] <= fl.SMEM_MAX
-                sizes.add((name, cta["head_dim"], cta["smem"]))
+                sizes.add((name, dd, cta["smem"]))
             assert max(plan["simt_cta"]["smem"].values()) <= fl.SMEM_MAX
     assert {(n, dd) for n, dd, _ in sizes} == {
-        (n, dd) for n in ("fwd", "dq") for dd in (64, 128, 256)} | {
-        ("dkv", 64), ("dkv", 128)}
+        (n, dd) for n in ("fwd", "dq", "dkv") for dd in (64, 128, 256)}
+    assert fl.DKV_ROLES == {64: 1, 128: 1, 256: 2}
+    assert fl.DKV_K_TILES[256] == 1
