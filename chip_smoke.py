@@ -238,13 +238,15 @@ failing on the first phase that fails:
    versions: f32 at d 8..128 and bf16 at d 1..256 (`K1_NEW`), causal,
    non-causal and windowed, the padded wgmma kernels (bf16 off 64/128,
    padded by TMA to D 64, 128 or 256; at d % 8 != 0 through a
-   zero-padded copy first) within `kernel_error_bounds`, the f32 SIMT
-   kernels within TOL, every case bitwise on a second launch, and one
+   zero-padded copy first) within `kernel_error_bounds`, every f32
+   kernel (the tf32 forward at d % 4 == 0 up to 64, SIMT elsewhere)
+   within TOL, every case bitwise on a second launch, and one
    launch of B*H = 66000 > 65535. (e)
    `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
    through the padded wgmma fwd, dq and dkv (no SIMT launch); (e')
    `measure_flash_efficiency(dtype="float32")` at its default shape
-   through the f32 SIMT kernels; (e'') `measure_flash_efficiency` in bf16
+   through the tf32 forward (split TF32 on the tensor cores) and the SIMT
+   dq and dkv, no SIMT forward; (e'') `measure_flash_efficiency` in bf16
    at head dim 256 (Gemma's) through the D-256 wgmma fwd, dq and dkv;
    (e''') the same at head dim 252 (d % 8 != 0) through the same kernels
    on a zero-padded copy; neither launches the SIMT family. (f)
@@ -269,9 +271,11 @@ failing on the first phase that fails:
    once), timed the same way; and K1 off bf16 d 64/128 (f32, bf16 at
    d 16, 256 and 252) per launch at `K1_SIMT_TIMING`'s shapes, the main
    path's (e), (e'), (e'') and (e'''), first held there to its plain
-   version within TOL (a wgmma kernel within `kernel_error_bounds`),
-   beside its bound at the peak of its input type (and the exponentials
-   at the special-function rate), its plain version and SDPA.
+   version within TOL (a bf16 kernel within `kernel_error_bounds`),
+   beside its bound at the peak of its input type (f32: the lesser of
+   FMA at the f32 rate and three tf32 products at the tf32 rate; and the
+   exponentials at the special-function rate), its plain version and
+   SDPA, with SDPA's own largest error against the plain forward.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
@@ -310,6 +314,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+#: dense TF32 tensor-core FLOP/s (the same data sheet): the rate of each
+#: of split TF32's three products (K1's f32 forward)
+PEAK_TF32_FLOPS = 495e12
 #: the H100 SXM's special-function results a second (exp2 and the like),
 #: the FlashAttention-3 paper's figure (Shah et al., 2024) beside the
 #: 989 TFLOP/s of bf16
@@ -394,12 +401,13 @@ SEQ_SPECS = [
 #: its output to bf16 before the merge: half an ulp, 2**-9, a hop)
 SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
 SEQ_GRAD_FLOOR = 2e-2
-#: (d) K1's new cases: f32 at head dims 8..128, bf16 off 64/128 (the
+#: (d) K1's new cases: f32 at head dims 8..128 (the forward up to 64 on
+#: the tf32 family, d 60 among them, at 128 on SIMT), bf16 off 64/128 (the
 #: padded wgmma kernels: fwd, dq and dkv of D 64 and 128 up to d 128, of
 #: D 256 at 136, 184, 200 and 256; at d 1, 4 and 20 on a zero-padded
 #: copy of 8, 8 and 24 columns), at B 2, T 256, H 4 in each mode; the
 #: fold launch: B 1100 x H 60 = 66000 > 65535
-K1_NEW = ([("float32", d) for d in (8, 16, 32, 64, 128)]
+K1_NEW = ([("float32", d) for d in (8, 16, 32, 60, 64, 128)]
           + [("bfloat16", d) for d in (1, 4, 8, 16, 20, 24, 32, 40, 72, 96,
                                         120, 136, 184, 200, 256)])
 K1_NEW_SHAPE = (2, 256, 4)
@@ -2207,23 +2215,25 @@ def phase_timing_k2(torch, fc):
     return out
 
 
-def k1_bound(kernel, b, t, h, d, causal, window, itemsize=2,
-             peak=PEAK_BF16_FLOPS):
-    """(bound_ms, bound_by, flops, bytes) of one K1 launch: the largest
-    of three times. Bytes: each input read once and each output written
-    once (bf16 [B, T, h, d] tensors, f32 [B*h, T] lse and delta): fwd
-    reads q, k, v and writes o and lse; dq reads q, k, v, o, dO and lse
-    and writes dq and delta; dkv reads q, k, v, dO, lse and delta and
-    writes dk and dv. Operations: the products on the visible pairs
-    (`flash_attention_flops`' count, 2 d FLOPs a pair a product): fwd
-    q.k^T and p.v; dq q.k^T, dO.v^T and ds.k; dkv those two score
-    products, p^T.dO and ds^T.q — against the bf16 tensor-core peak (the
-    SIMT family: inputs of `itemsize` bytes and `peak` the card's rate
-    for their type). Exponentials: one a visible pair in each kernel
-    (p = exp(s - m) or exp(s - lse)), at `PEAK_EXP_S`; at a small head
-    dim they outlast the products. `bound_by` names the largest."""
+def k1_bound(kernel, b, t, h, d, causal, window, dtype="bfloat16"):
+    """(bound_ms, bound_by, flops, bytes) of one K1 launch on `dtype`
+    inputs: the largest of three times. Bytes: each input read once and
+    each output written once ([B, T, h, d] tensors of `dtype`, f32 [B*h,
+    T] lse and delta): fwd reads q, k, v and writes o and lse; dq reads
+    q, k, v, o, dO and lse and writes dq and delta; dkv reads q, k, v,
+    dO, lse and delta and writes dk and dv. Operations: the products on
+    the visible pairs (`flash_attention_flops`' count, 2 d FLOPs a pair a
+    product): fwd q.k^T and p.v; dq q.k^T, dO.v^T and ds.k; dkv those two
+    score products, p^T.dO and ds^T.q — bf16 against the bf16
+    tensor-core peak; f32 against the lesser of two ways to keep f32's
+    precision: FMA at the f32 rate outside the tensor cores, or split
+    TF32, three tf32 products each, at `PEAK_TF32_FLOPS`. Exponentials:
+    one a visible pair in each kernel (p = exp(s - m) or exp(s - lse)),
+    at `PEAK_EXP_S`; at a small head dim they outlast the products.
+    `bound_by` names the largest."""
     from kungfu_tpu_torch.ops.flash import flash_attention_flops
 
+    itemsize = 4 if dtype == "float32" else 2
     seq = itemsize * b * t * h * d              # one [B, T, h, d]
     row = 4 * b * h * t                         # one f32 [B*h, T]
     pair_product = flash_attention_flops(b, t, h, d, causal, window) // 2
@@ -2232,7 +2242,9 @@ def k1_bound(kernel, b, t, h, d, causal, window, itemsize=2,
         "fwd": (4 * seq + row, 2 * pair_product),
         "dq": (6 * seq + 2 * row, 3 * pair_product),
         "dkv": (6 * seq + 2 * row, 4 * pair_product)}[kernel]
-    times = {"bytes": nbytes / PEAK_BYTES_S, "operations": flops / peak,
+    ops = (min(flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS)
+           if dtype == "float32" else flops / PEAK_BF16_FLOPS)
+    times = {"bytes": nbytes / PEAK_BYTES_S, "operations": ops,
              "exponentials": pairs / PEAK_EXP_S}
     by = max(times, key=times.get)
     return 1e3 * times[by], by, flops, nbytes
@@ -2373,24 +2385,22 @@ def _bounded(torch, got, ref, bound, relative):
     return float(err.max()), bool((err <= lim).all())
 
 
-def k1_held(torch, fl, family, x, causal, window):
+def k1_held(torch, fl, x, causal, window):
     """Each K1 kernel's outputs against its plain versions on the same
-    inputs `x` = (q, k, v, dO, o, lse, dq, delta, dk, dv): a kernel that
-    `family` (kernel -> "wgmma" | "simt") puts on the SIMT family within
-    TOL of the plain version in the input dtype (lse and delta within
-    TOL["float32"]); a wgmma kernel (bf16: at d 64/128, or fwd and dkv
-    padded) within `kernel_error_bounds` of the plain version in f32 (the
-    wgmma kernels round p and ds to bf16 before the second product). dq
-    and dkv get the kernels' own (o, lse) and delta. Returns {kernel:
-    (max_abs_err, every element within)}."""
+    inputs `x` = (q, k, v, dO, o, lse, dq, delta, dk, dv): an f32 kernel,
+    whatever its family (SIMT or tf32), within TOL["float32"] of the
+    plain version; a bf16 kernel (the wgmma family at every head dim)
+    within `kernel_error_bounds` of the plain version in f32 (the wgmma
+    kernels round p and ds to bf16 before the second product). dq and dkv get the kernels' own (o, lse) and delta.
+    Returns {kernel: (max_abs_err, every element within)}."""
     q, k, v, do, o, lse, dq, delta, dk, dv = x
     dtype = str(q.dtype).split(".")[-1]
     f = [y.float() for y in (q, k, v, do)]
     out = {}
     for kernel, got in (("fwd", (o, lse)), ("dq", (dq, delta)),
                         ("dkv", (dk, dv))):
-        wgmma = family[kernel] == "wgmma"
-        ins = f if wgmma else (q, k, v, do)
+        bf16 = dtype == "bfloat16"
+        ins = f if bf16 else (q, k, v, do)
         if kernel == "fwd":
             ref = fl.plain_fwd(*ins[:3], causal, None, window)
         elif kernel == "dq":
@@ -2400,7 +2410,7 @@ def k1_held(torch, fl, family, x, causal, window):
                                window)
         names = {"fwd": ("o", "lse"), "dq": ("dq", "delta"),
                  "dkv": ("dk", "dv")}[kernel]
-        if wgmma:
+        if bf16:
             # the bound at the (o, lse) the kernel was given: the plain
             # forward's own for fwd, the fwd kernel's for dq and dkv
             bound = fl.kernel_error_bounds(
@@ -2421,10 +2431,14 @@ def k1_held(torch, fl, family, x, causal, window):
 
 def k1_label(fl, dtype, d, kernel):
     """The kernels line's family label of K1 `kernel` in `dtype` at head
-    dim `d` off bf16 d 64/128: ``"simt"``, ``"padded"`` (the wgmma kernel
-    of D 64 or 128) or ``"d256"`` (the wgmma kernel of D 256), with
-    ``".copy"`` where the wrapper reaches it through a zero-padded copy
-    (bf16 at d % 8 != 0)."""
+    dim `d` off bf16 d 64/128: ``"simt"``, ``"tf32"`` (the f32 forward in
+    split TF32), ``"padded"`` (the wgmma kernel of D 64 or 128) or
+    ``"d256"`` (the wgmma kernel of D 256), with ``".copy"`` where the
+    wrapper reaches it through a zero-padded copy (bf16 at d % 8 != 0).
+    Reads `fl.route`, so an older checkout's `ops.flash` (no tf32 family)
+    labels too."""
+    if fl.route(dtype, d, kernel) == "tf32":
+        return "tf32"
     dd = fl.wgmma_dim(dtype, d, kernel)
     if dd is None:
         return "simt"
@@ -2433,8 +2447,9 @@ def k1_label(fl, dtype, d, kernel):
 
 def k1_new_cases(torch, fl):
     """(d) every new case of K1 on the card against its plain versions on
-    the same inputs (`k1_held`: the SIMT kernels within TOL, the padded
-    wgmma fwd and dkv within `kernel_error_bounds`), and a second launch
+    the same inputs (`k1_held`: the f32 kernels, SIMT or tf32, within
+    TOL, the padded wgmma kernels within `kernel_error_bounds`), and a
+    second launch
     bitwise equal: `K1_NEW` in each of `K1_NEW_MODES`, then one fold
     launch of B*H > 65535 (within `kernel_error_bounds`, which covers
     both families). Returns {(kernel, dtype, `k1_label`): max_abs_err}."""
@@ -2458,8 +2473,8 @@ def k1_new_cases(torch, fl):
             torch.cuda.synchronize()
             check(all(torch.equal(a, c) for a, c in zip(*runs)),
                   f"K1 {dtype} d={d} {mode}: a second launch differs")
-            held = k1_held(torch, fl, family, (q, k, v, do) + runs[0],
-                           causal, window)
+            held = k1_held(torch, fl, (q, k, v, do) + runs[0], causal,
+                           window)
             for kernel, (err, ok) in held.items():
                 check(ok, f"K1 {kernel} {dtype} d={d} {mode} "
                       f"({family[kernel]}): outside its tolerance "
@@ -2467,7 +2482,7 @@ def k1_new_cases(torch, fl):
                 key = (kernel, dtype, k1_label(fl, dt, d, kernel))
                 errs[key] = max(errs.get(key, 0.0), err)
         log(f"seq (d) K1 {dtype} d={d}: fwd, dq, dkv in {sorted(K1_NEW_MODES)}"
-            f" within their tolerances (simt: TOL[{dtype}], wgmma: "
+            f" within their tolerances (f32: TOL[float32], bf16: "
             f"kernel_error_bounds), second launch bitwise; route "
             f"{json.dumps(family)}")
     # B * H = 66000: the grid folds B * H into its first dimension
@@ -2669,20 +2684,25 @@ def phase_seq(torch, fl, card: str) -> dict:
         f"{meta['step_time_ms']:.2f} ms/step; K1 {k1}, SIMT {simt}")
     out["tiny"] = {n: k1[n] for n in ("fwd", "dq", "dkv")}
     # (e') the flash benchmark in f32 at its default shape (B 8, T 1024,
-    # h 12, d 64, causal): the SIMT family's f32 path
+    # h 12, d 64, causal): the f32 path, the forward on the tf32 family
+    # and dq and dkv on SIMT; no SIMT forward
     fl.reset_launches()
     meta = measure_flash_efficiency(dtype="float32")
     torch.cuda.synchronize()
-    simt = dict(fl.SIMT_LAUNCHES)
-    check(fl.LAUNCHES["plain"] == 0 and set(simt) == {
-        f"{n}.float32" for n in ("fwd", "dq", "dkv")},
-          f"seq (e'): K1 launches {fl.LAUNCHES}, SIMT {simt}")
+    simt, tf32 = dict(fl.SIMT_LAUNCHES), dict(fl.TF32_LAUNCHES)
+    check(fl.LAUNCHES["plain"] == 0
+          and set(simt) == {"dq.float32", "dkv.float32"}
+          and set(tf32) == {"fwd.float32"},
+          f"seq (e'): K1 launches {fl.LAUNCHES}, SIMT {simt}, tf32 {tf32}, "
+          f"expected the forward on tf32 and dq, dkv on SIMT")
     log(f"seq (e') measure_flash_efficiency(dtype='float32') (B "
         f"{meta['batch']} T {meta['seq']} h {meta['heads']} d "
         f"{meta['head_dim']}, causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
         f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
-        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}")
-    out["f32_simt"] = {n: simt[f"{n}.float32"] for n in ("fwd", "dq", "dkv")}
+        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}; "
+        f"tf32 {tf32}")
+    out["f32"] = {"fwd": tf32["fwd.float32"], "dq": simt["dq.float32"],
+                  "dkv": simt["dkv.float32"]}
     # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): fwd, dq
     # and dkv on the D-256 wgmma kernels; (e''') at head dim 252 (d % 8
     # != 0): the same kernels on a zero-padded copy. No SIMT launch
@@ -2720,30 +2740,42 @@ def phase_seq(torch, fl, card: str) -> dict:
 def phase_timing_k1_simt(torch, fl):
     """K1 off bf16 d 64/128 at `K1_SIMT_TIMING`'s shapes, the main path's,
     each kernel on the family its wrapper picks (read from
-    `SIMT_LAUNCHES`, so an older checkout's `ops.flash` runs here too,
-    for `benchmarks/kernel_ab.py`): first held to its plain versions on
-    the same inputs (`k1_held`: a SIMT kernel within TOL, a wgmma one
-    within `kernel_error_bounds`), then timed per launch by device time,
-    cycling over four input sets, beside the bound (its inputs' bytes;
-    its products at the card's peak for the input type: the f32 rate
-    outside the tensor cores for f32, the tensor-core rate for bf16; its
-    exponentials), the plain version and SDPA on the same shape (forward;
-    backward alone against dq + dkv), with the backend SDPA picks.
-    Returns {tag: {kernel: (ms, plain_ms, bound_ms, bound_by), "family":
-    {kernel: "simt" | "wgmma"}, "sdpa": {...}, "errs": {kernel:
-    max_abs_err}}}."""
+    `SIMT_LAUNCHES` and, where the checkout has it, `TF32_LAUNCHES`, so
+    an older checkout's `ops.flash` runs here too, for
+    `benchmarks/kernel_ab.py`): first held to its plain versions on the
+    same inputs (`k1_held`: an f32 kernel within TOL, a bf16 one within
+    `kernel_error_bounds`), then timed per launch by device time, cycling
+    over four input sets, beside the bound (`k1_bound`: its inputs'
+    bytes; its products at the card's peak for the input type — f32 the
+    lesser of FMA outside the tensor cores and split TF32's three tf32
+    products, bf16 the tensor-core rate; its exponentials), the plain
+    version and SDPA on the same shape (forward, with its largest error
+    against the plain forward; backward alone against dq + dkv), with the
+    backend SDPA picks. Returns {tag: {kernel: (ms, plain_ms, bound_ms,
+    bound_by), "family": {kernel: "simt" | "tf32" | "wgmma"}, "sdpa":
+    {...}, "errs": {kernel: max_abs_err}}}."""
     import torch.nn.functional as F
 
-    def simt_count():
-        return sum(fl.SIMT_LAUNCHES.values())
+    def counts():
+        return (sum(fl.SIMT_LAUNCHES.values()),
+                sum(getattr(fl, "TF32_LAUNCHES", {}).values()))
+
+    def launched_on(run):
+        """The family whose count `run` (one launch) raised."""
+        simt, tf32 = counts()
+        out = run()
+        after = counts()
+        return out, ("simt" if after[0] > simt else
+                     "tf32" if after[1] > tf32 else "wgmma")
 
     out = {}
     for tag, (b, t, h, d) in K1_SIMT_TIMING.items():
         dtype = tag.split(".")[0]
         dt = getattr(torch, dtype)
-        peak, peak_name = ((PEAK_F32_FLOPS, "the f32 peak outside the "
-                            "tensor cores") if dt == torch.float32 else
-                           (PEAK_BF16_FLOPS, "the bf16 tensor-core peak"))
+        peak_name = ("the lesser of FMA at the f32 peak outside the tensor "
+                     "cores and 3 tf32 products at the tf32 tensor-core "
+                     "peak" if dt == torch.float32 else
+                     "the bf16 tensor-core peak")
         sets = []
         for seed in range(4):
             g = torch.Generator(device=DEVICE).manual_seed(20 + seed)
@@ -2755,18 +2787,14 @@ def phase_timing_k1_simt(torch, fl):
             sets.append((q, k, v, do, o, lse, delta))
         q, k, v, do, o, lse, delta = sets[0]
         family = {}
-        n = simt_count()
-        fl.flash_fwd(q, k, v, True)
-        family["fwd"] = "simt" if simt_count() > n else "wgmma"
-        n = simt_count()
-        dq, _ = fl.flash_dq(q, k, v, o, lse, do, True)
-        family["dq"] = "simt" if simt_count() > n else "wgmma"
-        n = simt_count()
-        dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, True)
-        family["dkv"] = "simt" if simt_count() > n else "wgmma"
+        _, family["fwd"] = launched_on(lambda: fl.flash_fwd(q, k, v, True))
+        (dq, _), family["dq"] = launched_on(
+            lambda: fl.flash_dq(q, k, v, o, lse, do, True))
+        (dk, dv), family["dkv"] = launched_on(
+            lambda: fl.flash_dkv(q, k, v, do, lse, delta, True))
         torch.cuda.synchronize()
-        held = k1_held(torch, fl, family,
-                       (q, k, v, do, o, lse, dq, delta, dk, dv), True, None)
+        held = k1_held(torch, fl, (q, k, v, do, o, lse, dq, delta, dk, dv),
+                       True, None)
         errs = {}
         for kernel, (err, ok) in held.items():
             check(ok, f"K1 {kernel} ({family[kernel]}) {dtype} at B={b} "
@@ -2775,7 +2803,7 @@ def phase_timing_k1_simt(torch, fl):
             errs[kernel] = err
         log(f"K1 {dtype} at the main path's B={b} T={t} h={h} d={d} "
             f"causal: families {json.dumps(family)}; fwd, dq, dkv within "
-            f"their tolerances (simt: TOL[{dtype}], wgmma: "
+            f"their tolerances (f32: TOL[float32], bf16: "
             f"kernel_error_bounds) of plain (max_abs_err "
             f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})})")
         del dq, dk, dv
@@ -2796,8 +2824,7 @@ def phase_timing_k1_simt(torch, fl):
             ms = time_device(torch, lambda i: kern(sets[i % 4]), 20)
             plain_ms = time_device(torch, lambda i: plain(sets[0]), 2)
             bound_ms, bound_by, flops, nbytes = k1_bound(
-                name, b, t, h, d, True, None, itemsize=dt.itemsize,
-                peak=peak)
+                name, b, t, h, d, True, None, dtype)
             res[name] = (ms, plain_ms, bound_ms, bound_by)
             log(f"timing K1 {family[name]} {dtype} (B={b} T={t} h={h} d={d} "
                 f"causal) {name:4s} {ms:.4f} ms/launch on the device; bound "
@@ -2828,13 +2855,22 @@ def phase_timing_k1_simt(torch, fl):
         lib_fwd = time_device(torch, sdpa_fwd, 20)
         lib_bwd = time_device(torch, sdpa_bwd, 20)
         picked, forced = sdpa_backends(torch, sdpa_fwd)
+        # SDPA's own precision at this dtype: its forward on the first set
+        # against the plain forward (f32 arithmetic) on the same values
+        ro, _ = fl.plain_fwd(*(x.float() for x in sets[0][:3]), True)
+        lib_err = float((sdpa_fwd(0).transpose(1, 2).float() - ro).abs()
+                        .max())
+        del ro
         res["sdpa"] = {"fwd": lib_fwd, "bwd": lib_bwd, "backend": picked,
-                       "forced": forced, "bwd_node": outs[0].grad_fn.name()}
+                       "forced": forced, "bwd_node": outs[0].grad_fn.name(),
+                       "max_abs_err": lib_err}
         res["errs"] = errs
         pair = res["dq"][0] + res["dkv"][0]
         log(f"timing K1 {tag} library sdpa forward {lib_fwd:.4f} ms "
             f"({picked}; forced {json.dumps(forced)}; "
-            f"{res['fwd'][0] / lib_fwd:.1f}x library), backward "
+            f"{res['fwd'][0] / lib_fwd:.1f}x library; max_abs_err "
+            f"{lib_err:.3e} against the plain forward, the kernel's "
+            f"{errs['fwd']:.3e}), backward "
             f"alone {lib_bwd:.4f} ms ({res['sdpa']['bwd_node']}) against "
             f"dq + dkv {pair:.4f} ms ({pair / lib_bwd:.1f}x library)")
         out[tag] = res
@@ -3345,8 +3381,8 @@ def main() -> int:
             row["library_ms_is_pair"] = "flash.dq + flash.dkv"
         kernels.append(row)
     # K1 off bf16 d 64/128, a row per kernel, family label and dtype: the
-    # f32 SIMT kernels launched on the main path by the flash benchmark
-    # (e') (d 64); the wgmma fwd, dq and dkv padded to 64 by the tiny
+    # f32 kernels launched on the main path by the flash benchmark (e') (d
+    # 64: the tf32 forward, the SIMT dq and dkv); the wgmma fwd, dq and dkv padded to 64 by the tiny
     # GPT's training (e) (d 16); the D-256 wgmma fwd, dq and dkv by the
     # bf16 flash benchmark at d 256 (e''); the same kernels on the
     # zero-padded copy by the same at d 252 (e'''), timed with the copies
@@ -3355,7 +3391,7 @@ def main() -> int:
     # with the launches of the run at that shape; max_abs_err over (d)'s
     # cases of that kernel, label and dtype and the main path's shape;
     # library: SDPA as for the wgmma rows
-    launched = {"float32": seq["f32_simt"], "bfloat16": seq["tiny"],
+    launched = {"float32": seq["f32"], "bfloat16": seq["tiny"],
                 "bfloat16.d256": seq["d256"], "bfloat16.d252": seq["d252"]}
     seen = set()
     for tag, timed in simt_times.items():
@@ -3364,8 +3400,8 @@ def main() -> int:
         lib = timed["sdpa"]
         labels = {n: k1_label(fl, getattr(torch, dtype), d, n)
                   for n in ("fwd", "dq", "dkv")}
-        check(all((labels[n] == "simt") == (timed["family"][n] == "simt")
-                  for n in labels),
+        check(all(timed["family"][n] == (labels[n] if labels[n] in (
+                      "simt", "tf32") else "wgmma") for n in labels),
               f"K1 {tag}: launched {timed['family']}, routed {labels}")
         for name in ("fwd", "dq", "dkv"):
             label = labels[name]

@@ -96,10 +96,12 @@
 // of k1_fwd, k1_dq and k1_dkv are bf16 at any d from 8 to 256 with d %
 // 8 == 0; `stages` and `smem` are the ring's depth and the dynamic
 // shared memory in bytes (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at
-// the padded D). k1s_fwd, k1s_dq and k1s_dkv (the SIMT family at the end
-// of this file) take f32 or f16 at any D from 1 to 256 and `smem` from
-// `simt_smem`. A launcher refuses a byte count below what its layout
-// needs.
+// the padded D). k1f_fwd (the f32 forward in split TF32 on the tensor
+// cores, after the bf16 kernels) takes f32 at d from 4 to 64 with d % 4
+// == 0, `stages` and `smem` from `flash_plan`'s tf32_cta; k1s_fwd,
+// k1s_dq and k1s_dkv (the SIMT family at the end of this file) take f32
+// or f16 at any D from 1 to 256 and `smem` from `simt_smem`. A launcher
+// refuses a dtype, head dim or byte count its layout does not take.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -997,19 +999,22 @@ bool shape_ok(int b, int t, int h) {
 // bytes), at most the 256 columns of their widest instantiation
 bool padded_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
-// a [B, T, H, d] bf16 tensor read in boxes of (64 of d, 1 head, 64
-// rows, 1 batch), 128-byte swizzled, rows past T and columns past d
-// read as zeros; 0, or the negative code of the C interface
-int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d) {
+// a [B, T, H, d] bf16 tensor (f32 where `esz` is 4) read in boxes of
+// (128 bytes of d: 64 bf16 or 32 f32 values, 1 head, 64 rows, 1 batch),
+// 128-byte swizzled, rows past T and columns past d read as zeros; 0, or
+// the negative code of the C interface
+int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d,
+            int esz = 2) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return -1;
   const cuuint64_t dim[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
                              (cuuint64_t)b};
-  const cuuint64_t stride[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
-                                (cuuint64_t)t * h * d * 2};
-  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint64_t stride[3] = {(cuuint64_t)d * esz, (cuuint64_t)h * d * esz,
+                                (cuuint64_t)t * h * d * esz};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / esz), 1, kTile, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, esz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(p), dim, stride, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1117,13 +1122,460 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 
 // ---------------------------------------------------------------------------
-// The SIMT family: the f32 and f16 inputs, which the bf16 wgmma kernels
-// above do not take, at any head dim D from 1 to 256 (the reference's
-// kernels take any float dtype and any head dim). The same functions as k1_fwd,
-// k1_dq and k1_dkv, in f32 FMA arithmetic (f32 inputs compute in full
-// f32: no TF32, no rounding of p or ds), one simple shape for all three,
-// templated on the input type T and on C >= ceil(D / 32), the columns of
-// a row each lane owns (1, 2, 4 or 8). Making it fast is later work.
+// The f32 forward on the tensor cores (k1f_fwd): k1_fwd's function for
+// f32 q, k, v at head dims d from 4 to 64 with d % 4 == 0 (TMA's 16-byte
+// rule for a row stride of d * 4 bytes), o in f32, in split TF32
+// ("3xTF32"). Plain TF32 keeps 11 significant bits and misses f32's
+// tolerance; the split writes each operand x = hi + lo, hi = tf32(x) and
+// lo = tf32(x - hi) (both rounded to nearest, `tf32_rna`, so each is an
+// exact tf32 value however the tensor cores read an operand's low 13
+// bits), and forms a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b. Each tf32
+// product is exact in the f32 accumulator; what is lost is lo_a.lo_b and
+// lo's own rounding, about 2**-22 of |a.b|. The two small products go
+// first. `tests/test_torch_flash.py` emulates this arithmetic on the CPU
+// against the f32 tolerance (1e-5, 1e-5).
+//
+// Bound at the training shape (B 8, T 1024, H 12, d 64, causal): three
+// tf32 products for each of the 12.9 GFLOP of useful work at 495 TFLOP/s,
+// 0.0782 ms, by operations (`chip_smoke.py::k1_bound`).
+//
+// Design: k1_fwd<64>'s shape (consumer warpgroups each owning a 64-row
+// query tile, a producer streaming K and V tiles by TMA through a ring
+// of full/empty mbarriers, the union of the spans walked, edge tiles
+// masked, the online softmax in base 2 on the accumulators), with:
+// - a [64, 64] f32 tile as two 128-byte-swizzled boxes of 32 columns
+//   (TMA zero-fills the columns past d, a whole box at d <= 32);
+// - tf32 wgmma (m64n64k8), which takes no transpose bit, so both
+//   operands are K-major: S = Q K^T as stored, and O += P V with V
+//   stored transposed (V^T: keys contiguous);
+// - converters, two warps beside the producer's: once a stage's raw K
+//   and V have landed, they split K in place (hi) beside a K lo tile and
+//   write V^T hi and V^T lo (`transpose_v`), then arrive on the stage's
+//   `ready` barrier, which the consumers wait for; each consumer
+//   warpgroup splits its own Q tile the same way once;
+// - P split in registers. The S accumulator is not a tf32 A fragment: a
+//   thread holds keys 2 (lane % 4) and + 1 of each 8-key group, and the
+//   A fragment k indices lane % 4 and + 4. So V^T's key slots are
+//   permuted within each group of 8 (slot = key / 2 + 4 (key % 2)): the
+//   accumulator pair is then the fragment pair, and the sum over keys
+//   does not care about their order;
+// - each tile's P V into fresh accumulators, folded into O with f32
+//   FMAs (O = alpha O + P V), so no sum over more than one tile's 24
+//   tensor-core steps runs in an accumulator. The tensor cores' sums are
+//   not f32's, and their error grows with the steps summed: with O as
+//   the running sum across tiles (FlashAttention's form) o reached the
+//   f32 tolerance at T 4096 on the H100, and this form stays an order of
+//   magnitude inside it. P V is formed in two halves of 32 columns
+//   (m64n32k8), one after the other: with one 64-column accumulator
+//   beside O and P's hi and lo fragments (128 registers live) the kernel
+//   spilled 68 bytes (both: scripts/torch_k1f_accumulate.py).
+// Two query tiles a CTA: Q (hi, lo) of two tiles and two stages of (K,
+// K lo, V, V^T hi, V^T lo) take 224 KB of the 227 a block may use. The
+// CTA is 352 threads (two consumer warpgroups, the producer warp and two
+// converter warps); ptxas gives each thread 168 registers, as it does any
+// CTA of 9 to 12 warps (three warps on a quarter of the SM's registers):
+// a producer warpgroup with setmaxnreg 216 for the consumers did not
+// raise it (84 bytes spilled), as it did not for k1_fwd<256> and
+// k1_dkv<256>.
+// ---------------------------------------------------------------------------
+
+constexpr int kFQT = 2;                 // query tiles a CTA (F32_Q_TILES)
+constexpr int kFTile = kTile * 64 * 4;  // [64, 64] f32: two 8 KB boxes
+constexpr int kFStage = 5 * kFTile;     // K (hi), K lo, V, V^T hi, V^T lo
+constexpr int kFConvWarps = 2;          // converter warps
+constexpr int kFConsumers = kFQT * 128;
+constexpr int kFThreads = kFConsumers + 32 * (1 + kFConvWarps);
+constexpr int kFMaxD = 64;
+
+// byte offset of f32 element (r, c) in a [rows, 32] box with 128-byte
+// rows under the 128-byte swizzle: 16-byte chunk c / 4 of row r sits at
+// chunk (c / 4) ^ (r % 8)
+__device__ __forceinline__ int sw128_off32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+// x becomes hi = tf32(x); returns lo = tf32(x - hi)
+__device__ __forceinline__ float split_tf32(float& x) {
+  const float hi = tf32_rna(x);
+  const float lo = tf32_rna(x - hi);
+  x = hi;
+  return lo;
+}
+
+// a [64, 64] f32 tile (16 KB) split in place into hi, with lo at the same
+// offsets of `lo`: 16-byte vectors i0, i0 + step, ...
+__device__ __forceinline__ void split_tile(unsigned char* hi,
+                                           unsigned char* lo, int i0,
+                                           int step) {
+  for (int i = i0; i < kFTile / 16; i += step) {
+    float4 x = reinterpret_cast<float4*>(hi)[i];
+    float4 l;
+    l.x = split_tf32(x.x);
+    l.y = split_tf32(x.y);
+    l.z = split_tf32(x.z);
+    l.w = split_tf32(x.w);
+    reinterpret_cast<float4*>(hi)[i] = x;
+    reinterpret_cast<float4*>(lo)[i] = l;
+  }
+}
+
+// the raw [64 keys, 64] V tile at v (two boxes of 32 columns) into V^T's
+// hi and lo at vh and vl: [64 columns, 64 key slots], K-major, as two
+// boxes of 32 slots (keys 32 b .. 32 b + 31 in box b), slot = key / 2 + 4
+// (key % 2) within each group of 8 keys. Converter warp w takes the
+// 8-key groups kb = w, w + 2, ...: lane 16 par + cq reads keys 8 kb + par
+// + 2 i (i < 4) at columns 4 cq .. 4 cq + 3 (16-byte loads, conflict
+// free) and writes, for each of those columns, slots 8 (kb % 4) + 4 par
+// .. + 3 (16-byte stores)
+__device__ __forceinline__ void transpose_v(const unsigned char* v,
+                                            unsigned char* vh,
+                                            unsigned char* vl, int w,
+                                            int lane) {
+  const int par = lane >> 4, cq = lane & 15;
+  for (int kb = w; kb < kTile / 8; kb += kFConvWarps) {
+    float4 x[4];  // key 8 kb + par + 2 i, columns 4 cq ..
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(
+          v + (cq >> 3) * kBox + sw128_off32(8 * kb + par + 2 * i, 4 * cq));
+    const int s = 8 * (kb & 3) + 4 * par;  // the first slot in its box
+    const float4 cols[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                            make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                            make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                            make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int off = (kb >> 2) * kBox + sw128_off32(4 * cq + c, s);
+      float4 hi = cols[c], lo;
+      lo.x = split_tf32(hi.x);
+      lo.y = split_tf32(hi.y);
+      lo.z = split_tf32(hi.z);
+      lo.w = split_tf32(hi.w);
+      *reinterpret_cast<float4*>(vh + off) = hi;
+      *reinterpret_cast<float4*>(vl + off) = lo;
+    }
+  }
+}
+
+// One CTA: warpgroups 0 and 1 consume, each owning one 64-row query tile
+// of the group (2 p, 2 p + 1) of one (b, h); warp 8 produces: its first
+// thread issues every TMA copy (the group's Q tiles once, past the last
+// tile tile nq - 1 again; then the raw K and V tiles of the union of the
+// tiles' `_k_span`s into a ring of `stages` stages); warps 9 and 10
+// convert each stage (split K, V^T hi and lo) and arrive on `ready`. Per
+// key tile, a consumer warpgroup:
+//   1. S[64, 64] = Q K^T in split tf32: Q hi K lo, Q lo K hi, Q hi K hi,
+//      m64n64k8 over d, every operand from shared memory;
+//   2. masks S only on an edge tile, and runs k1_fwd's online softmax
+//      (base 2, the scale folded in; a row lives on the 4 lanes of a
+//      quad), keeping alpha, the factor of the old O;
+//   3. for each half of O's 64 columns, PV = P V in split tf32 into a
+//      fresh accumulator (P lo V^T hi, P hi V^T lo, P hi V^T hi, P's hi
+//      and lo from registers, V^T's from the stage, m64n32k8) and, once
+//      it has retired, O = alpha O + PV;
+//   4. releases the stage.
+// o is written in f32, d columns of each row at stride H d; lse (unless
+// null) as k1_fwd's. The last groups, whose causal spans are the
+// longest, launch first.
+__global__ void __launch_bounds__(kFThreads, 1)
+    k1f_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, float* o,
+                   float* lse, int t, int h, int d, float scale, int causal,
+                   int window, int stages) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sq = smem;                        // per tile: Q (hi), Q lo
+  unsigned char* ring = smem + kFQT * 2 * kFTile;  // stages x kFStage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kFStage);
+  uint64_t* ready = full + stages;
+  uint64_t* empty = ready + stages;
+  uint64_t* qfull = empty + stages;
+  const int nq = (t + kTile - 1) / kTile;
+  const int ngroups = (nq + kFQT - 1) / kFQT;
+  const int bhn = gridDim.x / ngroups;
+  const int grp = ngroups - 1 - (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo = nq, hi = 0;
+  for (int g = 0; g < kFQT; ++g) {
+    int a, b;
+    k_span(kFQT * grp + g, nq, causal, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kFConvWarps);
+      mbar_init(&empty[s], kFConsumers / 32);
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kFConsumers) {  // ---------------- producer, converters
+    const int w = (threadIdx.x - kFConsumers) >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == kFConsumers) {
+      mbar_expect_tx(qfull, kFQT * kFTile);
+      for (int g = 0; g < kFQT; ++g)
+        for (int p = 0; p < 2; ++p)
+          tma_load_4d(sq + 2 * g * kFTile + p * kBox, &tm_q, p * 32, hd,
+                      min(kFQT * grp + g, nq - 1) * kTile, bi, qfull);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int jk = lo; jk < hi; ++jk) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * kFStage;
+        mbar_expect_tx(&full[st], 2 * kFTile);
+        for (int p = 0; p < 2; ++p) {
+          tma_load_4d(s + p * kBox, &tm_k, p * 32, hd, jk * kTile, bi,
+                      &full[st]);
+          tma_load_4d(s + 2 * kFTile + p * kBox, &tm_v, p * 32, hd,
+                      jk * kTile, bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    } else if (w > 0) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int jk = lo; jk < hi; ++jk) {
+        mbar_wait(&full[st], ph);
+        unsigned char* s = ring + st * kFStage;
+        split_tile(s, s + kFTile, threadIdx.x - kFConsumers - 32,
+                   32 * kFConvWarps);
+        transpose_v(s + 2 * kFTile, s + 3 * kFTile, s + 4 * kFTile, w - 1,
+                    lane);
+        fence_proxy_async();  // the splits, before the consumers' wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[st]);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    const int g = threadIdx.x >> 7;
+    const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int iq = kFQT * grp + g;
+    const int row = iq * kTile + wq * 16 + (lane >> 2);  // and row + 8
+    const float sl2 = scale * kLog2e;
+    unsigned char* tq = sq + 2 * g * kFTile;
+    mbar_wait(qfull, 0);
+    split_tile(tq, tq + kFTile, threadIdx.x & 127, 128);
+    fence_proxy_async();
+    named_bar(1 + g, 128);
+    const uint64_t dqh = sw128_desc(tq, 16);
+    const uint64_t dql = sw128_desc(tq + kFTile, 16);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    int st = 0;
+    uint32_t ph = 0;
+    for (int jk = lo; jk < hi; ++jk) {
+      mbar_wait(&ready[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * kFStage;
+      const uint64_t dkh = sw128_desc(s, 16);
+      const uint64_t dkl = sw128_desc(s + kFTile, 16);
+      const uint64_t dvh = sw128_desc(s + 3 * kFTile, 16);
+      const uint64_t dvl = sw128_desc(s + 4 * kFTile, 16);
+      // k-step kk: box kk / 4, 32 bytes (8 values) kk % 4 into its rows
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_n64_tf32(sc, dqh + (kk / 4) * (kBox >> 4) + 2 * (kk % 4),
+                       dkl + (kk / 4) * (kBox >> 4) + 2 * (kk % 4), kk);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_n64_tf32(sc, dql + (kk / 4) * (kBox >> 4) + 2 * (kk % 4),
+                       dkh + (kk / 4) * (kBox >> 4) + 2 * (kk % 4), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_n64_tf32(sc, dqh + (kk / 4) * (kBox >> 4) + 2 * (kk % 4),
+                       dkh + (kk / 4) * (kBox >> 4) + 2 * (kk % 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      // register 4i + 2 half + c: row `row` + 8 half, key 8 i + 2 (lane % 4)
+      // + c of the tile
+      const bool edge =
+          (jk + 1) * kTile > t ||
+          (causal && (jk >= iq || (window >= 0 &&
+                                   (iq - jk) * kTile + kTile - 1 > window)));
+      float alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = jk * kTile + 8 * i + 2 * (lane & 3) + c;
+            float& x = sc[4 * i + 2 * half + c];
+            x = !edge || visible(r, key, t, causal, window) ? x * sl2
+                                                            : -CUDART_INF_F;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[half], quad_max(mx));
+        const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+        alpha[half] = exp2f(m[half] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * i + 2 * half + c];
+            x = exp2f(x - m_use);
+            sum += x;
+          }
+        l[half] = l[half] * alpha[half] + sum;  // this thread's columns
+        m[half] = m_new;
+      }
+      // P's hi and lo as tf32 A fragments: 8-key step j takes registers
+      // 4j, 4j + 2 (keys 2 (lane % 4), rows r and r + 8: k index lane % 4)
+      // and 4j + 1, 4j + 3 (keys + 1: k index lane % 4 + 4), which V^T's
+      // slot order matches
+      uint32_t pa[8][4], pb[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + (e >> 1) + 2 * (e & 1)];
+          pb[j][e] = __float_as_uint(split_tf32(x));
+          pa[j][e] = __float_as_uint(x);
+        }
+      // P V in two halves of 32 columns, each into a fresh 16-register
+      // accumulator folded into O once it has retired (one 64-column
+      // accumulator spilled: ptxas holds this kernel to 168 registers)
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        float pv[16];
+        const uint64_t vh = dvh + nh * (32 * 128 >> 4);  // V^T rows 32 nh..
+        const uint64_t vl = dvl + nh * (32 * 128 >> 4);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wgmma_n32_tf32_ra(pv, pb[j], vh + (j / 4) * (kBox >> 4) + 2 * (j % 4),
+                            j);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wgmma_n32_tf32_ra(pv, pa[j], vl + (j / 4) * (kBox >> 4) + 2 * (j % 4),
+                            1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wgmma_n32_tf32_ra(pv, pa[j], vh + (j / 4) * (kBox >> 4) + 2 * (j % 4),
+                            1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(pv);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          acc[16 * nh + i] = fmaf(acc[16 * nh + i], alpha[(i >> 1) & 1], pv[i]);
+      }
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    // o's rows have the caller's stride h d; only its first d columns
+    // are written (those past d belong to the next head)
+    const long long ld = (long long)h * d;
+    float* ob = o + (size_t)bi * t * ld + (size_t)hd * d;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half;
+      l[half] = quad_sum(l[half]);
+      const float inv = l[half] == 0.f ? 1.f : 1.f / l[half];
+      if (r >= t) continue;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * t + r] = m[half] * kLn2 + logf(l[half]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * (lane & 3);
+        if (col < d)
+          *reinterpret_cast<float2*>(ob + (size_t)r * ld + col) =
+              make_float2(acc[4 * i + 2 * half] * inv,
+                          acc[4 * i + 2 * half + 1] * inv);
+      }
+    }
+  }
+}
+
+// the dynamic shared memory k1f_fwd's layout needs at `stages` stages:
+// two Q tiles with their lo, the ring, 3 stages + 1 mbarriers and 1 KB of
+// slack for the 1024-byte alignment (`tf32_smem` rounds the mbarriers up
+// to 128 bytes)
+long long f32_fwd_smem(int stages) {
+  return (long long)(2 * kFQT) * kFTile + (long long)stages * kFStage +
+         8 * (3 * stages + 1) + 1024;
+}
+
+int f32_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+            int b, int t, int h, int d, float scale, int causal, int window,
+            int stages, long long smem, void* stream) {
+  if (stages < 2 || stages > kStagesMax || smem < f32_fwd_smem(stages))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1f_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // first, as in fwd
+  if (e) return e;
+  CUtensorMap tq, tk, tv;
+  e = seq_map(&tq, q, b, t, h, d, 4);
+  if (!e) e = seq_map(&tk, k, b, t, h, d, 4);
+  if (!e) e = seq_map(&tv, v, b, t, h, d, 4);
+  if (e) return e;
+  const int nq = (t + kTile - 1) / kTile;
+  k1f_fwd_kernel<<<(nq + kFQT - 1) / kFQT * b * h, kFThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), t, h, d,
+      scale, causal, window, stages);
+  return (int)cudaGetLastError();
+}
+
+// the probe: d[64, 8] = a[64, 8] . b[8, 8]^T (row-major f32, b as [n,
+// k]) through one tf32 wgmma (m64n8k8, both operands from shared memory,
+// 128-byte swizzled, given as they are): how the tensor cores read the
+// low 13 bits of an f32 operand
+__global__ void __launch_bounds__(128) k1f_probe_kernel(const float* a,
+                                                        const float* b,
+                                                        float* d) {
+  __shared__ __align__(1024) unsigned char sa[64 * 128];
+  __shared__ __align__(1024) unsigned char sb[8 * 128];
+  for (int i = threadIdx.x; i < 64 * 32; i += 128)
+    *reinterpret_cast<float*>(sa + sw128_off32(i / 32, i % 32)) =
+        i % 32 < 8 ? a[(i / 32) * 8 + i % 32] : 0.f;
+  for (int i = threadIdx.x; i < 8 * 32; i += 128)
+    *reinterpret_cast<float*>(sb + sw128_off32(i / 32, i % 32)) =
+        i % 32 < 8 ? b[(i / 32) * 8 + i % 32] : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  wgmma_fence();
+  wgmma_n8_tf32(acc, sw128_desc(sa, 16), sw128_desc(sb, 16));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2), c = 2 * (lane & 3);
+  d[r * 8 + c] = acc[0];
+  d[r * 8 + c + 1] = acc[1];
+  d[(r + 8) * 8 + c] = acc[2];
+  d[(r + 8) * 8 + c + 1] = acc[3];
+}
+
+
+// ---------------------------------------------------------------------------
+// The SIMT family: the f32 and f16 calls that the wgmma kernels above do
+// not take — f32 dq and dkv, the f32 forward at head dims k1f_fwd does
+// not take, and all of f16 — at any head dim D from 1 to 256 (the
+// reference's kernels take any float dtype and any head dim). The same
+// functions as k1_fwd, k1_dq and k1_dkv, in f32 FMA arithmetic (f32
+// inputs compute in full f32: no TF32, no rounding of p or ds), one
+// simple shape for all three, templated on the input type T and on C >=
+// ceil(D / 32), the columns of a row each lane owns (1, 2, 4 or 8). The
+// f32 dq and dkv move onto the tensor cores next (split TF32, as
+// k1f_fwd).
 //
 // A CTA is 4 warps and owns 16 rows of one (b, h): query rows for fwd and
 // dq, key rows for dkv; each warp owns 4 of them. The other side streams
@@ -1644,10 +2096,11 @@ int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // the SIMT family: dtype 0 f32, 2 f16 (1, bf16, is refused: it runs on
-// the wgmma kernels); any d from 1 to 256; the same operands, layouts
-// and results as k1_fwd, k1_dq and k1_dkv, and
-// `smem` bytes of dynamic shared memory (`simt_smem`); a CTA per 16 rows
-// of each (b, h)
+// the wgmma kernels; the wrappers send the f32 forward at d % 4 == 0 up
+// to 64 to k1f_fwd, though this one takes it too); any d from 1 to 256;
+// the same operands, layouts and results as k1_fwd, k1_dq and k1_dkv,
+// and `smem` bytes of dynamic shared memory (`simt_smem`); a CTA per 16
+// rows of each (b, h)
 int k1s_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             void* lse, int b, int t, int h, int d, float scale, int causal,
             int window, long long smem, void* stream) {
@@ -1671,6 +2124,29 @@ int k1s_dkv(int dtype, const void* q, const void* k, const void* v,
   K1S_DISPATCH(simt_dkv, dtype, d, q, k, v, dout, lse, delta, dk, dv, b, t, h,
                d, scale, causal, window, smem,
                static_cast<cudaStream_t>(stream));
+}
+
+// the f32 forward on the tensor cores (split TF32): k1_fwd's operands,
+// layouts and results for dtype 0 (f32; any other code is refused) at d
+// from 4 to 64 with d % 4 == 0; a CTA per pair of query tiles of each
+// (b, h), a ring of `stages` stages in `smem` bytes (`flash_plan`'s
+// tf32_cta)
+int k1f_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+            void* lse, int b, int t, int h, int d, float scale, int causal,
+            int window, int stages, long long smem, void* stream) {
+  if (dtype != 0 || !shape_ok(b, t, h) || d < 4 || d > kFMaxD || d % 4)
+    return (int)cudaErrorInvalidValue;
+  return f32_fwd(q, k, v, o, lse, b, t, h, d, scale, causal, window, stages,
+                 smem, stream);
+}
+
+// d[64, 8] = a[64, 8] . b[8, 8]^T through one tf32 wgmma, the f32
+// operands handed to the tensor cores as they are (k1f_probe_kernel)
+int k1f_tf32_probe(const void* a, const void* b, void* d, void* stream) {
+  k1f_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(d));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma
 // pipelines (fused_ce.cu, flash.cu) and R1's bulk-copy stream
 // (stream.cu): mbarriers, TMA copies (tensor boxes and 1-D bulk), register
-// reallocation, wgmma (operands from shared memory or A from registers),
-// the 128-byte swizzle, thread-block clusters and their distributed
-// shared memory, and the host-side lookup of the tensor-map encoder.
+// reallocation, wgmma on bf16 and on tf32 (operands from shared memory or
+// A from registers), tf32 rounding, the 128-byte swizzle, thread-block
+// clusters and their distributed shared memory, and the host-side lookup
+// of the tensor-map encoder.
 // Everything sits in an unnamed namespace: each kernel library includes
 // its own copy.
 //
@@ -430,6 +431,78 @@ __device__ __forceinline__ void wgmma_n256_ra(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB),
         "r"(1));
+}
+
+// ------------------------------------------------------ wgmma, tf32 inputs
+// An operand holds tf32 values as f32 bit patterns. tf32 takes no
+// transpose: A and B are both K-major, and a 128-byte swizzle row holds
+// 32 values, four k-steps of 8 (a step moves a descriptor by 2, as a
+// bf16 k16 step does).
+
+// x rounded to tf32, to nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32), in two integer operations: half a tf32 ulp added
+// to the magnitude, then the low 13 bits cleared. For finite x
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// D[64, 64] (+)= A[64, 8] . B[8, 64], tf32 in, f32 accumulators, both
+// operands from shared memory (K-major descriptors)
+__device__ __forceinline__ void wgmma_n64_tf32(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64, 32] (+)= A[64, 8] . B[8, 32] with A from registers: a[] holds
+// this thread's tf32 values in mma.sync's m16n8k8 tf32 A layout for its
+// warp's 16 rows — a[0] (row lane / 4, column lane % 4), a[1] (row + 8,
+// the same column), a[2] (the row, column + 4), a[3] (row + 8, column +
+// 4) — which is NOT the layout of an f32 accumulator's columns
+// (2 (lane % 4) and + 1)
+__device__ __forceinline__ void wgmma_n32_tf32_ra(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64, 8] = A[64, 8] . B[8, 8], tf32 in, both from shared memory (the
+// narrowest tf32 product: a probe of how the tensor cores read an operand)
+__device__ __forceinline__ void wgmma_n8_tf32(float (&d)[4], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 // pins accumulator registers after wgmma_wait: the compiler may not move

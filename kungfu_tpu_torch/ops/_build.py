@@ -82,6 +82,12 @@ KERNELS = {
         # dtype code, then k1_dkv's operands ... window, smem, stream
         "k1s_dkv": (_I, [_I] + [_P] * 8 + [_I] * 4 + [ctypes.c_float]
                     + [_I] * 2 + [_LL, _P]),
+        # the f32 forward in split TF32: dtype code, then k1_fwd's
+        # operands ... window, stages, smem, stream
+        "k1f_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float]
+                    + [_I] * 3 + [_LL, _P]),
+        # a, b, d, stream: one tf32 wgmma on raw f32 operands
+        "k1f_tf32_probe": (_I, [_P] * 4),
     }),
     "stream": ("stream.cu", {
         # x, o, n, grid, chunk_bytes, stages, smem, chunks, tail,

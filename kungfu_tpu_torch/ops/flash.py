@@ -16,8 +16,8 @@ On the TPU the resident and stream schemes exist because of the 16 MB
 VMEM limit; on Hopper one kernel per direction replaces both, so there
 is no scheme to pick.
 
-Two families, picked per kernel by `route` from the dtype and the head
-dim (the reference's kernels take any float dtype and any head dim):
+Three families, picked per kernel by `route` from the dtype and the
+head dim (the reference's kernels take any float dtype and any head dim):
 
 - ``wgmma``: bf16 at every head dim from 1 to 256 — the TMA + wgmma
   pipelines (``k1_fwd``, ``k1_dq``, ``k1_dkv``), compiled for head dims
@@ -31,12 +31,19 @@ dim (the reference's kernels take any float dtype and any head dim):
   same function, since zero columns add nothing to the scores, dP or
   delta. The copy runs on every device, so the CPU's plain versions see
   the operands the card's kernels see;
-- ``simt``: f32 and f16, every head dim from 1 to `SIMT_MAX_D` (256) —
-  one simple kernel family in f32 FMA arithmetic (``k1s_fwd``,
+- ``tf32``: the f32 forward at head dims 4 to `TF32_MAX_D` (64) with
+  d % 4 == 0 (``k1f_fwd``) — the same TMA + wgmma shape on the tensor
+  cores in split TF32 (3xTF32: each operand as hi + lo, three tf32
+  products, which keeps f32's tolerance where plain TF32 would not),
+  two query tiles a CTA (`TF32_Q_TILES`), its CTA in `flash_plan`'s
+  ``tf32_cta``;
+- ``simt``: every other f32 call (dq and dkv, and the forward at the
+  other head dims) and all of f16, every head dim from 1 to `SIMT_MAX_D`
+  (256) — one simple kernel family in f32 FMA arithmetic (``k1s_fwd``,
   ``k1s_dq``, ``k1s_dkv``; f32 inputs compute in full f32, no TF32), a
   CTA per 16 rows of one (b, h).
 
-Both fold B*H into the first grid dimension, so B*H may exceed 65535.
+All fold B*H into the first grid dimension, so B*H may exceed 65535.
 
 The one way to plain attention is the reference's own rule: a length
 that does not tile (`tiles`, a copy of the reference's `_tiles` with its
@@ -56,8 +63,8 @@ and return the input dtype. CUDA
 tensors launch a kernel of the family `route` picks, or raise
 ValueError (f64, a head dim above 256): there is no fallback from the
 card to the plain versions. `LAUNCHES` counts kernel launches per
-kernel (both families) and plain calls; `SIMT_LAUNCHES` the SIMT
-family's share by kernel and dtype.
+kernel (every family) and plain calls; `SIMT_LAUNCHES` and
+`TF32_LAUNCHES` the SIMT and tf32 families' shares by kernel and dtype.
 """
 
 from __future__ import annotations
@@ -113,6 +120,20 @@ _ROWS = 2 * BLOCK_Q * 4
 SIMT_DTYPES = {torch.float32: 0, torch.float16: 2}
 SIMT_MAX_D = 256
 SIMT_ROWS, SIMT_KEYS, SIMT_THREADS = 16, 32, 128
+#: the tf32 family (`route`): the f32 forward at head dims 4 to
+#: TF32_MAX_D with d % 4 == 0 (TMA's 16-byte rule for a row stride of
+#: d * 4 bytes; the columns past d zero-filled, as the bf16 kernels'),
+#: compiled for head dim 64. Its CTA (k1f_fwd_kernel): TF32_Q_TILES
+#: consumer warpgroups, each one 64-row query tile, beside a producer
+#: warp whose first thread streams K and V by TMA and two converter warps
+#: that split each stage into hi and lo (TF32_THREADS in all);
+#: TF32_STAGES ring stages of five [64, 64] f32 tiles (K hi, K lo, V, V^T
+#: hi, V^T lo)
+TF32_MAX_D = 64
+TF32_Q_TILES, TF32_STAGES = 2, 2
+TF32_THREADS = TF32_Q_TILES * 128 + 3 * 32
+#: one [64, 64] f32 tile: two 128-byte-swizzled boxes of 32 columns
+_F32_TILE = BLOCK_Q * 64 * 4
 #: the reference's tile rule (`tiles`): the longest auto block and the
 #: smallest one it shrinks to, and its VMEM budget (`_VMEM_BUDGET`)
 TILE_CAP, TILE_FLOOR = 1024, 128
@@ -123,6 +144,8 @@ VMEM_BUDGET = 15 * 1024 * 1024
 LAUNCHES: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0, "plain": 0}
 #: the SIMT family's launches among LAUNCHES', as ``"fwd.float32"``
 SIMT_LAUNCHES: Dict[str, int] = {}
+#: the tf32 family's launches among LAUNCHES', as ``"fwd.float32"``
+TF32_LAUNCHES: Dict[str, int] = {}
 #: calls the tile rule sent to plain attention
 UNTILED: Dict[str, int] = {"calls": 0}
 
@@ -131,6 +154,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SIMT_LAUNCHES.clear()
+    TF32_LAUNCHES.clear()
     UNTILED["calls"] = 0
 
 
@@ -384,14 +408,26 @@ def wgmma_dim(dtype: torch.dtype, d: int, kernel: str) -> Optional[int]:
     return padded_dim(d)
 
 
+def tf32_takes(dtype: torch.dtype, d: int, kernel: str) -> bool:
+    """Whether the tf32 family runs `kernel` in `dtype` at head dim `d`:
+    the f32 forward at d from 4 to `TF32_MAX_D` with d % 4 == 0."""
+    if kernel not in KERNELS:
+        raise ValueError(f"no flash-attention kernel {kernel!r}")
+    return (kernel == "fwd" and dtype == torch.float32
+            and 4 <= d <= TF32_MAX_D and d % 4 == 0)
+
+
 def route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The family that runs `kernel` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     in `dtype` at head dim `d`: ``"wgmma"`` where `wgmma_dim` names a
-    kernel (bf16 at any d from 1 to 256), ``"simt"`` for f32 and f16 at a
-    head dim from 1 to `SIMT_MAX_D`; ValueError for anything else (f64, a
-    wider head)."""
+    kernel (bf16 at any d from 1 to 256), ``"tf32"`` where `tf32_takes`
+    (the f32 forward at d % 4 == 0 up to 64), ``"simt"`` for the rest of
+    f32 and f16 at a head dim from 1 to `SIMT_MAX_D`; ValueError for
+    anything else (f64, a wider head)."""
     if wgmma_dim(dtype, d, kernel) is not None:
         return "wgmma"
+    if tf32_takes(dtype, d, kernel):
+        return "tf32"
     if dtype in SIMT_DTYPES and 1 <= d <= SIMT_MAX_D:
         return "simt"
     raise ValueError(f"no flash-attention kernel for {dtype} at head_dim "
@@ -438,6 +474,19 @@ def simt_smem(kernel: str, d: int) -> int:
     return 4 * (tile + own + (2 * SIMT_KEYS if kernel == "dkv" else 0))
 
 
+def tf32_smem(stages: Optional[int] = None) -> int:
+    """Dynamic shared memory of the tf32 forward's CTA at `stages`
+    (default TF32_STAGES) ring stages: Q and its lo for each of its
+    TF32_Q_TILES query tiles, five [64, 64] f32 tiles a stage, the full,
+    ready and empty mbarriers of each stage and the Q barrier (rounded to
+    128 bytes), and 1 KB of slack for the 1024-byte alignment (230,528
+    bytes at two stages)."""
+    stages = TF32_STAGES if stages is None else stages
+    bars = 8 * (3 * stages + 1)
+    return ((2 * TF32_Q_TILES + 5 * stages) * _F32_TILE
+            + -(-bars // 128) * 128 + 1024)
+
+
 def flash_plan(t: int, d: int, causal: bool = False,
                window: Optional[int] = None, dtype=torch.bfloat16):
     """The port's tiles at length `t` and head dim `d`, and the tiles
@@ -458,11 +507,14 @@ def flash_plan(t: int, d: int, causal: bool = False,
 
     ``route`` is the family each kernel launches in `dtype` at head dim
     `d` (`route`; None where none takes it): the wgmma CTAs above, else
-    ``simt_cta`` — every head dim from 1 to `SIMT_MAX_D` in f32 or f16,
-    16 rows a CTA, 32 keys a staged tile, 128 threads, shared memory by
-    kernel (`simt_smem`). ``tiles`` is the reference's tile rule at this
-    length (`tiles`): None sends `flash_attention` to plain
-    attention."""
+    ``tf32_cta`` (where the forward routes ``"tf32"``: f32 at d % 4 ==
+    0 up to 64, else None) — compiled for head dim 64, its query tiles,
+    the streamed key tile, threads, ring stages, shared memory
+    (`tf32_smem`) and CTAs per (b, h) — or ``simt_cta`` — every head dim
+    from 1 to `SIMT_MAX_D` in f32 or f16, 16 rows a CTA, 32 keys a
+    staged tile, 128 threads, shared memory by kernel (`simt_smem`).
+    ``tiles`` is the reference's tile rule at this length (`tiles`): None
+    sends `flash_attention` to plain attention."""
     _check_window(causal, window)
     nq, nk = -(-t // BLOCK_Q), -(-t // BLOCK_K)
     span = dict(causal=causal, window=window, block_q=BLOCK_Q,
@@ -498,6 +550,12 @@ def flash_plan(t: int, d: int, causal: bool = False,
             plan["route"][name] = route(dtype, d, name)
         except ValueError:
             plan["route"][name] = None
+    plan["tf32_cta"] = ({
+        "head_dim": TF32_MAX_D, "q_tiles": TF32_Q_TILES,
+        "key_tile": BLOCK_K, "threads": TF32_THREADS,
+        "stages": TF32_STAGES, "smem": tf32_smem(),
+        "ctas_per_head": -(-nq // TF32_Q_TILES)}
+        if plan["route"]["fwd"] == "tf32" else None)
     simt = 1 <= d <= SIMT_MAX_D
     plan["simt_cta"] = {
         "rows": SIMT_ROWS, "keys": SIMT_KEYS, "threads": SIMT_THREADS,
@@ -696,7 +754,7 @@ def _check(kernel, q, seqs, rows=None):
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
     b, t, h, d = q.shape
     family = route(q.dtype, d, kernel)
-    rows_a_cta = BLOCK_Q if family == "wgmma" else SIMT_ROWS
+    rows_a_cta = SIMT_ROWS if family == "simt" else BLOCK_Q
     if b * h * -(-t // rows_a_cta) > 2**31 - 1:
         raise ValueError(f"B*H = {b * h} at T = {t} exceeds the grid's "
                          f"2**31 - 1 CTAs")
@@ -707,9 +765,10 @@ def _check(kernel, q, seqs, rows=None):
     return b, t, h, d, family
 
 
-def _launch(name, fn, *args, dtype=None):
-    """Call launcher `fn` and count the launch (`dtype`: a SIMT launch,
-    counted in SIMT_LAUNCHES too)."""
+def _launch(name, fn, *args, dtype=None, counter=SIMT_LAUNCHES):
+    """Call launcher `fn` and count the launch (`dtype`: a launch of the
+    family whose count by kernel and dtype is `counter`, SIMT_LAUNCHES
+    or TF32_LAUNCHES, counted there too)."""
     err = fn(*args)
     if err:
         why = ("cuTensorMapEncodeTiled not found in libcuda"
@@ -720,7 +779,7 @@ def _launch(name, fn, *args, dtype=None):
     LAUNCHES[name] += 1
     if dtype is not None:
         key = f"{name}.{str(dtype).split('.')[-1]}"
-        SIMT_LAUNCHES[key] = SIMT_LAUNCHES.get(key, 0) + 1
+        counter[key] = counter.get(key, 0) + 1
 
 
 def _common(q, causal, scale, window):
@@ -735,9 +794,10 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
               save_lse=True):
     """`_flash_fwd_impl`: ``(o, lse | None)`` — o like q, lse ``[B*H,
     T]`` f32 when `save_lse` (the no-grad forward skips it). CPU tensors
-    run `plain_fwd`; CUDA tensors launch the kernel. A bf16 head dim d %
-    8 != 0 runs on a zero-padded copy (`copy_width`) at the caller's
-    scale, 1/sqrt(d) by default, and o keeps the caller's d."""
+    run `plain_fwd`; CUDA tensors launch the kernel of the family `route`
+    picks (`k1_fwd`, `k1f_fwd` or `k1s_fwd`). A bf16 head dim d % 8 != 0
+    runs on a zero-padded copy (`copy_width`) at the caller's scale,
+    1/sqrt(d) by default, and o keeps the caller's d."""
     d = q.shape[-1]
     width = copy_width(q.dtype, d)
     if width != d:
@@ -759,6 +819,10 @@ def flash_fwd(q, k, v, causal=False, scale=None, window=None,
             _launch("fwd", _lib().k1_fwd, *ptrs,
                     FWD_STAGES[padded_dim(d)], fwd_smem(d),
                     _build.stream(q.device))
+        elif family == "tf32":
+            _launch("fwd", _lib().k1f_fwd, SIMT_DTYPES[q.dtype], *ptrs,
+                    TF32_STAGES, tf32_smem(), _build.stream(q.device),
+                    dtype=q.dtype, counter=TF32_LAUNCHES)
         else:
             _launch("fwd", _lib().k1s_fwd, SIMT_DTYPES[q.dtype], *ptrs,
                     simt_smem("fwd", d), _build.stream(q.device),

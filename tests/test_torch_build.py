@@ -61,3 +61,22 @@ def test_kernel_split_variants_apply_to_the_current_sources(lib, name):
     changes the source."""
     src = (_build.CSRC / _build.KERNELS[lib][0]).read_text()
     assert _EDITS[lib, name](src) != src
+
+
+def _k1f_accumulate():
+    import importlib.util
+    path = _build.CSRC.parents[1] / "scripts" / "torch_k1f_accumulate.py"
+    spec = importlib.util.spec_from_file_location("k1f_accumulate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["across_tiles", "one_accumulator"])
+def test_k1f_accumulate_variants_apply_to_the_current_source(name):
+    """`scripts/torch_k1f_accumulate.py` builds `flash.cu` with the tf32
+    forward's P V product edited (O as the tensor cores' running sum, or
+    one 64-column accumulator): each edit still finds its passages (it
+    raises otherwise) and changes the source."""
+    src = (_build.CSRC / "flash.cu").read_text()
+    assert _k1f_accumulate().VARIANTS[name](src) != src

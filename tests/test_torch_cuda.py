@@ -600,11 +600,14 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
     """The SIMT family (f32 and f16) against the plain versions on the
     same inputs, within SIMT_TOL: fwd's o and lse, dq and delta from the
     kernel's (o, lse), dk and dv from its delta; a second launch of each
-    bitwise equal to the first. bf16 runs on the wgmma family at every
-    head dim (d 16, 32, 96, 256 padded by TMA; d 1, 4, 20, 100 and 252
-    through a zero-padded copy of ceil(d / 8) * 8 columns at the
-    caller's scale), held within `fl.kernel_error_bounds` of the plain
-    versions in f32 at the caller's d, with no SIMT launch."""
+    bitwise equal to the first. The f32 forward at d % 4 == 0 up to 64
+    (d 64, 8, 16, 32 here) runs on the tf32 family, held to the same
+    TOL; SIMT keeps the f32 forward at d 128, 256 and 7, f16, and every
+    f32 dq and dkv. bf16 runs on the wgmma family at every head dim (d
+    16, 32, 96, 256 padded by TMA; d 1, 4, 20, 100 and 252 through a
+    zero-padded copy of ceil(d / 8) * 8 columns at the caller's scale),
+    held within `fl.kernel_error_bounds` of the plain versions in f32 at
+    the caller's d, with no SIMT launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _simt_inputs(cuda, dtype, b, t, h, d, seed=t + d)
     fl.reset_launches()
@@ -617,16 +620,20 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
         runs.append((o, lse, dq, delta, dk, dv))
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
-    simt = [n for n in ("fwd", "dq", "dkv")
-            if fl.route(dtype, d, n) == "simt"]
+    family = {n: fl.route(dtype, d, n) for n in ("fwd", "dq", "dkv")}
+    simt = [n for n in family if family[n] == "simt"]
     assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in simt}
+    assert fl.TF32_LAUNCHES == {f"{n}.{name}": 2 for n in family
+                                if family[n] == "tf32"}
+    assert (family["fwd"] == "tf32") == (
+        dtype == torch.float32 and d <= 64 and d % 4 == 0)
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
     o, lse, dq, delta, dk, dv = runs[0]
     f = [x.float() for x in (q, k, v, do)]
-    if "fwd" in simt:
+    if family["fwd"] != "wgmma":
         ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
         _close("o", o, ro, dtype)
         _close("lse", lse, rlse, torch.float32)
@@ -797,7 +804,10 @@ def test_k1_padded_refuses_what_tma_cannot_read(cuda):
     every kernel (the wrappers bring a bf16 d % 8 != 0 to it through a
     zero-padded copy), and dkv takes d 136 and 256 (its D-256 kernel).
     The SIMT family refuses bf16 (dtype code 1): the wgmma kernels run
-    every bf16 call."""
+    every bf16 call. The tf32 forward (`k1f_fwd`) refuses every dtype
+    code but f32's 0 (bf16 1, f16 2), a head dim off its rule (d 68 > 64,
+    d 6 % 4 != 0) and shared memory short of its layout, and takes f32
+    at d 64 with `fl.tf32_smem()`."""
     b, t, h, d = 1, 64, 2, 16
     q, k, v, do = _k1_inputs(cuda, b, t, h, d)
     buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
@@ -842,7 +852,140 @@ def test_k1_padded_refuses_what_tma_cannot_read(cuda):
                           dk2.data_ptr(), dv2.data_ptr(), b, t, h, dd, 0.25,
                           1, -1, fl.BWD_STAGES[256], fl.dkv_smem(256),
                           stream) == 0
+    f = torch.randn(b, t, h, 68, device=cuda)
+    fo = torch.empty_like(f)
+    for code, dd, stages, smem in (
+            (1, 64, fl.TF32_STAGES, fl.tf32_smem()),
+            (2, 64, fl.TF32_STAGES, fl.tf32_smem()),
+            (0, 68, fl.TF32_STAGES, fl.tf32_smem()),
+            (0, 6, fl.TF32_STAGES, fl.tf32_smem()),
+            (0, 64, fl.TF32_STAGES, fl.tf32_smem() - 1200),
+            (0, 64, 1, fl.tf32_smem()),
+            (0, 0, fl.TF32_STAGES, fl.tf32_smem())):
+        assert lib.k1f_fwd(code, f.data_ptr(), f.data_ptr(), f.data_ptr(),
+                           fo.data_ptr(), lse.data_ptr(), b, t, h, dd, 0.25,
+                           1, -1, stages, smem, stream) != 0, (code, dd)
+    assert lib.k1f_fwd(0, f.data_ptr(), f.data_ptr(), f.data_ptr(),
+                       fo.data_ptr(), lse.data_ptr(), b, t, h, 64, 0.25, 1,
+                       -1, fl.TF32_STAGES, fl.tf32_smem(), stream) == 0
     torch.cuda.synchronize()
+
+
+#: the tf32 forward's cases: head dims on its rule (d % 4 == 0 up to
+#: 64; at d <= 32 the second 32-column box lies wholly past d), lengths
+#: of one tile, ragged, past a ring of two stages and the training one
+TF32_DS = (4, 8, 32, 60, 64)
+TF32_TS = (64, 100, 257, 1024)
+#: an f32 NaN pattern no kernel writes: the tf32 launches' guards
+F32_SENTINEL = 0x7FC0DEAD
+
+
+def _f32_inputs(device, b, t, h, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g).to(device)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("t", TF32_TS)
+@pytest.mark.parametrize("mode", sorted(PADDED_MODES))
+@pytest.mark.parametrize("d", TF32_DS)
+def test_k1_tf32_fwd_matches_plain_forward(cuda, d, mode, t):
+    """The f32 forward on the tensor cores in split TF32 (`k1f_fwd`, the
+    tf32 family) against `plain_fwd` on the same f32 inputs within
+    TOL[float32] = (1e-5, 1e-5) for o and lse, causal, full and windowed:
+    one launch each through `flash_fwd` with and without the lse (the
+    same o bit for bit), a second launch bitwise equal, no SIMT launch.
+    Launched once more through the C interface into an o whose every
+    element and a tail past it start as F32_SENTINEL: every element is
+    written with the wrapper's value and the tail is untouched, so no
+    column past d (the next head's) is written."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window = PADDED_MODES[mode]
+    b, h = 2, 3
+    q, k, v = _f32_inputs(cuda, b, t, h, d, seed=t + d)
+    assert fl.route(torch.float32, d, "fwd") == "tf32"
+    fl.reset_launches()
+    o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+    o2, lse2 = fl.flash_fwd(q, k, v, causal, None, window)
+    o3, none = fl.flash_fwd(q, k, v, causal, None, window, save_lse=False)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 3, "dq": 0, "dkv": 0, "plain": 0}
+    assert fl.TF32_LAUNCHES == {"fwd.float32": 3}
+    assert fl.SIMT_LAUNCHES == {} and none is None
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o3)
+    ro, rlse = fl.plain_fwd(q, k, v, causal, None, window)
+    _close("o", o, ro, torch.float32)
+    _close("lse", lse, rlse, torch.float32)
+    buf = torch.full((o.numel() + 256,), F32_SENTINEL, dtype=torch.int32,
+                     device=cuda)
+    go, tail = buf[:o.numel()].view(o.shape), buf[o.numel():]
+    lse4 = torch.empty_like(lse)
+    assert fl._lib().k1f_fwd(
+        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
+        lse4.data_ptr(), b, t, h, d, 1 / d ** 0.5, int(causal),
+        -1 if window is None else window, fl.TF32_STAGES, fl.tf32_smem(),
+        _build.stream(cuda)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(go, o.view(torch.int32))
+    assert bool((tail == F32_SENTINEL).all())
+    assert torch.equal(lse4, lse)
+
+
+def test_k1_tf32_fwd_folds_bh_above_65535(cuda):
+    """B * H = 66000 (B 1100, H 60, T 64, d 64) on the tf32 forward: the
+    grid folds B * H into its first dimension; o and lse on two slices of
+    rows within TOL[float32] of `plain_fwd`, a second launch bitwise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _f32_inputs(cuda, 1100, 64, 60, 64, seed=7)
+    fl.reset_launches()
+    o, lse = fl.flash_fwd(q, k, v, True)
+    o2, _ = fl.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fl.TF32_LAUNCHES == {"fwd.float32": 2}
+    assert torch.equal(o, o2)
+    rows = lse.reshape(1100, 60, 64)
+    for lo in (0, 1050):
+        sl = slice(lo, lo + 50)
+        ro, rlse = fl.plain_fwd(q[sl], k[sl], v[sl], True)
+        _close("o", o[sl], ro, torch.float32)
+        _close("lse", rows[sl].reshape(-1, 64), rlse, torch.float32)
+
+
+def test_k1_tf32_probe_reads_raw_f32_operands(cuda):
+    """How one tf32 wgmma (m64n8k8, `k1f_tf32_probe`) reads an f32
+    operand whose low 13 bits are set: row r of a holds +-(1 + r 2**-13)
+    in column 0 (every pattern of the three bits below a tf32 ulp at 1,
+    2**-10, with both signs), and b's only nonzero is b[0, 0] = 1, so
+    d[:, 0] is a[:, 0] as read and the other columns are 0. The product is the tensor
+    cores' reading of a: its low 13 bits dropped (truncation) or rounded
+    to nearest (ties away or to even) — not f32. k1f_fwd hands it only exact tf32 values (its
+    hi and lo are rounded in the kernel), so its results do not depend
+    on which; the test names it for the record."""
+    a = torch.zeros(64, 8, dtype=torch.float64)
+    r = torch.arange(64, dtype=torch.float64)
+    a[:, 0] = (1 + (r % 32) * 2.0 ** -13) * torch.where(r < 32, 1.0, -1.0)
+    a = a.float()
+    b = torch.zeros(8, 8)
+    b[0, 0] = 1.0
+    ca, cb = a.to(cuda), b.to(cuda)
+    out = torch.full((64, 8), float("nan"), device=cuda)
+    assert fl._lib().k1f_tf32_probe(ca.data_ptr(), cb.data_ptr(),
+                                    out.data_ptr(), _build.stream(cuda)) == 0
+    torch.cuda.synchronize()
+    got = out.cpu()[:, 0]
+    bits = a[:, 0].contiguous().view(torch.int32)
+    rules = {
+        "truncation": bits & -0x2000,
+        "rounding to nearest, ties away": (bits + 0x1000) & -0x2000,
+        "rounding to nearest, ties to even":
+            (bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000}
+    rule = [n for n, x in rules.items()
+            if torch.equal(got, x.view(torch.float32))]
+    print(f"tf32 wgmma reads a raw f32 operand by {rule}")
+    assert len(rule) == 1, (got, rules)
+    assert bool((out.cpu()[:, 1:] == 0).all())
 
 
 # ---------------------------------------------------------------------------

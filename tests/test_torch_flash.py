@@ -550,14 +550,19 @@ def test_untiled_lengths_take_plain_attention_and_are_counted():
 
 _SIMT3 = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
 _WGMMA3 = dict.fromkeys(_SIMT3, "wgmma")
+#: the f32 forward on the tensor cores (split TF32), dq and dkv on SIMT
+_TF32 = dict(_SIMT3, fwd="tf32")
 _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
            + [(torch.bfloat16, d, _WGMMA3)
               for d in (8, 16, 24, 40, 48, 72, 96, 120)]
            + [(torch.bfloat16, d, _WGMMA3) for d in (1, 20, 252)]
            + [(torch.bfloat16, d, _WGMMA3) for d in (136, 200, 248, 256)]
            + [(torch.bfloat16, d, _WGMMA3) for d in (4, 100, 255)]
-           + [(dt, d, _SIMT3) for dt in (torch.float32, torch.float16)
-              for d in (1, 8, 16, 64, 128, 256)]
+           + [(torch.float32, d, _TF32 if d % 4 == 0 and d <= 64
+               else _SIMT3) for d in (1, 8, 16, 64, 128, 256)]
+           + [(torch.float16, d, _SIMT3) for d in (1, 8, 16, 64, 128, 256)]
+           + [(torch.float32, d, _TF32) for d in (4, 12, 60)]
+           + [(torch.float32, d, _SIMT3) for d in (2, 6, 62, 68, 72)]
            + [(torch.float64, 64, None), (torch.bfloat16, 257, None),
               (torch.float32, 257, None)])
 
@@ -567,10 +572,13 @@ _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
 def test_route_per_kernel(dtype, d, want):
     """The family of each kernel: bf16 runs the wgmma family at every d
     from 1 to 256 (padded to 64, 128 or 256; a d % 8 != 0 through a
-    zero-padded copy of ceil(d / 8) * 8 columns, `tma_dim`), f32 and f16
-    the SIMT family at every d up to 256; f64 and wider heads raise.
+    zero-padded copy of ceil(d / 8) * 8 columns, `tma_dim`); the f32
+    forward at d % 4 == 0 up to 64 the tf32 family (split TF32 on the
+    tensor cores); f32 dq and dkv, the f32 forward at every other d up to
+    256 and all of f16 the SIMT family; f64 and wider heads raise.
     `flash_plan` reports the same routes, sizes each wgmma CTA at its
-    padded head dim and names the width its tensor maps read."""
+    padded head dim, names the width its tensor maps read, and gives the
+    tf32 CTA where the forward takes it (within `SMEM_MAX`)."""
     for kernel in ("fwd", "dq", "dkv"):
         if want is None:
             with pytest.raises(ValueError, match="no flash-attention"):
@@ -579,6 +587,7 @@ def test_route_per_kernel(dtype, d, want):
         assert fl.route(dtype, d, kernel) == want[kernel]
         dd = fl.wgmma_dim(dtype, d, kernel)
         assert (dd is not None) == (want[kernel] == "wgmma")
+        assert fl.tf32_takes(dtype, d, kernel) == (want[kernel] == "tf32")
         if dd is not None:
             assert dd == fl.padded_dim(d) in fl.HEAD_DIMS
             assert dd == (64 if d <= 64 else 128 if d <= 128 else 256)
@@ -588,6 +597,14 @@ def test_route_per_kernel(dtype, d, want):
     wgmma = want is not None and want["fwd"] == "wgmma"
     assert plan["tma_dim"] == (-(-d // 8) * 8 if wgmma else None)
     assert fl.copy_width(dtype, d) == (plan["tma_dim"] if wgmma else d)
+    cta = plan["tf32_cta"]
+    if want is None or want["fwd"] != "tf32":
+        assert cta is None
+    else:
+        assert cta == {"head_dim": 64, "q_tiles": 2, "key_tile": 64,
+                       "threads": 352, "stages": 2,
+                       "smem": fl.tf32_smem(), "ctas_per_head": 2}
+        assert cta["smem"] <= fl.SMEM_MAX
 
 
 @pytest.mark.parametrize("d", [4, 8, 16, 20, 40, 56, 72, 96, 100, 120,
@@ -620,17 +637,23 @@ def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
 def test_routes_and_the_simt_plan():
     """bf16 at d 64/128 runs the wgmma family for every kernel, and at
     every other d up to 256 too (padded, through a zero-padded copy at d
-    % 8 != 0); f32 and f16 up to 256 the SIMT family, which takes no
+    % 8 != 0); the f32 forward at d % 4 == 0 up to 64 the tf32 family;
+    the other f32 calls and f16 up to 256 the SIMT family, which takes no
     bf16; f64 and wider heads none (`test_route_per_kernel` has every
     case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
-    memory by kernel within the 227 KB a block may use."""
+    memory by kernel within the 227 KB a block may use; the tf32 CTA:
+    two query tiles, a producer warp and two converter warps (352
+    threads), two stages, within it too."""
     assert torch.bfloat16 not in fl.SIMT_DTYPES
     for kernel in ("fwd", "dq", "dkv"):
         assert fl.route(torch.bfloat16, 64, kernel) == fl.route(
             torch.bfloat16, 128, kernel) == "wgmma"
         for dt in (torch.float32, torch.float16):
             for d in (1, 8, 64, 128, 256):
-                assert fl.route(dt, d, kernel) == "simt"
+                tf32 = (dt, kernel) == (torch.float32, "fwd") and d in (8,
+                                                                         64)
+                assert fl.route(dt, d, kernel) == ("tf32" if tf32
+                                                   else "simt")
         for d in (1, 16, 20, 136, 252, 256):
             assert fl.route(torch.bfloat16, d, kernel) == "wgmma"
         for dt, d in ((torch.float64, 64), (torch.bfloat16, 257)):
@@ -652,6 +675,74 @@ def test_routes_and_the_simt_plan():
         <= 227 * 1024
     assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] == \
         dict.fromkeys(_SIMT3)
+    cta = fl.flash_plan(1000, 64, True, dtype=torch.float32)["tf32_cta"]
+    assert (cta["q_tiles"], cta["threads"], cta["stages"]) == (2, 352, 2)
+    assert cta["ctas_per_head"] == 8
+    assert cta["smem"] == fl.tf32_smem() == 230528 <= fl.SMEM_MAX
+    assert fl.tf32_smem(3) > fl.SMEM_MAX     # a third stage does not fit
+
+
+def _tf32(x, rule):
+    """f32 `x` rounded to tf32 (11 significant bits) as an f32 value:
+    ``"rna"`` to nearest, ties away from zero (cvt.rna.tf32.f32, and the
+    kernel's `tf32_rna`), ``"trunc"`` its low 13 bits dropped."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000 if rule == "rna" else b) & -0x2000).view(
+        torch.float32)
+
+
+def _tf32_mm(a, b, rule, split):
+    """a @ b as the tensor cores form it from tf32 operands: every
+    product of two tf32 values is exact in f32, and the sums are f32.
+    `split`: 3xTF32, each operand as hi + lo (hi = tf32(x), lo = tf32(x -
+    hi)), the small products first as in `k1f_fwd`; else one tf32 pass."""
+    ah, bh = _tf32(a, rule), _tf32(b, rule)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah, rule), _tf32(b - bh, rule)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _tf32_forward(q, k, v, causal, window, rule, split):
+    """The forward's function with both products formed as `_tf32_mm`
+    does (the softmax in f32): ``(o, lse)`` as `plain_fwd` returns them."""
+    b, t, h, d = q.shape
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    s = _tf32_mm(qh, kh.transpose(-1, -2), rule, split) / d ** 0.5
+    keep = fl._visible(t, t, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _tf32_mm(p, vh, rule, split) / l
+    return o.permute(0, 2, 1, 3), (m + torch.log(l)).reshape(b * h, t)
+
+
+@pytest.mark.parametrize("rule", ["rna", "trunc"])
+@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
+def test_split_tf32_holds_the_f32_tolerance(window, rule):
+    """The arithmetic of the tf32 forward (`k1f_fwd`), emulated in plain
+    torch at B 1, T 1024, h 2, d 64 with randn inputs from a numpy seed:
+    both products in split TF32 (3xTF32), with hi rounded to nearest (the
+    kernel's rule) or truncated (what a tensor core that drops the low 13
+    bits of a raw f32 operand would make of x and of x - trunc(x)), give
+    o and lse within TOL = (1e-5, 1e-5) of the plain f32 forward; one
+    tf32 pass does not (its error is ~1e-3), so the comparison has teeth.
+    The largest errors are printed for the record."""
+    q, k, v = _t(*_inputs(70, (1, 1024, 2, 64), n=3))
+    ro, rlse = fl.plain_fwd(q, k, v, True, None, window)
+    o, lse = _tf32_forward(q, k, v, True, window, rule, split=True)
+    o1, lse1 = _tf32_forward(q, k, v, True, window, rule, split=False)
+    err = {name: float((a - b).abs().max()) for name, a, b in (
+        ("o", o, ro), ("lse", lse, rlse), ("o_1x", o1, ro),
+        ("lse_1x", lse1, rlse))}
+    print(f"split tf32 ({rule}, window {window}): max |err| {err}")
+    np.testing.assert_allclose(o.numpy(), ro.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), **TOL)
+    for a, b in ((o1, ro), (lse1, rlse)):
+        assert not np.allclose(a.numpy(), b.numpy(), **TOL)
+    assert err["o_1x"] > 30 * err["o"] and err["lse_1x"] > 30 * err["lse"]
 
 
 def test_every_wgmma_cta_fits_the_block_limit():
