@@ -239,17 +239,18 @@ failing on the first phase that fails:
    non-causal and windowed, the padded wgmma kernels (bf16 off 64/128,
    padded by TMA to D 64, 128 or 256; at d % 8 != 0 through a
    zero-padded copy first) within `kernel_error_bounds`, every f32
-   kernel (the tf32 forward at d % 4 == 0 up to 64, SIMT elsewhere)
-   within TOL, every case bitwise on a second launch, and one
+   kernel (the tf32 fwd, dq and dkv at d % 4 == 0 up to 64, SIMT at d
+   128) within TOL, every case bitwise on a second launch, and one
    launch of B*H = 66000 > 65535. (e)
    `measure_lm_rate("tiny", attention="flash")`: the d-16 GPT trains
    through the padded wgmma fwd, dq and dkv (no SIMT launch); (e')
    `measure_flash_efficiency(dtype="float32")` at its default shape
-   through the tf32 forward (split TF32 on the tensor cores) and the SIMT
-   dq and dkv, no SIMT forward; (e'') `measure_flash_efficiency` in bf16
-   at head dim 256 (Gemma's) through the D-256 wgmma fwd, dq and dkv;
-   (e''') the same at head dim 252 (d % 8 != 0) through the same kernels
-   on a zero-padded copy; neither launches the SIMT family. (f)
+   through the tf32 fwd, dq and dkv (split TF32 on the tensor cores), no
+   SIMT launch; (e'') `measure_flash_efficiency` in bf16 at head dim 256
+   (Gemma's) through the D-256 wgmma fwd, dq and dkv; (e''') the same at
+   head dim 252 (d % 8 != 0) through the same kernels on a zero-padded
+   copy; neither launches the SIMT family; (e'''') the f32 benchmark at
+   head dim 128 through the SIMT fwd, dq and dkv, no tf32 launch. (f)
    `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
    BERT, d 8, the plain ring as the reference's) on the card's ranks;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
@@ -268,9 +269,10 @@ failing on the first phase that fails:
    forced; and R1 per
    launch at [262144, 1024] by device time (and by events) beside its
    byte bound and torch.neg (its plain version and the library call at
-   once), timed the same way; and K1 off bf16 d 64/128 (f32, bf16 at
-   d 16, 256 and 252) per launch at `K1_SIMT_TIMING`'s shapes, the main
-   path's (e), (e'), (e'') and (e'''), first held there to its plain
+   once), timed the same way; and K1 off bf16 d 64/128 (f32 at d 64 and
+   128, bf16 at d 16, 256 and 252) per launch at `K1_SIMT_TIMING`'s
+   shapes, the main path's (e), (e'), (e''), (e''') and (e''''), first
+   held there to its plain
    version within TOL (a bf16 kernel within `kernel_error_bounds`),
    beside its bound at the peak of its input type (f32: the lesser of
    FMA at the f32 rate and three tf32 products at the tf32 rate; and the
@@ -315,7 +317,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 #: dense TF32 tensor-core FLOP/s (the same data sheet): the rate of each
-#: of split TF32's three products (K1's f32 forward)
+#: of split TF32's three products (K1's f32 fwd, dq and dkv)
 PEAK_TF32_FLOPS = 495e12
 #: the H100 SXM's special-function results a second (exp2 and the like),
 #: the FlashAttention-3 paper's figure (Shah et al., 2024) beside the
@@ -401,8 +403,8 @@ SEQ_SPECS = [
 #: its output to bf16 before the merge: half an ulp, 2**-9, a hop)
 SEQ_LOSS_FLOOR = {"gpt": 2e-5, "bert": 1e-4}
 SEQ_GRAD_FLOOR = 2e-2
-#: (d) K1's new cases: f32 at head dims 8..128 (the forward up to 64 on
-#: the tf32 family, d 60 among them, at 128 on SIMT), bf16 off 64/128 (the
+#: (d) K1's new cases: f32 at head dims 8..128 (fwd, dq and dkv up to 64
+#: on the tf32 family, d 60 among them, at 128 on SIMT), bf16 off 64/128 (the
 #: padded wgmma kernels: fwd, dq and dkv of D 64 and 128 up to d 128, of
 #: D 256 at 136, 184, 200 and 256; at d 1, 4 and 20 on a zero-padded
 #: copy of 8, 8 and 24 columns), at B 2, T 256, H 4 in each mode; the
@@ -416,20 +418,25 @@ K1_NEW_MODES = {"causal": (True, None), "full": (False, None),
 K1_FOLD = (1100, 64, 60, 16)
 #: K1 off bf16 d 64/128 at its shapes on the main path, where each kernel
 #: is timed and held to its plain version, all causal: f32 at the flash
-#: benchmark's (e') (B 8, T 1024, H 12, d 64); bf16 at the `tiny` GPT's
-#: training shape (e) (B 8, T 1024, H 8, d 16: the wgmma fwd, dq and dkv
-#: padded to 64); bf16 at (e'')'s head dim 256 (B 4, T 1024, H 8: the
-#: D-256 wgmma fwd, dq and dkv); bf16 at (e''')'s head dim 252 (the same
-#: B, T, H: the same kernels on a zero-padded copy, timed with the copy)
+#: benchmark's (e') (B 8, T 1024, H 12, d 64: the tf32 fwd, dq and dkv);
+#: bf16 at the `tiny` GPT's training shape (e) (B 8, T 1024, H 8, d 16:
+#: the wgmma fwd, dq and dkv padded to 64); bf16 at (e'')'s head dim 256
+#: (B 4, T 1024, H 8: the D-256 wgmma fwd, dq and dkv); bf16 at (e''')'s
+#: head dim 252 (the same B, T, H: the same kernels on a zero-padded
+#: copy, timed with the copy); f32 at (e'''')'s head dim 128 (the same B,
+#: T, H: the SIMT fwd, dq and dkv)
 K1_SIMT_TIMING = {"float32": (8, 1024, 12, 64), "bfloat16": (8, 1024, 8, 16),
                   "bfloat16.d256": (4, 1024, 8, 256),
-                  "bfloat16.d252": (4, 1024, 8, 252)}
+                  "bfloat16.d252": (4, 1024, 8, 252),
+                  "float32.d128": (4, 1024, 8, 128)}
 #: (e'') and (e''') the bf16 flash benchmark at head dim 256 (Gemma's)
-#: and 252: the shapes of K1_SIMT_TIMING["bfloat16.d256"] and
-#: ["bfloat16.d252"], a few timed calls
+#: and 252, (e'''') the f32 one at head dim 128: the shapes of
+#: K1_SIMT_TIMING["bfloat16.d256"], ["bfloat16.d252"] and
+#: ["float32.d128"], a few timed calls
 K1_D256_BENCH = dict(batch=4, seq=1024, heads=8, head_dim=256, iters=4,
                      warmup=1)
 K1_D252_BENCH = dict(K1_D256_BENCH, head_dim=252)
+K1_F32_D128_BENCH = dict(K1_D256_BENCH, head_dim=128, dtype="float32")
 
 #: R1: the bandwidth suite's stream shape (0.5 GiB of bf16)
 R1_SHAPE = (262144, 1024)
@@ -2431,8 +2438,8 @@ def k1_held(torch, fl, x, causal, window):
 
 def k1_label(fl, dtype, d, kernel):
     """The kernels line's family label of K1 `kernel` in `dtype` at head
-    dim `d` off bf16 d 64/128: ``"simt"``, ``"tf32"`` (the f32 forward in
-    split TF32), ``"padded"`` (the wgmma kernel of D 64 or 128) or
+    dim `d` off bf16 d 64/128: ``"simt"``, ``"tf32"`` (the f32 kernels
+    in split TF32), ``"padded"`` (the wgmma kernel of D 64 or 128) or
     ``"d256"`` (the wgmma kernel of D 256), with ``".copy"`` where the
     wrapper reaches it through a zero-padded copy (bf16 at d % 8 != 0).
     Reads `fl.route`, so an older checkout's `ops.flash` (no tf32 family)
@@ -2684,25 +2691,30 @@ def phase_seq(torch, fl, card: str) -> dict:
         f"{meta['step_time_ms']:.2f} ms/step; K1 {k1}, SIMT {simt}")
     out["tiny"] = {n: k1[n] for n in ("fwd", "dq", "dkv")}
     # (e') the flash benchmark in f32 at its default shape (B 8, T 1024,
-    # h 12, d 64, causal): the f32 path, the forward on the tf32 family
-    # and dq and dkv on SIMT; no SIMT forward
-    fl.reset_launches()
-    meta = measure_flash_efficiency(dtype="float32")
-    torch.cuda.synchronize()
-    simt, tf32 = dict(fl.SIMT_LAUNCHES), dict(fl.TF32_LAUNCHES)
-    check(fl.LAUNCHES["plain"] == 0
-          and set(simt) == {"dq.float32", "dkv.float32"}
-          and set(tf32) == {"fwd.float32"},
-          f"seq (e'): K1 launches {fl.LAUNCHES}, SIMT {simt}, tf32 {tf32}, "
-          f"expected the forward on tf32 and dq, dkv on SIMT")
-    log(f"seq (e') measure_flash_efficiency(dtype='float32') (B "
-        f"{meta['batch']} T {meta['seq']} h {meta['heads']} d "
-        f"{meta['head_dim']}, causal): fwd {meta['fwd_ms']:.3f} ms, fwd+bwd "
-        f"{meta['fwdbwd_ms']:.3f} ms, {meta['fwdbwd_tflops']:.2f} TFLOP/s "
-        f"(slope-timed); route {meta['plan']['route']}; SIMT {simt}; "
-        f"tf32 {tf32}")
-    out["f32"] = {"fwd": tf32["fwd.float32"], "dq": simt["dq.float32"],
-                  "dkv": simt["dkv.float32"]}
+    # h 12, d 64, causal): the f32 path, fwd, dq and dkv on the tf32
+    # family, no SIMT launch; (e'''') the same at head dim 128 (B 4, h
+    # 8): fwd, dq and dkv on the SIMT family, no tf32 launch
+    three = {f"{n}.float32" for n in ("fwd", "dq", "dkv")}
+    for tag, bench, name in (("e'", {"dtype": "float32"}, "f32"),
+                             ("e''''", K1_F32_D128_BENCH, "f32d128")):
+        fl.reset_launches()
+        meta = measure_flash_efficiency(**bench)
+        torch.cuda.synchronize()
+        simt, tf32 = dict(fl.SIMT_LAUNCHES), dict(fl.TF32_LAUNCHES)
+        on_tf32 = tag == "e'"
+        check(fl.LAUNCHES["plain"] == 0
+              and set(tf32 if on_tf32 else simt) == three
+              and not (simt if on_tf32 else tf32),
+              f"seq ({tag}): K1 launches {fl.LAUNCHES}, SIMT {simt}, tf32 "
+              f"{tf32}, expected fwd, dq and dkv on "
+              f"{'tf32' if on_tf32 else 'SIMT'} and none on the other")
+        log(f"seq ({tag}) measure_flash_efficiency(dtype='float32', "
+            f"head_dim={meta['head_dim']}) (B {meta['batch']} T "
+            f"{meta['seq']} h {meta['heads']}, causal): fwd "
+            f"{meta['fwd_ms']:.3f} ms, fwd+bwd {meta['fwdbwd_ms']:.3f} ms, "
+            f"{meta['fwdbwd_tflops']:.2f} TFLOP/s (slope-timed); route "
+            f"{meta['plan']['route']}; SIMT {simt}; tf32 {tf32}")
+        out[name] = {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv")}
     # (e'') the bf16 flash benchmark at head dim 256 (Gemma's): fwd, dq
     # and dkv on the D-256 wgmma kernels; (e''') at head dim 252 (d % 8
     # != 0): the same kernels on a zero-padded copy. No SIMT launch
@@ -3382,7 +3394,8 @@ def main() -> int:
         kernels.append(row)
     # K1 off bf16 d 64/128, a row per kernel, family label and dtype: the
     # f32 kernels launched on the main path by the flash benchmark (e') (d
-    # 64: the tf32 forward, the SIMT dq and dkv); the wgmma fwd, dq and dkv padded to 64 by the tiny
+    # 64: the tf32 fwd, dq and dkv) and (e'''') (d 128: the SIMT fwd, dq
+    # and dkv); the wgmma fwd, dq and dkv padded to 64 by the tiny
     # GPT's training (e) (d 16); the D-256 wgmma fwd, dq and dkv by the
     # bf16 flash benchmark at d 256 (e''); the same kernels on the
     # zero-padded copy by the same at d 252 (e'''), timed with the copies
@@ -3392,7 +3405,8 @@ def main() -> int:
     # cases of that kernel, label and dtype and the main path's shape;
     # library: SDPA as for the wgmma rows
     launched = {"float32": seq["f32"], "bfloat16": seq["tiny"],
-                "bfloat16.d256": seq["d256"], "bfloat16.d252": seq["d252"]}
+                "bfloat16.d256": seq["d256"], "bfloat16.d252": seq["d252"],
+                "float32.d128": seq["f32d128"]}
     seen = set()
     for tag, timed in simt_times.items():
         dtype = tag.split(".")[0]

@@ -96,9 +96,9 @@
 // of k1_fwd, k1_dq and k1_dkv are bf16 at any d from 8 to 256 with d %
 // 8 == 0; `stages` and `smem` are the ring's depth and the dynamic
 // shared memory in bytes (`flash_plan`'s fwd_cta, dq_cta and dkv_cta, at
-// the padded D). k1f_fwd (the f32 forward in split TF32 on the tensor
-// cores, after the bf16 kernels) takes f32 at d from 4 to 64 with d % 4
-// == 0, `stages` and `smem` from `flash_plan`'s tf32_cta; k1s_fwd,
+// the padded D). k1f_fwd, k1f_dq and k1f_dkv (f32 in split TF32 on the
+// tensor cores, after the bf16 kernels) take f32 at d from 4 to 64 with
+// d % 4 == 0, `stages` and `smem` from `flash_plan`'s tf32_cta; k1s_fwd,
 // k1s_dq and k1s_dkv (the SIMT family at the end of this file) take f32
 // or f16 at any D from 1 to 256 and `smem` from `simt_smem`. A launcher
 // refuses a dtype, head dim or byte count its layout does not take.
@@ -215,16 +215,23 @@ __device__ __forceinline__ void q_span(int jk, int nq, int causal, int window,
   if (window >= 0) *hi = min((jk * kTile + kTile - 1 + window) / kTile + 1, nq);
 }
 
-// a tile holds a pair that must be masked: a query or key past T, the
-// causal diagonal (or a tile past it) or the window's edge. k1_fwd keeps
-// its own copies of this test and of `scores`: built on these two
-// helpers its launch took 0.129 ms against 0.114 at the training shape
-// on the H100 (benchmarks/kernel_split.py)
+// query rows [q0, q0 + nq) against key rows [k0, k0 + nk) hold a pair
+// that must be masked: a row past T, the causal diagonal (or past it) or
+// the window's edge
+__device__ __forceinline__ bool edge_rows(int q0, int nq, int k0, int nk,
+                                          int t, int causal, int window) {
+  return q0 + nq > t || k0 + nk > t ||
+         (causal && (k0 + nk - 1 > q0 ||
+                     (window >= 0 && q0 + nq - 1 - k0 > window)));
+}
+
+// query tile iq against key tile jk. k1_fwd keeps its own copies of this
+// test and of `scores`: built on these two helpers its launch took 0.129
+// ms against 0.114 at the training shape on the H100
+// (benchmarks/kernel_split.py)
 __device__ __forceinline__ bool edge_tile(int iq, int jk, int t, int causal,
                                           int window) {
-  return (iq + 1) * kTile > t || (jk + 1) * kTile > t ||
-         (causal && (jk >= iq || (window >= 0 &&
-                                  (iq - jk) * kTile + kTile - 1 > window)));
+  return edge_rows(iq * kTile, kTile, jk * kTile, kTile, t, causal, window);
 }
 
 // S[64, 64] = A B^T over D for two [64, D] tiles (K-major wgmma
@@ -1000,18 +1007,19 @@ bool shape_ok(int b, int t, int h) {
 bool padded_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
 // a [B, T, H, d] bf16 tensor (f32 where `esz` is 4) read in boxes of
-// (128 bytes of d: 64 bf16 or 32 f32 values, 1 head, 64 rows, 1 batch),
-// 128-byte swizzled, rows past T and columns past d read as zeros; 0, or
-// the negative code of the C interface
+// (128 bytes of d: 64 bf16 or 32 f32 values, 1 head, `rows` rows, 1
+// batch), 128-byte swizzled, rows past T and columns past d read as
+// zeros; 0, or the negative code of the C interface
 int seq_map(CUtensorMap* map, const void* p, int b, int t, int h, int d,
-            int esz = 2) {
+            int esz = 2, int rows = kTile) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return -1;
   const cuuint64_t dim[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t,
                              (cuuint64_t)b};
   const cuuint64_t stride[3] = {(cuuint64_t)d * esz, (cuuint64_t)h * d * esz,
                                 (cuuint64_t)t * h * d * esz};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / esz), 1, kTile, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / esz), 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, esz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -1202,12 +1210,14 @@ __device__ __forceinline__ float split_tf32(float& x) {
   return lo;
 }
 
-// a [64, 64] f32 tile (16 KB) split in place into hi, with lo at the same
-// offsets of `lo`: 16-byte vectors i0, i0 + step, ...
+// a [64, 64] f32 tile (16 KB; kBytes of a smaller one) split in place
+// into hi, with lo at the same offsets of `lo`: 16-byte vectors i0, i0 +
+// step, ...
+template <int kBytes = kFTile>
 __device__ __forceinline__ void split_tile(unsigned char* hi,
                                            unsigned char* lo, int i0,
                                            int step) {
-  for (int i = i0; i < kFTile / 16; i += step) {
+  for (int i = i0; i < kBytes / 16; i += step) {
     float4 x = reinterpret_cast<float4*>(hi)[i];
     float4 l;
     l.x = split_tf32(x.x);
@@ -1255,6 +1265,25 @@ __device__ __forceinline__ void transpose_v(const unsigned char* v,
       *reinterpret_cast<float4*>(vl + off) = lo;
     }
   }
+}
+
+// x (an accumulator of a [64, 8 J] product) as tf32 A fragments, hi and
+// lo: 8-column step j takes registers 4j, 4j + 2 (columns 2 (lane % 4),
+// rows r and r + 8: k index lane % 4) and 4j + 1, 4j + 3 (columns + 1: k
+// index lane % 4 + 4), which the slot order of V^T (and of the
+// backward's transposed copies) matches
+template <int J>
+__device__ __forceinline__ void a_frags(const float (&x)[4 * J],
+                                        uint32_t (&hi)[J][4],
+                                        uint32_t (&lo)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = x[4 * j + (e >> 1) + 2 * (e & 1)];
+      lo[j][e] = __float_as_uint(split_tf32(v));
+      hi[j][e] = __float_as_uint(v);
+    }
 }
 
 // One CTA: warpgroups 0 and 1 consume, each owning one 64-row query tile
@@ -1434,19 +1463,9 @@ __global__ void __launch_bounds__(kFThreads, 1)
         l[half] = l[half] * alpha[half] + sum;  // this thread's columns
         m[half] = m_new;
       }
-      // P's hi and lo as tf32 A fragments: 8-key step j takes registers
-      // 4j, 4j + 2 (keys 2 (lane % 4), rows r and r + 8: k index lane % 4)
-      // and 4j + 1, 4j + 3 (keys + 1: k index lane % 4 + 4), which V^T's
-      // slot order matches
+      // P's hi and lo as tf32 A fragments
       uint32_t pa[8][4], pb[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * j + (e >> 1) + 2 * (e & 1)];
-          pb[j][e] = __float_as_uint(split_tf32(x));
-          pa[j][e] = __float_as_uint(x);
-        }
+      a_frags(sc, pa, pb);
       // P V in two halves of 32 columns, each into a fresh 16-register
       // accumulator folded into O once it has retired (one 64-column
       // accumulator spilled: ptxas holds this kernel to 168 registers)
@@ -1566,16 +1585,672 @@ __global__ void __launch_bounds__(128) k1f_probe_kernel(const float* a,
 
 
 // ---------------------------------------------------------------------------
+// The f32 backward on the tensor cores (k1f_dq, k1f_dkv): k1_dq's and
+// k1_dkv's functions for f32 q, k, v, o, dO at the head dims k1f_fwd
+// takes (4 to 64, d % 4 == 0), dq, dk and dv in f32, every product in
+// k1f_fwd's split TF32 (three tf32 products, the two small ones first).
+// They replace the SIMT kernels on that route: f32 FMA outside the
+// tensor cores, 16 rows a CTA, staged synchronously, a shuffle a score.
+//
+// Bound at the training shape (B 8, T 1024, H 12, d 64, causal): three
+// tf32 products for each of dq's 19.4 GFLOP (S, dP, dQ) and dkv's 25.8
+// (S^T, dP^T, dV, dK) at 495 TFLOP/s, 0.1172 and 0.1563 ms, by
+// operations (`chip_smoke.py::k1_bound`).
+//
+// Design: k1f_fwd's shape — TMA into a ring of full/empty mbarriers, one
+// producer thread, converter warps that split each landed stage into hi
+// and lo and arrive on its `ready` barrier, consumer warpgroups that own
+// resident 64-row tiles and walk the union of their spans, edge tiles
+// masked element by element, no atomics (a second launch is bitwise
+// equal) — with:
+// - tf32 wgmma takes no transpose bit, so the second product of each
+//   kernel reads a transposed copy: dQ += dS K reads K^T (d on rows, the
+//   keys contiguous), dV += P^T dO and dK += dS^T Q read dO^T and Q^T.
+//   The converters write those copies (hi and lo) with the key (or
+//   query) slots permuted within each group of 8, slot = row / 2 + 4
+//   (row % 2), as k1f_fwd's V^T: an S accumulator pair is then a tf32
+//   A-fragment pair (`split_transpose`), with no shuffle;
+// - the streamed side comes in stages of 32 rows (kFHalf): a 64-row
+//   stage of dq (K, V, K^T, each hi and lo: 96 KB) or of dkv (Q, dO, Q^T,
+//   dO^T, each hi and lo: 128 KB) leaves no room for a second stage
+//   beside the resident tiles. The scores against a stage are m64n32k8;
+//   `_k_span` / `_q_span` are walked in 32-row halves (a half at or past
+//   T is never loaded);
+// - each stage's second products go into fresh accumulators (two
+//   halves of 32 columns) folded into dQ, dK or dV with f32 adds, so no
+//   sum over more than one stage's 12 tensor-core steps runs in an
+//   accumulator (the tensor cores' sums are not f32's: k1f_fwd's finding,
+//   scripts/torch_k1f_accumulate.py);
+// - dq forms delta = rowsum(dO * O) first, in f32 FMA from the raw
+//   tiles, and writes it for dkv (k1_dq's and k1s_dq's order); dkv reads
+//   each stage's 32 lse and delta values with plain loads by the
+//   converter warps (a head's row starts at b h T floats, which TMA
+//   cannot read from an address that is not a multiple of 16 bytes).
+// dq: two query tiles a CTA, each (Q, Q lo, dO, dO lo; O lands in Q lo's
+// place and is read for delta before the split) 64 KB, and two stages of
+// 48 KB: 224 KB, 352 threads (ptxas gives any CTA of 9 to 12 warps 168
+// registers; it uses 124: dQ, S, dP, dS's fragments and a fresh dQ, once
+// the score products' descriptors are made opaque, `opaque64`). dkv: one
+// key tile a CTA (K, K lo, V, V lo: 64 KB) and two stages of 64 KB: 192
+// KB, 224 threads, so a consumer may use 255 registers (it uses 217: dK,
+// dV, P^T's and dS^T's fragments and the fresh dV and dK of one commit
+// group); a second key tile's 64 KB would leave one stage.
+// ---------------------------------------------------------------------------
+
+constexpr int kFHalf = 32;                    // rows of a streamed stage
+constexpr int kFHalfBox = kFHalf * 128;       // [32 rows, 32] f32: 4 KB
+constexpr int kFHalfTile = 2 * kFHalfBox;     // [32, 64] f32, or [64, 32]
+constexpr int kFDqStage = 6 * kFHalfTile;     // K, K lo, V, V lo, K^T, K^T lo
+constexpr int kFDkvStage = 8 * kFHalfTile;    // Q, dO, Q^T, dO^T: hi, lo
+constexpr int kFRows = 2 * kFHalf * 4;        // dkv: a stage's lse, delta
+constexpr int kFDkvThreads = 128 + 32 * (1 + kFConvWarps);
+
+// descriptor offsets of 8-deep k-step kk over d: in a resident [64, 64]
+// tile (boxes kBox apart) and in a [32, 64] stage tile (kFHalfBox apart),
+// 32 bytes kk % 4 into the rows of box kk / 4
+__device__ __forceinline__ int res_step(int kk) {
+  return (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
+}
+__device__ __forceinline__ int half_step(int kk) {
+  return (kk / 4) * (kFHalfBox >> 4) + 2 * (kk % 4);
+}
+
+// a raw [32 rows, 64] stage tile at x (two 4 KB boxes of 32 columns)
+// split in place into hi, with lo at the same offsets of xl, and written
+// transposed into th and tl: [64 columns, 32 row slots], K-major, one
+// 8 KB box, slot = row / 2 + 4 (row % 2) within each group of 8 rows.
+// Converter warp w takes the 8-row groups kb = w, w + kFConvWarps: lane
+// 16 par + cq reads rows 8 kb + par + 2 i (i < 4) at columns 4 cq .. 4 cq
+// + 3 (one 16-byte vector each), writes their hi and lo back at the same
+// offsets (no lane reads what another writes), and, for each of those
+// columns, slots 8 kb + 4 par .. + 3 (16-byte stores)
+__device__ __forceinline__ void split_transpose(unsigned char* x,
+                                                unsigned char* xl,
+                                                unsigned char* th,
+                                                unsigned char* tl, int w,
+                                                int lane) {
+  const int par = lane >> 4, cq = lane & 15;
+  for (int kb = w; kb < kFHalf / 8; kb += kFConvWarps) {
+    float4 hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off =
+          (cq >> 3) * kFHalfBox + sw128_off32(8 * kb + par + 2 * i, 4 * cq);
+      hi[i] = *reinterpret_cast<const float4*>(x + off);
+      lo[i].x = split_tf32(hi[i].x);
+      lo[i].y = split_tf32(hi[i].y);
+      lo[i].z = split_tf32(hi[i].z);
+      lo[i].w = split_tf32(hi[i].w);
+      *reinterpret_cast<float4*>(x + off) = hi[i];
+      *reinterpret_cast<float4*>(xl + off) = lo[i];
+    }
+    const int s = 8 * kb + 4 * par;  // the first slot
+    const float4 ch[4] = {make_float4(hi[0].x, hi[1].x, hi[2].x, hi[3].x),
+                          make_float4(hi[0].y, hi[1].y, hi[2].y, hi[3].y),
+                          make_float4(hi[0].z, hi[1].z, hi[2].z, hi[3].z),
+                          make_float4(hi[0].w, hi[1].w, hi[2].w, hi[3].w)};
+    const float4 cl[4] = {make_float4(lo[0].x, lo[1].x, lo[2].x, lo[3].x),
+                          make_float4(lo[0].y, lo[1].y, lo[2].y, lo[3].y),
+                          make_float4(lo[0].z, lo[1].z, lo[2].z, lo[3].z),
+                          make_float4(lo[0].w, lo[1].w, lo[2].w, lo[3].w)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int off = sw128_off32(4 * cq + c, s);
+      *reinterpret_cast<float4*>(th + off) = ch[c];
+      *reinterpret_cast<float4*>(tl + off) = cl[c];
+    }
+  }
+}
+
+// S[64, 32] = A B^T in split tf32 (A hi B lo, A lo B hi, A hi B hi) over
+// the 64 columns of d: A a resident [64, 64] tile (hi and lo at ah, al),
+// B a [32, 64] stage tile (bh, bl); every operand K-major
+__device__ __forceinline__ void scores_tf32(float (&s)[16], uint64_t ah,
+                                            uint64_t al, uint64_t bh,
+                                            uint64_t bl) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_n32_tf32(s, ah + res_step(kk), bl + half_step(kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_n32_tf32(s, al + res_step(kk), bh + half_step(kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_n32_tf32(s, ah + res_step(kk), bh + half_step(kk), 1);
+}
+
+// pv[64, 64] = A[64, 32] B[32, 64] in split tf32 (A lo B hi, A hi B lo,
+// A hi B hi), A's fragments from registers, B a transposed [64, 32] copy
+// (hi, lo), as two 32-column halves: issued only (the caller fences,
+// commits and waits), into fresh accumulators
+__device__ __forceinline__ void fold_issue(float (&pv)[2][16],
+                                           const uint32_t (&ah)[4][4],
+                                           const uint32_t (&al)[4][4],
+                                           uint64_t bh, uint64_t bl) {
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh) {
+    const uint64_t h = bh + nh * (32 * 128 >> 4);  // rows 32 nh ..
+    const uint64_t l = bl + nh * (32 * 128 >> 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_n32_tf32_ra(pv[nh], al[j], h + 2 * j, j);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_n32_tf32_ra(pv[nh], ah[j], l + 2 * j, 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_n32_tf32_ra(pv[nh], ah[j], h + 2 * j, 1);
+  }
+}
+
+// acc[64, 64] += pv once its products have retired, with f32 adds
+__device__ __forceinline__ void fold_add(float (&acc)[32],
+                                         float (&pv)[2][16]) {
+  fence_acc(pv[0]);
+  fence_acc(pv[1]);
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[16 * nh + i] += pv[nh][i];
+}
+
+// x, opaque to the compiler: a descriptor recomputed from it in a loop
+// is not hoisted out of the loop into registers of its own
+__device__ __forceinline__ uint64_t opaque64(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// rows r and r + 8 (register halves) of a warpgroup's [64, 64] f32
+// accumulator, times `mul`, into [T, d] f32 rows of stride ld (the first
+// d columns; d % 4 == 0); rows at or past T are dropped
+__device__ __forceinline__ void store_f32(float* g, long long ld, int r,
+                                          int t, int d,
+                                          const float (&acc)[32],
+                                          float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= t) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * (lane & 3);
+      if (col < d)
+        *reinterpret_cast<float2*>(g + (size_t)row * ld + col) =
+            make_float2(acc[4 * i + 2 * half] * mul,
+                        acc[4 * i + 2 * half + 1] * mul);
+    }
+  }
+}
+
+// dq. One CTA: warpgroups 0 and 1 consume, each owning one 64-row query
+// tile of the group (2 p, 2 p + 1) of one (b, h), whose Q, O and dO the
+// producer loads once (past the last tile, tile nq - 1 again: never
+// stored); warp 8 produces (its first thread streams the raw K and V of
+// the union of the tiles' `_k_span`s in 32-key stages); warps 9 and 10
+// convert each stage (K split in place and transposed, V split) and
+// arrive on `ready`. A warpgroup first forms delta = rowsum(dO * O) of
+// its rows (a row on the 4 lanes of a quad, each summing 16 products) and
+// writes it, then splits Q and dO (Q lo over O). Per 32-key stage:
+//   1. S = Q K^T and dP = dO V^T in split tf32 (m64n32k8 over d), one
+//      commit group;
+//   2. P = exp2(S scale log2e - lse log2e), masked only on an edge stage;
+//   3. dS = P (dP - delta), split in registers into tf32 A fragments;
+//   4. dQ += dS K from K^T, a fresh accumulator folded in f32;
+//   5. releases the stage.
+// dq = scale dQ is written in f32. The last groups, whose causal spans
+// are the longest, launch first.
+__global__ void __launch_bounds__(kFThreads, 1)
+    k1f_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_o,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* lse, float* dq, float* delta, int t, int h,
+                  int d, float scale, int causal, int window, int stages) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sq = smem;  // per tile: Q (hi), Q lo (O before), dO, dO lo
+  unsigned char* ring = smem + kFQT * 4 * kFTile;  // stages x kFDqStage
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kFDqStage);
+  uint64_t* ready = full + stages;
+  uint64_t* empty = ready + stages;
+  uint64_t* qfull = empty + stages;
+  const int nq = (t + kTile - 1) / kTile;
+  const int ngroups = (nq + kFQT - 1) / kFQT;
+  const int bhn = gridDim.x / ngroups;
+  const int grp = ngroups - 1 - (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo = nq, hi = 0;
+  for (int g = 0; g < kFQT; ++g) {
+    int a, b;
+    k_span(kFQT * grp + g, nq, causal, window, &a, &b);
+    lo = min(lo, a);
+    hi = max(hi, b);
+  }
+  lo *= 2;  // in 32-key stages, none at or past T
+  hi = min(2 * hi, (t + kFHalf - 1) / kFHalf);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kFConvWarps);
+      mbar_init(&empty[s], kFConsumers / 32);
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kFConsumers) {  // ---------------- producer, converters
+    const int w = (threadIdx.x - kFConsumers) >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == kFConsumers) {
+      mbar_expect_tx(qfull, kFQT * 3 * kFTile);
+      for (int g = 0; g < kFQT; ++g) {
+        const int r = min(kFQT * grp + g, nq - 1) * kTile;
+        for (int p = 0; p < 2; ++p) {
+          unsigned char* s = sq + 4 * g * kFTile + p * kBox;
+          tma_load_4d(s, &tm_q, p * 32, hd, r, bi, qfull);
+          tma_load_4d(s + kFTile, &tm_o, p * 32, hd, r, bi, qfull);
+          tma_load_4d(s + 2 * kFTile, &tm_do, p * 32, hd, r, bi, qfull);
+        }
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kh = lo; kh < hi; ++kh) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * kFDqStage;
+        mbar_expect_tx(&full[st], 2 * kFHalfTile);
+        for (int p = 0; p < 2; ++p) {
+          tma_load_4d(s + p * kFHalfBox, &tm_k, p * 32, hd, kh * kFHalf, bi,
+                      &full[st]);
+          tma_load_4d(s + 2 * kFHalfTile + p * kFHalfBox, &tm_v, p * 32, hd,
+                      kh * kFHalf, bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    } else if (w > 0) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kh = lo; kh < hi; ++kh) {
+        mbar_wait(&full[st], ph);
+        unsigned char* s = ring + st * kFDqStage;
+        split_transpose(s, s + kFHalfTile, s + 4 * kFHalfTile,
+                        s + 5 * kFHalfTile, w - 1, lane);
+        split_tile<kFHalfTile>(s + 2 * kFHalfTile, s + 3 * kFHalfTile,
+                               threadIdx.x - kFConsumers - 32,
+                               32 * kFConvWarps);
+        fence_proxy_async();  // the splits, before the consumers' wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[st]);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    const int g = threadIdx.x >> 7;
+    const int wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int iq = kFQT * grp + g;
+    const int r0 = wq * 16 + (lane >> 2);  // tile rows r0 and r0 + 8
+    const int row = iq * kTile + r0;
+    const float sl2 = scale * kLog2e;
+    unsigned char* tq = sq + 4 * g * kFTile;
+    mbar_wait(qfull, 0);
+    // delta = rowsum(dO * O) in f32 FMA: lane l of a quad sums 16-byte
+    // chunks 2 (l % 4) and + 1 of each 32-column box of the row
+    float dl[2], ls[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sum = 0.f;
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int off = p * kBox + sw128_off32(r0 + 8 * half,
+                                                 4 * (2 * (lane & 3) + j));
+          const float4 a = *reinterpret_cast<const float4*>(tq + 2 * kFTile +
+                                                            off);
+          const float4 b = *reinterpret_cast<const float4*>(tq + kFTile + off);
+          sum = fmaf(a.x, b.x, sum);
+          sum = fmaf(a.y, b.y, sum);
+          sum = fmaf(a.z, b.z, sum);
+          sum = fmaf(a.w, b.w, sum);
+        }
+      dl[half] = quad_sum(sum);
+      const bool live = row + 8 * half < t;
+      if (live && (lane & 3) == 0)
+        delta[(size_t)bh * t + row + 8 * half] = dl[half];
+      ls[half] = live ? lse[(size_t)bh * t + row + 8 * half] * kLog2e : 0.f;
+    }
+    named_bar(1 + g, 128);  // every thread has read O: Q lo may replace it
+    split_tile(tq, tq + kFTile, threadIdx.x & 127, 128);
+    split_tile(tq + 2 * kFTile, tq + 3 * kFTile, threadIdx.x & 127, 128);
+    fence_proxy_async();
+    named_bar(1 + g, 128);
+    const uint64_t dqh = sw128_desc(tq, 16);
+    const uint64_t dql = sw128_desc(tq + kFTile, 16);
+    const uint64_t doh = sw128_desc(tq + 2 * kFTile, 16);
+    const uint64_t dol = sw128_desc(tq + 3 * kFTile, 16);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int kh = lo; kh < hi; ++kh) {
+      mbar_wait(&ready[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * kFDqStage;
+      float sc[16], dp[16];
+      wgmma_fence();
+      // the A descriptors made opaque a stage: hoisted, their 32 k-step
+      // offsets held 64 registers, and ptxas spilled 100 bytes
+      scores_tf32(sc, opaque64(dqh), opaque64(dql), sw128_desc(s, 16),
+                  sw128_desc(s + kFHalfTile, 16));
+      scores_tf32(dp, opaque64(doh), opaque64(dol),
+                  sw128_desc(s + 2 * kFHalfTile, 16),
+                  sw128_desc(s + 3 * kFHalfTile, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      // register 4i + 2 half + c: row `row` + 8 half, key 8 i + 2 (lane %
+      // 4) + c of the stage
+      const bool edge = edge_rows(iq * kTile, kTile, kh * kFHalf, kFHalf, t,
+                                  causal, window);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 4 * i + 2 * half + c;
+            const int key = kh * kFHalf + 8 * i + 2 * (lane & 3) + c;
+            const float p =
+                !edge || visible(row + 8 * half, key, t, causal, window)
+                    ? exp2f(fmaf(sc[r], sl2, -ls[half]))
+                    : 0.f;
+            sc[r] = p * (dp[r] - dl[half]);
+          }
+      uint32_t ah[4][4], al[4][4];
+      a_frags(sc, ah, al);
+      float pv[2][16];
+      wgmma_fence();
+      fold_issue(pv, ah, al, sw128_desc(s + 4 * kFHalfTile, 16),
+                 sw128_desc(s + 5 * kFHalfTile, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fold_add(acc, pv);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    // dq's rows have the caller's stride h d; only its first d columns
+    // are written (those past d belong to the next head)
+    const long long ld = (long long)h * d;
+    store_f32(dq + (size_t)bi * t * ld + (size_t)hd * d, ld, row, t, d, acc,
+              scale);
+  }
+}
+
+// dkv. One CTA: warpgroup 0 consumes, owning one 64-row key tile of one
+// (b, h), whose K and V the producer loads once; warp 4 produces (its
+// first thread streams the raw Q and dO of the tile's `_q_span` in
+// 32-query stages); warps 5 and 6 convert each stage (Q and dO split in
+// place and transposed) and copy its 32 lse and delta values (plain
+// loads, 0 past T), then arrive on `ready`. The warpgroup splits K and V
+// once, then per 32-query stage, in the transposed score space (its 64
+// keys on rows, the stage's queries on columns):
+//   1. S^T = K Q^T and dP^T = V dO^T in split tf32, one commit group;
+//   2. P^T = exp2(S^T scale log2e - lse log2e), lse by column from the
+//      stage, masked only on an edge stage; dS^T = P^T (dP^T - delta);
+//   3. both split in registers into tf32 A fragments;
+//   4. dV += P^T dO from dO^T and dK += dS^T Q from Q^T, each into fresh
+//      accumulators folded in f32;
+//   5. releases the stage.
+// dk = scale dK and dv = dV are written in f32. The first tiles, whose
+// causal spans are the longest, launch first.
+__global__ void __launch_bounds__(kFDkvThreads, 1)
+    k1f_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* lse, const float* delta, float* dk, float* dv,
+                   int t, int h, int d, float scale, int causal, int window,
+                   int stages) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* skv = smem;                  // K (hi), K lo, V (hi), V lo
+  unsigned char* ring = smem + 4 * kFTile;    // stages x kFDkvStage
+  unsigned char* rows = ring + stages * kFDkvStage;  // stages x kFRows
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + stages * kFRows);
+  uint64_t* ready = full + stages;
+  uint64_t* empty = ready + stages;
+  uint64_t* kvfull = empty + stages;
+  const int nk = (t + kTile - 1) / kTile;
+  const int bhn = gridDim.x / nk;
+  const int jk = (int)(blockIdx.x / bhn);
+  const int bh = blockIdx.x % bhn, bi = bh / h, hd = bh % h;
+  int lo, hi;
+  q_span(jk, nk, causal, window, &lo, &hi);
+  lo *= 2;  // in 32-query stages, none at or past T
+  hi = min(2 * hi, (t + kFHalf - 1) / kFHalf);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kFConvWarps);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(kvfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ------------------------ producer, converters
+    const int w = (threadIdx.x - 128) >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(kvfull, 2 * kFTile);
+      for (int p = 0; p < 2; ++p) {
+        tma_load_4d(skv + p * kBox, &tm_k, p * 32, hd, jk * kTile, bi,
+                    kvfull);
+        tma_load_4d(skv + 2 * kFTile + p * kBox, &tm_v, p * 32, hd,
+                    jk * kTile, bi, kvfull);
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int qh = lo; qh < hi; ++qh) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = ring + st * kFDkvStage;
+        mbar_expect_tx(&full[st], 2 * kFHalfTile);
+        for (int p = 0; p < 2; ++p) {
+          tma_load_4d(s + p * kFHalfBox, &tm_q, p * 32, hd, qh * kFHalf, bi,
+                      &full[st]);
+          tma_load_4d(s + 2 * kFHalfTile + p * kFHalfBox, &tm_do, p * 32, hd,
+                      qh * kFHalf, bi, &full[st]);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    } else if (w > 0) {
+      // converter w - 1 copies lse (0) or delta (1) of each stage
+      const float* src = (w == 1 ? lse : delta) + (size_t)bh * t;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int qh = lo; qh < hi; ++qh) {
+        const int q = qh * kFHalf + lane;
+        const float x = q < t ? src[q] : 0.f;
+        mbar_wait(&full[st], ph);
+        unsigned char* s = ring + st * kFDkvStage;
+        reinterpret_cast<float*>(rows + st * kFRows)[(w - 1) * kFHalf + lane] =
+            x;
+        split_transpose(s, s + kFHalfTile, s + 4 * kFHalfTile,
+                        s + 5 * kFHalfTile, w - 1, lane);
+        split_transpose(s + 2 * kFHalfTile, s + 3 * kFHalfTile,
+                        s + 6 * kFHalfTile, s + 7 * kFHalfTile, w - 1, lane);
+        fence_proxy_async();  // the splits, before the consumers' wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[st]);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    const int wk = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int key = jk * kTile + wk * 16 + (lane >> 2);  // and key + 8
+    const float sl2 = scale * kLog2e;
+    mbar_wait(kvfull, 0);
+    split_tile(skv, skv + kFTile, threadIdx.x, 128);
+    split_tile(skv + 2 * kFTile, skv + 3 * kFTile, threadIdx.x, 128);
+    fence_proxy_async();
+    named_bar(1, 128);
+    const uint64_t dkh = sw128_desc(skv, 16);
+    const uint64_t dkl = sw128_desc(skv + kFTile, 16);
+    const uint64_t dvh = sw128_desc(skv + 2 * kFTile, 16);
+    const uint64_t dvl = sw128_desc(skv + 3 * kFTile, 16);
+    float gk[32], gv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gk[i] = gv[i] = 0.f;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int qh = lo; qh < hi; ++qh) {
+      mbar_wait(&ready[st], ph);
+      __syncwarp();
+      const unsigned char* s = ring + st * kFDkvStage;
+      const float* lr = reinterpret_cast<const float*>(rows + st * kFRows);
+      const float* dr = lr + kFHalf;
+      float sc[16], dp[16];
+      wgmma_fence();
+      scores_tf32(sc, opaque64(dkh), opaque64(dkl), sw128_desc(s, 16),
+                  sw128_desc(s + kFHalfTile, 16));
+      scores_tf32(dp, opaque64(dvh), opaque64(dvl),
+                  sw128_desc(s + 2 * kFHalfTile, 16),
+                  sw128_desc(s + 3 * kFHalfTile, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      // register 4i + 2 half + c: key `key` + 8 half, query 8 i + 2 (lane
+      // % 4) + c of the stage
+      const bool edge = edge_rows(qh * kFHalf, kFHalf, jk * kTile, kTile, t,
+                                  causal, window);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c0 = 8 * i + 2 * (lane & 3);
+        const float2 l = *reinterpret_cast<const float2*>(lr + c0);
+        const float2 dd = *reinterpret_cast<const float2*>(dr + c0);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 4 * i + 2 * half + c;
+            const float p =
+                !edge || visible(qh * kFHalf + c0 + c, key + 8 * half, t,
+                                 causal, window)
+                    ? exp2f(fmaf(sc[r], sl2, -(c ? l.y : l.x) * kLog2e))
+                    : 0.f;
+            sc[r] = p;
+            dp[r] = p * (dp[r] - (c ? dd.y : dd.x));
+          }
+      }
+      uint32_t pah[4][4], pal[4][4], sah[4][4], sal[4][4];
+      a_frags(sc, pah, pal);
+      a_frags(dp, sah, sal);
+      // dV and dK: one commit group, both retired before either is added
+      float pv[2][16], pk[2][16];
+      wgmma_fence();
+      fold_issue(pv, pah, pal, sw128_desc(s + 6 * kFHalfTile, 16),
+                 sw128_desc(s + 7 * kFHalfTile, 16));
+      fold_issue(pk, sah, sal, sw128_desc(s + 4 * kFHalfTile, 16),
+                 sw128_desc(s + 5 * kFHalfTile, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fold_add(gv, pv);
+      fold_add(gk, pk);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    const long long ld = (long long)h * d;  // the caller's d, as in k1f_fwd
+    const size_t base = (size_t)bi * t * ld + (size_t)hd * d;
+    store_f32(dk + base, ld, key, t, d, gk, scale);
+    store_f32(dv + base, ld, key, t, d, gv, 1.f);
+  }
+}
+
+// the dynamic shared memory of k1f_dq's and k1f_dkv's layouts at `stages`
+// stages: the resident tiles with their lo, the ring (dkv: and its lse
+// and delta rows), 3 stages + 1 mbarriers and 1 KB of slack for the
+// 1024-byte alignment (`tf32_smem` rounds the mbarriers up to 128 bytes)
+long long f32_dq_smem(int stages) {
+  return (long long)(4 * kFQT) * kFTile + (long long)stages * kFDqStage +
+         8 * (3 * stages + 1) + 1024;
+}
+long long f32_dkv_smem(int stages) {
+  return 4LL * kFTile + (long long)stages * (kFDkvStage + kFRows) +
+         8 * (3 * stages + 1) + 1024;
+}
+
+int f32_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* dq_out, void* delta,
+           int b, int t, int h, int d, float scale, int causal, int window,
+           int stages, long long smem, void* stream) {
+  if (stages < 2 || stages > kStagesMax || smem < f32_dq_smem(stages))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1f_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // first, as in fwd
+  if (e) return e;
+  CUtensorMap tq, tk, tv, to, tdo;
+  e = seq_map(&tq, q, b, t, h, d, 4);
+  if (!e) e = seq_map(&tk, k, b, t, h, d, 4, kFHalf);
+  if (!e) e = seq_map(&tv, v, b, t, h, d, 4, kFHalf);
+  if (!e) e = seq_map(&to, o, b, t, h, d, 4);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, d, 4);
+  if (e) return e;
+  const int nq = (t + kTile - 1) / kTile;
+  k1f_dq_kernel<<<(nq + kFQT - 1) / kFQT * b * h, kFThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, tdo, static_cast<const float*>(lse),
+      static_cast<float*>(dq_out), static_cast<float*>(delta), t, h, d,
+      scale, causal, window, stages);
+  return (int)cudaGetLastError();
+}
+
+int f32_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, int b,
+            int t, int h, int d, float scale, int causal, int window,
+            int stages, long long smem, void* stream) {
+  if (stages < 2 || stages > kStagesMax || smem < f32_dkv_smem(stages))
+    return (int)cudaErrorInvalidValue;
+  int e = (int)cudaFuncSetAttribute(
+      k1f_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // first, as in fwd
+  if (e) return e;
+  CUtensorMap tq, tk, tv, tdo;
+  e = seq_map(&tq, q, b, t, h, d, 4, kFHalf);
+  if (!e) e = seq_map(&tk, k, b, t, h, d, 4);
+  if (!e) e = seq_map(&tv, v, b, t, h, d, 4);
+  if (!e) e = seq_map(&tdo, dout, b, t, h, d, 4, kFHalf);
+  if (e) return e;
+  const int nk = (t + kTile - 1) / kTile;
+  k1f_dkv_kernel<<<nk * b * h, kFDkvThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), t, h, d, scale, causal, window, stages);
+  return (int)cudaGetLastError();
+}
+
+// a call the tf32 family takes: f32 (dtype code 0) at d from 4 to 64
+// with d % 4 == 0
+bool f32_ok(int dtype, int b, int t, int h, int d) {
+  return dtype == 0 && shape_ok(b, t, h) && d >= 4 && d <= kFMaxD &&
+         d % 4 == 0;
+}
+
+
+// ---------------------------------------------------------------------------
 // The SIMT family: the f32 and f16 calls that the wgmma kernels above do
-// not take — f32 dq and dkv, the f32 forward at head dims k1f_fwd does
-// not take, and all of f16 — at any head dim D from 1 to 256 (the
+// not take — f32 at the head dims the tf32 kernels do not take, and all
+// of f16 — at any head dim D from 1 to 256 (the
 // reference's kernels take any float dtype and any head dim). The same
 // functions as k1_fwd, k1_dq and k1_dkv, in f32 FMA arithmetic (f32
 // inputs compute in full f32: no TF32, no rounding of p or ds), one
 // simple shape for all three, templated on the input type T and on C >=
-// ceil(D / 32), the columns of a row each lane owns (1, 2, 4 or 8). The
-// f32 dq and dkv move onto the tensor cores next (split TF32, as
-// k1f_fwd).
+// ceil(D / 32), the columns of a row each lane owns (1, 2, 4 or 8).
 //
 // A CTA is 4 warps and owns 16 rows of one (b, h): query rows for fwd and
 // dq, key rows for dkv; each warp owns 4 of them. The other side streams
@@ -2096,8 +2771,8 @@ int k1_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // the SIMT family: dtype 0 f32, 2 f16 (1, bf16, is refused: it runs on
-// the wgmma kernels; the wrappers send the f32 forward at d % 4 == 0 up
-// to 64 to k1f_fwd, though this one takes it too); any d from 1 to 256;
+// the wgmma kernels; the wrappers send f32 at d % 4 == 0 up to 64 to the
+// tf32 kernels, though these take it too); any d from 1 to 256;
 // the same operands, layouts and results as k1_fwd, k1_dq and k1_dkv,
 // and `smem` bytes of dynamic shared memory (`simt_smem`); a CTA per 16
 // rows of each (b, h)
@@ -2134,10 +2809,35 @@ int k1s_dkv(int dtype, const void* q, const void* k, const void* v,
 int k1f_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             void* lse, int b, int t, int h, int d, float scale, int causal,
             int window, int stages, long long smem, void* stream) {
-  if (dtype != 0 || !shape_ok(b, t, h) || d < 4 || d > kFMaxD || d % 4)
-    return (int)cudaErrorInvalidValue;
+  if (!f32_ok(dtype, b, t, h, d)) return (int)cudaErrorInvalidValue;
   return f32_fwd(q, k, v, o, lse, b, t, h, d, scale, causal, window, stages,
                  smem, stream);
+}
+
+// the f32 dq on the tensor cores (split TF32): k1_dq's operands, layouts
+// and results for dtype 0 at the d k1f_fwd takes, dq in f32; a CTA per
+// pair of query tiles of each (b, h), a ring of `stages` 32-key stages in
+// `smem` bytes (`flash_plan`'s tf32_cta["dq"])
+int k1f_dq(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const void* lse, void* dq_out,
+           void* delta, int b, int t, int h, int d, float scale, int causal,
+           int window, int stages, long long smem, void* stream) {
+  if (!f32_ok(dtype, b, t, h, d)) return (int)cudaErrorInvalidValue;
+  return f32_dq(q, k, v, o, dout, lse, dq_out, delta, b, t, h, d, scale,
+                causal, window, stages, smem, stream);
+}
+
+// the f32 dk/dv on the tensor cores (split TF32): k1_dkv's operands,
+// layouts and results for dtype 0 at the d k1f_fwd takes, dk and dv in
+// f32; a CTA per key tile of each (b, h), a ring of `stages` 32-query
+// stages in `smem` bytes (`flash_plan`'s tf32_cta["dkv"])
+int k1f_dkv(int dtype, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int b, int t, int h, int d, float scale, int causal,
+            int window, int stages, long long smem, void* stream) {
+  if (!f32_ok(dtype, b, t, h, d)) return (int)cudaErrorInvalidValue;
+  return f32_dkv(q, k, v, dout, lse, delta, dk, dv, b, t, h, d, scale,
+                 causal, window, stages, smem, stream);
 }
 
 // d[64, 8] = a[64, 8] . b[8, 8]^T through one tf32 wgmma, the f32

@@ -469,6 +469,23 @@ __device__ __forceinline__ void wgmma_n64_tf32(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64, 32] (+)= A[64, 8] . B[8, 32], tf32 in, both operands from shared
+// memory (K-major descriptors): the scores against a 32-row stage
+__device__ __forceinline__ void wgmma_n32_tf32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64, 32] (+)= A[64, 8] . B[8, 32] with A from registers: a[] holds
 // this thread's tf32 values in mma.sync's m16n8k8 tf32 A layout for its
 // warp's 16 rows — a[0] (row lane / 4, column lane % 4), a[1] (row + 8,

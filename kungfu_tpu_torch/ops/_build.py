@@ -86,6 +86,12 @@ KERNELS = {
         # operands ... window, stages, smem, stream
         "k1f_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float]
                     + [_I] * 3 + [_LL, _P]),
+        # the f32 dq and dk/dv in split TF32: dtype code, then k1_dq's
+        # (k1_dkv's) operands ... window, stages, smem, stream
+        "k1f_dq": (_I, [_I] + [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+                   + [_I] * 3 + [_LL, _P]),
+        "k1f_dkv": (_I, [_I] + [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+                    + [_I] * 3 + [_LL, _P]),
         # a, b, d, stream: one tf32 wgmma on raw f32 operands
         "k1f_tf32_probe": (_I, [_P] * 4),
     }),

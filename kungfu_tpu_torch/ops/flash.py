@@ -31,17 +31,16 @@ head dim (the reference's kernels take any float dtype and any head dim):
   same function, since zero columns add nothing to the scores, dP or
   delta. The copy runs on every device, so the CPU's plain versions see
   the operands the card's kernels see;
-- ``tf32``: the f32 forward at head dims 4 to `TF32_MAX_D` (64) with
-  d % 4 == 0 (``k1f_fwd``) — the same TMA + wgmma shape on the tensor
-  cores in split TF32 (3xTF32: each operand as hi + lo, three tf32
-  products, which keeps f32's tolerance where plain TF32 would not),
-  two query tiles a CTA (`TF32_Q_TILES`), its CTA in `flash_plan`'s
-  ``tf32_cta``;
-- ``simt``: every other f32 call (dq and dkv, and the forward at the
-  other head dims) and all of f16, every head dim from 1 to `SIMT_MAX_D`
-  (256) — one simple kernel family in f32 FMA arithmetic (``k1s_fwd``,
-  ``k1s_dq``, ``k1s_dkv``; f32 inputs compute in full f32, no TF32), a
-  CTA per 16 rows of one (b, h).
+- ``tf32``: f32 at head dims 4 to `TF32_MAX_D` (64) with d % 4 == 0
+  (``k1f_fwd``, ``k1f_dq``, ``k1f_dkv``) — the same TMA + wgmma shape on
+  the tensor cores in split TF32 (3xTF32: each operand as hi + lo, three
+  tf32 products, which keeps f32's tolerance where plain TF32 would
+  not), their CTAs in `flash_plan`'s ``tf32_cta``;
+- ``simt``: every other f32 call (the head dims off the tf32 rule) and
+  all of f16, every head dim from 1 to `SIMT_MAX_D` (256) — one simple
+  kernel family in f32 FMA arithmetic (``k1s_fwd``, ``k1s_dq``,
+  ``k1s_dkv``; f32 inputs compute in full f32, no TF32), a CTA per 16
+  rows of one (b, h).
 
 All fold B*H into the first grid dimension, so B*H may exceed 65535.
 
@@ -120,18 +119,24 @@ _ROWS = 2 * BLOCK_Q * 4
 SIMT_DTYPES = {torch.float32: 0, torch.float16: 2}
 SIMT_MAX_D = 256
 SIMT_ROWS, SIMT_KEYS, SIMT_THREADS = 16, 32, 128
-#: the tf32 family (`route`): the f32 forward at head dims 4 to
+#: the tf32 family (`route`): f32 fwd, dq and dkv at head dims 4 to
 #: TF32_MAX_D with d % 4 == 0 (TMA's 16-byte rule for a row stride of
 #: d * 4 bytes; the columns past d zero-filled, as the bf16 kernels'),
-#: compiled for head dim 64. Its CTA (k1f_fwd_kernel): TF32_Q_TILES
+#: compiled for head dim 64, each with TF32_STAGES ring stages. The
+#: forward's and dq's CTAs (k1f_fwd_kernel, k1f_dq_kernel): TF32_Q_TILES
 #: consumer warpgroups, each one 64-row query tile, beside a producer
-#: warp whose first thread streams K and V by TMA and two converter warps
-#: that split each stage into hi and lo (TF32_THREADS in all);
-#: TF32_STAGES ring stages of five [64, 64] f32 tiles (K hi, K lo, V, V^T
-#: hi, V^T lo)
+#: warp whose first thread streams the other side by TMA and two
+#: converter warps that split each stage into hi and lo (TF32_THREADS in
+#: all); a forward stage is five [64, 64] f32 tiles (K hi, K lo, V, V^T
+#: hi, V^T lo), a dq stage TF32_HALF keys of K, V and K^T, each hi and lo.
+#: dkv's CTA (k1f_dkv_kernel): one consumer warpgroup owning a 64-row key
+#: tile beside the producer and converter warps (TF32_DKV_THREADS), a
+#: stage TF32_HALF queries of Q, dO, Q^T and dO^T, each hi and lo, and
+#: their lse and delta values
 TF32_MAX_D = 64
-TF32_Q_TILES, TF32_STAGES = 2, 2
+TF32_Q_TILES, TF32_STAGES, TF32_HALF = 2, 2, 32
 TF32_THREADS = TF32_Q_TILES * 128 + 3 * 32
+TF32_DKV_THREADS = 128 + 3 * 32
 #: one [64, 64] f32 tile: two 128-byte-swizzled boxes of 32 columns
 _F32_TILE = BLOCK_Q * 64 * 4
 #: the reference's tile rule (`tiles`): the longest auto block and the
@@ -410,18 +415,17 @@ def wgmma_dim(dtype: torch.dtype, d: int, kernel: str) -> Optional[int]:
 
 def tf32_takes(dtype: torch.dtype, d: int, kernel: str) -> bool:
     """Whether the tf32 family runs `kernel` in `dtype` at head dim `d`:
-    the f32 forward at d from 4 to `TF32_MAX_D` with d % 4 == 0."""
+    f32 fwd, dq and dkv at d from 4 to `TF32_MAX_D` with d % 4 == 0."""
     if kernel not in KERNELS:
         raise ValueError(f"no flash-attention kernel {kernel!r}")
-    return (kernel == "fwd" and dtype == torch.float32
-            and 4 <= d <= TF32_MAX_D and d % 4 == 0)
+    return dtype == torch.float32 and 4 <= d <= TF32_MAX_D and d % 4 == 0
 
 
 def route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The family that runs `kernel` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     in `dtype` at head dim `d`: ``"wgmma"`` where `wgmma_dim` names a
     kernel (bf16 at any d from 1 to 256), ``"tf32"`` where `tf32_takes`
-    (the f32 forward at d % 4 == 0 up to 64), ``"simt"`` for the rest of
+    (f32 at d % 4 == 0 up to 64), ``"simt"`` for the rest of
     f32 and f16 at a head dim from 1 to `SIMT_MAX_D`; ValueError for
     anything else (f64, a wider head)."""
     if wgmma_dim(dtype, d, kernel) is not None:
@@ -474,17 +478,25 @@ def simt_smem(kernel: str, d: int) -> int:
     return 4 * (tile + own + (2 * SIMT_KEYS if kernel == "dkv" else 0))
 
 
-def tf32_smem(stages: Optional[int] = None) -> int:
-    """Dynamic shared memory of the tf32 forward's CTA at `stages`
-    (default TF32_STAGES) ring stages: Q and its lo for each of its
-    TF32_Q_TILES query tiles, five [64, 64] f32 tiles a stage, the full,
-    ready and empty mbarriers of each stage and the Q barrier (rounded to
-    128 bytes), and 1 KB of slack for the 1024-byte alignment (230,528
-    bytes at two stages)."""
+def tf32_smem(stages: Optional[int] = None, kernel: str = "fwd") -> int:
+    """Dynamic shared memory of the tf32 family's CTA for `kernel` at
+    `stages` (default TF32_STAGES) ring stages, in [64, 64] f32 tiles:
+    the forward's Q and its lo for each of its TF32_Q_TILES query tiles
+    and five tiles a stage; dq's Q, dO and their lo for each query tile
+    and three tiles a stage (TF32_HALF keys of K, V and K^T, each hi and
+    lo); dkv's K, V and their lo, four tiles a stage (TF32_HALF queries
+    of Q, dO, Q^T and dO^T, each hi and lo) and its 2 x TF32_HALF lse and
+    delta values. Then the full, ready and empty mbarriers of each stage
+    and the resident tiles' barrier (rounded to 128 bytes), and 1 KB of
+    slack for the 1024-byte alignment (230,528 bytes for fwd and dq at
+    two stages, 198,272 for dkv)."""
     stages = TF32_STAGES if stages is None else stages
     bars = 8 * (3 * stages + 1)
-    return ((2 * TF32_Q_TILES + 5 * stages) * _F32_TILE
-            + -(-bars // 128) * 128 + 1024)
+    tiles, extra = {"fwd": (2 * TF32_Q_TILES + 5 * stages, 0),
+                    "dq": (4 * TF32_Q_TILES + 3 * stages, 0),
+                    "dkv": (4 + 4 * stages, stages * 2 * TF32_HALF * 4)}[
+                        kernel]
+    return tiles * _F32_TILE + extra + -(-bars // 128) * 128 + 1024
 
 
 def flash_plan(t: int, d: int, causal: bool = False,
@@ -507,10 +519,12 @@ def flash_plan(t: int, d: int, causal: bool = False,
 
     ``route`` is the family each kernel launches in `dtype` at head dim
     `d` (`route`; None where none takes it): the wgmma CTAs above, else
-    ``tf32_cta`` (where the forward routes ``"tf32"``: f32 at d % 4 ==
-    0 up to 64, else None) — compiled for head dim 64, its query tiles,
-    the streamed key tile, threads, ring stages, shared memory
-    (`tf32_smem`) and CTAs per (b, h) — or ``simt_cta`` — every head dim
+    ``tf32_cta`` (by kernel, where it routes ``"tf32"``: f32 at d % 4 ==
+    0 up to 64, else None) — compiled for head dim 64, its resident
+    tiles (``q_tiles`` or ``key_tiles``), the rows of a streamed stage
+    (``key_tile`` 64 for fwd, ``key_stage`` / ``query_stage`` TF32_HALF
+    for dq / dkv), threads, ring stages, shared memory (`tf32_smem`) and
+    CTAs per (b, h) — or ``simt_cta`` — every head dim
     from 1 to `SIMT_MAX_D` in f32 or f16, 16 rows a CTA, 32 keys a
     staged tile, 128 threads, shared memory by kernel (`simt_smem`).
     ``tiles`` is the reference's tile rule at this length (`tiles`): None
@@ -550,12 +564,18 @@ def flash_plan(t: int, d: int, causal: bool = False,
             plan["route"][name] = route(dtype, d, name)
         except ValueError:
             plan["route"][name] = None
-    plan["tf32_cta"] = ({
-        "head_dim": TF32_MAX_D, "q_tiles": TF32_Q_TILES,
-        "key_tile": BLOCK_K, "threads": TF32_THREADS,
-        "stages": TF32_STAGES, "smem": tf32_smem(),
-        "ctas_per_head": -(-nq // TF32_Q_TILES)}
-        if plan["route"]["fwd"] == "tf32" else None)
+    tf32 = {"fwd": ({"q_tiles": TF32_Q_TILES, "key_tile": BLOCK_K},
+                    TF32_THREADS, -(-nq // TF32_Q_TILES)),
+            "dq": ({"q_tiles": TF32_Q_TILES, "key_stage": TF32_HALF},
+                   TF32_THREADS, -(-nq // TF32_Q_TILES)),
+            "dkv": ({"key_tiles": 1, "query_stage": TF32_HALF},
+                    TF32_DKV_THREADS, nk)}
+    plan["tf32_cta"] = {
+        name: {"head_dim": TF32_MAX_D, **tiles, "threads": threads,
+               "stages": TF32_STAGES, "smem": tf32_smem(kernel=name),
+               "ctas_per_head": ctas}
+        if plan["route"][name] == "tf32" else None
+        for name, (tiles, threads, ctas) in tf32.items()}
     simt = 1 <= d <= SIMT_MAX_D
     plan["simt_cta"] = {
         "rows": SIMT_ROWS, "keys": SIMT_KEYS, "threads": SIMT_THREADS,
@@ -856,6 +876,11 @@ def flash_dq(q, k, v, o, lse, do, causal=False, scale=None, window=None):
             _launch("dq", _lib().k1_dq, *ptrs,
                     BWD_STAGES[padded_dim(d)], dq_smem(d),
                     _build.stream(q.device))
+        elif family == "tf32":
+            _launch("dq", _lib().k1f_dq, SIMT_DTYPES[q.dtype], *ptrs,
+                    TF32_STAGES, tf32_smem(kernel="dq"),
+                    _build.stream(q.device), dtype=q.dtype,
+                    counter=TF32_LAUNCHES)
         else:
             _launch("dq", _lib().k1s_dq, SIMT_DTYPES[q.dtype], *ptrs,
                     simt_smem("dq", d), _build.stream(q.device),
@@ -890,6 +915,11 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
             _launch("dkv", _lib().k1_dkv, *ptrs,
                     BWD_STAGES[padded_dim(d)], dkv_smem(d),
                     _build.stream(q.device))
+        elif family == "tf32":
+            _launch("dkv", _lib().k1f_dkv, SIMT_DTYPES[q.dtype], *ptrs,
+                    TF32_STAGES, tf32_smem(kernel="dkv"),
+                    _build.stream(q.device), dtype=q.dtype,
+                    counter=TF32_LAUNCHES)
         else:
             _launch("dkv", _lib().k1s_dkv, SIMT_DTYPES[q.dtype], *ptrs,
                     simt_smem("dkv", d), _build.stream(q.device),

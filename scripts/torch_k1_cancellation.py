@@ -19,8 +19,14 @@ _k1_inputs`):
 Each against the exact dq (the same formula in f64), from the same
 (o, lse): the plain forward's on the CPU, the kernel's on the card.
 
+``--dtype float32`` does the same for f32 inputs, where the bound is the
+card tests' f32 tolerance, 1e-5 + 1e-5 |exact| (`TOL[float32]`), and the
+kernel is the one `ops.flash.route` picks: `k1f_dq` (dp in split TF32 on
+the tensor cores, delta in f32 FMA) at d % 4 == 0 up to 64, `k1s_dq`
+(both in f32 FMA) at the other head dims.
+
     python3 scripts/torch_k1_cancellation.py [--device cpu|cuda]
-        [--dims 64,128,200,256]
+        [--dtype bfloat16|float32] [--dims 64,128,200,256]
 
 Prints one JSON line a head dim.
 """
@@ -62,9 +68,17 @@ def ratios(got, exact, bound):
     return round(float(r.max()), 3), round(float(r[:, :64].max()), 3)
 
 
+def f32_ratios(got, exact):
+    """`ratios` against the f32 tolerance, 1e-5 + 1e-5 |exact|."""
+    r = (got.double() - exact).abs() / (1e-5 + 1e-5 * exact.abs())
+    return round(float(r.max()), 3), round(float(r[:, :64].max()), 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     ap.add_argument("--dims", default="64,128,200,256")
     args = ap.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -73,30 +87,39 @@ def main() -> int:
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     b, t, h, causal = 2, 200, 3, True
+    dtype = getattr(torch, args.dtype)
     for d in (int(x) for x in args.dims.split(",")):
         g = torch.Generator().manual_seed(d)
         q, k, v, do = [torch.randn(b, t, h, d, generator=g)
-                       .to(args.device, torch.bfloat16) for _ in range(4)]
+                       .to(args.device, dtype) for _ in range(4)]
         f = [x.float() for x in (q, k, v, do)]
         if args.device == "cuda":
             o, lse = fl.flash_fwd(q, k, v, causal)
         else:
             ro, lse = fl.plain_fwd(*f[:3], causal)
-            o = ro.to(torch.bfloat16)
+            o = ro.to(dtype).contiguous()
         exact = exact_dq(*f[:3], o.float(), lse, f[3], causal, torch.float64)
-        bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3], causal)["dq"]
-        row = {"device": args.device, "d": d, "shape": [b, t, h, d],
-               "causal": causal, "ratio_all_and_row_tile_0": {
-                   "f32": ratios(exact_dq(*f[:3], o.float(), lse, f[3],
-                                          causal, torch.float32),
-                                 exact, bound),
-                   "plain": ratios(fl.plain_dq(*f[:3], o.float(), lse, f[3],
-                                               causal)[0], exact, bound)}}
+        if dtype == torch.float32:
+            def measure(got):
+                return f32_ratios(got, exact)
+        else:
+            bound = fl.kernel_error_bounds(*f[:3], o, lse, f[3],
+                                           causal)["dq"]
+
+            def measure(got):
+                return ratios(got, exact, bound)
+        row = {"device": args.device, "dtype": args.dtype, "d": d,
+               "shape": [b, t, h, d], "causal": causal,
+               "ratio_all_and_row_tile_0": {
+                   "f32": measure(exact_dq(*f[:3], o.float(), lse, f[3],
+                                           causal, torch.float32)),
+                   "plain": measure(fl.plain_dq(*f[:3], o.float(), lse,
+                                                f[3], causal)[0])}}
         if args.device == "cuda":
             dq, _ = fl.flash_dq(q, k, v, o, lse, do, causal)
             torch.cuda.synchronize()
-            row["ratio_all_and_row_tile_0"]["kernel"] = ratios(dq, exact,
-                                                               bound)
+            row["ratio_all_and_row_tile_0"]["kernel"] = measure(dq)
+            row["kernel"] = fl.route(dtype, d, "dq")
             row["card"] = torch.cuda.get_device_name(0)
         print(json.dumps(row), flush=True)
     return 0

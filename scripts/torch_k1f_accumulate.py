@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Why K1's f32 forward (`k1f_fwd`, split TF32 on the tensor cores) forms
-P V the way it does, measured on the card against two variants built
-from edited copies of `csrc/flash.cu`:
+"""Why K1's f32 kernels (`k1f_fwd`, `k1f_dq`, `k1f_dkv`, split TF32 on
+the tensor cores) form their second products the way they do, measured
+on the card against variants built from edited copies of
+`csrc/flash.cu`. The forward's P V:
 
 - ``kernel``: `flash.cu` as it stands — each key tile's P V in two
   halves of 32 columns (m64n32k8), each into a fresh accumulator folded
@@ -12,11 +13,22 @@ from edited copies of `csrc/flash.cu`:
 - ``one_accumulator``: P V into one fresh 64-column accumulator
   (m64n64k8) folded into O, which keeps 32 more registers live.
 
+The backward's dQ += dS K, dV += P^T dO and dK += dS^T Q:
+
+- ``kernel``: each 32-row stage's product in two halves of 32 columns
+  into fresh accumulators (`fold_issue`), added into dQ, dK or dV in f32
+  (`fold_add`);
+- ``across_stages``: dQ, dK and dV themselves are the tensor cores'
+  accumulators, so every stage's 12 tensor-core steps add into one
+  running sum.
+
 For each: ptxas's registers and spills, and at each shape the largest
-|o - plain| and |lse - plain| against `ops.flash.plain_fwd` on the same
-f32 inputs, the largest |o - plain| / (1e-5 + 1e-5 |plain|) (above 1 is
-outside the card tests' f32 tolerance), and the ms per launch by CUDA
-events (20 launches after one).
+error against the plain versions on the same f32 inputs (|o - plain|
+and |lse - plain| against `ops.flash.plain_fwd`; dq, delta, dk and dv
+against `plain_dq` and `plain_dkv` on the plain forward's (o, lse)), the
+largest |x - plain| / (1e-5 + 1e-5 |plain|) (above 1 is outside the card
+tests' f32 tolerance), and the ms per launch by CUDA events (20 launches
+after one).
 
     python3 scripts/torch_k1f_accumulate.py
 
@@ -107,6 +119,27 @@ def across_tiles(src):
     return _cut(src, _FOLD, "")
 
 
+_FOLD_DQ = "      float pv[2][16];\n      wgmma_fence();\n"
+_FOLD_DKV = "      float pv[2][16], pk[2][16];\n"
+_FOLD_FIRST = "wgmma_n32_tf32_ra(pv[nh], al[j], h + 2 * j, j);"
+_FOLD_ADD = ("#pragma unroll\n  for (int nh = 0; nh < 2; ++nh)\n#pragma unroll\n"
+             "    for (int i = 0; i < 16; ++i) acc[16 * nh + i] += pv[nh][i];\n")
+
+
+def _alias(name, acc):
+    return (f"      float (&{name})[2][16] = *reinterpret_cast<float (*)[2]"
+            f"[16]>({acc});\n")
+
+
+def across_stages(src):
+    """dQ, dK and dV as the tensor cores' running sums over the stages:
+    the products go into them (no fresh accumulator, no f32 add)."""
+    src = _cut(src, _FOLD_DQ, _alias("pv", "acc") + "      wgmma_fence();\n")
+    src = _cut(src, _FOLD_DKV, _alias("pv", "gv") + _alias("pk", "gk"))
+    src = _cut(src, _FOLD_FIRST, _FOLD_FIRST.replace("j);", "1);"))
+    return _cut(src, _FOLD_ADD, "")
+
+
 def one_accumulator(src):
     """P V into one 64-column accumulator, then the fold."""
     src = _cut(src, "// byte offset of f32 element (r, c) in a [rows, 32] box",
@@ -118,11 +151,17 @@ def one_accumulator(src):
 
 
 VARIANTS = {"kernel": lambda s: s, "across_tiles": across_tiles,
-            "one_accumulator": one_accumulator}
+            "one_accumulator": one_accumulator,
+            "across_stages": across_stages}
+#: the variants of the forward's P V and of the backward's fold
+FWD_VARIANTS = ("kernel", "across_tiles", "one_accumulator")
+BWD_VARIANTS = ("kernel", "across_stages")
+_KERNELS = ("k1f_fwd_kernel", "k1f_dq_kernel", "k1f_dkv_kernel")
 
 
 def build(name):
-    """(ptxas line of k1f_fwd_kernel, library path) of variant `name`."""
+    """({kernel: ptxas line} of the three tf32 kernels, library path) of
+    variant `name`."""
     out_dir = os.path.join(ROOT, "build", "k1f_variants")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, f"flash_{name}.cu")
@@ -138,9 +177,12 @@ def build(name):
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}")
     lines = proc.stdout.splitlines()
-    i = next(i for i, ln in enumerate(lines)
-             if "Function properties" in ln and "k1f_fwd_kernel" in ln)
-    return " | ".join(ln.strip() for ln in lines[i + 1:i + 3]), lib
+    ptxas = {}
+    for kernel in _KERNELS:
+        i = next(i for i, ln in enumerate(lines)
+                 if "Function properties" in ln and kernel in ln)
+        ptxas[kernel] = " | ".join(ln.strip() for ln in lines[i + 1:i + 3])
+    return ptxas, lib
 
 
 def load(path):
@@ -164,6 +206,53 @@ def ms_per_launch(fn, n=20):
     return a.elapsed_time(b) / n
 
 
+def _errs(pairs):
+    """For each (name, x, ref) of `pairs`: max |x - ref| and the largest
+    |x - ref| / (1e-5 + 1e-5 |ref|)."""
+    out = {}
+    for n, x, r in pairs:
+        err = (x - r).abs()
+        out[f"{n}_max_abs_err"] = float(err.max())
+        out[f"{n}_err_over_tol"] = float((err / (1e-5 + 1e-5 * r.abs()))
+                                         .max())
+    return out
+
+
+def run_bwd(lib, name, b, t, h, d, causal, q, k, v, do, o, lse):
+    """One variant's dq and dkv at one shape: their errors against the
+    plain versions on the same (o, lse) and their ms per launch. The
+    kernels read o in place: it must be contiguous (the plain forward's
+    einsum may return a permuted view)."""
+    o = o.contiguous()
+    rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal)
+    rdk, rdv = fl.plain_dkv(q, k, v, do, lse, rdelta, causal)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(rdelta)
+    stream = _build.stream(q.device)
+    common = (b, t, h, d, d ** -0.5, int(causal), -1, fl.TF32_STAGES)
+
+    def run_dq():
+        err = lib.k1f_dq(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         dq.data_ptr(), delta.data_ptr(), *common,
+                         fl.tf32_smem(kernel="dq"), stream)
+        if err:
+            raise RuntimeError(f"{name}: k1f_dq returned {err}")
+
+    def run_dkv():
+        err = lib.k1f_dkv(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), *common,
+                          fl.tf32_smem(kernel="dkv"), stream)
+        if err:
+            raise RuntimeError(f"{name}: k1f_dkv returned {err}")
+
+    dq_ms, dkv_ms = ms_per_launch(run_dq), ms_per_launch(run_dkv)
+    errs = _errs((("dq", dq, rdq), ("delta", delta, rdelta),
+                  ("dk", dk, rdk), ("dv", dv, rdv)))
+    return {**errs, "dq_ms": dq_ms, "dkv_ms": dkv_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k1f_accumulate: no CUDA device", file=sys.stderr)
@@ -180,7 +269,8 @@ def main() -> int:
         q, k, v = (torch.randn(b, t, h, d, generator=g, device="cuda")
                    for _ in range(3))
         ro, rlse = fl.plain_fwd(q, k, v, causal)
-        for name, lib in libs.items():
+        for name in FWD_VARIANTS:
+            lib = libs[name]
             o, lse = torch.empty_like(q), torch.empty_like(rlse)
             stream = _build.stream(q.device)
 
@@ -194,14 +284,24 @@ def main() -> int:
 
             ms = ms_per_launch(run)
             print(json.dumps({
-                "variant": name, "shape": [b, t, h, d, causal],
-                "ptxas": built[name][0],
+                "variant": name, "kernel": "k1f_fwd",
+                "shape": [b, t, h, d, causal],
+                "ptxas": built[name][0]["k1f_fwd_kernel"],
                 "o_max_abs_err": float((o - ro).abs().max()),
                 "lse_max_abs_err": float((lse - rlse).abs().max()),
                 "o_err_over_tol": float(((o - ro).abs()
                                          / (1e-5 + 1e-5 * ro.abs())).max()),
                 "ms": ms}), flush=True)
-        del q, k, v, ro, rlse
+        do = torch.randn(b, t, h, d, generator=g, device="cuda")
+        for name in BWD_VARIANTS:
+            print(json.dumps({
+                "variant": name, "kernel": "k1f_dq, k1f_dkv",
+                "shape": [b, t, h, d, causal],
+                "ptxas": {n: built[name][0][n] for n in _KERNELS[1:]},
+                **run_bwd(libs[name], name, b, t, h, d, causal, q, k, v,
+                          do, ro, rlse)}), flush=True)
+            torch.cuda.empty_cache()
+        del q, k, v, do, ro, rlse
         torch.cuda.empty_cache()
     return 0
 

@@ -72,7 +72,8 @@ def _k1f_accumulate():
     return mod
 
 
-@pytest.mark.parametrize("name", ["across_tiles", "one_accumulator"])
+@pytest.mark.parametrize("name", ["across_tiles", "one_accumulator",
+                                  "across_stages"])
 def test_k1f_accumulate_variants_apply_to_the_current_source(name):
     """`scripts/torch_k1f_accumulate.py` builds `flash.cu` with the tf32
     forward's P V product edited (O as the tensor cores' running sum, or

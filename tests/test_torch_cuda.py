@@ -600,10 +600,10 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
     """The SIMT family (f32 and f16) against the plain versions on the
     same inputs, within SIMT_TOL: fwd's o and lse, dq and delta from the
     kernel's (o, lse), dk and dv from its delta; a second launch of each
-    bitwise equal to the first. The f32 forward at d % 4 == 0 up to 64
-    (d 64, 8, 16, 32 here) runs on the tf32 family, held to the same
-    TOL; SIMT keeps the f32 forward at d 128, 256 and 7, f16, and every
-    f32 dq and dkv. bf16 runs on the wgmma family at every head dim (d
+    bitwise equal to the first. f32 fwd, dq and dkv at d % 4 == 0 up to
+    64 (d 64, 8, 16, 32 here) run on the tf32 family, held to the same
+    TOL; SIMT keeps all three f32 kernels at d 128, 256 and 7, and f16.
+    bf16 runs on the wgmma family at every head dim (d
     16, 32, 96, 256 padded by TMA; d 1, 4, 20, 100 and 252 through a
     zero-padded copy of ceil(d / 8) * 8 columns at the caller's scale),
     held within `fl.kernel_error_bounds` of the plain versions in f32 at
@@ -625,8 +625,11 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
     assert fl.SIMT_LAUNCHES == {f"{n}.{name}": 2 for n in simt}
     assert fl.TF32_LAUNCHES == {f"{n}.{name}": 2 for n in family
                                 if family[n] == "tf32"}
-    assert (family["fwd"] == "tf32") == (
-        dtype == torch.float32 and d <= 64 and d % 4 == 0)
+    for n in family:
+        assert (family[n] == "tf32") == (
+            dtype == torch.float32 and d <= 64 and d % 4 == 0)
+    if dtype == torch.float32 and d in (128, 256, 7):
+        assert simt == ["fwd", "dq", "dkv"]
     assert {n: fl.LAUNCHES[n] for n in ("fwd", "dq", "dkv", "plain")} == \
         {"fwd": 2, "dq": 2, "dkv": 2, "plain": 0}
     for a, b2 in zip(*runs):
@@ -643,7 +646,7 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                        None, window)
         _within("o", o, ro, bound["o"])
         _within("lse", lse, rlse, bound["lse"])
-    if "dkv" in simt:
+    if family["dkv"] != "wgmma":
         rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None,
                                 window)
         _close("dk", dk, rdk, dtype)
@@ -655,7 +658,7 @@ def test_k1_simt_matches_plain_versions(cuda, dtype, b, t, h, d, causal,
                                        window)
         _within("dk", dk, rdk, bound["dk"])
         _within("dv", dv, rdv, bound["dv"])
-    if "dq" in simt:
+    if family["dq"] != "wgmma":
         rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
         _close("dq", dq, rdq, dtype)
         _close("delta", delta, rdelta, torch.float32)
@@ -951,6 +954,149 @@ def test_k1_tf32_fwd_folds_bh_above_65535(cuda):
         ro, rlse = fl.plain_fwd(q[sl], k[sl], v[sl], True)
         _close("o", o[sl], ro, torch.float32)
         _close("lse", rows[sl].reshape(-1, 64), rlse, torch.float32)
+
+
+#: the tf32 backward's cases (`k1f_dq`, `k1f_dkv`): head dims on its
+#: rule (at d <= 32 the second 32-column box lies wholly past d), causal,
+#: full and a 48-row window, lengths of one tile, ragged (T 1000: a last
+#: 32-row stage of 8 rows) and 4096 (128 stages summed into each of dQ,
+#: dK and dV)
+TF32_BWD_DS = (4, 8, 16, 32, 60, 64)
+TF32_BWD_TS = (64, 1000, 4096)
+TF32_BWD_MODES = {"causal": (True, None), "full": (False, None),
+                  "window": (True, 48)}
+
+
+def _f32_guarded(like, tail=256):
+    """An int32 view shaped as `like` at the start of a buffer filled with
+    F32_SENTINEL, and the buffer's `tail` elements past it."""
+    buf = torch.full((like.numel() + tail,), F32_SENTINEL,
+                     dtype=torch.int32, device=like.device)
+    return buf[:like.numel()].view(like.shape), buf[like.numel():]
+
+
+@pytest.mark.parametrize("t", TF32_BWD_TS)
+@pytest.mark.parametrize("mode", sorted(TF32_BWD_MODES))
+@pytest.mark.parametrize("d", TF32_BWD_DS)
+def test_k1_tf32_bwd_matches_plain_versions(cuda, d, mode, t):
+    """The f32 backward on the tensor cores in split TF32 (`k1f_dq`,
+    `k1f_dkv`, the tf32 family) against `plain_dq` and `plain_dkv` on the
+    same f32 inputs and the tf32 forward's (o, lse), within TOL[float32]
+    = (1e-5, 1e-5) for dq, delta, dk and dv: two launches each through
+    the wrappers (the second bitwise equal), no SIMT launch. Launched once
+    more through the C interface into outputs whose every element and a
+    tail past them start as F32_SENTINEL: every element is written with
+    the wrapper's value and the tail is untouched, so no column past d
+    (the next head's) is written."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window = TF32_BWD_MODES[mode]
+    b, h = (2, 3) if t < 4096 else (1, 2)
+    q, k, v = _f32_inputs(cuda, b, t, h, d, seed=t + d)
+    do = _f32_inputs(cuda, b, t, h, d, seed=t + d + 1)[0]
+    assert {fl.route(torch.float32, d, n) for n in ("fwd", "dq", "dkv")} \
+        == {"tf32"}
+    o, lse = fl.flash_fwd(q, k, v, causal, None, window)
+    fl.reset_launches()
+    runs = []
+    for _ in range(2):
+        dq, delta = fl.flash_dq(q, k, v, o, lse, do, causal, None, window)
+        dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, causal, None, window)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 0, "dq": 2, "dkv": 2, "plain": 0}
+    assert fl.TF32_LAUNCHES == {"dq.float32": 2, "dkv.float32": 2}
+    assert fl.SIMT_LAUNCHES == {}
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+    dq, delta, dk, dv = runs[0]
+    rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
+    rdk, rdv = fl.plain_dkv(q, k, v, do, lse, delta, causal, None, window)
+    for name, got, ref in (("dq", dq, rdq), ("delta", delta, rdelta),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        _close(name, got, ref, torch.float32)
+    lib, stream = fl._lib(), _build.stream(cuda)
+    common = (b, t, h, d, 1 / d ** 0.5, int(causal),
+              -1 if window is None else window, fl.TF32_STAGES)
+    gq, qtail = _f32_guarded(dq)
+    delta2 = torch.empty_like(delta)
+    assert lib.k1f_dq(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                      gq.data_ptr(), delta2.data_ptr(), *common,
+                      fl.tf32_smem(kernel="dq"), stream) == 0
+    gk, ktail = _f32_guarded(dk)
+    gv, vtail = _f32_guarded(dv)
+    assert lib.k1f_dkv(0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       gk.data_ptr(), gv.data_ptr(), *common,
+                       fl.tf32_smem(kernel="dkv"), stream) == 0
+    torch.cuda.synchronize()
+    for got, want, tail in ((gq, dq, qtail), (gk, dk, ktail),
+                            (gv, dv, vtail)):
+        assert torch.equal(got, want.view(torch.int32))
+        assert bool((tail == F32_SENTINEL).all())
+    assert torch.equal(delta2, delta)
+
+
+def test_k1_tf32_bwd_folds_bh_above_65535(cuda):
+    """B * H = 66000 (B 1100, H 60, T 64, d 64) on the tf32 backward: the
+    grids fold B * H into their first dimension; dq, dk and dv on two
+    slices of rows within TOL[float32] of the plain versions on the
+    forward's (o, lse), a second launch bitwise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _f32_inputs(cuda, 1100, 64, 60, 64, seed=7)
+    do = _f32_inputs(cuda, 1100, 64, 60, 64, seed=8)[0]
+    o, lse = fl.flash_fwd(q, k, v, True)
+    fl.reset_launches()
+    grads = fl.flash_bwd(q, k, v, o, lse, do, True)
+    again = fl.flash_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert fl.TF32_LAUNCHES == {"dq.float32": 2, "dkv.float32": 2}
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    rows = lse.reshape(1100, 60, 64)
+    for lo in (0, 1050):
+        sl = slice(lo, lo + 50)
+        ls = rows[sl].reshape(-1, 64)
+        rdq, rdelta = fl.plain_dq(q[sl], k[sl], v[sl], o[sl], ls, do[sl],
+                                  True)
+        rdk, rdv = fl.plain_dkv(q[sl], k[sl], v[sl], do[sl], ls, rdelta,
+                                True)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads,
+                                  (rdq, rdk, rdv)):
+            _close(name, got[sl], ref, torch.float32)
+
+
+def test_k1_tf32_bwd_launchers_refuse_what_they_do_not_take(cuda):
+    """`k1f_dq` and `k1f_dkv` refuse every dtype code but f32's 0 (bf16
+    1, f16 2), a head dim off their rule (d 68 > 64, d 6 % 4 != 0, d 0),
+    shared memory short of their layouts and a ring of one stage, and
+    take f32 at d 64 with `fl.tf32_smem(kernel=...)`."""
+    b, t, h = 1, 64, 2
+    f = torch.randn(b, t, h, 68, device=cuda)
+    out, out2 = torch.empty_like(f), torch.empty_like(f)
+    rows, rows2 = (torch.zeros(b * h, t, device=cuda) for _ in range(2))
+    lib, stream = fl._lib(), _build.stream(cuda)
+    sq, skv, st = (fl.tf32_smem(kernel="dq"), fl.tf32_smem(kernel="dkv"),
+                   fl.TF32_STAGES)
+    for code, dd, stages, smem_dq, smem_dkv in (
+            (1, 64, st, sq, skv), (2, 64, st, sq, skv),
+            (0, 68, st, sq, skv), (0, 6, st, sq, skv), (0, 0, st, sq, skv),
+            (0, 64, st, sq - 1200, skv - 1200), (0, 64, 1, sq, skv)):
+        assert lib.k1f_dq(code, *[f.data_ptr()] * 5, rows.data_ptr(),
+                          out.data_ptr(), rows2.data_ptr(), b, t, h, dd,
+                          0.25, 1, -1, stages, smem_dq, stream) != 0, (
+            code, dd, stages)
+        assert lib.k1f_dkv(code, *[f.data_ptr()] * 4, rows.data_ptr(),
+                           rows2.data_ptr(), out.data_ptr(), out2.data_ptr(),
+                           b, t, h, dd, 0.25, 1, -1, stages, smem_dkv,
+                           stream) != 0, (code, dd, stages)
+    assert lib.k1f_dq(0, *[f.data_ptr()] * 5, rows.data_ptr(),
+                      out.data_ptr(), rows2.data_ptr(), b, t, h, 64, 0.25, 1,
+                      -1, st, sq, stream) == 0
+    assert lib.k1f_dkv(0, *[f.data_ptr()] * 4, rows.data_ptr(),
+                       rows2.data_ptr(), out.data_ptr(), out2.data_ptr(), b,
+                       t, h, 64, 0.25, 1, -1, st, skv, stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_k1_tf32_probe_reads_raw_f32_operands(cuda):

@@ -550,8 +550,8 @@ def test_untiled_lengths_take_plain_attention_and_are_counted():
 
 _SIMT3 = {"fwd": "simt", "dq": "simt", "dkv": "simt"}
 _WGMMA3 = dict.fromkeys(_SIMT3, "wgmma")
-#: the f32 forward on the tensor cores (split TF32), dq and dkv on SIMT
-_TF32 = dict(_SIMT3, fwd="tf32")
+#: f32 fwd, dq and dkv on the tensor cores (split TF32)
+_TF32 = dict.fromkeys(_SIMT3, "tf32")
 _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
            + [(torch.bfloat16, d, _WGMMA3)
               for d in (8, 16, 24, 40, 48, 72, 96, 120)]
@@ -572,13 +572,13 @@ _ROUTES = ([(torch.bfloat16, d, _WGMMA3) for d in (64, 128)]
 def test_route_per_kernel(dtype, d, want):
     """The family of each kernel: bf16 runs the wgmma family at every d
     from 1 to 256 (padded to 64, 128 or 256; a d % 8 != 0 through a
-    zero-padded copy of ceil(d / 8) * 8 columns, `tma_dim`); the f32
-    forward at d % 4 == 0 up to 64 the tf32 family (split TF32 on the
-    tensor cores); f32 dq and dkv, the f32 forward at every other d up to
-    256 and all of f16 the SIMT family; f64 and wider heads raise.
-    `flash_plan` reports the same routes, sizes each wgmma CTA at its
-    padded head dim, names the width its tensor maps read, and gives the
-    tf32 CTA where the forward takes it (within `SMEM_MAX`)."""
+    zero-padded copy of ceil(d / 8) * 8 columns, `tma_dim`); f32 fwd, dq
+    and dkv at d % 4 == 0 up to 64 the tf32 family (split TF32 on the
+    tensor cores); f32 at every other d up to 256 and all of f16 the SIMT
+    family; f64 and wider heads raise. `flash_plan` reports the same
+    routes, sizes each wgmma CTA at its padded head dim, names the width
+    its tensor maps read, and gives each tf32 CTA where its kernel takes
+    it (within `SMEM_MAX`)."""
     for kernel in ("fwd", "dq", "dkv"):
         if want is None:
             with pytest.raises(ValueError, match="no flash-attention"):
@@ -599,12 +599,19 @@ def test_route_per_kernel(dtype, d, want):
     assert fl.copy_width(dtype, d) == (plan["tma_dim"] if wgmma else d)
     cta = plan["tf32_cta"]
     if want is None or want["fwd"] != "tf32":
-        assert cta is None
+        assert cta == dict.fromkeys(_SIMT3)
     else:
-        assert cta == {"head_dim": 64, "q_tiles": 2, "key_tile": 64,
-                       "threads": 352, "stages": 2,
-                       "smem": fl.tf32_smem(), "ctas_per_head": 2}
-        assert cta["smem"] <= fl.SMEM_MAX
+        assert cta == {
+            "fwd": {"head_dim": 64, "q_tiles": 2, "key_tile": 64,
+                    "threads": 352, "stages": 2, "smem": fl.tf32_smem(),
+                    "ctas_per_head": 2},
+            "dq": {"head_dim": 64, "q_tiles": 2, "key_stage": 32,
+                   "threads": 352, "stages": 2,
+                   "smem": fl.tf32_smem(kernel="dq"), "ctas_per_head": 2},
+            "dkv": {"head_dim": 64, "key_tiles": 1, "query_stage": 32,
+                    "threads": 224, "stages": 2,
+                    "smem": fl.tf32_smem(kernel="dkv"), "ctas_per_head": 4}}
+        assert all(c["smem"] <= fl.SMEM_MAX for c in cta.values())
 
 
 @pytest.mark.parametrize("d", [4, 8, 16, 20, 40, 56, 72, 96, 100, 120,
@@ -637,21 +644,22 @@ def test_padded_ctas_are_the_compiled_head_dims(d, t, causal, window):
 def test_routes_and_the_simt_plan():
     """bf16 at d 64/128 runs the wgmma family for every kernel, and at
     every other d up to 256 too (padded, through a zero-padded copy at d
-    % 8 != 0); the f32 forward at d % 4 == 0 up to 64 the tf32 family;
-    the other f32 calls and f16 up to 256 the SIMT family, which takes no
-    bf16; f64 and wider heads none (`test_route_per_kernel` has every
-    case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
-    memory by kernel within the 227 KB a block may use; the tf32 CTA:
-    two query tiles, a producer warp and two converter warps (352
-    threads), two stages, within it too."""
+    % 8 != 0); f32 fwd, dq and dkv at d % 4 == 0 up to 64 the tf32
+    family; the other f32 calls and f16 up to 256 the SIMT family, which
+    takes no bf16; f64 and wider heads none (`test_route_per_kernel` has
+    every case). The SIMT CTA: 16 rows, 32-row tiles, 128 threads, shared
+    memory by kernel within the 227 KB a block may use; the tf32 CTAs:
+    fwd and dq two query tiles, a producer warp and two converter warps
+    (352 threads), dkv one key tile beside them (224 threads), two
+    stages (dq and dkv of 32 rows), within it too, and a third stage
+    fits none of them."""
     assert torch.bfloat16 not in fl.SIMT_DTYPES
     for kernel in ("fwd", "dq", "dkv"):
         assert fl.route(torch.bfloat16, 64, kernel) == fl.route(
             torch.bfloat16, 128, kernel) == "wgmma"
         for dt in (torch.float32, torch.float16):
             for d in (1, 8, 64, 128, 256):
-                tf32 = (dt, kernel) == (torch.float32, "fwd") and d in (8,
-                                                                         64)
+                tf32 = dt == torch.float32 and d in (8, 64)
                 assert fl.route(dt, d, kernel) == ("tf32" if tf32
                                                    else "simt")
         for d in (1, 16, 20, 136, 252, 256):
@@ -675,11 +683,22 @@ def test_routes_and_the_simt_plan():
         <= 227 * 1024
     assert fl.flash_plan(64, 288, dtype=torch.float32)["route"] == \
         dict.fromkeys(_SIMT3)
-    cta = fl.flash_plan(1000, 64, True, dtype=torch.float32)["tf32_cta"]
+    ctas = fl.flash_plan(1000, 64, True, dtype=torch.float32)["tf32_cta"]
+    cta = ctas["fwd"]
     assert (cta["q_tiles"], cta["threads"], cta["stages"]) == (2, 352, 2)
     assert cta["ctas_per_head"] == 8
     assert cta["smem"] == fl.tf32_smem() == 230528 <= fl.SMEM_MAX
     assert fl.tf32_smem(3) > fl.SMEM_MAX     # a third stage does not fit
+    cta = ctas["dq"]
+    assert (cta["q_tiles"], cta["key_stage"], cta["threads"],
+            cta["stages"], cta["ctas_per_head"]) == (2, 32, 352, 2, 8)
+    assert cta["smem"] == fl.tf32_smem(kernel="dq") == 230528
+    cta = ctas["dkv"]
+    assert (cta["key_tiles"], cta["query_stage"], cta["threads"],
+            cta["stages"], cta["ctas_per_head"]) == (1, 32, 224, 2, 16)
+    assert cta["smem"] == fl.tf32_smem(kernel="dkv") == 198272
+    for kernel in ("dq", "dkv"):
+        assert fl.tf32_smem(3, kernel) > fl.SMEM_MAX
 
 
 def _tf32(x, rule):
@@ -745,13 +764,87 @@ def test_split_tf32_holds_the_f32_tolerance(window, rule):
     assert err["o_1x"] > 30 * err["o"] and err["lse_1x"] > 30 * err["lse"]
 
 
+def _tf32_folded(a, b, rule, split, rows=fl.TF32_HALF):
+    """a @ b with the inner dimension cut into stages of `rows` (the
+    backward kernels' 32-row stages), each stage's product formed as
+    `_tf32_mm` does into a fresh sum and added into the result in f32."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for i in range(0, a.shape[-1], rows):
+        out = out + _tf32_mm(a[..., i:i + rows], b[..., i:i + rows, :],
+                             rule, split)
+    return out
+
+
+def _tf32_backward(q, k, v, o, lse, do, causal, window, rule, split):
+    """The backward's function with every product formed as the tf32
+    kernels form it (`k1f_dq`, `k1f_dkv`): S and dP by `_tf32_mm`, p and
+    ds in f32, delta = rowsum(dO * o) in f32, and dQ, dV and dK by
+    `_tf32_folded`, a stage of 32 keys (dq) or queries (dk, dv) at a
+    time. Returns ``(dq, delta, dk, dv)`` as `plain_dq` and `plain_dkv`."""
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    qh, kh, vh, oh, dh = (x.permute(0, 2, 1, 3) for x in (q, k, v, o, do))
+    delta = (dh * oh).sum(-1, keepdim=True)
+    s = _tf32_mm(qh, kh.transpose(-1, -2), rule, split)
+    p = torch.exp(s * scale - lse.reshape(b, h, t, 1))
+    keep = fl._visible(t, t, causal, window, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    ds = p * (_tf32_mm(dh, vh.transpose(-1, -2), rule, split) - delta)
+    dq = scale * _tf32_folded(ds, kh, rule, split)
+    dv = _tf32_folded(p.transpose(-1, -2), dh, rule, split)
+    dk = scale * _tf32_folded(ds.transpose(-1, -2), qh, rule, split)
+    return (dq.permute(0, 2, 1, 3), delta.reshape(b * h, t),
+            dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
+
+
+_BWD_MODES = {"causal": (True, None), "full": (False, None),
+              "window": (True, 100)}
+
+
+@pytest.mark.parametrize("rule", ["rna", "trunc"])
+@pytest.mark.parametrize("mode", sorted(_BWD_MODES))
+def test_split_tf32_backward_holds_the_f32_tolerance(mode, rule):
+    """The arithmetic of the tf32 backward (`k1f_dq`, `k1f_dkv`),
+    emulated in plain torch at B 1, T 1024 (16 tiles of 64), h 2, d 64
+    with randn inputs from a numpy seed, causal, full and windowed: every
+    product in split TF32 (hi rounded to nearest or truncated, as in
+    `test_split_tf32_holds_the_f32_tolerance`), each 32-row stage's dQ,
+    dK and dV product folded into f32, gives dq, delta, dk and dv within
+    TOL = (1e-5, 1e-5) of `plain_dq` and `plain_dkv` (dp and delta in
+    f64) on the plain forward's (o, lse); one tf32 pass does not (its
+    error is ~1e-3), so the comparison has teeth. The largest errors are
+    printed for the record."""
+    causal, window = _BWD_MODES[mode]
+    q, k, v, do = _t(*_inputs(71, (1, 1024, 2, 64)))
+    o, lse = fl.plain_fwd(q, k, v, causal, None, window)
+    rdq, rdelta = fl.plain_dq(q, k, v, o, lse, do, causal, None, window)
+    rdk, rdv = fl.plain_dkv(q, k, v, do, lse, rdelta, causal, None, window)
+    refs = (rdq, rdelta, rdk, rdv)
+    got = _tf32_backward(q, k, v, o, lse, do, causal, window, rule, True)
+    one = _tf32_backward(q, k, v, o, lse, do, causal, window, rule, False)
+    names = ("dq", "delta", "dk", "dv")
+    err = {n: float((a - r).abs().max()) for n, a, r in zip(names, got, refs)}
+    err1 = {n: float((a - r).abs().max())
+            for n, a, r in zip(names, one, refs)}
+    print(f"split tf32 backward ({rule}, {mode}): max |err| {err}, "
+          f"one pass {err1}")
+    for a, r in zip(got, refs):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), **TOL)
+    for n, a, r in zip(names, one, refs):
+        if n != "delta":         # delta is an f32 sum in either form
+            assert not np.allclose(a.numpy(), r.numpy(), **TOL)
+            assert err1[n] > 30 * err[n]
+
+
 def test_every_wgmma_cta_fits_the_block_limit():
     """Every wgmma CTA `flash_plan` can name — each kernel at every head
     dim its route takes (1 to 256: the kernels of D 64, 128 and 256),
     causal or not, short or long — asks for at most the 232,448 bytes of
     dynamic shared memory a block may use on the H100, and its threads
     are 128 a warpgroup with one producer (dkv at D 256: two CTAs a key
-    tile, one forming dV and one dK); the SIMT CTAs fit too."""
+    tile, one forming dV and one dK); the SIMT CTAs fit too, and so do
+    the tf32 CTAs of f32 fwd, dq and dkv at every d they take."""
     sizes = set()
     for d in range(1, 257):
         for t, causal in ((64, True), (1000, False), (4096, True)):
@@ -769,5 +862,13 @@ def test_every_wgmma_cta_fits_the_block_limit():
             assert max(plan["simt_cta"]["smem"].values()) <= fl.SMEM_MAX
     assert {(n, dd) for n, dd, _ in sizes} == {
         (n, dd) for n in ("fwd", "dq", "dkv") for dd in (64, 128, 256)}
+    for d in range(4, 65, 4):
+        for t, causal in ((64, True), (1000, False), (4096, True)):
+            ctas = fl.flash_plan(t, d, causal, dtype=torch.float32)[
+                "tf32_cta"]
+            assert set(ctas) == {"fwd", "dq", "dkv"}
+            for name, cta in ctas.items():
+                assert cta["threads"] == (224 if name == "dkv" else 352)
+                assert 0 < cta["smem"] <= fl.SMEM_MAX
     assert fl.DKV_ROLES == {64: 1, 128: 1, 256: 2}
     assert fl.DKV_K_TILES[256] == 1
