@@ -113,7 +113,7 @@ failing on the first phase that fails:
    a step (one a parameter for `sma` and `ada_sgd`). (b)
    `benchmarks.straggler.measure` at ``--model gpt``, np 2 on the card
    over libkf, one clean cell each for ``sma`` and ``pair`` (2 warm-up,
-   6 timed steps): each worker's K1/K2 launched and their plain
+   4 timed steps): each worker's K1/K2 launched and their plain
    versions never, its loss fell, and ``pair`` mixed in at least one
    round; prints each worker's samples/s and tokens/s, the step's
    split (compute and wire, or the pair store's wait, blend, save and
@@ -221,7 +221,7 @@ failing on the first phase that fails:
    through pinned host memory), through `parallel.long_context.run`:
    (a) GPT-2-small (f32 master weights, bf16 compute, the benchmark's
    AdamW) with `attention="ring"`, `use_flash=True` on a (data 1, seq 4)
-   mesh, global T = 4096 (1024 a rank), batch 2, 3 steps; (b) the same
+   mesh, global T = 4096 (1024 a rank), batch 2, 2 steps; (b) the same
    with `attention="ulysses"` (3 heads a rank, K1 over all 4096
    positions); (c) BERT-base with the ring mixer on a (data 2, seq 2)
    mesh, T = 512, batch 4, 2 steps (non-causal hops). Every rank's loss
@@ -251,8 +251,37 @@ failing on the first phase that fails:
    head dim 252 (d % 8 != 0) through the same kernels on a zero-padded
    copy; neither launches the SIMT family; (e'''') the f32 benchmark at
    head dim 128 through the SIMT fwd, dq and dkv, no tf32 launch. (f)
-   `dryrun.dryrun(4, "cuda", phases=(2,))`: the dry run's phase 2 (f32
-   BERT, d 8, the plain ring as the reference's) on the card's ranks;
+   the dry run's phase 2 (f32 BERT, d 8, the plain ring as the
+   reference's) on four of the card's ranks, run in the tp phase's dry
+   run (one spawn for the four ranks);
+5f. tp — runs after seq: the tensor axis. (a) `benchmarks.lm.run_tp`,
+   `measure_lm_rate(tp=2)`'s step: GPT-2-small at full width and depth
+   Megatron-sharded over two rank processes that share the card (one
+   gloo group, a (data 1, model 2) mesh, the ``gpt_tp`` blocks: 6 local
+   heads, 1536 local MLP columns), batch 8 x 1024, flash attention (K1
+   on the local heads), the head vocab-sharded (`parallel.vocab_ce`: K2
+   on each rank's 25129 columns, padded to 25216, with sentinel
+   targets), three steps with the residual fused CE and then three with
+   the recompute one on the same model, the counts zeroed by each run.
+   Every rank must launch K1's fwd, dq and dkv 12 times a step and K2's
+   fwd and residual_d (or fwd, dw and dx) once, their plain versions
+   never; the losses finite, falling and equal on both ranks; the
+   step-1 loss within max(2 x |bf16 - f32|, 2e-5 relative) of one
+   process's on the same weights and tokens, and sampled gradients
+   (lm_head's included; each rank's block) within max(2 x the f32-bf16
+   gap, 2e-2) relative L2. Prints each rank's ms/step, tokens/s, the
+   exchange's ms, calls and bytes a step and the launches. (b) f32
+   decoding at tp 2 (`decode_tp_rank`, the ``gpt_serve`` blocks) must
+   give tp 1's tokens; bf16 decoding at tp 2 (batch 8, 128 + 32
+   tokens, one timed call) prints ms/token — both in (a)'s processes
+   (one spawn for the mesh), through `measure_decode_rate`'s rank
+   function. (c) `dryrun.dryrun(4, "cuda", phases=(2, 3, 7, 8))`: the
+   tp BERT, the dp x tp GPT through the vocab-sharded fused CE and
+   ZeRO-1 on the card's ranks, in one spawn with phase 2, the seq
+   phase's (f). (d) K2's four
+   kernels at rank 0's vocab-shard shape (N 8184, H 768, 25129 columns
+   padded to 25216; targets -1, in the shard, and the other shard's as
+   the sentinel v_pad) against their plain versions, as kernel-K2;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -277,12 +306,16 @@ failing on the first phase that fails:
    beside its bound at the peak of its input type (f32: the lesser of
    FMA at the f32 rate and three tf32 products at the tf32 rate; and the
    exponentials at the special-function rate), its plain version and
-   SDPA, with SDPA's own largest error against the plain forward.
+   SDPA, with SDPA's own largest error against the plain forward; and
+   K2's four kernels at the tp phase's vocab-shard shape, as at the
+   training shape.
 
 Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
 ``elastic_launches``, the elastic workers' launches, and
-``seq_launches``, the seq phase's ranks', and
+``seq_launches``, the seq phase's ranks', K1's ``tp_launches``, the tp
+phase's ranks', the ``fused_ce.*.vocab_shard`` rows K2 at the vocab
+shard with the tp phase's launches, and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
 (b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
 tier's workers' launches of that scheme, and ``benchmarks_launches``,
@@ -385,10 +418,10 @@ SEQ_RANKS = 4
 SEQ_SPECS = [
     {"name": "gpt-ring", "model": "gpt", "size": "small",
      "attention": "ring", "use_flash": True, "mesh": [1, 4], "batch": 2,
-     "seq_len": 4096, "steps": 3},
+     "seq_len": 4096, "steps": 2},
     {"name": "gpt-ulysses", "model": "gpt", "size": "small",
      "attention": "ulysses", "use_flash": True, "mesh": [1, 4], "batch": 2,
-     "seq_len": 4096, "steps": 3},
+     "seq_len": 4096, "steps": 2},
     {"name": "bert-ring", "model": "bert", "attention": "ring",
      "use_flash": True, "mesh": [2, 2], "batch": 4, "seq_len": 512,
      "steps": 2},
@@ -451,6 +484,26 @@ RESNET_LEAVES = 161
 #: the zoo phase: warmup and timed steps of VGG16 and InceptionV3, BERT's
 #: timed steps a variant (interleaved blocks of 3), the CIFAR run's steps
 ZOO_WARMUP, ZOO_ITERS, ZOO_BERT_ITERS, ZOO_CIFAR_STEPS = 2, 8, 12, 30
+#: the tp phase: GPT-2-small Megatron-sharded over TP_RANKS rank
+#: processes that share the card (one gloo group, `benchmarks.lm.run_tp`)
+#: on a (data 1, model 2) mesh: batch 8 x 1024, flash attention, three
+#: steps with the residual fused CE and then three with the recompute one
+#: on the same model; (b) the decode at tp 2: f32 tokens against tp 1's
+#: (batch, prompt and generated lengths), bf16 ms/token
+TP_RANKS = 2
+TP_SPEC = {"mode": "train", "size": "small", "batch": 8, "seq": 1024,
+           "mesh": [1, TP_RANKS], "attention": "flash",
+           "runs": [{"ce_variant": "residual", "warmup": 1, "iters": 2},
+                    {"ce_variant": "recompute", "warmup": 1, "iters": 2}]}
+TP_F32_DECODE = (8, 128, 32)
+#: (b)'s bf16 decode: BENCH_DECODE's model, batch and prompt, 32 tokens,
+#: one timed call (two ranks' staged psums took 62-90 ms a token on an
+#: NVIDIA H100 80GB HBM3 at 700 W)
+TP_BF16_DECODE = ("small", 8, 128, 32, 1)
+#: K2 on one rank's vocab shard at the tp phase's shape: the training
+#: rows, vocab 50257 over 2 ranks (25129 columns a shard, padded to
+#: 25216), rank 0's columns
+K2_SHARD_V = -(-K2_V // TP_RANKS)
 T_START = time.perf_counter()
 
 
@@ -533,27 +586,39 @@ def phase_kernel(torch, pa):
     return errs
 
 
-def k2_inputs(torch, fc, seed=0):
+def k2_inputs(torch, fc, seed=0, v=K2_V, shard=False):
     """Padded fused-head operands at the training shape: x [8192, 768]
-    bf16 (rows past N zero), W [768, 50304] bf16 ~ N(0, 1/H), b f32
+    bf16 (rows past N zero), W [768, v_pad] bf16 ~ N(0, 1/H), b f32
     (padded columns _PAD_BIAS), t int32 with -1 on the pad rows and on
     every 97th row, and a target >= v_pad on every 101st row (a valid
-    row whose target lies in another vocab shard); scale = 1/N_valid."""
+    row whose target lies in another vocab shard); scale = 1/N_valid.
+    With `shard`, `v` is one vocab shard's columns (the first, as rank 0
+    of the tp phase holds them) and the targets are global ids over
+    ``TP_RANKS * v`` columns in `vocab_ce.localize_targets`' sentinel
+    form: -1 rows, in-shard columns and, for the other shards', v_pad."""
+    from kungfu_tpu_torch.parallel.vocab_ce import localize_targets
+
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     n_pad = -(-K2_N // fc.ROW_MULTIPLE) * fc.ROW_MULTIPLE
-    v_pad = -(-K2_V // fc.COL_MULTIPLE) * fc.COL_MULTIPLE
+    v_pad = -(-v // fc.COL_MULTIPLE) * fc.COL_MULTIPLE
     x = torch.zeros(n_pad, K2_H, device=DEVICE, dtype=torch.bfloat16)
     x[:K2_N] = torch.randn(K2_N, K2_H, generator=g, device=DEVICE)
     w = torch.zeros(K2_H, v_pad, device=DEVICE, dtype=torch.bfloat16)
-    w[:, :K2_V] = torch.randn(K2_H, K2_V, generator=g, device=DEVICE) \
+    w[:, :v] = torch.randn(K2_H, v, generator=g, device=DEVICE) \
         * K2_H ** -0.5
     b = torch.full((1, v_pad), fc._PAD_BIAS, device=DEVICE)
-    b[0, :K2_V] = torch.randn(K2_V, generator=g, device=DEVICE) * 0.02
-    t = torch.full((n_pad, 1), -1, dtype=torch.int32, device=DEVICE)
-    t[:K2_N, 0] = torch.randint(0, K2_V, (K2_N,), generator=g,
-                                device=DEVICE, dtype=torch.int32)
-    t[0:K2_N:97, 0] = -1
-    t[5:K2_N:101, 0] = v_pad + 3
+    b[0, :v] = torch.randn(v, generator=g, device=DEVICE) * 0.02
+    if shard:
+        tg = torch.randint(0, TP_RANKS * v, (K2_N,), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+        tg[0::97] = -1
+        t = localize_targets(tg, 0, v, v_pad, n_pad).contiguous()
+    else:
+        t = torch.full((n_pad, 1), -1, dtype=torch.int32, device=DEVICE)
+        t[:K2_N, 0] = torch.randint(0, v, (K2_N,), generator=g,
+                                    device=DEVICE, dtype=torch.int32)
+        t[0:K2_N:97, 0] = -1
+        t[5:K2_N:101, 0] = v_pad + 3
     scale = (1.0 / (t >= 0).sum().float()).reshape(1, 1)
     return x, w, b, t, scale
 
@@ -594,14 +659,17 @@ def k2_check(torch, name, got, ref, n_sum=0, absum=None):
     return float(err.max())
 
 
-def phase_kernel_k2(torch, fc):
+def phase_kernel_k2(torch, fc, v=K2_V, shard=False):
     """The four K2 kernels against their plain versions at the training
-    shape; returns {kernel: max_abs_err} (fwd: over lse, tl and the
-    logits residual)."""
-    x, w, b, t, scale = k2_inputs(torch, fc)
+    shape (with `shard`: at one vocab shard's, `k2_inputs`); returns
+    {kernel: max_abs_err} (fwd: over lse, tl and the logits residual)."""
+    x, w, b, t, scale = k2_inputs(torch, fc, v=v, shard=shard)
     plan = fc.fused_ce_plan(x.shape[0], K2_H, w.shape[1])
-    log(f"kernel-K2 shape x {tuple(x.shape)} W {tuple(w.shape)}; plan "
-        f"{json.dumps(plan)}")
+    tv = t[:, 0]
+    log(f"kernel-K2{' vocab shard' if shard else ''} shape x "
+        f"{tuple(x.shape)} W {tuple(w.shape)} (true columns {v}); targets "
+        f"-1 {int((tv < 0).sum())}, in range {int(((tv >= 0) & (tv < v)).sum())}, "
+        f">= v_pad {int((tv >= w.shape[1]).sum())}; plan {json.dumps(plan)}")
     errs = {}
     rl, rlse, rtl = fc.plain_fwd(x, w, b, t, True)
     logits, lse, tl = fc.fused_ce_fwd(x, w, b, t, True)
@@ -612,7 +680,7 @@ def phase_kernel_k2(torch, fc):
                       k2_check(torch, "lse-nr", lse2, rlse),
                       k2_check(torch, "tl-nr", tl2, rtl),
                       k2_check(torch, "logits", logits, rl))
-    check(float(tl[0]) == 0.0 and float(tl[5]) == 0.0,
+    check(not bool(tl[(t < 0) | (t >= w.shape[1])].any()),
           "K2 fwd: a sentinel target hit a column")
     loss, _ = fc._loss_from(lse, tl, t)
     ref_loss, _ = fc._loss_from(rlse, rtl, t)
@@ -623,7 +691,7 @@ def phase_kernel_k2(torch, fc):
     torch.cuda.synchronize()
     errs["residual_d"] = k2_check(torch, "d", d, rd)
     k2_check(torch, "db", db, rdb)
-    check(not bool(d[0].float().any()) and not bool(d[:, K2_V:].float()
+    check(not bool(d[0].float().any()) and not bool(d[:, v:].float()
                                                      .any()),
           "K2 residual_d: gradient on a dropped row or a padded column")
     del d, rd, rl
@@ -1302,7 +1370,7 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
 #: contrast (tests/test_straggler.py:14-16): workers, straggler ms a
 #: step (rank 0), timed steps, batch
 ADAPTIVE_STEPS, ADAPTIVE_CHANGE_STEP = 3, 2
-ADAPTIVE_GPT = (2, 6)
+ADAPTIVE_GPT = (2, 4)
 ADAPTIVE_STRAGGLER = (4, 120, 20, 64)
 #: the reference test's ordering: pair's cluster rate under the
 #: straggler above this multiple of sync's
@@ -2169,11 +2237,13 @@ def k2_bound(kernel, n_pad, h, v_pad):
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
 
-def phase_timing_k2(torch, fc):
-    """Each K2 kernel per launch at the training shape beside its bound,
-    its plain version and the cuBLAS products the same work contains
-    (timed only; the port never calls them in place of a kernel)."""
-    x, w, b, t, scale = k2_inputs(torch, fc)
+def phase_timing_k2(torch, fc, v=K2_V, shard=False):
+    """Each K2 kernel per launch at the training shape (with `shard`, one
+    vocab shard's) beside its bound, its plain version and the cuBLAS
+    products the same work contains (timed only; the port never calls
+    them in place of a kernel)."""
+    x, w, b, t, scale = k2_inputs(torch, fc, v=v, shard=shard)
+    tag = "K2 vocab shard" if shard else "K2"
     n_pad, v_pad = x.shape[0], w.shape[1]
     _, lse, _ = fc.plain_fwd(x, w, b, t, False)
     logits, _, _ = fc.fused_ce_fwd(x, w, b, t, True)
@@ -2205,13 +2275,13 @@ def phase_timing_k2(torch, fc):
         bound_ms, bound_by, flops, nbytes = k2_bound(name, n_pad, K2_H,
                                                      v_pad)
         out[name] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
-        log(f"timing K2 {name:10s} {ms:.4f} ms/launch; bound "
+        log(f"timing {tag} {name:10s} {ms:.4f} ms/launch; bound "
             f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} flop); "
             f"plain {plain_ms:.4f} ms; library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
             f"{1e-12 * flops / (ms * 1e-3):.1f} TFLOP/s, "
             f"{1e-9 * nbytes / (ms * 1e-3):.1f} GB/s achieved")
-    log(f"timing K2 fwd without the residual (recompute forward) "
+    log(f"timing {tag} fwd without the residual (recompute forward) "
         f"{fwd_nores:.4f} ms/launch")
     log("timing K2 library: fwd = x @ W (bf16 cuBLAS); dw = x @ W + x^T @ "
         "d; dx = x @ W + d @ W^T; residual_d has no single PyTorch call "
@@ -2546,6 +2616,39 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def held_to_one_process(tag, step1, ref, loss_floor, got, alt):
+    """Hold a rank run's step-1 loss and gradients to one process's
+    reference ``ref = (loss, {key: gradient})``: `step1` and each of
+    ``got = {key: gradient}`` within the larger of twice the noise of
+    the comparison and its floor (`loss_floor`, relative;
+    `SEQ_GRAD_FLOOR` on the relative L2 error). The noise is the gap
+    from `ref` to a second correct run, ``alt()`` (the same form), which
+    runs only when an error passes its floor: below it an error is within
+    the tolerance whatever the noise."""
+    ref_loss, ref_g = ref
+    errs = {k: _rel(g, ref_g[k]) for k, g in got.items()}
+    floor = loss_floor * abs(ref_loss)
+    alt_loss, alt_g = (alt() if abs(step1 - ref_loss) > floor or any(
+        e > SEQ_GRAD_FLOOR for e in errs.values()) else (None, None))
+    loss_tol = (floor if alt_loss is None
+                else max(2 * abs(alt_loss - ref_loss), floor))
+    for k, err in errs.items():
+        tol, noise = SEQ_GRAD_FLOOR, "not run: every error within its floor"
+        if alt_g is not None:
+            gap = _rel(alt_g[k], ref_g[k])
+            tol, noise = max(2 * gap, SEQ_GRAD_FLOOR), f"{gap:.3e}"
+        log(f"{tag} grad {k}: rel L2 to one process {err:.3e} (second "
+            f"run's gap {noise}; tolerance {tol:.3e})")
+        check(err <= tol, f"{tag} grad {k}: {err:.3e} > {tol:.3e}")
+    log(f"{tag}: step-1 loss {step1:.6f}, one process {ref_loss:.6f}, "
+        f"second run "
+        f"{'not run' if alt_loss is None else f'{alt_loss:.6f}'} "
+        f"(tolerance {loss_tol:.3e})")
+    check(abs(step1 - ref_loss) <= loss_tol, f"{tag}: step-1 loss "
+          f"{step1} against one process's {ref_loss} (tolerance "
+          f"{loss_tol})")
+
+
 _SEQ_REFERENCES: dict = {}
 
 
@@ -2585,7 +2688,6 @@ def phase_seq(torch, fl, card: str) -> dict:
     from kungfu_tpu_torch.benchmarks.flash_eff import \
         measure_flash_efficiency
     from kungfu_tpu_torch.benchmarks.lm import measure_lm_rate
-    from kungfu_tpu_torch.dryrun import dryrun
     from kungfu_tpu_torch.parallel import long_context as lc
 
     t0 = time.perf_counter()
@@ -2638,33 +2740,22 @@ def phase_seq(torch, fl, card: str) -> dict:
                                           f"{spec['name']}-grads.pt"))
         names = list(sample)
         step1 = mine[0]["losses"][0]
-        # the reference run and a second correct run, whose gap to it is
-        # the noise of the comparison
-        if spec["model"] == "gpt":
-            ref_loss, ref_g = seq_reference(torch, spec, "flash", names)
-            alt_loss, alt_g = seq_reference(torch, spec, "local", names)
-            ref_name, alt_name = "flash", "local"
-        else:
-            ref_loss, ref_g = seq_reference(torch, spec, "local", names)
-            alt_loss, alt_g = seq_reference(torch, spec, "local", names,
-                                            torch.float32)
-            ref_name, alt_name = "local", "local f32"
-        loss_tol = max(2 * abs(alt_loss - ref_loss),
-                       SEQ_LOSS_FLOOR[spec["model"]] * abs(ref_loss))
-        check(abs(step1 - ref_loss) <= loss_tol,
-              f"seq {spec['name']}: step-1 loss {step1} against one "
-              f"process's {ref_name} {ref_loss} (tolerance {loss_tol})")
-        for name, ref, alt in zip(names, ref_g, alt_g):
-            err, noise = _rel(sample[name], ref), _rel(alt, ref)
-            tol = max(2 * noise, SEQ_GRAD_FLOOR)
-            log(f"seq {spec['name']} grad {name}: rel L2 to one process's "
-                f"{ref_name} {err:.3e} ({alt_name} vs {ref_name} "
-                f"{noise:.3e}; tolerance {tol:.3e})")
-            check(err <= tol, f"seq {spec['name']} grad {name}: "
-                  f"{err:.3e} > {tol:.3e}")
-        log(f"seq {spec['name']}: step-1 loss {step1:.6f}, one process "
-            f"{ref_name} {ref_loss:.6f}, {alt_name} {alt_loss:.6f} "
-            f"(tolerance {loss_tol:.3e})")
+        # the reference run; a second correct run's gap to it is the
+        # noise of the comparison (GPT: the plain mixer against flash;
+        # BERT: f32 against bf16)
+        ref_at, alt_at = ((("flash", None), ("local", None))
+                          if spec["model"] == "gpt" else
+                          (("local", None), ("local", torch.float32)))
+
+        def one_process(attention, dtype):
+            loss, grads = seq_reference(torch, spec, attention, names,
+                                        dtype)
+            return loss, dict(zip(names, grads))
+
+        held_to_one_process(f"seq {spec['name']}", step1,
+                            one_process(*ref_at),
+                            SEQ_LOSS_FLOOR[spec["model"]], sample,
+                            lambda: one_process(*alt_at))
     out = {"seq": totals}
     out["new_case_errs"] = k1_new_cases(torch, fl)
     # (e) the tiny GPT (d 16) through the benchmark's entry point
@@ -2736,17 +2827,176 @@ def phase_seq(torch, fl, card: str) -> dict:
             f"{meta['plan']['route']}; K1 {dict(fl.LAUNCHES)}, SIMT {simt}")
         out[f"d{bench['head_dim']}"] = {n: fl.LAUNCHES[n]
                                         for n in ("fwd", "dq", "dkv")}
-    # (f) the dry run's phase 2 on the card's ranks (gloo, staged): the
-    # reference's phase runs the plain ring (no use_flash), so it
-    # launches no K1
-    res = dryrun(4, DEVICE, phases=(2,))
-    line = res["lines"][-1]
-    check(line.startswith("dryrun: phase 2 (sp) n=4 mesh=2x2 device=cuda"),
-          f"seq (f): {line}")
-    log(f"seq (f) on the card's ranks (gloo, staged): {line}")
+    # (f), the dry run's phase 2, runs in the tp phase's four-rank dry run
     log(f"[{time.perf_counter() - T_START:.0f} s] seq phase took "
         f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+def tp_reference(torch, names, dtype):
+    """One process on the card over the tp phase's batch with the same
+    weights (GPT-2-small from seed 0, flash attention, the residual fused
+    CE, `dtype` compute): the step-1 loss and the gradients of `names`
+    (whole tensors, on the CPU)."""
+    from kungfu_tpu_torch.benchmarks import lm
+    from kungfu_tpu_torch.models.gpt import gpt_fused_loss
+
+    cfg, model = lm.build_lm_model(TP_SPEC["size"], TP_SPEC["seq"], DEVICE,
+                                   attention=TP_SPEC["attention"],
+                                   dtype=dtype)
+    tokens = lm.lm_tokens(cfg.vocab_size, TP_SPEC["batch"],
+                          TP_SPEC["seq"]).to(DEVICE)
+    loss = gpt_fused_loss(model, tokens)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.float().cpu() for n in names}
+    out = float(loss.detach())
+    del model, params, loss
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def phase_tp(torch, fc, card: str) -> dict:
+    """The tp phase (see the module docstring); returns the K1 and K2
+    launches of its training run (every rank's, summed) and (d)'s K2
+    errors at the vocab-shard shape."""
+    from kungfu_tpu_torch.benchmarks import lm
+    from kungfu_tpu_torch.dryrun import dryrun
+    from kungfu_tpu_torch.parallel.rules import local_slice
+
+    t0 = time.perf_counter()
+    grads_dir = os.path.join(HERE, "build", "tp_grads")
+    os.makedirs(grads_dir, exist_ok=True)
+    # one spawn for the (1, TP_RANKS) mesh: (a)'s training, then (b)'s
+    # decodes (f32, then bf16: `measure_decode_rate`'s rank function)
+    b, prompt_len, gen_len = TP_F32_DECODE
+    size, bb, bprompt, bgen, biters = TP_BF16_DECODE
+    decodes = [{"mode": "decode", "size": TP_SPEC["size"], "batch": b,
+                "prompt_len": prompt_len, "gen_len": gen_len, "iters": 1,
+                "tp": TP_RANKS, "dtype": "float32"},
+               {"mode": "decode", "size": size, "batch": bb,
+                "prompt_len": bprompt, "gen_len": bgen, "iters": biters,
+                "tp": TP_RANKS}]
+    out = lm.run_tp(TP_RANKS, [TP_SPEC] + decodes, DEVICE,
+                    grads_dir=grads_dir, timeout=600)
+    rows = [r for r in out if r["spec"] == 0]
+    dec, bdec = ([r for r in out if r["spec"] == i] for i in (1, 2))
+    log(f"tp (a, b): GPT-2-small on a (1, {TP_RANKS}) mesh, {len(out)} "
+        f"rows in {time.perf_counter() - t0:.1f} s; {TP_RANKS} ranks share "
+        f"one card ({card}) over gloo: their speeds are not multi-card "
+        f"speeds")
+    check(len(rows) == TP_RANKS * len(TP_SPEC["runs"]),
+          f"tp (a): {len(rows)} rows")
+    k1_total = {"fwd": 0, "dq": 0, "dkv": 0}
+    k2_total = {"fwd": 0, "residual_d": 0, "dw": 0, "dx": 0}
+    for i, run in enumerate(TP_SPEC["runs"]):
+        mine = sorted((r for r in rows if r["run"] == i),
+                      key=lambda r: r["rank"])
+        steps = run["warmup"] + run["iters"]
+        for r in mine:
+            losses = r["losses"]
+            check(all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0],
+                  f"tp (a) {run['ce_variant']} rank {r['rank']}: losses "
+                  f"{losses}")
+            check(losses == mine[0]["losses"], f"tp (a) "
+                  f"{run['ce_variant']}: the ranks' losses differ")
+            n = LAYERS * steps
+            want1 = {"fwd": n, "dq": n, "dkv": n, "plain": 0}
+            want2 = ({"fwd": steps, "residual_d": steps, "dw": 0, "dx": 0,
+                      "plain": 0} if run["ce_variant"] == "residual" else
+                     {"fwd": steps, "residual_d": 0, "dw": steps,
+                      "dx": steps, "plain": 0})
+            check(r["k1"] == want1 and r["k2"] == want2,
+                  f"tp (a) {run['ce_variant']} rank {r['rank']}: K1 "
+                  f"{r['k1']} (expected {want1}), K2 {r['k2']} (expected "
+                  f"{want2})")
+            for k in k1_total:
+                k1_total[k] += r["k1"][k]
+            for k in k2_total:
+                k2_total[k] += r["k2"][k]
+            ex = r["exchange"]
+            ex_ms = sum(v["ms"] for v in ex.values())
+            mean = sum(r["step_ms"]) / len(r["step_ms"])
+            log(f"tp (a) {run['ce_variant']} rank {r['rank']} "
+                f"{r['coords']}: {r['timed_ms']:.1f} ms/step (timed mean; "
+                f"steps {[round(x, 1) for x in r['step_ms']]}), "
+                f"{r['tokens_per_s']:.1f} tokens/s [{TP_RANKS} ranks share "
+                f"one card]; exchange a step {ex_ms:.1f} ms "
+                f"({100 * ex_ms / mean:.1f} % of the mean step): psum "
+                f"{ex.get('psum', {}).get('calls', 0):.0f} calls "
+                f"{ex.get('psum', {}).get('bytes', 0) / 1e6:.1f} MB "
+                f"{ex.get('psum', {}).get('ms', 0):.1f} ms; all "
+                f"{json.dumps({k: {f: round(x, 2) for f, x in v.items()} for k, v in ex.items()})}; "
+                f"K1 {r['k1']}; K2 {r['k2']}; peak {r['peak_mem_gb'] or 0:.2f} "
+                f"GB; losses {losses}")
+    # step 1 against one process on the same weights and tokens in bf16
+    # (the second correct run: the same in f32), each rank's gradient
+    # blocks against the same blocks of the whole gradients
+    sample = {r: torch.load(os.path.join(grads_dir,
+                                         f"tp-grads-rank{r}.pt"))
+              for r in range(TP_RANKS)}
+    names = sorted(sample[0])
+    shape = {"data": 1, "model": TP_RANKS}
+
+    def blocks(whole):
+        return {(r, n): local_slice(whole[n], sample[r][n][1], shape,
+                                    {"data": 0, "model": r})
+                for r in sample for n in names}
+
+    def one_process(dtype):
+        loss, grads = tp_reference(torch, names, dtype)
+        return loss, blocks(grads)
+
+    step1 = [r for r in rows if r["run"] == 0][0]["losses"][0]
+    held_to_one_process(
+        "tp (a)", step1, one_process(torch.bfloat16), SEQ_LOSS_FLOOR["gpt"],
+        {(r, n): sample[r][n][0] for r in sample for n in names},
+        lambda: one_process(torch.float32))
+    # (b) decode at tp 2: f32 tokens against tp 1's, bf16 ms/token
+    from kungfu_tpu_torch.serve import build_lm
+
+    model, _ = build_lm(TP_SPEC["size"], max_position=prompt_len + gen_len,
+                        dtype=torch.float32)
+    _, warm1, _ = lm.time_decode(model, torch.zeros(
+        (b, prompt_len), dtype=torch.int64, device=DEVICE), gen_len, 0)
+    del model
+    torch.cuda.empty_cache()
+    want = warm1.cpu().tolist()
+    for r in dec:
+        same = sum(a == c for x, y in zip(r["warm"], want)
+                   for a, c in zip(x, y))
+        log(f"tp (b) f32 decode rank {r['rank']}: {same}/{b * (prompt_len + gen_len)} "
+            f"tokens equal to tp 1's; {1e3 * r['seconds'] / gen_len:.2f} "
+            f"ms/token")
+        check(r["warm"] == want and r["last"] == want,
+              f"tp (b): f32 tokens at tp {TP_RANKS} differ from tp 1's")
+    check(len(dec) == len(bdec) == TP_RANKS, f"tp (b): {len(dec)} f32 "
+          f"and {len(bdec)} bf16 decode rows")
+    r0 = min(bdec, key=lambda r: r["rank"])
+    log(f"tp (b) bf16 decode at tp {TP_RANKS} (`measure_decode_rate`'s "
+        f"`decode_tp_rank`; {size}, B {bb}, {bprompt} + {bgen}, {biters} "
+        f"timed call): {bb * bgen / r0['seconds']:.1f} tokens/s, "
+        f"{1e3 * r0['seconds'] / bgen:.3f} ms/token [{TP_RANKS} ranks "
+        f"share one card over gloo]; {card}")
+    # (c) the dry run's tensor phases on four of the card's ranks, in
+    # one spawn with the seq phase's (f), phase 2 (the reference's plain
+    # ring, no use_flash: no K1 launch)
+    res = dryrun(4, DEVICE, phases=(2, 3, 7, 8))
+    for line in res["lines"]:
+        log(f"tp (c) on the card's ranks (gloo, staged): {line}")
+    check([x.split(" n=")[0] for x in res["lines"]] == [
+        "dryrun: phase 2 (sp)", "dryrun: phase 3 (tp)",
+        "dryrun: phase 7 (dp x tp)", "dryrun: phase 8 (zero1)"]
+          and res["lines"][0].startswith(
+              "dryrun: phase 2 (sp) n=4 mesh=2x2 device=cuda"),
+          f"tp (c) and seq (f): {res['lines']}")
+    # (d) K2 at one vocab shard's shape against its plain versions
+    errs = phase_kernel_k2(torch, fc, v=K2_SHARD_V, shard=True)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T_START:.0f} s] tp phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"k1": k1_total, "k2": k2_total, "k2_shard_errs": errs}
 
 
 def phase_timing_k1_simt(torch, fl):
@@ -2991,8 +3241,8 @@ def phase_parity(torch):
     from kungfu_tpu_torch.serve import DecodeEngine, build_lm
     from kungfu_tpu_torch.serve import paged
 
-    model = build_lm("small", max_position=MAX_LEN, dtype=torch.float32,
-                     num_layers=2, seed=3)
+    model, _ = build_lm("small", max_position=MAX_LEN, dtype=torch.float32,
+                        num_layers=2, seed=3)
     rng = np.random.default_rng(11)
     vocab = model.config.vocab_size
     reqs = [(i, [int(t) for t in rng.integers(0, vocab, n)], 32)
@@ -3276,7 +3526,7 @@ def main() -> int:
     k1_errs = phase_kernel_k1(torch, fl)
     r1_err = phase_kernel_r1(torch, st)
     log(f"[{time.perf_counter() - T_START:.0f} s] kernel phases done")
-    model = build_lm("small", max_position=MAX_LEN, seed=0)
+    model, _ = build_lm("small", max_position=MAX_LEN, seed=0)
     log(f"model: GPT-2-small {model.config}")
     served = {}
     for kernel in ("auto", "stream"):
@@ -3317,6 +3567,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] zoo done")
     seq = phase_seq(torch, fl, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] seq done")
+    tp = phase_tp(torch, fc, card)
+    log(f"[{time.perf_counter() - T_START:.0f} s] tp done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -3327,6 +3579,7 @@ def main() -> int:
         f"{json.dumps(flash['flash_kernel'])}")
     k3_times = phase_timing(torch, pa)
     k2_times = phase_timing_k2(torch, fc)
+    k2_shard_times = phase_timing_k2(torch, fc, v=K2_SHARD_V, shard=True)
     k1_times = phase_timing_k1(torch, fl)
     simt_times = phase_timing_k1_simt(torch, fl)
     r1_times = phase_timing_r1(torch, st)
@@ -3365,6 +3618,22 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    # K2 on one rank's vocab shard (the tp phase's shape): launches of the
+    # tp phase's training run, every rank's
+    for name in ("fwd", "residual_d", "dw", "dx"):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = k2_shard_times[name]
+        kernels.append({
+            "name": f"fused_ce.{name}.vocab_shard", "route": "cuda",
+            "source": "kungfu_tpu_torch/csrc/fused_ce.cu",
+            "replaces": K2_REPLACES[name],
+            "launches": tp["k2"][name],
+            "max_abs_err": tp["k2_shard_errs"][name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "shape": f"N {K2_N} H {K2_H} v_loc {K2_SHARD_V} (of {K2_V} "
+                     f"over {TP_RANKS} ranks)",
+        })
     sdpa = k1_times["a"]["sdpa"]
     for name in ("fwd", "dq", "dkv"):
         # shape (a), the training shape. library_ms: SDPA's forward for
@@ -3381,6 +3650,7 @@ def main() -> int:
             "adaptive_launches": adaptive[f"flash.{name}"],
             "scenario_launches": scen[f"flash.{name}"],
             "seq_launches": seq["seq"][name],
+            "tp_launches": tp["k1"][name],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,

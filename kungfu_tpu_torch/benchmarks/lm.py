@@ -14,20 +14,36 @@ its cross-entropy in the fused K2 kernels — with the benchmark's AdamW
   python -m kungfu_tpu_torch.benchmarks.lm --device cpu    # smoke
   python -m kungfu_tpu_torch.benchmarks.lm --decode        # generation
 
+  python -m kungfu_tpu_torch.benchmarks.lm --tp 2 --attention flash
+
 Prints one JSON line: tokens/sec, ms/step, MFU and the configuration;
 with flash attention on the card also the flash kernels' own efficiency
 at the run's attention shape (`flash_eff`). ``--decode`` measures
 KV-cached greedy generation instead (`measure_decode_rate`, metric
-``gpt_decode_tokens_per_sec``). The ring and ulysses mixers, tp > 1,
-MoE experts, remat and the pipeline are later slices of the port and
-raise NotImplementedError.
+``gpt_decode_tokens_per_sec``).
+
+``--tp`` > 1 trains (or decodes) Megatron-sharded on a ``(data, model)``
+process mesh of ``d_data * tp`` rank processes joined over gloo
+(`run_tp`; ``d_data`` is the cards over tp, at least 1): the ``gpt_tp``
+table's blocks (`parallel.rules`), the vocab-sharded fused CE
+(`parallel.vocab_ce`, K2 on each rank's vocab shard) and AdamW on f32
+gradients; ``--decode --tp`` the ``gpt_serve`` blocks behind the dense
+cache. Ranks that share one card meet over gloo with every collective
+staged through pinned host memory (`ops.collective.EXCHANGE`): their
+speeds are not multi-card speeds. The ring and ulysses mixers, MoE
+experts, remat and the pipeline are later slices of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
+import sys
 import time
+from typing import List, Optional
 
 import torch
 
@@ -77,23 +93,39 @@ def _not_ported(what: str, slice_: str):
                               f"the {slice_} slice of the port")
 
 
-def build_lm_model(size: str, seq: int, device, attention: str = "local"):
-    """The benchmark's model on `device`: ``(cfg, model)`` — GPT of size
-    `size` (vocab 50257, f32 master weights, bf16 compute, the
-    `attention` mixer) with random weights from seed 0."""
+def lm_config(size: str, seq: int, attention: str = "local",
+              dtype=torch.bfloat16) -> GPTConfig:
+    """The benchmark's GPT configuration of size `size`."""
     if size not in SIZES:
         raise ValueError(f"unknown size {size!r} (known: {sorted(SIZES)})")
+    hidden, layers, heads, inter = SIZES[size]
+    return GPTConfig(vocab_size=50257, hidden_size=hidden,
+                     num_layers=layers, num_heads=heads,
+                     intermediate_size=inter, max_position=max(1024, seq),
+                     dtype=dtype, param_dtype=torch.float32,
+                     attention=attention)
+
+
+def build_lm_model(size: str, seq: int, device, attention: str = "local",
+                   dtype=torch.bfloat16):
+    """The benchmark's model on `device`: ``(cfg, model)`` — GPT of size
+    `size` (vocab 50257, f32 master weights, `dtype` compute, the
+    `attention` mixer) with random weights from seed 0, made on the CPU,
+    so every device and every rank gets the same ones."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hidden, layers, heads, inter = SIZES[size]
-    cfg = GPTConfig(vocab_size=50257, hidden_size=hidden,
-                    num_layers=layers, num_heads=heads,
-                    intermediate_size=inter, max_position=max(1024, seq),
-                    dtype=torch.bfloat16, param_dtype=torch.float32,
-                    attention=attention)
+    cfg = lm_config(size, seq, attention, dtype)
     model = GPTLM(cfg, device="cpu",
                   generator=torch.Generator().manual_seed(0)).to(device)
     return cfg, model
+
+
+def lm_tokens(vocab: int, batch: int, seq: int) -> torch.Tensor:
+    """The benchmark's seeded uniform tokens ``[batch, seq]`` (on the
+    CPU)."""
+    return torch.randint(0, vocab, (batch, seq),
+                         generator=torch.Generator().manual_seed(17),
+                         dtype=torch.int64)
 
 
 def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
@@ -105,9 +137,7 @@ def build_lm_train(size: str, batch: int, seq: int, ce_variant: str,
     if ce_variant not in ("residual", "recompute"):
         raise ValueError(f"unknown ce_variant {ce_variant!r}")
     cfg, model = build_lm_model(size, seq, device, attention)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
-                           generator=torch.Generator().manual_seed(17),
-                           dtype=torch.int64).to(device)
+    tokens = lm_tokens(cfg.vocab_size, batch, seq).to(device)
     step = build_gspmd_train_step(
         lambda t: gpt_fused_loss(model, t,
                                  residual=ce_variant == "residual"),
@@ -132,11 +162,14 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     the card, `meta["flash_kernel"]` holds the flash kernels' own
     efficiency at the run's attention shape
     (`flash_eff.measure_flash_efficiency`, run after the training loop;
-    its ``launches`` are the K1 launches it added)."""
+    its ``launches`` are the K1 launches it added).
+
+    tp > 1 runs on ``d_data * tp`` rank processes (`run_tp`; ``d_data``
+    the cards over tp, at least 1), ``batch`` rows a data shard, and
+    `meta` gains the JAX function's ``"fused_ce_sharding": "vocab/<tp>"``
+    and ``"ranks"``, every rank's `train_tp_rank` row."""
     if attention in ("ring", "ulysses"):
         _not_ported(f"attention={attention!r}", "parallel-axes")
-    if tp != 1:
-        _not_ported("tp > 1", "parallel-axes")
     if experts:
         _not_ported("the MoE FFN (experts > 0)", "parallel-axes")
     if remat:
@@ -148,6 +181,9 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
     if dev.type == "cpu":  # smoke path
         size, batch, seq = "tiny", 2, 128
         iters, warmup = min(iters, 3), min(warmup, 1)
+    if tp > 1:
+        return _measure_lm_rate_tp(size, batch, seq, tp, attention, iters,
+                                   warmup, ce_variant, dev)
     cfg, _, step, tokens = build_lm_train(size, batch, seq, ce_variant, dev,
                                           attention)
     if dev.type == "cuda":
@@ -180,6 +216,204 @@ def measure_lm_rate(size: str = "small", batch: int = 8, seq: int = 1024,
                 head_dim=cfg.head_dim, causal=True, iters=min(iters, 10),
                 warmup=2, device=str(dev))
     return tokens_per_step / dt, meta
+
+
+def _measure_lm_rate_tp(size, batch, seq, tp, attention, iters, warmup,
+                        ce_variant, dev):
+    if ce_variant not in ("residual", "recompute"):
+        raise ValueError(f"unknown ce_variant {ce_variant!r}")
+    heads = SIZES[size][2]
+    if heads % tp:
+        raise SystemExit(f"--tp {tp} must divide num_heads {heads} of "
+                         f"size={size}")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    d_data = max(1, cards // tp)
+    n = d_data * tp
+    spec = {"mode": "train", "size": size, "batch": batch, "seq": seq,
+            "mesh": [d_data, tp], "attention": attention,
+            "runs": [{"ce_variant": ce_variant, "warmup": max(warmup, 1),
+                      "iters": iters}]}
+    rows = sorted(run_tp(n, [spec], dev.type), key=lambda r: r["rank"])
+    r0 = rows[0]
+    dt = r0["timed_ms"] / 1e3
+    cfg = lm_config(size, seq, attention)
+    global_tokens = batch * d_data * seq
+    kind = r0["device_kind"]
+    meta = {
+        "platform": "gpu" if dev.type == "cuda" else "cpu", "devices": n,
+        "tp": tp, "size": size, "per_data_batch": batch, "seq": seq,
+        "attention": attention, "step_time_ms": dt * 1000, "iters": iters,
+        # against the peak of the cards the ranks share
+        "mfu": _train_mfu(cfg, global_tokens / dt, seq, min(n, cards),
+                          kind),
+        "device_kind": kind, "fused_ce": ce_variant,
+        "fused_ce_sharding": f"vocab/{tp}",
+        "losses": r0["losses"], "ranks": rows,
+    }
+    if dev.type == "cuda":
+        meta["peak_mem_gb"] = max(r["peak_mem_gb"] for r in rows)
+    return global_tokens / dt, meta
+
+
+# ---------------------------------------------------------------------------
+# tp > 1: rank processes on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: the parameters whose step-1 gradients (this rank's blocks, averaged
+#: over data) a tp training run saves, when the model has them
+TP_GRAD_SAMPLE = ("wpe.embedding",
+                  "Block_0.CausalSelfAttention_0.query.kernel",
+                  "Block_0.CausalSelfAttention_0.out.bias",
+                  "Block_11.Dense_0.kernel", "Block_11.Dense_1.kernel",
+                  "LayerNorm_0.scale", "lm_head.kernel", "lm_head.bias")
+
+
+def train_tp_rank(spec: dict, device, mesh,
+                  grads_dir: Optional[str] = None) -> List[dict]:
+    """This rank's share of a Megatron-sharded training run on the joined
+    group: GPT of ``spec["size"]`` built from seed 0 on the CPU, its
+    ``gpt_tp`` blocks on `device`, this data shard of the seeded global
+    batch (``spec["batch"]`` rows a shard, ``spec["seq"]`` tokens), the
+    step `measure_lm_rate` runs at tp 1 with the head vocab-sharded and
+    the gradients averaged over ``data``. ``spec["runs"]`` are trained in
+    order on the same model and optimizer, each ``{"ce_variant",
+    "warmup", "iters"}``; returns a row a run: losses, each step's ms
+    (fenced by reading its loss), the timed steps' mean, the K1 and K2
+    launches over the run (kernels and plain versions), the axis
+    exchange a step, peak memory. With `grads_dir`, the first step's
+    gradients of `TP_GRAD_SAMPLE` (this rank's blocks) and their specs go
+    to ``tp-grads-rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from ..ops import collective
+    from ..ops import flash as fl
+    from ..ops import fused_ce as fc
+    from ..parallel.long_context import _exchange_delta
+    from ..parallel.rules import gpt_tp_rules, shard_params
+    from ..parallel.train import build_gspmd_train_step
+
+    d_data, tp = spec["mesh"]
+    cfg, model = build_lm_model(spec["size"], spec["seq"], device,
+                                spec.get("attention", "local"))
+    shard_params(model, mesh, gpt_tp_rules())
+    tokens = lm_tokens(cfg.vocab_size, spec["batch"] * d_data, spec["seq"])
+    di = mesh.coords["data"]
+    mine = tokens[di * spec["batch"]:(di + 1) * spec["batch"]].to(device)
+    opt = lm_adamw(model.parameters())
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = []
+    for i, run in enumerate(spec["runs"]):
+        residual = run["ce_variant"] == "residual"
+        step = build_gspmd_train_step(
+            lambda t: gpt_fused_loss(model, t, residual=residual, mesh=mesh),
+            opt, mesh)
+        fl.reset_launches()
+        fc.reset_launches()
+        ex0 = copy.deepcopy(collective.EXCHANGE)
+        steps = run["warmup"] + run["iters"]
+        losses, ms = [], []
+        for j in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(mine)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and j == 0 and grads_dir:
+                params = dict(model.named_parameters())
+                torch.save({n: (params[n].grad.float().cpu(),
+                                getattr(params[n], "spec", ()))
+                            for n in TP_GRAD_SAMPLE if n in params},
+                           os.path.join(grads_dir,
+                                        f"tp-grads-rank{dist.get_rank()}.pt"))
+        timed = ms[run["warmup"]:] or ms
+        out.append({
+            "run": i, "ce_variant": run["ce_variant"],
+            "rank": dist.get_rank(), "coords": dict(mesh.coords),
+            "losses": losses, "step_ms": ms,
+            "timed_ms": sum(timed) / len(timed),
+            "tokens_per_s": spec["batch"] * d_data * spec["seq"]
+            / (sum(timed) / len(timed) / 1e3),
+            "exchange": _exchange_delta(ex0, collective.EXCHANGE, steps),
+            "k1": dict(fl.LAUNCHES), "k2": dict(fc.LAUNCHES),
+            "device_kind": kind,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None),
+        })
+    return out
+
+
+def decode_tp_rank(spec: dict, device) -> dict:
+    """This rank's share of Megatron-sharded greedy decoding:
+    `serve.engine.build_lm` at ``spec["tp"]`` (the ``gpt_serve`` blocks
+    on its mesh) and `time_decode` of an all-zeros prompt inside ``with
+    mesh:``. ``spec["dtype"]`` names the compute dtype (default
+    bfloat16). Returns the seconds a call and both calls' tokens."""
+    import torch.distributed as dist
+
+    dtype = getattr(torch, spec.get("dtype", "bfloat16"))
+    model, mesh = build_lm(spec["size"],
+                           max_position=spec["prompt_len"] + spec["gen_len"],
+                           tp=spec["tp"], dtype=dtype, device=device)
+    prompt = torch.zeros((spec["batch"], spec["prompt_len"]),
+                         dtype=torch.int64, device=device)
+    with mesh:
+        dt, warm, last = time_decode(model, prompt, spec["gen_len"],
+                                     spec["iters"])
+    return {"rank": dist.get_rank(), "seconds": dt,
+            "warm": warm.cpu().tolist(), "last": last.cpu().tolist()}
+
+
+def tp_rank_main(rank: int, n: int, port: int, device: str, specs,
+                 grads_dir: Optional[str] = None) -> int:
+    """One rank of `run_tp`: join the n-rank gloo group (all ranks on
+    the one card, or on the CPU), run the `specs` in order and print one
+    ``KF_LM {json}`` line a row, each with its spec's index as
+    ``"spec"``."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu'")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    try:
+        for i, spec in enumerate(specs):
+            if spec["mode"] == "train":
+                from ..parallel.mesh import tp_mesh
+
+                mesh = tp_mesh(*spec["mesh"], device=dev)
+                rows = train_tp_rank(spec, dev, mesh, grads_dir)
+            else:
+                rows = [decode_tp_rank(spec, dev)]
+            for row in rows:
+                print("KF_LM " + json.dumps({**row, "spec": i}), flush=True)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp(n: int, specs: List[dict], device: str = "cuda",
+           grads_dir: Optional[str] = None, timeout: float = 900.0,
+           env: Optional[dict] = None) -> List[dict]:
+    """Run the `specs` in order (each ``"mode"``: ``"train"``,
+    `train_tp_rank`'s, or ``"decode"``, `decode_tp_rank`'s) on one spawn
+    of n rank processes joined over gloo, on the card unless
+    ``device="cpu"``; returns every rank's rows. Raises RuntimeError when
+    a rank fails or the run outlasts `timeout`."""
+    from ..parallel.long_context import _free_port, spawn_ranks
+
+    cmd = [sys.executable, "-m", "kungfu_tpu_torch.benchmarks.lm",
+           "--np", str(n), "--port", str(_free_port()), "--device", device,
+           "--specs", json.dumps(specs)]
+    if grads_dir:
+        cmd += ["--grads-dir", grads_dir]
+    return spawn_ranks(cmd, n, "KF_LM", timeout, env, "tp ranks")
 
 
 def time_decode(model: GPTLM, prompt: torch.Tensor, gen_len: int,
@@ -216,18 +450,34 @@ def measure_decode_rate(size: str = "small", batch: int = 8,
     a decode step's cost by the one prefill pass. ``device="cpu"``
     shrinks to the JAX package's CPU smoke (tiny, batch 2, 8 + 8, one
     call). With `outputs` (a list), the warm-up call's and the last
-    timed call's tokens are appended to it. tp > 1 is not ported."""
-    if tp != 1:
-        _not_ported("tp > 1 decoding", "parallel-axes")
+    timed call's tokens are appended to it. tp > 1 decodes on tp rank
+    processes (`run_tp`, `decode_tp_rank`: the ``gpt_serve`` blocks on a
+    (1, tp) mesh); the time and the tokens are rank 0's."""
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type == "cpu":  # smoke path
         size, batch, prompt_len, gen_len = "tiny", 2, 8, 8
         iters = 1
-    model = build_lm(size, max_position=prompt_len + gen_len, tp=tp,
-                     device=dev)
-    prompt = torch.zeros((batch, prompt_len), dtype=torch.int64,
-                         device=dev)
-    dt, warm, last = time_decode(model, prompt, gen_len, iters)
+    if tp > 1:
+        heads = SIZES[size][2] if size in SIZES else None
+        if heads is not None and heads % tp:
+            raise SystemExit(f"--tp {tp} must divide num_heads {heads} of "
+                             f"size={size}")
+        rows = run_tp(tp, [{"mode": "decode", "size": size,
+                            "batch": batch, "prompt_len": prompt_len,
+                            "gen_len": gen_len, "iters": iters, "tp": tp}],
+                      dev.type)
+        r0 = min(rows, key=lambda r: r["rank"])
+        dt = r0["seconds"]
+        warm, last = (torch.tensor(r0[k]) for k in ("warm", "last"))
+    else:
+        model, _ = build_lm(size, max_position=prompt_len + gen_len, tp=tp,
+                            device=dev)
+        prompt = torch.zeros((batch, prompt_len), dtype=torch.int64,
+                             device=dev)
+        dt, warm, last = time_decode(model, prompt, gen_len, iters)
     if outputs is not None:
         outputs.extend([warm, last])
     meta = {"platform": "gpu" if dev.type == "cuda" else "cpu",
@@ -259,7 +509,15 @@ def main():
     ap.add_argument("--gen-len", type=int, default=128,
                     help="(--decode) generated tokens")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--np", type=int, default=None, help="(internal)")
+    ap.add_argument("--port", type=int, default=0, help="(internal)")
+    ap.add_argument("--rank", type=int, default=None, help="(internal)")
+    ap.add_argument("--specs", default=None, help="(internal) JSON")
+    ap.add_argument("--grads-dir", default=None, help="(internal)")
     args = ap.parse_args()
+    if args.rank is not None:
+        return tp_rank_main(args.rank, args.np, args.port, args.device,
+                            json.loads(args.specs), args.grads_dir)
     if (args.decode or args.pp) and (args.remat
                                      or args.ce_variant != "residual"):
         raise SystemExit(
@@ -291,4 +549,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

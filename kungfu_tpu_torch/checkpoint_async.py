@@ -1039,6 +1039,41 @@ def restore_sharded(directory: str, like, *, peer=None,
 # -- the async front end ------------------------------------------------------
 
 
+def restore_on_mesh(directory: str, like, *, mesh, rules_table,
+                    peer=None, gen: Optional[int] = None):
+    """Restore the latest complete generation and place it on `mesh`
+    per a rules table: reshard-on-restore from "any np" to "any mesh
+    shape" (a checkpoint saved on a dp x tp mesh restores onto a tp x pp
+    one).
+
+    The byte plane is `restore_sharded` unchanged (any-np shard
+    exchange, every leaf hash-verified, lockstep fallback). On it the
+    placement is table data (`parallel.rules`): `plan` derives and
+    validates the specs for the restore mesh (coverage, axes,
+    divisibility: `PlanError` before anything is placed), `spec_diff`
+    against the save mesh (``meta["mesh_axes"]``, recorded by passing
+    ``mesh_axes=mesh.shape`` to the saver) names the leaves whose byte
+    layout moved, and `place` cuts this rank's blocks by its `mesh`
+    coordinates (a `ProcessMesh`, or anything with ``shape`` and
+    ``coords``). Both sides derive placement from the same table, so no
+    spec crosses the wire. `like` is a mapping (nested mappings of
+    leaves).
+
+    Returns ``(placed, step, meta, residual, diff)``, `diff` ``{leaf
+    path: (save signature, restore signature)}`` of the moved leaves;
+    with no ``mesh_axes`` in `meta` the diff is against a fully
+    replicated prior (every sharded leaf reports as moved)."""
+    from .parallel import rules as kfspec
+
+    tree, step, meta, residual = restore_sharded(directory, like,
+                                                 peer=peer, gen=gen)
+    mesh_shape = dict(mesh.shape)
+    specs = kfspec.plan(rules_table, tree, mesh_shape)
+    saved_axes = dict((meta or {}).get("mesh_axes") or {})
+    diff = kfspec.spec_diff(specs, tree, saved_axes, mesh_shape)
+    return (kfspec.place(tree, mesh, specs), step, meta, residual, diff)
+
+
 def _nbytes(t) -> int:
     return int(t.numel()) * t.element_size()
 
@@ -1141,10 +1176,13 @@ class AsyncShardedCheckpointer:
 
     def save(self, tree, step: int, *, meta: Optional[Dict] = None,
              residual: Optional[Dict] = None,
+             mesh_axes: Optional[Dict] = None,
              block: bool = False) -> int:
         """Queue one generation; returns its number once the snapshot
         is taken (or after the write with `block=True`). Raises any
-        error a PREVIOUS queued write hit.
+        error a PREVIOUS queued write hit. ``mesh_axes`` (e.g.
+        ``mesh.shape``) records the mesh shape the tree was planned for
+        into ``meta["mesh_axes"]``, as `save_sharded` does.
 
         The generation number IS `step` (which must be the
         cluster-agreed training step, >= 1): no local counter exists
@@ -1155,6 +1193,8 @@ class AsyncShardedCheckpointer:
         redoing the step it lost) overwrites this rank's piece of that
         generation in place, which converges."""
         self._raise_pending_errors()
+        if mesh_axes is not None:
+            meta = {**(meta or {}), "mesh_axes": dict(mesh_axes)}
         if step < 1:
             raise ValueError(
                 f"save() needs the cluster-agreed step >= 1, got "

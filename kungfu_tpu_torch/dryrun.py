@@ -1,7 +1,9 @@
-"""Dry run: one data-parallel training step over an n-rank group, and
-one sequence-parallel step on a (data, seq) mesh.
+"""Dry run: one data-parallel training step over an n-rank group, one
+sequence-parallel step on a (data, seq) mesh, and the tensor axis: a
+Megatron BERT step, a dp x tp GPT step through the vocab-sharded fused
+CE and a ZeRO-1 step.
 
-The port of phases 1 and 2 of the JAX package's
+The port of phases 1, 2, 3, 7 and 8 of the JAX package's
 `__graft_entry__.dryrun_multichip`:
 
 - phase 1 (dp): ResNet-18 (10 classes, bf16 compute) takes one S-SGD
@@ -17,6 +19,23 @@ The port of phases 1 and 2 of the JAX package's
   and positions over ``seq``; the loss is ``mean(logits ** 2)``, the
   loss and gradients averaged over ``seq`` then ``data``. The loss must
   be finite and the summed |gradient| above 0.
+- phase 3 (tp, n even): the same f32 BERT with local attention on a
+  ``(data, model)`` mesh of ``n / 2`` by 2 ranks, its parameters this
+  rank's ``bert_tp`` blocks (`parallel.rules`): one loss ``mean(logits
+  ** 2)`` and gradient on ``[2 d_data, 8]`` zero tokens, averaged over
+  ``data``. The loss must be finite and the summed |gradient| (a
+  sharded leaf's blocks summed over ``model``) above 0;
+- phase 7 (dp x tp, n even): f32 GPT (vocab 251 — not divisible by the
+  model axis, so the head's global pad column is exercised — hidden 128,
+  2 layers, 4 heads, intermediate 256) with its ``gpt_tp`` blocks on the
+  same mesh shape, one loss and gradient through `gpt_fused_loss` with
+  the head vocab-sharded (`parallel.vocab_ce`, K2 on each shard) on
+  ``[2 d_data, 32]`` zero tokens. The same checks;
+- phase 8 (ZeRO-1): f32 GPT (vocab 128, hidden 64, 2 layers, 8 heads)
+  on an ``(n, 1)`` mesh, Adam(1e-3) with its state sharded over
+  ``data`` (`parallel.zero`), one `build_gspmd_train_step` step on
+  ``[n, 32]`` zero tokens. The loss must be finite, some leaf's moments
+  sharded before the step, and as many after it.
 
 - ``n == 1``: one rank in this process, on the card unless
   ``device="cpu"``;
@@ -30,10 +49,14 @@ The port of phases 1 and 2 of the JAX package's
   python -m kungfu_tpu_torch.dryrun --n 4 --device cpu --phases 1,2
 
 Prints, per phase run (rank 0's), ``dryrun: n=<n> device=<d> loss=<x>
-params_equal=True`` (phase 1) and ``dryrun: phase 2 (sp) n=<n>
-mesh=<data>x<seq> device=<d> loss=<x> gnorm=<g>``, and exits non-zero on
-any failed check. The JAX function runs phase 2 whenever it has two
-devices; here `phases` asks for it.
+params_equal=True`` (phase 1), ``dryrun: phase 2 (sp) n=<n>
+mesh=<data>x<seq> device=<d> loss=<x> gnorm=<g>``, ``dryrun: phase 3
+(tp) ...`` and ``dryrun: phase 7 (dp x tp) ...`` in the same form, and
+``dryrun: phase 8 (zero1) n=<n> device=<d> loss=<x> sharded=<k>``, and
+exits non-zero on any failed check. The JAX function runs the phases
+whenever it has the devices; here `phases` asks for them.
+
+  python -m kungfu_tpu_torch.dryrun --n 4 --device cpu --phases 3,7,8
 """
 
 from __future__ import annotations
@@ -136,10 +159,128 @@ def sp_step(device, n: int, state: Optional[dict] = None) -> dict:
     return {"loss": loss, "gnorm": gnorm, "mesh": (d_data, d_seq)}
 
 
+def _tp_gnorm(model, mesh) -> float:
+    """Summed |gradient| of a model holding its tensor-parallel blocks:
+    a sharded leaf's blocks summed over ``model``, a replicated one
+    counted once."""
+    import torch
+
+    from .ops.collective import _reduce
+
+    sharded = sum((p.grad.abs().sum() for p in model.parameters()
+                   if getattr(p, "spec", ())), torch.zeros((), device=
+                                                           mesh.device))
+    whole = sum(p.grad.abs().sum() for p in model.parameters()
+                if not getattr(p, "spec", ()))
+    if mesh.size("model") > 1:
+        sharded = _reduce(sharded.reshape(1), "psum",
+                          mesh.axis("model").group)[0]
+    return float(sharded + whole)
+
+
+def _tp_finish(model, mesh, loss, phase: str) -> dict:
+    """Average the gradients and the loss over ``data``; check them."""
+    from .ops.collective import all_reduce_mean
+
+    loss = loss.detach().reshape(1).clone()
+    if mesh.size("data") > 1:
+        all_reduce_mean([p.grad for p in model.parameters()] + [loss],
+                        mesh.axis("data").group)
+    loss, gnorm = float(loss), _tp_gnorm(model, mesh)
+    if not loss == loss:
+        raise RuntimeError(f"{phase} loss is NaN")
+    if not gnorm > 0:
+        raise RuntimeError(f"{phase} gradients are zero")
+    return {"loss": loss, "gnorm": gnorm,
+            "mesh": (mesh.size("data"), mesh.size("model"))}
+
+
+def tp_step(device, n: int) -> dict:
+    """Phase 3 on the joined n-rank group (n even): Megatron BERT on a
+    ``(n / 2, 2)`` mesh."""
+    import torch
+
+    from .models import BertConfig, BertEncoder
+    from .parallel.mesh import tp_mesh
+    from .parallel.rules import bert_tp_rules, shard_params
+
+    mesh = tp_mesh(n // 2, 2, device=device)
+    cfg = BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                     num_heads=4, intermediate_size=64, max_position=8,
+                     dtype=torch.float32)
+    model = BertEncoder(cfg, generator=torch.Generator().manual_seed(0))
+    shard_params(model.to(device), mesh, bert_tp_rules())
+    tokens = torch.zeros(2, 8, dtype=torch.int64, device=device)
+    with mesh:
+        loss = (model(tokens).float() ** 2).mean()
+        loss.backward()
+    return _tp_finish(model, mesh, loss, "tp")
+
+
+def dp_tp_step(device, n: int) -> dict:
+    """Phase 7 on the joined n-rank group (n even): a Megatron GPT
+    through the vocab-sharded fused CE on a ``(n / 2, 2)`` mesh."""
+    import torch
+
+    from .models.gpt import GPTConfig, GPTLM, gpt_fused_loss
+    from .parallel.mesh import tp_mesh
+    from .parallel.rules import gpt_tp_rules, shard_params
+
+    mesh = tp_mesh(n // 2, 2, device=device)
+    cfg = GPTConfig(vocab_size=251, hidden_size=128, num_layers=2,
+                    num_heads=4, intermediate_size=256, max_position=32,
+                    dtype=torch.float32)
+    model = GPTLM(cfg, generator=torch.Generator().manual_seed(0))
+    shard_params(model.to(device), mesh, gpt_tp_rules())
+    tokens = torch.zeros(2, 32, dtype=torch.int64, device=device)
+    loss = gpt_fused_loss(model, tokens, mesh=mesh)
+    loss.backward()
+    return _tp_finish(model, mesh, loss, "dp x tp")
+
+
+def zero1_step(device, n: int) -> dict:
+    """Phase 8 on the joined n-rank group: one ZeRO-1 Adam step of a GPT
+    on an ``(n, 1)`` mesh; returns the loss and the sharded leaves."""
+    import torch
+
+    from .models.gpt import GPTConfig, GPTLM, gpt_loss
+    from .parallel.mesh import tp_mesh
+    from .parallel.train import build_gspmd_train_step
+    from .parallel.zero import zero1_shard_opt_state
+
+    mesh = tp_mesh(n, 1, device=device)
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=8, intermediate_size=128, max_position=32,
+                    dtype=torch.float32)
+    model = GPTLM(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    opt = zero1_shard_opt_state(torch.optim.Adam(model.parameters(),
+                                                 lr=1e-3), mesh)
+
+    def sharded_rows() -> int:
+        # slices whose moments (none before the first step) are 1/n
+        return sum(1 for _, s in opt.sliced
+                   if opt.inner.state[s].get("exp_avg", s).shape == s.shape)
+
+    before = sharded_rows()
+    if n > 1 and not before:
+        raise RuntimeError("no optimizer-state leaf was data-sharded")
+    step = build_gspmd_train_step(lambda t: gpt_loss(model(t), t), opt,
+                                  mesh)
+    loss = float(step(torch.zeros(1, 32, dtype=torch.int64,
+                                  device=device)))
+    if not loss == loss:
+        raise RuntimeError("zero1 loss is NaN")
+    after = sharded_rows()
+    if after < before:
+        raise RuntimeError("the step dropped the ZeRO-1 sharding")
+    return {"loss": loss, "sharded": after}
+
+
 def run_rank(rank: int, n: int, port: int, device: str,
              phases=(1,)) -> dict:
     """Join the n-rank group as `rank` and run the `phases` (1: dp, 2:
-    sp). NCCL for one rank on a card, gloo otherwise."""
+    sp, 3: tp, 7: dp x tp, 8: ZeRO-1). NCCL for one rank on a card, gloo
+    otherwise."""
     import torch
     import torch.distributed as dist
 
@@ -167,6 +308,23 @@ def run_rank(rank: int, n: int, port: int, device: str,
                       f"{sp['mesh'][0]}x{sp['mesh'][1]} device={dev.type} "
                       f"loss={sp['loss']:.6f} gnorm={sp['gnorm']:.6f}",
                       flush=True)
+        for phase, name, fn in ((3, "tp", tp_step), (7, "dp x tp",
+                                                     dp_tp_step)):
+            if phase in phases:
+                r = fn(dev, n)
+                out[name] = r
+                if rank == 0:
+                    print(f"dryrun: phase {phase} ({name}) n={n} mesh="
+                          f"{r['mesh'][0]}x{r['mesh'][1]} device={dev.type} "
+                          f"loss={r['loss']:.6f} gnorm={r['gnorm']:.6f}",
+                          flush=True)
+        if 8 in phases:
+            z = zero1_step(dev, n)
+            out["zero1"] = z
+            if rank == 0:
+                print(f"dryrun: phase 8 (zero1) n={n} device={dev.type} "
+                      f"loss={z['loss']:.6f} sharded={z['sharded']}",
+                      flush=True)
     finally:
         dist.destroy_process_group()
     return out
@@ -180,7 +338,8 @@ def _free_port() -> int:
 
 def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
            timeout: float = 300.0, phases=(1,)) -> dict:
-    """The `phases` (1: dp; 2: sp, n >= 2) over `n` ranks; returns rank
+    """The `phases` (1: dp; 2: sp, n >= 2; 3: tp, 7: dp x tp, n even; 8:
+    ZeRO-1) over `n` ranks; returns rank
     0's figures for ``n == 1`` (phase 1's ``loss`` and ``params_equal``),
     and for ``n > 1`` ``{"n": n, "ok": True}`` after every rank process
     exited 0, with ``lines``, rank 0's ``dryrun:`` lines. Raises
@@ -193,6 +352,8 @@ def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if 2 in phases and n < 2:
         raise ValueError("phase 2 (sp) needs n >= 2 ranks")
+    if {3, 7} & set(phases) and n % 2:
+        raise ValueError("phases 3 and 7 (tp) need an even n")
     port = port or _free_port()
     if n == 1:
         return run_rank(0, 1, port, device, phases)
@@ -229,7 +390,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--phases", default="1",
-                    help="phases to run: 1 (dp), 2 (sp, n >= 2), or 1,2")
+                    help="phases to run, comma-separated: 1 (dp), 2 (sp, "
+                         "n >= 2), 3 (tp), 7 (dp x tp), 8 (zero1)")
     ap.add_argument("--rank", type=int, default=None,
                     help="(internal) run one rank of an n-rank group")
     args = ap.parse_args(argv)

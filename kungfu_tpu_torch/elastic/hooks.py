@@ -9,9 +9,10 @@ survivors) and re-broadcasts model state to joiners.
 
 The port of `kungfu_tpu/elastic/hooks.py`: the state a resync carries is
 a list of tensors in a fixed order (a model's parameters, then its
-optimizer state), broadcast in place on the CPU or the card; the
-``placement`` (kfspec resharding) of `resync_params` comes with the
-parallel axes (ROADMAP queue 1 item 9). Everything else — the schedule,
+optimizer state), or a mapping of leaf paths to tensors, broadcast in
+place on the CPU or the card; with a ``placement`` `resync_params` then
+reshards the mapping per a rules table (`parallel.rules.reshard`).
+Everything else — the schedule,
 the consensus resize, the `KF_MTTR` markers and trace events of
 `recover` — is the reference's.
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -245,9 +246,8 @@ class ElasticCallback:
         self.state.trained_samples = int(agreed[1])
         return self.state.step, self.state.trained_samples
 
-    def resync_params(self, params: Sequence[torch.Tensor], root: int = 0,
-                      chunk_mb: Optional[float] = None
-                      ) -> List[torch.Tensor]:
+    def resync_params(self, params, root: int = 0,
+                      chunk_mb: Optional[float] = None, placement=None):
         """Broadcast `params` (a list of tensors in a fixed order, e.g.
         a model's parameters followed by its optimizer state) from
         `root` so joiners adopt survivor state, in place (the
@@ -263,10 +263,29 @@ class ElasticCallback:
         Records the phase decomposition into `last_resize_timings`
         (merged with the peer's fetch/consensus/adopt-barrier phases):
         `pack_ms` / `broadcast_ms` / `position_ms`, plus `overlap_ms`,
-        `stream_chunks` and `bytes` on the streaming path."""
+        `stream_chunks` and `bytes` on the streaming path.
+
+        `params` may also be a mapping (nested mappings) of leaf paths to
+        tensors, broadcast in place and returned. `placement`: optional
+        ``(mesh, rules_table[, prev_axes])``, which needs the mapping —
+        after the broadcast the tree is re-placed on `mesh` (this rank's
+        blocks by its coordinates) per the table: the plan is validated
+        at plan time, the `spec_diff` against `prev_axes` (the mesh shape
+        the tree was last planned for; None: a fresh, replicated prior)
+        names the leaves whose byte layout moved, and the placement is
+        timed as `reshard_leaves` / `reshard_ms` in
+        `last_resize_timings`. Every rank derives it from the same table;
+        no spec crosses the wire. Returns the placed mapping."""
+        from ..parallel import rules as kfspec
         from .streaming import stream_broadcast, stream_chunk_bytes
 
-        params = list(params)
+        tree = params if isinstance(params, Mapping) else None
+        if placement is not None and tree is None:
+            raise ValueError("placement needs `params` as a mapping of "
+                             "leaf paths to tensors (the rules match "
+                             "paths)")
+        params = ([leaf for _, leaf in kfspec._flatten(tree)]
+                  if tree is not None else list(params))
         t0 = time.perf_counter()
         chunk_bytes = stream_chunk_bytes(chunk_mb)
         with trace.span("resize.resync", cat="elastic",
@@ -308,6 +327,16 @@ class ElasticCallback:
                     "position_ms": (t_pos - t_bcast) * 1e3,
                     "bytes": int(packed.nbytes),
                 }
+            if tree is not None:
+                out = kfspec.unflatten_like(tree, out)
+            if placement is not None:
+                t_p0 = time.perf_counter()
+                mesh, table, *rest = placement
+                out, diff = kfspec.reshard(
+                    out, mesh, table, prev_axes=rest[0] if rest else None)
+                self.last_resize_timings.update(
+                    reshard_leaves=len(diff),
+                    reshard_ms=(time.perf_counter() - t_p0) * 1e3)
             sp.set(**{k: round(v, 3) if isinstance(v, float) else v
                       for k, v in self.last_resize_timings.items()})
             return out

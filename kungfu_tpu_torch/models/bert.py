@@ -19,6 +19,14 @@ What flax does that torch's defaults would not:
   module dtype. The mask is boolean, broadcast to ``[B, heads, T, T]``
   (``mask=None``: no masking).
 
+Tensor parallelism: inside ``with mesh:`` of a `parallel.mesh.
+ProcessMesh` whose ``model`` axis has tp > 1 ranks, with the parameters
+replaced by this rank's blocks (`parallel.rules.shard_params` with
+`bert_tp_rules`), each layer runs Megatron's split as `models.gpt` does:
+``heads / tp`` local heads and ``intermediate / tp`` local MLP columns,
+the output and down-projections summed over the axis with their biases
+added once after; embeddings, LayerNorms and the head stay replicated.
+
 Long context: ``attention="ring"`` or ``"ulysses"`` runs the
 bidirectional sequence-parallel mixers (`parallel.sequence`;
 ``use_flash`` runs their local step through K1) over the axis
@@ -95,13 +103,14 @@ class Dense(nn.Module):
                               generator)
         self.bias = nn.Parameter(torch.zeros(*out, device=device))
 
-    def forward(self, x):
+    def forward(self, x, bias: bool = True):
         dt = self.dtype or x.dtype
         k = self.kernel.to(dt)
         lead = x.shape[:x.dim() - self.n_in]
         n_in = math.prod(k.shape[:self.n_in])
         y = x.to(dt).reshape(*lead, n_in) @ k.reshape(n_in, -1)
-        y = y + self.bias.to(dt).reshape(-1)
+        if bias:
+            y = y + self.bias.to(dt).reshape(-1)
         return y.reshape(*lead, *k.shape[self.n_in:])
 
 
@@ -140,7 +149,12 @@ class MultiHeadDotProductAttention(nn.Module):
                          c.dtype)
 
     def forward(self, x, mask=None):
+        from ..ops.collective import column_input, row_parallel
+        from ..parallel.mesh import tp_axis
+
         dt = self.dtype
+        ax = tp_axis()      # tensor parallel: this rank's heads
+        x = column_input(x, ax)
         q = self.query(x)  # [B, T, heads, d]
         k, v = self.key(x), self.value(x)
         q = q / torch.tensor(math.sqrt(self.depth), dtype=dt)
@@ -149,7 +163,8 @@ class MultiHeadDotProductAttention(nn.Module):
             # jnp.where: any nonzero mask entry keeps its weight
             w = torch.where(mask.to(torch.bool), w, torch.finfo(dt).min)
         w = torch.softmax(w, dim=-1).to(dt)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        return row_parallel(self.out, o, ax)
 
 
 class SeqParallelAttention(MultiHeadDotProductAttention):
@@ -193,10 +208,15 @@ class TransformerLayer(nn.Module):
                              generator, c.dtype)
 
     def forward(self, x, mask=None):
+        from ..ops.collective import column_input, row_parallel
+        from ..parallel.mesh import tp_axis
+
         y = getattr(self, self.attn_name)(self.LayerNorm_0(x), mask)
         x = x + y
-        y = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.Dense_1(y)
+        ax = tp_axis()      # tensor parallel: this rank's MLP columns
+        y = F.gelu(self.Dense_0(column_input(self.LayerNorm_1(x), ax)),
+                   approximate="tanh")
+        return x + row_parallel(self.Dense_1, y, ax)
 
 
 class Embed(nn.Module):

@@ -36,6 +36,19 @@ after the final LayerNorm, `gpt_loss` is the unfused next-token loss
 over the f32 logits, and `gpt_fused_loss` runs the head inside the
 fused cross-entropy kernels (`ops.fused_ce`).
 
+Tensor parallelism: inside ``with mesh:`` of a `parallel.mesh.
+ProcessMesh` whose ``model`` axis has tp > 1 ranks, with the parameters
+replaced by this rank's blocks (`parallel.rules.shard_params` with
+`gpt_tp_rules` or `gpt_serve_rules`), every block runs Megatron's split:
+attention on ``num_heads / tp`` local heads (column-parallel QKV, K1 on
+the local heads under ``"flash"``), the MLP on ``intermediate / tp``
+local columns, the output and down-projections row-parallel — partial
+products summed over the axis (`ops.collective.reduce_from_axis`) and
+their replicated biases added once after — and each column-parallel
+input marked by `ops.collective.copy_to_axis`, whose backward sums the
+input's gradient over the axis. Embeddings, LayerNorms and the lm_head
+stay replicated; the dense decode cache holds the local heads.
+
 Mixers: ``GPTConfig.attention`` picks the training forward's causal
 mixer, as in the JAX package: ``"local"``, the plain
 `dot_product_attention` above, ``"flash"``, the K1 kernels
@@ -148,12 +161,17 @@ class DenseGeneral(nn.Module):
         self.bias = nn.Parameter(torch.zeros(
             self.out_shape, dtype=store, device=device))
 
-    def forward(self, x):
-        n_in = math.prod(self.in_shape)
-        lead = x.shape[:x.dim() - len(self.in_shape)]
-        y = x.reshape(*lead, n_in).to(self.dtype) @ self.kernel.to(
+    def forward(self, x, bias: bool = True):
+        # shapes from the kernel, which may be this rank's tensor-parallel
+        # block of it (`parallel.rules.shard_params`)
+        k = self.kernel
+        n = len(self.in_shape)
+        n_in = math.prod(k.shape[:n])
+        lead = x.shape[:x.dim() - n]
+        y = x.reshape(*lead, n_in).to(self.dtype) @ k.to(
             self.dtype).reshape(n_in, -1)
-        return y.reshape(*lead, *self.out_shape) + self.bias.to(self.dtype)
+        y = y.reshape(*lead, *k.shape[n:])
+        return y + self.bias.to(self.dtype) if bias else y
 
 
 class Embed(nn.Module):
@@ -182,8 +200,11 @@ class KVCache:
         self.index = 0
 
     @classmethod
-    def zeros(cls, cfg: GPTConfig, batch: int, length: int, device):
-        shape = (batch, length, cfg.num_heads, cfg.head_dim)
+    def zeros(cls, cfg: GPTConfig, batch: int, length: int, device,
+              heads: Optional[int] = None):
+        """Zeros for `heads` heads a layer (default the config's; a
+        tensor-parallel rank's cache holds its local heads)."""
+        shape = (batch, length, heads or cfg.num_heads, cfg.head_dim)
         return cls([torch.zeros(shape, dtype=cfg.dtype, device=device)
                     for _ in range(cfg.num_layers)],
                    [torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -222,7 +243,13 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0,
                 decode: bool = False, prefill: bool = False):
+        from ..ops.collective import column_input, row_parallel
+        from ..parallel.mesh import tp_axis
+
         c = self.config
+        ax = tp_axis()
+        # column-parallel QKV under a tensor axis: num_heads / tp heads
+        x = column_input(x, ax)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if prefill:
             # one batched causal pass over the whole prompt that ALSO
@@ -261,7 +288,7 @@ class CausalSelfAttention(nn.Module):
                                     use_flash=c.use_flash)
         else:
             out = dot_product_attention(q, k, v, c.dtype)
-        return self.out(out)
+        return row_parallel(self.out, out, ax)
 
 
 class Block(nn.Module):
@@ -281,11 +308,17 @@ class Block(nn.Module):
                                     c.param_dtype)
 
     def forward(self, x, cache=None, layer=0, decode=False, prefill=False):
+        from ..ops.collective import column_input, row_parallel
+        from ..parallel.mesh import tp_axis
+
         y = self.LayerNorm_0(x)
         x = x + self.CausalSelfAttention_0(y, cache, layer, decode, prefill)
         y = self.LayerNorm_1(x)
-        y = F.gelu(self.Dense_0(y), approximate="tanh")
-        return x + self.Dense_1(y)
+        # under a tensor axis: column-parallel up-projection
+        # (intermediate / tp columns), row-parallel down-projection
+        ax = tp_axis()
+        y = F.gelu(self.Dense_0(column_input(y, ax)), approximate="tanh")
+        return x + row_parallel(self.Dense_1, y, ax)
 
 
 class GPTLM(nn.Module):
@@ -419,19 +452,35 @@ def gpt_seq_loss(model: GPTLM, token_ids, seq_axis=None):
 
 
 def gpt_fused_loss(model: GPTLM, token_ids, residual: bool = True,
-                   mesh=None):
+                   mesh=None, data_axis: str = "data",
+                   model_axis: str = "model"):
     """`gpt_loss`, but through `ops.fused_ce.fused_cross_entropy`: the
     trunk runs with ``return_hidden=True`` and the lm_head (f32 kernel
     and bias) runs inside the fused kernels, so the ``[B, T, vocab]`` f32
     logits never exist; the head's three products run bf16 with f32
     accumulation. `residual` picks the backward scheme (bf16 logits
-    residual, or recompute). A `mesh` (the vocab-sharded head) raises
-    NotImplementedError: vocab sharding comes with a later slice of the
-    port (the parallel axes)."""
+    residual, or recompute).
+
+    With `mesh` (a ``(data, model)`` `parallel.mesh.ProcessMesh`) the
+    trunk runs inside ``with mesh:`` — Megatron-sharded when the model
+    axis has more than one rank and the parameters are this rank's
+    blocks (`parallel.rules.shard_params` with `gpt_tp_rules`) — and the
+    head VOCAB-SHARDED through `parallel.vocab_ce.vocab_sharded_fused_ce`:
+    `token_ids` are this rank's data shard, and the loss is its share,
+    whose pmean over `data_axis` is the global mean (as
+    `build_gspmd_train_step` with the mesh takes it)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the vocab-sharded fused head (mesh=...) is not ported yet; it "
-            "comes with the parallel-axes slice")
+        from ..parallel.vocab_ce import vocab_sharded_fused_ce
+
+        with mesh:
+            hidden = model(token_ids, return_hidden=True)
+            b, t, h = hidden.shape
+            return vocab_sharded_fused_ce(
+                hidden[:, :-1].reshape(b * (t - 1), h),
+                model.lm_head.kernel, model.lm_head.bias,
+                token_ids[:, 1:].reshape(-1), mesh=mesh,
+                data_axis=data_axis, model_axis=model_axis,
+                residual=residual)
     from ..ops.fused_ce import fused_cross_entropy
 
     hidden = model(token_ids, return_hidden=True)
@@ -458,7 +507,11 @@ def gpt_generate(model: GPTLM, prompt: torch.Tensor,
         raise ValueError(
             f"prompt {t0} + steps {num_steps} exceeds max_position "
             f"{c.max_position}")
-    cache = KVCache.zeros(c, b, c.max_position, prompt.device)
+    from ..parallel.mesh import tp_axis
+
+    ax = tp_axis()   # Megatron-sharded: the cache holds the local heads
+    cache = KVCache.zeros(c, b, c.max_position, prompt.device,
+                          c.num_heads // ax.size if ax else None)
     logits = model(prompt, cache=cache, prefill=True)
     tok = logits[:, -1].argmax(-1)
     out = [tok]

@@ -143,7 +143,8 @@ def _nbytes(t) -> int:
 #: bytes and host ms (copies included); a caller takes differences
 EXCHANGE: Dict[str, Dict[str, float]] = {
     op: {"calls": 0, "bytes": 0, "staged_bytes": 0, "ms": 0.0}
-    for op in ("ppermute", "all_to_all", "psum", "pmax", "pmean")}
+    for op in ("ppermute", "all_to_all", "psum", "pmax", "pmean",
+               "all_gather")}
 
 
 def staged(x: torch.Tensor, group=None) -> bool:
@@ -341,6 +342,85 @@ def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     gradient, summed over ranks, goes to each rank whose `x` holds the
     maximum."""
     return _PMax.apply(x, group)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous(), "psum", ctx.group), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, "psum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's ``f``: the identity forward, a psum of the gradient over
+    `group` backward — the input of a column-parallel layer, whose every
+    rank's partial gradient of the replicated input must be summed."""
+    return _CopyToAxis.apply(x, group)
+
+
+def reduce_from_axis(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's ``g``: a psum over `group` forward, the identity
+    backward — the output of a row-parallel layer. Unlike `psum`, whose
+    backward sums the gradients again (``lax.psum``'s transpose), this
+    passes the gradient through: every rank's loss is the whole
+    replicated loss, so a psum backward would scale it by the group's
+    size."""
+    return _ReduceFromAxis.apply(x, group)
+
+
+def column_input(x: torch.Tensor, ax) -> torch.Tensor:
+    """The input of a column-parallel projection under tensor parallelism
+    over the mesh axis `ax` (`copy_to_axis` on its group); `x` itself
+    when `ax` is None (no tensor axis)."""
+    return x if ax is None else copy_to_axis(x, ax.group)
+
+
+def row_parallel(dense, x: torch.Tensor, ax) -> torch.Tensor:
+    """A row-parallel projection under tensor parallelism over the mesh
+    axis `ax`: this rank's partial product of `dense` (called with
+    ``bias=False``) over its block of the input features, summed over
+    the axis (`reduce_from_axis`), then the replicated bias, added once
+    after the sum. ``dense(x)`` itself when `ax` is None."""
+    if ax is None:
+        return dense(x)
+    y = reduce_from_axis(dense(x, bias=False), ax.group)
+    return y + dense.bias.to(y.dtype)
+
+
+def gather_axis(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim` in rank order (the tiled
+    ``lax.all_gather``), staged like the other axis collectives and
+    counted as ``all_gather``; no gradient. A one-rank group returns a
+    copy."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return x.clone()
+    src = x.movedim(dim, 0).contiguous()
+    stage = staged(src, group)
+    with _Count("all_gather", src, stage):
+        if stage:
+            src = _to_host(src)
+        out = torch.empty((world,) + tuple(src.shape), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather(list(out.unbind(0)), src, group=group)
+        if stage:
+            out = out.to(x.device)
+    out = out.reshape((world * src.shape[0],) + tuple(src.shape[1:]))
+    return out.movedim(0, dim)
 
 
 def chunk_schedule(tensors: Sequence[torch.Tensor],

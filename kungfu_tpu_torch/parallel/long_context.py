@@ -228,21 +228,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run(n: int, specs: List[dict], device: str = "cuda",
-        grads_dir: Optional[str] = None, timeout: float = 600.0,
-        env: Optional[dict] = None) -> List[dict]:
-    """Run every spec in order on n rank processes (one gloo group, on
-    the card unless ``device="cpu"``); returns their ``KF_SEQ`` rows.
-    Raises RuntimeError when a rank fails or the run outlasts
+def spawn_ranks(cmd: List[str], n: int, marker: str, timeout: float,
+                env: Optional[dict] = None,
+                what: str = "ranks") -> List[dict]:
+    """Run ``<cmd> --rank r`` for r < n from the repo root (`cmd` a
+    ``python -m`` of the port, the group's port free and in it) and
+    return the JSON of every ``<marker> {json}`` line they print, rank by
+    rank. Raises RuntimeError when a rank fails or the run outlasts
     `timeout`."""
-    port = _free_port()
     env = dict(env if env is not None else os.environ)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "kungfu_tpu_torch.parallel.long_context",
-           "--np", str(n), "--port", str(port), "--device", device,
-           "--specs", json.dumps(specs)]
-    if grads_dir:
-        cmd += ["--grads-dir", grads_dir]
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=_REPO, env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -254,7 +249,7 @@ def run(n: int, specs: List[dict], device: str = "cuda",
             outs.append(p.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))[0])
     except subprocess.TimeoutExpired:
-        raise RuntimeError(f"long-context ranks outlasted {timeout} s")
+        raise RuntimeError(f"{what} outlasted {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -262,10 +257,26 @@ def run(n: int, specs: List[dict], device: str = "cuda",
                 p.wait()
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     if bad:
-        raise RuntimeError(f"long-context ranks failed {bad}:\n"
+        raise RuntimeError(f"{what} failed {bad}:\n"
                            + "\n".join(o[-3000:] for o in outs))
-    return [json.loads(line[len("KF_SEQ "):]) for o in outs
-            for line in o.splitlines() if line.startswith("KF_SEQ ")]
+    head = marker + " "
+    return [json.loads(line[len(head):]) for o in outs
+            for line in o.splitlines() if line.startswith(head)]
+
+
+def run(n: int, specs: List[dict], device: str = "cuda",
+        grads_dir: Optional[str] = None, timeout: float = 600.0,
+        env: Optional[dict] = None) -> List[dict]:
+    """Run every spec in order on n rank processes (one gloo group, on
+    the card unless ``device="cpu"``); returns their ``KF_SEQ`` rows.
+    Raises RuntimeError when a rank fails or the run outlasts
+    `timeout`."""
+    cmd = [sys.executable, "-m", "kungfu_tpu_torch.parallel.long_context",
+           "--np", str(n), "--port", str(_free_port()), "--device", device,
+           "--specs", json.dumps(specs)]
+    if grads_dir:
+        cmd += ["--grads-dir", grads_dir]
+    return spawn_ranks(cmd, n, "KF_SEQ", timeout, env, "long-context ranks")
 
 
 def main(argv=None) -> int:

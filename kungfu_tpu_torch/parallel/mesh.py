@@ -16,8 +16,8 @@ the stacking helpers become collectives:
 - `axis_size`: the world size.
 
 `ProcessMesh` is the named N-D mesh beside it (`seq_mesh`: the
-``(data, seq)`` mesh of sequence-parallel training), a subgroup per
-axis.
+``(data, seq)`` mesh of sequence-parallel training; `tp_mesh`: the
+``(data, model)`` mesh of tensor parallelism), a subgroup per axis.
 
 `init_worker_state` has no counterpart: torch optimizers create their
 state at their first step.
@@ -152,6 +152,15 @@ class ProcessMesh:
                     self.axes[name] = Axis(name, group, sizes[i],
                                            line.index(me))
 
+    @property
+    def shape(self) -> Dict[str, int]:
+        """``{axis name: size}`` in axis order (``Mesh.shape``)."""
+        return dict(zip(self.names, self.sizes))
+
+    def size(self, name: str) -> int:
+        """The size of axis `name`, 1 for an axis the mesh lacks."""
+        return self.shape.get(name, 1)
+
     def axis(self, name) -> Axis:
         """The axis `name` (an `Axis` passes through)."""
         if isinstance(name, Axis):
@@ -195,6 +204,11 @@ def current_mesh() -> ProcessMesh:
     return _ACTIVE[-1]
 
 
+def active_mesh() -> Optional[ProcessMesh]:
+    """The innermost mesh entered with ``with mesh:``, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
 def mesh_axis(name) -> Axis:
     """Axis `name` of the current mesh (an `Axis` passes through)."""
     return name if isinstance(name, Axis) else current_mesh().axis(name)
@@ -205,3 +219,25 @@ def seq_mesh(d_data: int, d_seq: int, device=None) -> ProcessMesh:
     joined group (``d_data * d_seq`` ranks; ``__graft_entry__``'s
     ``Mesh(devices.reshape(d_data, d_seq), ("data", "seq"))``)."""
     return ProcessMesh((d_data, d_seq), ("data", "seq"), device)
+
+
+#: the mesh axis of tensor parallelism (`parallel.rules`' tables)
+MODEL_AXIS = "model"
+
+
+def tp_mesh(d_data: int, tp: int, device=None) -> ProcessMesh:
+    """The ``(data, model)`` mesh of tensor parallelism over the joined
+    group (``d_data * tp`` ranks; the JAX package's
+    ``Mesh(devices.reshape(d_data, tp), ("data", "model"))``)."""
+    return ProcessMesh((d_data, tp), ("data", MODEL_AXIS), device)
+
+
+def tp_axis() -> Optional[Axis]:
+    """The ``model`` axis of the current mesh when it has more than one
+    rank — the modules' tensor-parallel mode — else None (no mesh, no
+    such axis, or one rank along it)."""
+    mesh = active_mesh()
+    if mesh is None or MODEL_AXIS not in mesh.axes:
+        return None
+    ax = mesh.axes[MODEL_AXIS]
+    return ax if ax.size > 1 else None

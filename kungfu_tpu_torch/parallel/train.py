@@ -1,7 +1,8 @@
 """Train steps: forward + backward + update in one call.
 
 The port of the builders of `kungfu_tpu/parallel/train.py` that the LM
-training benchmark (`build_gspmd_train_step`, and
+training benchmark (`build_gspmd_train_step`, on one device or on a
+tensor-parallel ``(data, model)`` mesh, and
 `build_dp_replicated_train_step` for its fused loss under dp), the
 sequence-parallel step (`build_sp_train_step`) and the
 image benchmarks (`build_train_step_with_state` with the BatchNorm
@@ -23,19 +24,45 @@ from ..ops.collective import all_reduce_mean
 from ..optimizers.sync_sgd import bucketed_all_reduce_mean
 
 
-def build_gspmd_train_step(loss_fn: Callable, optimizer):
-    """Single-process step: ``step(batch) -> loss`` (detached) runs the
-    forward and the backward of `loss_fn(batch)`, then
-    ``optimizer.step()``. The counterpart of the JAX builder on one
-    device (`build_gspmd_train_step`, `train.py:116`); the loss stays a
-    device tensor, so the step does not wait for the card."""
+def build_gspmd_train_step(loss_fn: Callable, optimizer, mesh=None,
+                           data_axis: str = "data"):
+    """``step(batch) -> loss`` (detached) runs the forward and the
+    backward of `loss_fn(batch)`, then ``optimizer.step()``; the loss
+    stays a device tensor, so the step does not wait for the card. The
+    counterpart of the JAX builder (`build_gspmd_train_step`,
+    `train.py:116`).
+
+    Without `mesh`: one process, one device. With `mesh` (a
+    ``(data, model)`` `parallel.mesh.ProcessMesh`): `loss_fn` runs
+    inside ``with mesh:`` on this rank's batch shard and parameter
+    blocks (`parallel.rules.shard_params`) and returns its share of the
+    loss (a data shard's share whose data mean is the global loss, as
+    `models.gpt.gpt_fused_loss` with the mesh gives); then the gradients
+    and the loss are averaged over `data_axis` only — a tensor-parallel
+    block averages with the same block of the other data rows, and a
+    replicated leaf's gradient already agrees across ``model`` — as one
+    bucket a run of one dtype, skipped for an axis of one rank. GSPMD
+    derives all of this from placements in the JAX package."""
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
-        loss.backward()
+        if mesh is None:
+            loss = loss_fn(batch)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+        with mesh:
+            loss = loss_fn(batch)
+            loss.backward()
+        loss = loss.detach().reshape(1).clone()
+        if mesh.size(data_axis) > 1:
+            grads = [p.grad for g in optimizer.param_groups
+                     for p in g["params"] if p.grad is not None]
+            with torch.no_grad():
+                bucketed_all_reduce_mean(grads + [loss],
+                                         mesh.axis(data_axis), None)
         optimizer.step()
-        return loss.detach()
+        return loss[0]
 
     return step
 

@@ -48,10 +48,12 @@ SIZES = {
 
 def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
              seed: int = 0, vocab_size: int = 50257, num_layers=None,
-             device=None, init: bool = True) -> GPTLM:
-    """The serving model: a `GPTLM` of size `size` with random weights
-    from `seed`, in `dtype` (default bfloat16), on `device` (default
-    the CUDA card), in eval mode without gradients. `num_layers` cuts
+             device=None, init: bool = True):
+    """``(model, mesh)``: the serving model, a `GPTLM` of size `size`
+    with random weights from `seed`, in `dtype` (default bfloat16), on
+    `device` (default the CUDA card), in eval mode without gradients,
+    and the mesh it is sharded over (None at tp 1), as the JAX function
+    returns ``(model, params, mesh)``. `num_layers` cuts
     the depth and keeps the widths. f32 matrix products run in full f32
     (TF32 off), as the JAX reference's f32 logits head assumes. The
     port never drops to the CPU by itself: with no CUDA card, pass
@@ -59,9 +61,15 @@ def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
     and leaves them uninitialised, for a caller that overwrites every
     parameter (a joiner adopting the survivors' broadcast).
 
-    tp > 1 (Megatron-sharded serving) is not ported yet."""
-    if tp != 1:
-        raise NotImplementedError("tp > 1 serving is not ported yet")
+    tp > 1 (Megatron-sharded serving, the dense-cache decode that
+    `benchmarks.lm.measure_decode_rate` drives): the mesh is the joined
+    process group's ranks as a ``(ranks / tp, tp)``
+    `parallel.mesh.tp_mesh`, every rank building the same weights and
+    keeping its blocks under `parallel.rules.gpt_serve_rules`; run the
+    model inside ``with mesh:``. Like the JAX function it raises
+    SystemExit when tp exceeds the ranks or does not divide the heads
+    (and, with no mesh of a subset of the group, when it does not divide
+    the ranks)."""
     if size not in SIZES:
         raise SystemExit(f"unknown size {size!r} (known: {sorted(SIZES)})")
     dev = torch.device(device if device is not None else "cuda")
@@ -71,6 +79,17 @@ def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hidden, layers, heads, inter = SIZES[size]
+    if tp > 1:
+        import torch.distributed as dist
+
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if tp > n:
+            raise SystemExit(f"--tp {tp} exceeds device count {n}")
+        if heads % tp:
+            raise SystemExit(
+                f"--tp {tp} must divide num_heads {heads} of size={size}")
+        if n % tp:
+            raise SystemExit(f"--tp {tp} must divide the {n} ranks")
     cfg = GPTConfig(vocab_size=vocab_size, hidden_size=hidden,
                     num_layers=num_layers or layers, num_heads=heads,
                     intermediate_size=inter, max_position=max_position,
@@ -83,7 +102,14 @@ def build_lm(size: str, max_position: int, tp: int = 1, dtype=None,
         # costs more than a seeded init
         model = GPTLM(cfg, device="meta")._apply(
             lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev))
-    return model.eval().requires_grad_(False)
+    model = model.eval().requires_grad_(False)
+    if tp == 1:
+        return model, None
+    from ..parallel.mesh import tp_mesh
+    from ..parallel.rules import gpt_serve_rules, shard_params
+
+    mesh = tp_mesh(n // tp, tp, device=dev)
+    return shard_params(model, mesh, gpt_serve_rules()), mesh
 
 
 @dataclass

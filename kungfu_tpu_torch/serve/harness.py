@@ -307,8 +307,8 @@ def seed_checkpoint(ckpt_dir: str, size: str = "tiny",
     from ..checkpoint_async import save_sharded
     from .engine import build_lm
 
-    model = build_lm(size, max_position=max_len, dtype=torch.float32,
-                     device="cpu")
+    model, _ = build_lm(size, max_position=max_len, dtype=torch.float32,
+                        device="cpu")
     os.makedirs(ckpt_dir, exist_ok=True)
     save_sharded(ckpt_dir, list(model.parameters()), step=1, rank=0,
                  nprocs=1)

@@ -143,9 +143,9 @@ def main(argv=None) -> None:
 
     # a joiner's weights come from the survivors' broadcast: skip the
     # seeded init, which runs on the host while the survivors wait
-    model = build_lm(model_size, max_position=max_len, device=dev,
-                     dtype=None if on_card else torch.float32,
-                     init=peer.config.version == 0)
+    model, _ = build_lm(model_size, max_position=max_len, device=dev,
+                        dtype=None if on_card else torch.float32,
+                        init=peer.config.version == 0)
     params = list(model.parameters())
     boot["build"] = time.monotonic()
 

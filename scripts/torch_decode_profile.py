@@ -56,7 +56,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(HERE))
     from kungfu_tpu_torch.serve import DecodeEngine, build_lm
 
-    model = build_lm("small", max_position=1024, seed=0)
+    model, _ = build_lm("small", max_position=1024, seed=0)
     eng = DecodeEngine(model, max_batch=args.batch, block_tokens=16,
                        max_len=1024)
     eng.warm()

@@ -61,8 +61,8 @@ def test_decode_tokens_equal_jax_generate():
     prompt = jnp.zeros((batch, prompt_len), jnp.int32)
     want = np.asarray(jax.jit(lambda p, t: jax_generate(
         model, p, t, gen_len))(params, prompt))
-    port = build_lm("tiny", max_position=prompt_len + gen_len,
-                    dtype=torch.float32, device="cpu")
+    port, _ = build_lm("tiny", max_position=prompt_len + gen_len,
+                       dtype=torch.float32, device="cpu")
     port.load_state_dict(gpt_params_from_flax(
         jax.tree.map(np.asarray, params), port.config))
     dt, warm, last = lm.time_decode(
@@ -87,8 +87,15 @@ def test_decode_rate_meta_matches_jax():
 
 
 def test_decode_rate_refuses_tp():
-    with pytest.raises(NotImplementedError, match="parallel-axes"):
-        lm.measure_decode_rate(tp=2, device="cpu")
+    """tp > 1 decodes Megatron-sharded on tp rank processes (the meta keys
+    of tp 1); a tp that does not divide the heads is refused with the
+    JAX package's message."""
+    outs = []
+    rate, meta = lm.measure_decode_rate(tp=2, device="cpu", outputs=outs)
+    assert rate > 0 and meta["tp"] == 2
+    assert [tuple(t.shape) for t in outs] == [(2, 16), (2, 16)]
+    with pytest.raises(SystemExit, match="must divide num_heads"):
+        lm.measure_decode_rate(tp=3, device="cpu")
 
 
 def test_paged_bandwidth_matches_jax(pallas_interpret):

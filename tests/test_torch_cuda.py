@@ -147,7 +147,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 def test_engine_default_path_launches_k3_and_no_plain(cuda):
     from kungfu_tpu_torch.serve import DecodeEngine, build_lm
 
-    model = build_lm("tiny", 128, dtype=torch.float32, vocab_size=512)
+    model, _ = build_lm("tiny", 128, dtype=torch.float32, vocab_size=512)
     prompts = {i: [int(t) for t in np.random.default_rng(i).integers(
         0, 512, 5 + 7 * i)] for i in range(3)}
     runs = {}
@@ -288,7 +288,12 @@ def test_k2_kernels_match_plain_versions(cuda, n, h, v):
     rows split unevenly over 3, 5 and 7; 8 near-full CTAs in one GPC);
     K2a, K2c and K2d give bitwise the same outputs on a second launch
     (K2d sums its cluster's partials in rank order)."""
-    x, w, b, t, scale = _k2_inputs(cuda, n, h, v)
+    _check_k2(*_k2_inputs(cuda, n, h, v))
+
+
+def _check_k2(x, w, b, t, scale):
+    """Every K2 kernel against its plain version on these operands, and
+    bitwise on a second launch."""
     fc.reset_launches()
     logits, lse, tl = fc.fused_ce_fwd(x, w, b, t, True)
     _, lse2, tl2 = fc.fused_ce_fwd(x, w, b, t, False)
@@ -360,6 +365,85 @@ def test_fused_cross_entropy_on_the_card_launches_k2(cuda, residual):
             {"fwd": 1, "residual_d": 0, "dw": 1, "dx": 1, "plain": 0})
     assert n1 == want
     assert n0["plain"] > 0
+
+
+def test_k2_kernels_match_plain_versions_on_a_vocab_shard(cuda):
+    """The four kernels at one rank's vocab shard of GPT-2-small over tp
+    2 (`parallel.vocab_ce`): N 8184, H 768, 25129 columns padded to
+    25216, the targets global ids over 50258 columns in the shard's
+    sentinel form — -1 rows, in-shard columns and the other shard's as
+    v_pad — against their plain versions, as the training shape is."""
+    from kungfu_tpu_torch.parallel.vocab_ce import localize_targets
+
+    n, v = 8 * 1023, 25129
+    x, w, b, _, _ = _k2_inputs(cuda, n, 768, v)
+    g = torch.Generator().manual_seed(4)
+    tg = torch.randint(0, 2 * v, (n,), generator=g).int()
+    tg[::97] = -1
+    t = localize_targets(tg, 0, v, w.shape[1], x.shape[0]).to(cuda)
+    assert int((t < 0).sum()) > x.shape[0] - n
+    assert int(((t >= 0) & (t < v)).sum()) > 0
+    assert int((t == w.shape[1]).sum()) > 0
+    scale = torch.tensor([[1.0 / int((t >= 0).sum())]], device=cuda)
+    _check_k2(x, w, b, t.contiguous(), scale)
+
+
+def _tp1_against_fused(cuda, h, residual):
+    """`vocab_sharded_fused_ce` on a (1, 1) mesh and `fused_cross_entropy`
+    on the same inputs at hidden size `h`: both must give the same loss
+    and gradients, bit for bit, through the same launches; returns them."""
+    from kungfu_tpu_torch.parallel.vocab_ce import vocab_sharded_fused_ce
+
+    class OneRank:
+        coords = {"data": 0, "model": 0}
+
+        def size(self, name):
+            return 1
+
+    g = torch.Generator().manual_seed(5)
+    hidden = torch.randn(300, h, generator=g)
+    kernel = torch.randn(h, 2000, generator=g) * 0.05
+    bias = torch.randn(2000, generator=g) * 0.01
+    targets = torch.randint(0, 2000, (300,), generator=g)
+    targets[:3] = -1
+    out = []
+    for fn in (lambda *a: vocab_sharded_fused_ce(*a, mesh=OneRank(),
+                                                 residual=residual),
+               lambda *a: fc.fused_cross_entropy(*a, residual=residual)):
+        xs = [a.to(cuda, copy=True).requires_grad_()
+              for a in (hidden, kernel, bias)]
+        fc.reset_launches()
+        loss = fn(*xs, targets.to(cuda))
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.detach(), [a.grad for a in xs], dict(fc.LAUNCHES)))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert n0 == n1 and n0["plain"] == 0
+    return n0
+
+
+@pytest.mark.parametrize("residual", [True, False],
+                         ids=["residual", "recompute"])
+def test_vocab_sharded_ce_at_tp1_is_fused_cross_entropy(cuda, residual):
+    """On a (1, 1) mesh `vocab_sharded_fused_ce` runs the same kernels on
+    the same padded operands as `fused_cross_entropy`: the same loss and
+    gradients, bit for bit."""
+    _tp1_against_fused(cuda, 768, residual)
+
+
+@pytest.mark.parametrize("residual", [True, False],
+                         ids=["residual", "recompute"])
+def test_vocab_sharded_ce_launches_k2_at_h96(cuda, residual):
+    """H 96 does not tile by 128: the CPU falls back to the unfused f32
+    head there, but CUDA tensors still reach the kernels (which take any
+    H % 16 == 0), as `fused_cross_entropy` does — K2 launches, the plain
+    versions never."""
+    n = _tp1_against_fused(cuda, 96, residual)
+    assert n == ({"fwd": 1, "residual_d": 1, "dw": 0, "dx": 0, "plain": 0}
+                 if residual else
+                 {"fwd": 1, "residual_d": 0, "dw": 1, "dx": 1, "plain": 0})
 
 
 def test_k2_rejects_what_it_does_not_take(cuda):

@@ -355,10 +355,12 @@ def test_build_lm_defaults_to_cuda_and_refuses_tp():
         pytest.skip("a CUDA card is present: the default is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         port_engine.build_lm("tiny", 64)
-    with pytest.raises(NotImplementedError):
+    # tp beyond the ranks of the (absent) process group: the JAX message
+    with pytest.raises(SystemExit, match="exceeds device count 1"):
         port_engine.build_lm("tiny", 64, tp=2, device="cpu")
-    m = port_engine.build_lm("tiny", 64, vocab_size=300, num_layers=1,
-                             device="cpu")
+    m, mesh = port_engine.build_lm("tiny", 64, vocab_size=300,
+                                   num_layers=1, device="cpu")
+    assert mesh is None
     assert m.config.num_layers == 1 and m.config.dtype == torch.bfloat16
     assert not any(p.requires_grad for p in m.parameters())
 

@@ -91,8 +91,8 @@ def test_cold_boot_from_converted_jax_checkpoint_matches_jax_tokens(
 
     model, params, _ = jax_engine.build_lm("tiny", max_position=64,
                                            dtype=jnp.float32)
-    port = build_lm("tiny", max_position=64, dtype=torch.float32,
-                    device="cpu", seed=1)
+    port, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                       device="cpu", seed=1)
     port.load_state_dict(gpt_params_from_flax(
         jax.tree.map(np.asarray, params), port.config))
     ckpt = str(tmp_path / "ckpt")
@@ -123,10 +123,10 @@ def test_seed_checkpoint_restores_the_serving_model(tmp_path):
 
     ckpt = str(tmp_path / "ckpt")
     seed_checkpoint(ckpt, size="tiny", max_len=64)
-    want = build_lm("tiny", max_position=64, dtype=torch.float32,
-                    device="cpu")
-    other = build_lm("tiny", max_position=64, dtype=torch.float32,
-                     device="cpu", seed=5)
+    want, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                       device="cpu")
+    other, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                        device="cpu", seed=5)
     out, step, _meta, _res = restore_sharded(ckpt,
                                              list(other.parameters()))
     assert step == 1
@@ -141,8 +141,8 @@ def _port_tokens(requests):
 
     from kungfu_tpu_torch.serve.engine import DecodeEngine, build_lm
 
-    model = build_lm("tiny", max_position=64, dtype=torch.float32,
-                     device="cpu")
+    model, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                        device="cpu")
     eng = DecodeEngine(model, max_batch=len(requests), block_tokens=16,
                        max_len=64, kernel="functional")
     got = {}
@@ -217,10 +217,10 @@ def test_uninitialised_build_has_the_seeded_layout():
 
     from kungfu_tpu_torch.serve.engine import build_lm
 
-    want = build_lm("tiny", max_position=64, dtype=torch.float32,
-                    device="cpu")
-    got = build_lm("tiny", max_position=64, dtype=torch.float32,
-                   device="cpu", init=False)
+    want, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                       device="cpu")
+    got, _ = build_lm("tiny", max_position=64, dtype=torch.float32,
+                      device="cpu", init=False)
     pairs = list(zip(got.named_parameters(), want.named_parameters()))
     assert len(pairs) == len(list(want.parameters()))
     for (gn, g), (wn, w) in pairs:

@@ -356,11 +356,35 @@ def test_flash_gpt_loss_and_grads_match_flax(pallas_interpret):
 
 
 def test_fused_loss_mesh_is_a_later_slice(flax_pair):
+    """`gpt_fused_loss(mesh=...)` routes the head through the
+    vocab-sharded CE (`parallel.vocab_ce`); on a one-rank (1, 1) mesh it
+    is the unsharded fused loss, value and gradients. The multi-rank
+    meshes are `tests/test_torch_vocab_ce.py`'s."""
+
+    class OneRank:
+        coords = {"data": 0, "model": 0}
+
+        def size(self, name):
+            return 1
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return None
+
     _, params, cfg = flax_pair
-    port = _port(params, cfg)
-    with pytest.raises(NotImplementedError, match="vocab-sharded"):
-        gpt_fused_loss(port, torch.zeros(1, 4, dtype=torch.long),
-                       mesh=object())
+    tokens = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 16))).long()
+    got, want = _port(params, cfg), _port(params, cfg)
+    loss_m = gpt_fused_loss(got, tokens, mesh=OneRank())
+    loss_1 = gpt_fused_loss(want, tokens)
+    loss_m.backward()
+    loss_1.backward()
+    np.testing.assert_allclose(float(loss_m), float(loss_1), rtol=1e-6)
+    for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
 
 
 def test_three_train_steps_match_jax(flax_pair):
@@ -500,6 +524,29 @@ def test_measure_lm_rate_flash_cpu_smoke():
         == 0
 
 
+def test_measure_lm_rate_tp_cpu_smoke():
+    """tp 2 on the CPU: two gloo ranks on a (1, 2) mesh train the tiny
+    GPT Megatron-sharded through the vocab-sharded fused CE (K1 and K2
+    through their plain versions); the loss falls and agrees across the
+    ranks, and the meta carries the JAX function's tp keys."""
+    rate, meta = measure_lm_rate(tp=2, attention="flash", device="cpu",
+                                 iters=2)
+    assert rate > 0 and meta["tp"] == 2 and meta["devices"] == 2
+    assert meta["fused_ce_sharding"] == "vocab/2"
+    losses = meta["losses"]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    ranks = meta["ranks"]
+    assert [r["coords"] for r in ranks] == [{"data": 0, "model": 0},
+                                            {"data": 0, "model": 1}]
+    for r in ranks:
+        assert r["losses"] == losses
+        assert r["k2"]["plain"] == 2 * 3 and r["k1"]["plain"] == 3 * 2 * 3
+        # two row-parallel sums a layer each way, the lse combine's and
+        # dx's: 4 * 2 + 2 a step
+        assert r["exchange"]["psum"]["calls"] == 10
+
+
 def test_measure_lm_rate_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default would run on it")
@@ -508,7 +555,8 @@ def test_measure_lm_rate_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"attention": "ring"}, "parallel-axes"), ({"tp": 2}, "parallel-axes"),
+    ({"attention": "ring"}, "parallel-axes"),
+    ({"attention": "ulysses"}, "parallel-axes"),
     ({"experts": 4}, "parallel-axes"), ({"remat": True}, "remat")])
 def test_measure_lm_rate_names_the_slice_of_what_is_not_ported(kw, what):
     with pytest.raises(NotImplementedError, match=what):

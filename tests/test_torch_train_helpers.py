@@ -15,6 +15,7 @@
 """
 
 import os
+import re
 import threading
 
 import numpy as np
@@ -205,6 +206,29 @@ def test_dryrun_step(n, capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith(f"dryrun: n={n} device=cpu loss=")
     assert line.endswith("params_equal=True")
+
+
+def test_dryrun_tensor_phases(capsys):
+    """Phases 3 (tp BERT), 7 (dp x tp GPT through the vocab-sharded
+    fused CE) and 8 (ZeRO-1) over 4 gloo ranks on the CPU."""
+    from kungfu_tpu_torch.dryrun import dryrun
+
+    with claim_port_span() as span:
+        out = dryrun(4, "cpu", port=int(span.split("-")[0]),
+                     phases=(3, 7, 8))
+    assert {k: out[k] for k in ("n", "ok")} == {"n": 4, "ok": True}
+    lines = out["lines"]
+    assert [x.split(" n=")[0] for x in lines] == [
+        "dryrun: phase 3 (tp)", "dryrun: phase 7 (dp x tp)",
+        "dryrun: phase 8 (zero1)"]
+    for line in lines:
+        fields = dict(re.findall(r"(\w+)=(\S+)", line))
+        assert np.isfinite(float(fields["loss"]))
+        assert float(fields.get("gnorm", 1)) > 0
+    assert "mesh=2x2" in lines[0] and "mesh=2x2" in lines[1]
+    assert int(lines[2].rsplit("sharded=", 1)[1]) > 0
+    with pytest.raises(ValueError, match="even n"):
+        dryrun(3, "cpu", phases=(3,))
 
 
 def test_dcp_keeps_the_checkpoint_tree_rules(tmp_path):
