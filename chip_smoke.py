@@ -75,17 +75,18 @@ failing on the first phase that fails:
    fused into one f32 buffer and summed by libkf (the lump): grow
    1 -> 2 (the joiner proves the broadcast parameters and AdamW state
    beat its fresh init), then shrink to 1 with an eviction; (b) two
-   workers, rank 1 killed by a chaos fault after step 3 of 8: the
+   workers on the bucketed wire (`grad_pipeline`, KF_GRAD_BUCKET_MB=1)
+   in ``bf16``, rank 1 killed by a chaos fault after step 3 of 8: the
    survivor recovers (every KF_MTTR phase), trains on, and the schedule
-   grows a replacement joiner back; (c) (a)'s schedule on the bucketed
-   wire (`grad_pipeline`, KF_GRAD_BUCKET_MB=1), ``none``, then ``bf16``
-   on a 7-step cut of it (2:1,4:2,1:1);
+   grows a replacement joiner back on the bf16 residuals (its digest
+   agreed); (c) (a)'s schedule on the bucketed wire in ``none``;
    (d) `run_checkpoint_restore` on the bf16 bucketed wire: async sharded
    checkpoints every 2 steps at np 2, the whole cluster SIGKILLed at step
    5, a cold boot at np 1 restores the latest complete generation
    (residual sidecars included) and must beat its fresh init; (e) the
    GNS loop: `elastic.gns_worker`s on the card grow 2 -> 4 because the
-   noise-scale monitor asked for it. The grows of (a) and (c) must
+   noise-scale monitor asked for it; (d) runs no joiner and no warm pool
+   (KF_PREWARM=0). The grows of (a) and (c) must
    activate their joiner from the runner's warm pool (``KF_JOINER_BOOT
    ... warm=1``, every thread at the runner's niceness; its build split
    into the card's context, the model and the optimizer's state). Every
@@ -94,10 +95,10 @@ failing on the first phase that fails:
    every resync, and each worker's flash and fused-CE kernels must have
    launched, their plain versions never. Prints, per cluster size, rank
    0's median step wall, compute, wire and staging ms (on the bucketed
-   wire also the exposed wire, pack, host, land, payload, buckets and
-   arrival lag) beside (a)'s, rank 0's device idle share over three
-   profiled size-2 steps of (a) and (c), each resync's ms and bytes, the
-   KF_MTTR phases, the checkpoint's generation bytes, stall, snapshot
+   wire, (b)'s and (c)'s, also the exposed wire, pack, host, land,
+   payload, buckets and arrival lag) beside (a)'s, rank 0's device idle
+   share over three profiled size-2 steps of (a) and (c), each resync's
+   ms and bytes, the KF_MTTR phases, the checkpoint's generation bytes, stall, snapshot
    memory, writer and restore times, the GNS readings, and each
    worker's peak memory, beside the card;
 8. adaptive — runs after 7: KungFu's adaptive optimizers. (a) In
@@ -282,6 +283,39 @@ failing on the first phase that fails:
    kernels at rank 0's vocab-shard shape (N 8184, H 768, 25129 columns
    padded to 25216; targets -1, in the shard, and the other shard's as
    the sentinel v_pad) against their plain versions, as kernel-K2;
+5g. ep_pp — runs after tp: the expert and pipeline axes. (a)
+   `benchmarks.lm.measure_lm_rate` at the JAX package's published MoE
+   configuration (docs/benchmarks.md:325-331): GPT-2-small with 8
+   experts a block (routing groups of 512, capacity factor 1.25, bf16
+   expert stacks under `lm_adamw(upcast=True)`), batch 8 x 1024, local
+   attention, 1 warm-up and 3 timed steps through `gpt_loss_with_aux`:
+   the losses (router terms in) finite and falling, K2's fwd and
+   residual_d once a step, no plain call; prints ms/step, tokens/s, peak
+   memory, the dropped fraction and the expert load. (b) one step of the
+   same MoE GPT with flash attention, from the same weights and tokens,
+   remat off and on: the loss, the router metrics and every gradient
+   bitwise equal, K1's forward 24 launches under remat against 12 (dq,
+   dkv 12 each). (c) `measure_pp_rate(pp=1, microbatches=8)` (flash,
+   the JAX benchmark's zero tokens): K1's fwd, dq and dkv 96 a step, K2
+   8 a step, the loss falling; beside the plain step at batch 1 (the
+   microbatch bound, `measure_lm_rate(batch=1, attention="flash")`) and
+   the train phase's batch-8 flash step, the gap split into the small
+   batch's and the schedule's. (d) 1F1B over four rank processes sharing
+   the card (`benchmarks.lm.run_tp`, one gloo group, a ``pipe`` axis):
+   GPT-2-small, three blocks a stage, batch 8 x 1024 in 8 microbatches,
+   flash, the benchmark's seeded tokens, 2 steps; every rank's loss
+   finite, falling and equal; K1 fwd 2 x 3 x 8, dq and dkv 3 x 8 a step
+   a rank, K2 8 a step on the last stage only; step 1's loss and the
+   sampled gradients (the edges', every stage's blocks) held to one
+   process on the same weights and tokens as the tp phase holds its
+   ranks (`held_to_one_process`: bf16, then f32 as the second correct
+   run); prints each rank's ms/step, tokens/s and the exchange's share.
+   (e) in (d)'s spawn: `parallel.expert.moe_mlp` over the four ranks at
+   GPT-2-small width (H 768, F 3072, 8 experts, 2 a rank, 2048 tokens a
+   rank, f32), its output and gradients held to the one-process oracle
+   that routes each rank's tokens over all 8 experts (`EP_Y_TOL`,
+   `EP_GRAD_TOL`). (f) the dry run's phases 4 (pp) and 5 (ep) on four of
+   the card's ranks, in the tp phase's dry-run spawn;
 6. timing — each K3 scheme per launch at B=8 full 1023-token rows and
    at the serve run's mixed lengths (32..576), cycling through the 12
    layers' pools, and each K2 kernel per launch at the training shape,
@@ -314,7 +348,8 @@ Prints the card's name and power limit, the measurements, a
 ``{"kernels": [...]}`` line (K1's and K2's rows also carry
 ``elastic_launches``, the elastic workers' launches, and
 ``seq_launches``, the seq phase's ranks', K1's ``tp_launches``, the tp
-phase's ranks', the ``fused_ce.*.vocab_shard`` rows K2 at the vocab
+phase's ranks', K1's and K2's ``ep_pp_launches``, the ep_pp phase's
+(in process and every rank's), the ``fused_ce.*.vocab_shard`` rows K2 at the vocab
 shard with the tp phase's launches, and
 ``adaptive_launches``, the adaptive phase's: (a)'s in process and
 (b)'s workers; K3's rows carry ``serve_tier_launches``, the serve
@@ -504,6 +539,28 @@ TP_BF16_DECODE = ("small", 8, 128, 32, 1)
 #: rows, vocab 50257 over 2 ranks (25129 columns a shard, padded to
 #: 25216), rank 0's columns
 K2_SHARD_V = -(-K2_V // TP_RANKS)
+#: the ep_pp phase. (a) MoE training at the JAX package's published
+#: configuration (docs/benchmarks.md:325-331: GPT-2-small, 8 experts,
+#: routing groups of 512, capacity factor 1.25, bf16 expert stacks,
+#: batch 8 x 1024, local attention): warm-up and timed steps
+EP_MOE = dict(experts=8, moe_group=512, moe_bf16=True)
+EP_MOE_STEPS = (1, 3)
+#: (c) measure_pp_rate at pp 1: microbatches, warm-up and timed steps
+EP_PP1 = (8, 1, 2)
+#: (d) 1F1B over EP_PP_RANKS rank processes sharing the card (one stage
+#: of 3 blocks a rank), batch 8 x 1024 in 8 microbatches, flash, the
+#: benchmark's seeded tokens (the tp phase's one-process reference holds
+#: them), 2 steps; (e) in the same spawn: moe_mlp over the 4 ranks at
+#: GPT-2-small width (8 experts, 2 a rank, 2048 tokens a rank, f32)
+EP_PP_RANKS = 4
+EP_PP_SPEC = {"mode": "pp", "size": "small", "batch": 8, "seq": 1024,
+              "pp": EP_PP_RANKS, "microbatches": 8, "attention": "flash",
+              "warmup": 1, "iters": 1, "tokens": "seeded"}
+EP_SPEC = {"mode": "ep", "hidden": 768, "ffn": 3072, "experts": 8,
+           "tokens": 2048, "seed": 11, "repeat": 2}
+#: (e)'s tolerance against the one-process oracle: the JAX package's
+#: expert-parallel test's (output 2e-5; gradients rtol 1e-4, atol 1e-6)
+EP_Y_TOL, EP_GRAD_TOL = (2e-5, 2e-5), (1e-4, 1e-6)
 T_START = time.perf_counter()
 
 
@@ -1017,10 +1074,10 @@ def phase_train(torch, fc, fl, variant, attention="local"):
 #: steps, the whole cluster killed at step 5, restored at np 1; (e) the
 #: GNS loop, 2 -> 4
 ELASTIC_GROW = ("3:1,6:2,1:1", 10)
-#: (c)'s bf16 run: (a)'s schedule cut by three steps (one at size 1, two
-#: at size 2) to keep the whole smoke near its time budget beside the
-#: adaptive phase; `none` keeps (a)'s, whose digests it must equal
-ELASTIC_GROW_BF16 = ("2:1,4:2,1:1", 7)
+#: (b) runs on the bf16 bucketed wire: the killed worker's survivor
+#: recovers and a replacement joiner grows the cluster back on bf16
+#: residuals (the resize (c)'s own bf16 grow cluster ran until the
+#: ep_pp phase took its time)
 ELASTIC_RECOVERY = (1, 3, 8, 2)     # crash rank, crash step, steps, np
 ELASTIC_RESTORE = (2, 1, 5, 2)      # save np, restore np, kill step, every
 #: the whole-cluster kills ((d) and scenario (a)) run with one generation
@@ -1194,7 +1251,8 @@ def phase_elastic_restore(card: str, flags, device: str) -> dict:
             port_range=span, timeout=420, logdir=os.path.join(tmp, "logs"),
             worker_flags=flags, restore_steps=ELASTIC_RESTORE_STEPS,
             extra_env={"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                       "KF_GRAD_COMPRESS": "bf16", **CKPT_DURABLE_ENV})
+                       "KF_GRAD_COMPRESS": "bf16", "KF_PREWARM": "0",
+                       **CKPT_DURABLE_ENV})
         save_logs = ""
         save_dir = os.path.join(tmp, "logs", "save")
         for f in sorted(os.listdir(save_dir)):
@@ -1271,31 +1329,47 @@ def phase_elastic_gns(card: str, device: str) -> None:
     log(f"elastic gns 2 -> 4: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+def _wire_contrast(meds: dict, tag: str, card: str) -> None:
+    """Print rank 0's size-2 medians of the lump against run `tag`'s
+    bucketed wire."""
+    lump, bucketed = meds["grow"].get(2), meds[tag].get(2)
+    check(lump and bucketed, f"elastic {tag}: no size-2 steps")
+    log(f"elastic size 2, rank-0 medians, lump vs {tag} (this "
+        f"call): wall {lump['wall_ms']:.2f} vs "
+        f"{bucketed['wall_ms']:.2f} ms, compute "
+        f"{lump['compute_ms']:.2f} vs {bucketed['compute_ms']:.2f}, "
+        f"exposed wire {lump['wire_ms'] + lump['stage_ms']:.2f} "
+        f"(all-reduce + staging) vs {bucketed['exposed_ms']:.2f}, "
+        f"wire ops {lump['wire_ms']:.2f} vs "
+        f"{bucketed['wire_ms']:.2f}, pack + land "
+        f"{lump['stage_ms']:.2f} (staging) vs "
+        f"{bucketed['pack_ms'] + bucketed['land_ms']:.2f} ({card})")
+
+
 def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
     """The elastic training worker path through the port's harness:
     config server, ``kfrun -w``, GPT-2-small continuity workers sharing
     the card. (a) grow 1 -> 2 and shrink to 1 with an eviction, on the
-    lump; (b) two workers, one killed, the survivor recovers; (c) (a)'s
-    schedule on the bucketed wire, ``none``, then ``bf16`` on a shorter
-    one; (d) the
-    durable rung; (e) the GNS loop. Rank 0 profiles three size-2 steps
-    of (a) and (c) for the device's idle share. Returns the workers'
-    K1/K2 launches summed over every run."""
+    lump; (b) two workers on the bf16 bucketed wire, one killed, the
+    survivor recovers and a joiner grows it back; (c) (a)'s schedule on
+    the bucketed wire in ``none``; (d) the durable rung; (e) the GNS
+    loop. Rank 0 profiles three size-2 steps of (a) and (c) for the
+    device's idle share. Returns the workers' K1/K2 launches summed over
+    every run."""
     from kungfu_tpu_torch.elastic.harness import (claim_port_span,
                                                   run_loss_continuity,
                                                   run_survivor_recovery)
 
     flags = ["--model", "gpt", "--device", device]
     profile = {"KF_PROFILE_SIZE": str(ELASTIC_PROFILE_SIZE)}
+    bf16_wire = {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
+                 "KF_GRAD_COMPRESS": "bf16"}
     meds, digests = {}, {}
     totals = None
     for tag, env, (schedule, steps) in (
             ("grow", {}, ELASTIC_GROW),
             ("bucketed none", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                               "KF_GRAD_COMPRESS": "none"}, ELASTIC_GROW),
-            ("bucketed bf16", {"KF_GRAD_BUCKET_MB": ELASTIC_BUCKET_MB,
-                               "KF_GRAD_COMPRESS": "bf16"},
-             ELASTIC_GROW_BF16)):
+                               "KF_GRAD_COMPRESS": "none"}, ELASTIC_GROW)):
         t0 = time.perf_counter()
         with claim_port_span() as span:
             logs = run_loss_continuity(schedule=schedule, total_steps=steps,
@@ -1325,25 +1399,14 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
         else:
             _add(totals, got)
         if tag != "grow":
-            lump, bucketed = meds["grow"].get(2), meds[tag].get(2)
-            check(lump and bucketed, f"elastic {tag}: no size-2 steps")
-            log(f"elastic size 2, rank-0 medians, lump vs {tag} (this "
-                f"call): wall {lump['wall_ms']:.2f} vs "
-                f"{bucketed['wall_ms']:.2f} ms, compute "
-                f"{lump['compute_ms']:.2f} vs {bucketed['compute_ms']:.2f}, "
-                f"exposed wire {lump['wire_ms'] + lump['stage_ms']:.2f} "
-                f"(all-reduce + staging) vs {bucketed['exposed_ms']:.2f}, "
-                f"wire ops {lump['wire_ms']:.2f} vs "
-                f"{bucketed['wire_ms']:.2f}, pack + land "
-                f"{lump['stage_ms']:.2f} (staging) vs "
-                f"{bucketed['pack_ms'] + bucketed['land_ms']:.2f} ({card})")
+            _wire_contrast(meds, tag, card)
     # the same seeded training: `none` sums the same f32 values as the
     # lump, so every resync's parameter digest is the lump run's
     check(digests["bucketed none"] == digests["grow"],
           f"elastic: the bucketed none wire's parameters differ from the "
           f"lump's: {digests}")
     log(f"elastic: bucketed none's parameter digests equal the lump's at "
-        f"every resync {digests['grow']}; bf16's {digests['bucketed bf16']}")
+        f"every resync {digests['grow']}")
     crash_rank, crash_step, steps, start_np = ELASTIC_RECOVERY
     t0 = time.perf_counter()
     with claim_port_span() as span:
@@ -1351,13 +1414,22 @@ def phase_elastic(torch, card: str, device: str = DEVICE) -> dict:
                                      crash_step=crash_step,
                                      total_steps=steps, start_np=start_np,
                                      slots=start_np, port_range=span,
-                                     timeout=420, worker_flags=flags)
+                                     timeout=420, worker_flags=flags,
+                                     extra_env=bf16_wire)
     check("KF_CONTINUITY_DONE rank=0" in logs,
           "elastic recovery: the survivor did not finish")
+    # the replacement joiner grew the cluster back on the bf16 wire
+    check(len(_marker_lines(logs, "KF_JOINER_CONTINUITY")) == 1
+          and len(_marker_lines(logs, "KF_DIGEST")) >= 2,
+          "elastic recovery (bucketed bf16): no replacement joiner with "
+          "its digest check")
     log(f"elastic recovery (rank {crash_rank} killed after step "
-        f"{crash_step}, {steps} steps, np {start_np}): "
+        f"{crash_step}, {steps} steps, np {start_np}, bucketed bf16 wire): "
         f"{time.perf_counter() - t0:.1f} s")
-    _add(totals, elastic_report("recovery", logs, card, device)[0])
+    got, meds["recovery bucketed bf16"], _ = elastic_report(
+        "recovery bucketed bf16", logs, card, device)
+    _add(totals, got)
+    _wire_contrast(meds, "recovery bucketed bf16", card)
     _add(totals, phase_elastic_restore(card, flags, device))
     phase_elastic_gns(card, device)
     return totals
@@ -2982,21 +3054,292 @@ def phase_tp(torch, fc, card: str) -> dict:
     # (c) the dry run's tensor phases on four of the card's ranks, in
     # one spawn with the seq phase's (f), phase 2 (the reference's plain
     # ring, no use_flash: no K1 launch)
-    res = dryrun(4, DEVICE, phases=(2, 3, 7, 8))
+    # and with the ep_pp phase's (f), phases 4 (pp) and 5 (ep)
+    res = dryrun(4, DEVICE, phases=(2, 3, 4, 5, 7, 8))
     for line in res["lines"]:
         log(f"tp (c) on the card's ranks (gloo, staged): {line}")
     check([x.split(" n=")[0] for x in res["lines"]] == [
         "dryrun: phase 2 (sp)", "dryrun: phase 3 (tp)",
+        "dryrun: phase 4 (pp)", "dryrun: phase 5 (ep)",
         "dryrun: phase 7 (dp x tp)", "dryrun: phase 8 (zero1)"]
           and res["lines"][0].startswith(
-              "dryrun: phase 2 (sp) n=4 mesh=2x2 device=cuda"),
-          f"tp (c) and seq (f): {res['lines']}")
+              "dryrun: phase 2 (sp) n=4 mesh=2x2 device=cuda")
+          and res["lines"][2].startswith(
+              "dryrun: phase 4 (pp) n=4 mesh=1x4 device=cuda")
+          and "experts=8 device=cuda" in res["lines"][3],
+          f"tp (c), seq (f) and ep_pp (f): {res['lines']}")
     # (d) K2 at one vocab shard's shape against its plain versions
     errs = phase_kernel_k2(torch, fc, v=K2_SHARD_V, shard=True)
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T_START:.0f} s] tp phase took "
         f"{time.perf_counter() - t0:.1f} s")
     return {"k1": k1_total, "k2": k2_total, "k2_shard_errs": errs}
+
+
+def _ex_json(ex: dict) -> str:
+    """An exchange row (`EXCHANGE` deltas) as compact JSON."""
+    return json.dumps({k: {f: round(x, 2) for f, x in v.items()}
+                       for k, v in ex.items()})
+
+
+def _k(launches: dict, names) -> dict:
+    return {n: launches.get(n, 0) for n in names}
+
+
+def ep_oracle(torch, n: int):
+    """(e)'s one-process oracle on the card: every rank's tokens routed as
+    that rank routes them (its own capacity queues), all 8 experts local
+    (`parallel.expert.moe_mlp` over a one-rank axis), the loss ``sum(y **
+    2) / tokens`` over all ranks; returns each rank's y and the
+    gradients."""
+    from kungfu_tpu_torch.benchmarks import lm
+    from kungfu_tpu_torch.parallel.expert import MoEParams, moe_mlp
+    from kungfu_tpu_torch.parallel.mesh import Axis
+
+    params, x = lm.ep_inputs(EP_SPEC, n)
+    params = MoEParams(*(w.to(DEVICE).requires_grad_() for w in params))
+    x = x.to(DEVICE)
+    t = EP_SPEC["tokens"]
+    one = Axis("expert", None, 1, 0)
+    ys = [moe_mlp(x[d * t:(d + 1) * t], params, one, capacity_factor=1.25)
+          for d in range(n)]
+    (sum((y ** 2).sum() for y in ys) / (n * t)).backward()
+    return ([y.detach().cpu() for y in ys],
+            {k: getattr(params, k).grad.cpu()
+             for k in ("router", "w_up", "w_down")})
+
+
+def phase_ep_pp(torch, fc, fl, card: str, plain_flash: dict) -> dict:
+    """The ep_pp phase (see the module docstring); returns the K1 and K2
+    launches of its main paths, every rank's summed. `plain_flash` is
+    the train phase's flash run (the plain step at batch 8)."""
+    from kungfu_tpu_torch.benchmarks import lm
+    from kungfu_tpu_torch.models.gpt import gpt_loss_with_aux
+
+    t0 = time.perf_counter()
+    k1 = {"fwd": 0, "dq": 0, "dkv": 0}
+    k2 = {"fwd": 0, "residual_d": 0}
+    # (a) MoE training at the published configuration
+    warm, iters = EP_MOE_STEPS
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    fl.reset_launches()
+    rate, meta = lm.measure_lm_rate("small", 8, 1024, iters=iters,
+                                    warmup=warm, **EP_MOE)
+    torch.cuda.synchronize()
+    losses, steps = meta["losses"], warm + iters
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"ep_pp (a): losses {losses}")
+    want2 = {"fwd": steps, "residual_d": steps, "dw": 0, "dx": 0,
+             "plain": 0}
+    check(dict(fc.LAUNCHES) == want2 and fl.LAUNCHES["plain"] == 0,
+          f"ep_pp (a): K2 {fc.LAUNCHES} (expected {want2}), K1 "
+          f"{fl.LAUNCHES}")
+    _add(k2, _k(fc.LAUNCHES, k2))
+    log(f"ep_pp (a) MoE GPT-2-small (8 experts, group "
+        f"{meta['moe_group_size']}, cf 1.25, bf16 stacks, B 8 x 1024, local "
+        f"attention): {meta['step_time_ms']:.2f} ms/step, {rate:.1f} "
+        f"tokens/s, MFU {meta['mfu']}, peak {meta['peak_mem_gb']:.2f} GB, "
+        f"losses {losses} (router terms in), dropped "
+        f"{meta['moe_dropped_frac']:.4f}, expert load "
+        f"{[round(x, 4) for x in meta['moe_expert_load']]}; K2 "
+        f"{dict(fc.LAUNCHES)} ({card})")
+    # (b) one step of the same MoE GPT with flash attention, remat off and
+    # on, from the same weights and tokens
+    tokens = lm.lm_tokens(50257, 8, 1024).to(DEVICE)
+    runs = {}
+    for remat in (False, True):
+        # each run's peak is read over what was allocated at its start
+        # (the remat-off run's gradients stay held through the other)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, model = lm.build_lm_model("small", 1024, DEVICE, "flash",
+                                     remat=remat, **EP_MOE)
+        torch.cuda.synchronize()
+        fc.reset_launches()
+        fl.reset_launches()
+        t1 = time.perf_counter()
+        loss, metrics = gpt_loss_with_aux(model, tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = {
+            "loss": loss.detach(), "ms": (time.perf_counter() - t1) * 1e3,
+            "metrics": {k: v.detach() for k, v in metrics.items()},
+            "grads": {n: p.grad for n, p in model.named_parameters()},
+            "k1": dict(fl.LAUNCHES), "k2": dict(fc.LAUNCHES),
+            "peak": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        _add(k1, _k(fl.LAUNCHES, k1))
+        _add(k2, _k(fc.LAUNCHES, k2))
+        del model, loss
+    off, on = runs[False], runs[True]
+    for remat, r in runs.items():
+        n = LAYERS * (2 if remat else 1)
+        want1 = {"fwd": n, "dq": LAYERS, "dkv": LAYERS, "plain": 0}
+        check(r["k1"] == want1 and r["k2"]["fwd"] == 1
+              and r["k2"]["residual_d"] == 1 and r["k2"]["plain"] == 0,
+              f"ep_pp (b) remat={remat}: K1 {r['k1']} (expected {want1}), "
+              f"K2 {r['k2']}")
+    diff = {n: float((on["grads"][n].float() - g.float()).abs().max())
+            for n, g in off["grads"].items()}
+    worst = max(diff, key=diff.get)
+    metrics = [json.dumps({k: v.tolist() for k, v in r["metrics"].items()})
+               for r in (off, on)]
+    log(f"ep_pp (b) remat off vs on (MoE GPT-2-small, flash, B 8 x 1024, "
+        f"one step): loss {float(off['loss'])!r} vs {float(on['loss'])!r}; "
+        f"largest gradient difference {diff[worst]!r} ({worst}); "
+        f"metrics {metrics[0]} vs {metrics[1]} (not doubled); K1 "
+        f"{off['k1']} vs {on['k1']}; forward + backward "
+        f"{off['ms']:.1f} vs {on['ms']:.1f} ms, peak {off['peak']:.2f} vs "
+        f"{on['peak']:.2f} GB over the run's start ({card})")
+    check(torch.equal(off["loss"], on["loss"]) and all(
+        torch.equal(off["metrics"][k], on["metrics"][k])
+        for k in off["metrics"]), "ep_pp (b): remat changed the loss or "
+          "the router metrics")
+    check(diff[worst] == 0.0, f"ep_pp (b): remat changed the gradients "
+          f"(largest {diff[worst]} at {worst})")
+    del runs, off, on, tokens, metrics
+    torch.cuda.empty_cache()
+    # (c) the 1F1B schedule at pp 1 (gradient accumulation over 8
+    # microbatches), beside the plain step at batch 1 (the microbatch
+    # bound) and at batch 8 (the train phase's flash run)
+    m, warm, iters = EP_PP1
+    torch.cuda.synchronize()
+    rate1, pp1 = lm.measure_pp_rate("small", 8, 1024, pp=1, microbatches=m,
+                                    iters=iters, warmup=warm)
+    steps = warm + iters
+    want1 = {"fwd": LAYERS * m * steps, "dq": LAYERS * m * steps,
+             "dkv": LAYERS * m * steps, "plain": 0}
+    want2 = {"fwd": m * steps, "residual_d": m * steps, "dw": 0, "dx": 0,
+             "plain": 0}
+    check(pp1["k1"] == want1 and pp1["k2"] == want2
+          and all(math.isfinite(x) for x in pp1["losses"])
+          and pp1["losses"][-1] < pp1["losses"][0],
+          f"ep_pp (c): K1 {pp1['k1']} (expected {want1}), K2 {pp1['k2']} "
+          f"(expected {want2}), losses {pp1['losses']}")
+    _add(k1, _k(pp1["k1"], k1))
+    _add(k2, _k(pp1["k2"], k2))
+    rate_b, bound = lm.measure_lm_rate("small", 8 // m, 1024,
+                                       attention="flash", iters=4, warmup=1)
+    log(f"ep_pp (c) measure_pp_rate(pp=1, microbatches={m}) (B 8 x 1024, "
+        f"flash): {pp1['step_time_ms']:.2f} ms/step, {rate1:.1f} tokens/s, "
+        f"peak {pp1['peak_mem_gb']:.2f} GB, losses {pp1['losses']}; K1 "
+        f"{pp1['k1']}, K2 {pp1['k2']}; microbatch bound (the plain step at "
+        f"batch {8 // m}): {bound['step_time_ms']:.2f} ms/step, "
+        f"{rate_b:.1f} tokens/s; the plain step at batch 8 (train phase): "
+        f"{plain_flash['step_time_ms']:.2f} ms/step, "
+        f"{plain_flash['tokens_per_sec']:.1f} tokens/s; of the gap "
+        f"{plain_flash['tokens_per_sec'] - rate1:.1f} tokens/s, "
+        f"{plain_flash['tokens_per_sec'] - rate_b:.1f} is the small batch's "
+        f"and {rate_b - rate1:.1f} the schedule's ({card})")
+    torch.cuda.empty_cache()
+    # (d) 1F1B over four rank processes and (e) expert-parallel moe_mlp,
+    # one spawn
+    grads_dir = os.path.join(HERE, "build", "ep_pp_grads")
+    os.makedirs(grads_dir, exist_ok=True)
+    t1 = time.perf_counter()
+    rows = lm.run_tp(EP_PP_RANKS, [EP_PP_SPEC, EP_SPEC], DEVICE,
+                     grads_dir=grads_dir, timeout=600)
+    log(f"ep_pp (d, e): {len(rows)} rows in {time.perf_counter() - t1:.1f} "
+        f"s; {EP_PP_RANKS} ranks share one card ({card}) over gloo: their "
+        f"speeds are not multi-card speeds")
+    pp_rows = sorted((r for r in rows if r["mode"] == "pp"),
+                     key=lambda r: r["rank"])
+    check(len(pp_rows) == EP_PP_RANKS, f"ep_pp (d): {len(pp_rows)} rows")
+    p, m = EP_PP_SPEC["pp"], EP_PP_SPEC["microbatches"]
+    per = LAYERS // p
+    steps = EP_PP_SPEC["warmup"] + EP_PP_SPEC["iters"]
+    for r in pp_rows:
+        losses = r["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0]
+              and losses == pp_rows[0]["losses"],
+              f"ep_pp (d) rank {r['rank']}: losses {losses}")
+        last = r["rank"] == p - 1
+        want1 = {"fwd": 2 * per * m * steps, "dq": per * m * steps,
+                 "dkv": per * m * steps, "plain": 0}
+        want2 = {"fwd": m * steps if last else 0,
+                 "residual_d": m * steps if last else 0, "dw": 0, "dx": 0,
+                 "plain": 0}
+        check(r["k1"] == want1 and r["k2"] == want2,
+              f"ep_pp (d) rank {r['rank']}: K1 {r['k1']} (expected "
+              f"{want1}), K2 {r['k2']} (expected {want2})")
+        _add(k1, _k(r["k1"], k1))
+        _add(k2, _k(r["k2"], k2))
+        ex = r["exchange"]
+        ex_ms = sum(v["ms"] for v in ex.values())
+        mean = sum(r["step_ms"]) / len(r["step_ms"])
+        log(f"ep_pp (d) 1F1B rank {r['rank']} (stage {r['rank']}, blocks "
+            f"{r['rank'] * per}-{r['rank'] * per + per - 1}): "
+            f"{r['timed_ms']:.1f} ms/step (timed; steps "
+            f"{[round(x, 1) for x in r['step_ms']]}), "
+            f"{r['tokens_per_s']:.1f} tokens/s [{p} ranks share one card]; "
+            f"exchange a step {ex_ms:.1f} ms ({100 * ex_ms / mean:.1f} % of "
+            f"the mean step): "
+            f"{_ex_json(ex)}; "
+            f"K1 {r['k1']}; K2 {r['k2']}; peak {r['peak_mem_gb']:.2f} GB; "
+            f"losses {losses}")
+    # step 1 against one process on the same weights and tokens (bf16;
+    # the second correct run: f32), the edges' gradients from stage 0's
+    # file (psum'd: the same on every rank), each stage's blocks from its
+    sample = {}
+    for r in range(p):
+        got = torch.load(os.path.join(grads_dir, f"pp-grads-rank{r}.pt"))
+        sample.update({k: v for k, v in got.items()
+                       if k.startswith("Block_") or r == 0})
+    names = sorted(sample)
+
+    def one_process(dtype):
+        return tp_reference(torch, names, dtype)
+
+    held_to_one_process("ep_pp (d)", pp_rows[0]["losses"][0],
+                        one_process(torch.bfloat16), SEQ_LOSS_FLOOR["gpt"],
+                        sample, lambda: one_process(torch.float32))
+    # (e) each rank's output and expert gradients, and the router's summed
+    # over the ranks, against the one-process oracle
+    ep_rows = sorted((r for r in rows if r["mode"] == "ep"),
+                     key=lambda r: r["rank"])
+    check(len(ep_rows) == EP_PP_RANKS, f"ep_pp (e): {len(ep_rows)} rows")
+    ys, want = ep_oracle(torch, EP_PP_RANKS)
+    got = [torch.load(os.path.join(grads_dir, f"ep-rank{r}.pt"))
+           for r in range(EP_PP_RANKS)]
+    le = EP_SPEC["experts"] // EP_PP_RANKS
+    errs = {}
+    for r, g in enumerate(got):
+        pairs = {"y": (g["y"], ys[r], EP_Y_TOL),
+                 "w_up": (g["w_up"], want["w_up"][r * le:(r + 1) * le],
+                          EP_GRAD_TOL),
+                 "w_down": (g["w_down"],
+                            want["w_down"][r * le:(r + 1) * le], EP_GRAD_TOL)}
+        for k, (a, b, (rtol, atol)) in pairs.items():
+            errs[(r, k)] = float((a - b).abs().max())
+            check(torch.allclose(a, b, rtol=rtol, atol=atol),
+                  f"ep_pp (e) rank {r} {k}: max |err| {errs[(r, k)]} "
+                  f"(rtol {rtol}, atol {atol})")
+    router = sum(g["router"] for g in got)
+    router_err = float((router - want["router"]).abs().max())
+    check(torch.allclose(router, want["router"], rtol=EP_GRAD_TOL[0],
+                         atol=EP_GRAD_TOL[1]),
+          f"ep_pp (e) router gradient: max |err| {router_err}")
+    for r in ep_rows:
+        ex = r["exchange"]
+        log(f"ep_pp (e) moe_mlp rank {r['rank']} (H 768, F 3072, 8 experts, "
+            f"2 a rank, {EP_SPEC['tokens']} tokens a rank, f32): forward + "
+            f"backward {r['ms']:.1f} ms [{EP_PP_RANKS} ranks share one "
+            f"card]; exchange "
+            f"{_ex_json(ex)}; "
+            f"aux {json.dumps(r['aux'])}")
+    worst = {k: max(v for (_, n), v in errs.items() if n == k)
+             for k in ("y", "w_up", "w_down")}
+    log(f"ep_pp (e) against the one-process oracle (all 8 experts local): "
+        f"largest |error| y {worst['y']!r}, w_up {worst['w_up']!r}, "
+        f"w_down {worst['w_down']!r}, router {router_err!r} ({card})")
+    del ys, want, got
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T_START:.0f} s] ep_pp phase took "
+        f"{time.perf_counter() - t0:.1f} s (its (f), the dry run's phases 4 "
+        f"and 5, ran in the tp phase's dry run)")
+    return {"k1": k1, "k2": k2}
 
 
 def phase_timing_k1_simt(torch, fl):
@@ -3569,6 +3912,8 @@ def main() -> int:
     log(f"[{time.perf_counter() - T_START:.0f} s] seq done")
     tp = phase_tp(torch, fc, card)
     log(f"[{time.perf_counter() - T_START:.0f} s] tp done")
+    ep_pp = phase_ep_pp(torch, fc, fl, card, trained["residual/flash"])
+    log(f"[{time.perf_counter() - T_START:.0f} s] ep_pp done")
     local, flash = trained["residual/local"], trained["residual/flash"]
     log(f"train local vs flash (residual CE, this call): "
         f"{local['step_time_ms']:.2f} vs {flash['step_time_ms']:.2f} "
@@ -3613,6 +3958,7 @@ def main() -> int:
             "elastic_launches": elastic.get(f"fused_ce.{name}", 0),
             "adaptive_launches": adaptive.get(f"fused_ce.{name}", 0),
             "scenario_launches": scen.get(f"fused_ce.{name}", 0),
+            "ep_pp_launches": ep_pp["k2"].get(name, 0),
             "max_abs_err": k2_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3651,6 +3997,7 @@ def main() -> int:
             "scenario_launches": scen[f"flash.{name}"],
             "seq_launches": seq["seq"][name],
             "tp_launches": tp["k1"][name],
+            "ep_pp_launches": ep_pp["k1"][name],
             "max_abs_err": k1_errs[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3750,6 +4097,13 @@ def main() -> int:
     check(all(k["scenario_launches"] > 0 for k in kernels
               if k["name"] in scenario_path),
           f"a kernel of the scenario phase was not launched: {kernels}")
+    # the ep_pp phase's paths: the MoE loss, remat, 1F1B (K1 in the
+    # stages, K2 on the exit edge)
+    ep_pp_path = ("fused_ce.fwd", "fused_ce.residual_d", "flash.fwd",
+                  "flash.dq", "flash.dkv")
+    check(all(k["ep_pp_launches"] > 0 for k in kernels
+              if k["name"] in ep_pp_path),
+          f"a kernel of the ep_pp phase was not launched: {kernels}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

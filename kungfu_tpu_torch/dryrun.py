@@ -1,10 +1,12 @@
 """Dry run: one data-parallel training step over an n-rank group, one
-sequence-parallel step on a (data, seq) mesh, and the tensor axis: a
+sequence-parallel step on a (data, seq) mesh, the tensor axis (a
 Megatron BERT step, a dp x tp GPT step through the vocab-sharded fused
-CE and a ZeRO-1 step.
+CE and a ZeRO-1 step), the pipeline axis (GPipe and a 1F1B GPT step)
+and the expert axis (a Switch MoE layer).
 
-The port of phases 1, 2, 3, 7 and 8 of the JAX package's
-`__graft_entry__.dryrun_multichip`:
+The port of the JAX package's `__graft_entry__.dryrun_multichip`
+(phases 1, 2, 3, 4, 5, 7 and 8; 6, the elastic resize, is the elastic
+harness's):
 
 - phase 1 (dp): ResNet-18 (10 classes, bf16 compute) takes one S-SGD
   step (`sync_sgd(SGD(lr 0.1, momentum 0.9))`, the BatchNorm statistics
@@ -31,6 +33,21 @@ The port of phases 1, 2, 3, 7 and 8 of the JAX package's
   same mesh shape, one loss and gradient through `gpt_fused_loss` with
   the head vocab-sharded (`parallel.vocab_ce`, K2 on each shard) on
   ``[2 d_data, 32]`` zero tokens. The same checks;
+- phase 4 (pp, n >= 2): (a) `parallel.pipeline.pipeline_apply` over a
+  ``pipe`` axis of all n ranks, one tanh stage a rank (``tanh(h @ w +
+  b)``, w ``[8, 8]`` normal / sqrt(8), b 0.01, from seed 0), on ``n + 2``
+  microbatches of ``[2, 8]`` normal inputs (seed 1): the loss
+  ``mean(out ** 2)`` and its gradients; (b) one 1F1B step
+  (`models.gpt.gpt_pipeline_train_step`) of an f32 GPT (vocab 64,
+  hidden 32, 4 heads, intermediate 64, one block a stage) on a ``(n /
+  S, S)`` ``(data, pipe)`` mesh, S = 4 where 4 divides n and n
+  otherwise, over 4 microbatches of ``[4, 16]`` zero tokens. Each loss
+  finite and each summed |gradient| (over the ranks) above 0;
+- phase 5 (ep, n >= 2): `parallel.expert.moe_mlp` with 2n experts over
+  an ``expert`` axis of the n ranks (`init_moe_params` from seed 0,
+  each rank its two; hidden 16, ffn 32), 8 normal tokens a rank (seed
+  1): the loss ``mean(y ** 2)`` over every rank's tokens, finite, and
+  the summed |gradient| of the router and the expert stacks above 0;
 - phase 8 (ZeRO-1): f32 GPT (vocab 128, hidden 64, 2 layers, 8 heads)
   on an ``(n, 1)`` mesh, Adam(1e-3) with its state sharded over
   ``data`` (`parallel.zero`), one `build_gspmd_train_step` step on
@@ -51,9 +68,11 @@ The port of phases 1, 2, 3, 7 and 8 of the JAX package's
 Prints, per phase run (rank 0's), ``dryrun: n=<n> device=<d> loss=<x>
 params_equal=True`` (phase 1), ``dryrun: phase 2 (sp) n=<n>
 mesh=<data>x<seq> device=<d> loss=<x> gnorm=<g>``, ``dryrun: phase 3
-(tp) ...`` and ``dryrun: phase 7 (dp x tp) ...`` in the same form, and
-``dryrun: phase 8 (zero1) n=<n> device=<d> loss=<x> sharded=<k>``, and
-exits non-zero on any failed check. The JAX function runs the phases
+(tp) ...``, ``dryrun: phase 4 (pp) ...`` (the GPT's mesh, the demo's
+loss and gnorm, then the 1F1B step's), ``dryrun: phase 5 (ep) ...``
+and ``dryrun: phase 7 (dp x tp) ...`` in the same form, and ``dryrun:
+phase 8 (zero1) n=<n> device=<d> loss=<x> sharded=<k>``, and exits
+non-zero on any failed check. The JAX function runs the phases
 whenever it has the devices; here `phases` asks for them.
 
   python -m kungfu_tpu_torch.dryrun --n 4 --device cpu --phases 3,7,8
@@ -238,6 +257,105 @@ def dp_tp_step(device, n: int) -> dict:
     return _tp_finish(model, mesh, loss, "dp x tp")
 
 
+def _axis_sum(x: float, group) -> float:
+    """`x` summed over `group`'s ranks."""
+    import torch
+
+    from .ops.collective import _reduce
+
+    return float(_reduce(torch.tensor([x], dtype=torch.float64), "psum",
+                         group)[0])
+
+
+def pp_step(device, n: int) -> dict:
+    """Phase 4 on the joined n-rank group: `pipeline_apply`'s tanh demo
+    over all n ranks, then one 1F1B step of a tiny GPT."""
+    import torch
+
+    from .models.gpt import (GPTConfig, GPTLM, gpt_pipeline_train_step,
+                             stack_gpt_blocks)
+    from .parallel.mesh import ProcessMesh
+    from .parallel.pipeline import pipeline_apply
+
+    mesh = ProcessMesh((n,), ("pipe",), device=device)
+    ax = mesh.axis("pipe")
+    m, mb, h = n + 2, 2, 8
+    gen = torch.Generator().manual_seed(0)
+    ws = [torch.randn((h, h), generator=gen) / h ** 0.5 for _ in range(n)]
+    stage = {"w": ws[ax.rank].to(device).requires_grad_(),
+             "b": torch.full((h,), 0.01, device=device).requires_grad_()}
+    x = torch.randn((m, mb, h), generator=torch.Generator().manual_seed(1))
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    out = pipeline_apply(stage_fn, stage, x.to(device), ax,
+                         num_microbatches=m)
+    loss = (out ** 2).mean()
+    loss.backward()
+    gnorm = _axis_sum(float(sum(p.grad.abs().sum()
+                                for p in stage.values())), ax.group)
+    loss = float(loss)
+    if not loss == loss or not gnorm > 0:
+        raise RuntimeError(f"pp: loss {loss}, gnorm {gnorm}")
+    # the 1F1B training step: one block a stage
+    stages = 4 if n % 4 == 0 else n
+    gmesh = ProcessMesh((n // stages, stages), ("data", "pipe"),
+                        device=device)
+    gax = gmesh.axis("pipe")
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=stages,
+                    num_heads=4, intermediate_size=64, max_position=16,
+                    dtype=torch.float32)
+    model = GPTLM(cfg, generator=torch.Generator().manual_seed(0))
+    outer, stacked = stack_gpt_blocks(model, stages)
+    outer = {k: v.detach().to(device).requires_grad_()
+             for k, v in outer.items()}
+    blocks = {k: v[gax.rank].detach().to(device).requires_grad_()
+              for k, v in stacked.items()}
+    l1, g_outer, g_stage = gpt_pipeline_train_step(
+        cfg, outer, blocks, torch.zeros(4, 16, dtype=torch.int64,
+                                        device=device), gax, 4)
+    g1 = _axis_sum(float(sum(g.abs().sum() for g in g_stage.values())),
+                   gax.group) + float(sum(g.abs().sum()
+                                          for g in g_outer.values()))
+    l1 = float(l1)
+    if not l1 == l1 or not g1 > 0:
+        raise RuntimeError(f"1f1b: loss {l1}, gnorm {g1}")
+    return {"loss": loss, "gnorm": gnorm, "loss_1f1b": l1, "gnorm_1f1b": g1,
+            "mesh": (n // stages, stages)}
+
+
+def ep_step(device, n: int) -> dict:
+    """Phase 5 on the joined n-rank group: `moe_mlp` with 2n experts
+    over an ``expert`` axis of the n ranks."""
+    import torch
+
+    from .parallel.expert import init_moe_params, moe_mlp
+    from .parallel.mesh import ProcessMesh
+
+    mesh = ProcessMesh((n,), ("expert",), device=device)
+    ax = mesh.axis("expert")
+    t_local, hidden, ffn = 8, 16, 32
+    params = init_moe_params(0, hidden, ffn, num_experts=2 * n,
+                             num_devices=n, device_index=ax.rank,
+                             device=device)
+    for w in params:
+        w.requires_grad_()
+    x = torch.randn((n * t_local, hidden),
+                    generator=torch.Generator().manual_seed(1))
+    xs = x[ax.rank * t_local:(ax.rank + 1) * t_local].to(device)
+    with mesh:
+        y = moe_mlp(xs, params, "expert")
+    share = (y.float() ** 2).sum() / (n * t_local)
+    share.backward()
+    loss = _axis_sum(float(share), ax.group)
+    gnorm = _axis_sum(float(sum(w.grad.abs().sum() for w in params)),
+                      ax.group)
+    if not loss == loss or not gnorm > 0:
+        raise RuntimeError(f"ep: loss {loss}, gnorm {gnorm}")
+    return {"loss": loss, "gnorm": gnorm, "experts": 2 * n}
+
+
 def zero1_step(device, n: int) -> dict:
     """Phase 8 on the joined n-rank group: one ZeRO-1 Adam step of a GPT
     on an ``(n, 1)`` mesh; returns the loss and the sharded leaves."""
@@ -279,8 +397,8 @@ def zero1_step(device, n: int) -> dict:
 def run_rank(rank: int, n: int, port: int, device: str,
              phases=(1,)) -> dict:
     """Join the n-rank group as `rank` and run the `phases` (1: dp, 2:
-    sp, 3: tp, 7: dp x tp, 8: ZeRO-1). NCCL for one rank on a card, gloo
-    otherwise."""
+    sp, 3: tp, 4: pp, 5: ep, 7: dp x tp, 8: ZeRO-1). NCCL for one rank on
+    a card, gloo otherwise."""
     import torch
     import torch.distributed as dist
 
@@ -308,16 +426,26 @@ def run_rank(rank: int, n: int, port: int, device: str,
                       f"{sp['mesh'][0]}x{sp['mesh'][1]} device={dev.type} "
                       f"loss={sp['loss']:.6f} gnorm={sp['gnorm']:.6f}",
                       flush=True)
-        for phase, name, fn in ((3, "tp", tp_step), (7, "dp x tp",
-                                                     dp_tp_step)):
-            if phase in phases:
-                r = fn(dev, n)
-                out[name] = r
-                if rank == 0:
-                    print(f"dryrun: phase {phase} ({name}) n={n} mesh="
-                          f"{r['mesh'][0]}x{r['mesh'][1]} device={dev.type} "
-                          f"loss={r['loss']:.6f} gnorm={r['gnorm']:.6f}",
-                          flush=True)
+        if 3 in phases:
+            _tp_phase(out, 3, "tp", tp_step(dev, n), rank, n, dev)
+        if 4 in phases:
+            r = pp_step(dev, n)
+            out["pp"] = r
+            if rank == 0:
+                print(f"dryrun: phase 4 (pp) n={n} mesh="
+                      f"{r['mesh'][0]}x{r['mesh'][1]} device={dev.type} "
+                      f"loss={r['loss']:.6f} gnorm={r['gnorm']:.6f} "
+                      f"1f1b_loss={r['loss_1f1b']:.6f} "
+                      f"1f1b_gnorm={r['gnorm_1f1b']:.6f}", flush=True)
+        if 5 in phases:
+            r = ep_step(dev, n)
+            out["ep"] = r
+            if rank == 0:
+                print(f"dryrun: phase 5 (ep) n={n} experts={r['experts']} "
+                      f"device={dev.type} loss={r['loss']:.6f} "
+                      f"gnorm={r['gnorm']:.6f}", flush=True)
+        if 7 in phases:
+            _tp_phase(out, 7, "dp x tp", dp_tp_step(dev, n), rank, n, dev)
         if 8 in phases:
             z = zero1_step(dev, n)
             out["zero1"] = z
@@ -330,6 +458,15 @@ def run_rank(rank: int, n: int, port: int, device: str,
     return out
 
 
+def _tp_phase(out: dict, phase: int, name: str, r: dict, rank: int,
+              n: int, dev) -> None:
+    out[name] = r
+    if rank == 0:
+        print(f"dryrun: phase {phase} ({name}) n={n} mesh="
+              f"{r['mesh'][0]}x{r['mesh'][1]} device={dev.type} "
+              f"loss={r['loss']:.6f} gnorm={r['gnorm']:.6f}", flush=True)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -338,8 +475,8 @@ def _free_port() -> int:
 
 def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
            timeout: float = 300.0, phases=(1,)) -> dict:
-    """The `phases` (1: dp; 2: sp, n >= 2; 3: tp, 7: dp x tp, n even; 8:
-    ZeRO-1) over `n` ranks; returns rank
+    """The `phases` (1: dp; 2: sp, 4: pp, 5: ep, n >= 2; 3: tp, 7: dp x
+    tp, n even; 8: ZeRO-1) over `n` ranks; returns rank
     0's figures for ``n == 1`` (phase 1's ``loss`` and ``params_equal``),
     and for ``n > 1`` ``{"n": n, "ok": True}`` after every rank process
     exited 0, with ``lines``, rank 0's ``dryrun:`` lines. Raises
@@ -350,8 +487,9 @@ def dryrun(n: int = 1, device: str = "cuda", port: Optional[int] = None,
     if device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
-    if 2 in phases and n < 2:
-        raise ValueError("phase 2 (sp) needs n >= 2 ranks")
+    if {2, 4, 5} & set(phases) and n < 2:
+        raise ValueError("phases 2 (sp), 4 (pp) and 5 (ep) need n >= 2 "
+                         "ranks")
     if {3, 7} & set(phases) and n % 2:
         raise ValueError("phases 3 and 7 (tp) need an even n")
     port = port or _free_port()
@@ -391,7 +529,8 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--phases", default="1",
                     help="phases to run, comma-separated: 1 (dp), 2 (sp, "
-                         "n >= 2), 3 (tp), 7 (dp x tp), 8 (zero1)")
+                         "n >= 2), 3 (tp), 4 (pp), 5 (ep), 7 (dp x tp), "
+                         "8 (zero1)")
     ap.add_argument("--rank", type=int, default=None,
                     help="(internal) run one rank of an n-rank group")
     args = ap.parse_args(argv)

@@ -499,6 +499,12 @@ def main(argv=None) -> None:
             trace.set_context(rank=peer.rank, version=peer.version,
                               step=int(step0))
             trace.event("ckpt.restored", cat="ckpt", gen_step=int(step0))
+            # the anchor is one instant for the whole cluster: the
+            # decomposition bills a step past the generation as lost when
+            # its span ends before ANY rank's anchor, so no rank may
+            # compute before every rank has set its own (a fast rank's
+            # first step was billed lost under load)
+            peer.barrier()
             if pipe is not None:
                 if residual0 is not None:
                     # this rank ran in the saving cluster too: adopt its

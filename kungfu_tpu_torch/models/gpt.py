@@ -60,9 +60,26 @@ ProcessMesh` (``with mesh:``): token ids are then this rank's shard of
 the sequence and positions are offset by its seq rank, the
 ``max_position`` check made against the global length. The prefill and
 decode branches come first and do not change with the mode, so serving
-is the same in all of them. The MoE FFN and remat belong to a later
-slice of the port (the expert and pipeline axes) and are not fields
-here.
+is the same in all of them.
+
+Mixture of experts: ``GPTConfig(num_experts=E)`` swaps each block's
+dense MLP for `MoEMLP` (``moe/{router, w_up, w_down}``, Switch top-1
+over GShard routing groups, the dispatch of `parallel.expert`). Its
+router signals come back through the forward (``return_aux=True``, a
+list a layer) and `gpt_loss_with_aux` folds them into the loss. The
+serving paths refuse a MoE config, as the JAX package's do.
+
+Remat: ``GPTConfig(remat=True)`` runs each block's training forward
+under `torch.utils.checkpoint.checkpoint` (non-reentrant), so its
+activations are recomputed in the backward (K1's forward with them);
+decode and prefill are never checkpointed.
+
+Pipeline: `stack_gpt_blocks` splits the parameters into the edges
+(embeddings, final LayerNorm, lm_head) and the blocks stacked by stage,
+`gpt_pipeline_forward` runs GPipe over them and
+`gpt_pipeline_train_step` the 1F1B training step
+(`parallel.pipeline`), the blocks applied with their stage's tensors
+through `torch.func.functional_call`.
 """
 
 from __future__ import annotations
@@ -95,6 +112,22 @@ class GPTConfig:
     attention: str = "local"  # local | flash | ring | ulysses
     seq_axis: str = "seq"     # mesh axis of the sequence-parallel modes
     use_flash: bool = False   # the ring/ulysses mixers' flash step
+    # Mixture-of-experts FFN (Switch top-1): 0 = the dense MLP. The
+    # expert stacks are whole [E, H, F] parameters of every block
+    num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    # the router's training signals in `gpt_loss_with_aux`: the Switch
+    # load-balance loss and the ST-MoE z-loss (Switch/ST-MoE defaults)
+    moe_aux_coef: float = 1e-2
+    moe_z_coef: float = 1e-3
+    # routing group size (GShard/Switch): 0 = auto (512, clamped to the
+    # tokens; one group a batch row when it does not divide them)
+    moe_group_size: int = 0
+    # storage dtype of w_up/w_down; None keeps f32 master weights, cast
+    # to `dtype` at use
+    moe_param_dtype: Optional[torch.dtype] = None
+    # checkpoint each block's training forward (recompute in backward)
+    remat: bool = False
 
     def __post_init__(self):
         if self.attention not in _ATTN_MODES:
@@ -291,8 +324,85 @@ class CausalSelfAttention(nn.Module):
         return row_parallel(self.out, out, ax)
 
 
+def effective_moe_group(cfg: GPTConfig, b: int, t: int) -> int:
+    """The routing group size `MoEMLP` runs for a [b, t] batch: the
+    configured size (auto 512) clamped to b*t, one group a batch row when
+    it does not divide b*t. Benchmarks report this, not the requested
+    size."""
+    group = min(cfg.moe_group_size or 512, b * t)
+    if (b * t) % group:
+        group = t
+    return group
+
+
+class MoEMLP(nn.Module):
+    """Switch top-1 MoE feed-forward in the einsum dispatch formulation,
+    flax's ``moe`` module: global stacks ``router [H, E]`` (f32),
+    ``w_up [E, H, F]`` and ``w_down [E, F, H]`` (``moe_param_dtype``,
+    default f32, cast to the compute dtype at use).
+
+    Routing is GShard's: the ``B * T`` tokens split into groups of
+    `effective_moe_group` tokens, each routed on its own (its own
+    capacity queues, C = ceil(group * cf / E) slots an expert), so the
+    dispatch and combine tensors ``[G, E, C, group]`` grow linearly in
+    the tokens. The groups are one batch dimension of
+    `parallel.expert.dispatch_tensors` (the JAX module vmaps over them).
+    Routing math is f32, the gather and the expert products run in the
+    compute dtype, the gate-weighted combine in f32. `forward` returns
+    ``(y, aux)``: the router signals averaged over the groups."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        h, f, e = c.hidden_size, c.intermediate_size, c.num_experts
+        pdt = c.moe_param_dtype or torch.float32
+        self.router = nn.Parameter(torch.empty(h, e, dtype=torch.float32,
+                                               device=device))
+        self.w_up = nn.Parameter(torch.empty(e, h, f, dtype=pdt,
+                                             device=device))
+        self.w_down = nn.Parameter(torch.empty(e, f, h, dtype=pdt,
+                                               device=device))
+
+    def init_std(self, leaf: str) -> float:
+        """flax's ``normal(h ** -0.5)`` (router, w_up) and ``normal(f **
+        -0.5)`` (w_down)."""
+        c = self.config
+        return (c.intermediate_size if leaf == "w_down"
+                else c.hidden_size) ** -0.5
+
+    def forward(self, x):
+        from ..parallel.expert import dispatch_tensors, moe_capacity
+        from ..parallel.mesh import tp_axis
+
+        if tp_axis() is not None:
+            raise NotImplementedError(
+                "the MoE FFN with its expert stacks split over the model "
+                "axis is not ported (ROADMAP 9c: MoE at tp > 1)")
+        c = self.config
+        b, t, h = x.shape
+        e = c.num_experts
+        group = effective_moe_group(c, b, t)
+        tokens = x.reshape((b * t) // group, group, h)
+        capacity = moe_capacity(group, c.moe_capacity_factor, e)
+        dispatch, combine, aux = dispatch_tensors(
+            tokens, self.router, e, capacity, return_aux=True)
+        aux = {k: v.mean(dim=0) for k, v in aux.items()}   # over groups
+        # the gather in the compute dtype (dispatch entries are exact
+        # 0/1); the gate-weighted combine stays f32
+        slots = torch.einsum("gect,gth->gech", dispatch.to(c.dtype), tokens)
+        up = torch.einsum("gech,ehf->gecf", slots, self.w_up.to(c.dtype))
+        act = F.gelu(up, approximate="tanh")
+        out = torch.einsum("gecf,efh->gech", act,
+                           self.w_down.to(c.dtype)).float()
+        y = torch.einsum("gect,gech->gth", combine, out)
+        return y.reshape(b, t, h).to(x.dtype), aux
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block (GPT-2 style), dense FFN."""
+    """Pre-LN transformer block (GPT-2 style); dense FFN, or `MoEMLP`
+    (``moe``) when the config has experts. `forward` returns ``(x,
+    aux)``: the MoE layer's router signals, or None."""
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
@@ -300,12 +410,15 @@ class Block(nn.Module):
         self.LayerNorm_0 = LayerNorm(c.hidden_size, c.dtype, device=device)
         self.CausalSelfAttention_0 = CausalSelfAttention(c, device)
         self.LayerNorm_1 = LayerNorm(c.hidden_size, c.dtype, device=device)
-        self.Dense_0 = DenseGeneral((c.hidden_size,),
-                                    (c.intermediate_size,), c.dtype, device,
-                                    c.param_dtype)
-        self.Dense_1 = DenseGeneral((c.intermediate_size,),
-                                    (c.hidden_size,), c.dtype, device,
-                                    c.param_dtype)
+        if c.num_experts:
+            self.moe = MoEMLP(c, device)
+        else:
+            self.Dense_0 = DenseGeneral((c.hidden_size,),
+                                        (c.intermediate_size,), c.dtype,
+                                        device, c.param_dtype)
+            self.Dense_1 = DenseGeneral((c.intermediate_size,),
+                                        (c.hidden_size,), c.dtype, device,
+                                        c.param_dtype)
 
     def forward(self, x, cache=None, layer=0, decode=False, prefill=False):
         from ..ops.collective import column_input, row_parallel
@@ -314,11 +427,14 @@ class Block(nn.Module):
         y = self.LayerNorm_0(x)
         x = x + self.CausalSelfAttention_0(y, cache, layer, decode, prefill)
         y = self.LayerNorm_1(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(y)
+            return x + y, aux
         # under a tensor axis: column-parallel up-projection
         # (intermediate / tp columns), row-parallel down-projection
         ax = tp_axis()
         y = F.gelu(self.Dense_0(column_input(y, ax)), approximate="tanh")
-        return x + row_parallel(self.Dense_1, y, ax)
+        return x + row_parallel(self.Dense_1, y, ax), None
 
 
 class GPTLM(nn.Module):
@@ -358,14 +474,20 @@ class GPTLM(nn.Module):
             elif leaf == "bias":
                 p.zero_()
             else:
-                fan_in = (p.shape[-1] if leaf == "embedding"
-                          else math.prod(self._in_shape(name)))
                 w = torch.empty(p.shape, dtype=torch.float32)
-                w.normal_(0.0, fan_in ** -0.5, generator=generator)
+                w.normal_(0.0, self._init_std(name), generator=generator)
                 p.copy_(w)
 
-    def _in_shape(self, param_name: str):
-        return self.get_submodule(param_name.rsplit(".", 1)[0]).in_shape
+    def _init_std(self, param_name: str) -> float:
+        """The std of a kernel's normal init: fan-in scaled, or the MoE
+        layer's own (`MoEMLP.init_std`)."""
+        scope, leaf = param_name.rsplit(".", 1)
+        mod = self.get_submodule(scope)
+        if isinstance(mod, MoEMLP):
+            return mod.init_std(leaf)
+        fan_in = (mod.embedding.shape[-1] if leaf == "embedding"
+                  else math.prod(mod.in_shape))
+        return fan_in ** -0.5
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"Block_{i}")
@@ -373,10 +495,13 @@ class GPTLM(nn.Module):
 
     def forward(self, token_ids, cache: Optional[KVCache] = None,
                 decode: bool = False, prefill: bool = False,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_aux: bool = False):
         """Logits ``[B, T, vocab]`` f32; with `return_hidden`, the hidden
         state ``[B, T, H]`` after the final LayerNorm instead (the
-        training fast path feeds it to the fused head+CE)."""
+        training fast path feeds it to the fused head+CE). With
+        `return_aux`, ``(out, aux)``: each MoE layer's router signals in
+        layer order (empty for a dense config) — returned, never kept on
+        the modules, so a remat recompute adds no second copy."""
         c = self.config
         t = token_ids.shape[-1]
         if decode:
@@ -403,14 +528,24 @@ class GPTLM(nn.Module):
                     f"sequence {t} exceeds max_position {c.max_position}")
             pos = torch.arange(t, device=token_ids.device)[None, :]
         x = self.wte(token_ids) + self.wpe(pos)
+        # nn.remat(Block) of the JAX model: the training forward only
+        remat = (c.remat and not decode and not prefill
+                 and torch.is_grad_enabled())
+        aux = []
         for i, block in enumerate(self.blocks()):
-            x = block(x, cache, i, decode, prefill)
+            if remat:
+                from torch.utils.checkpoint import checkpoint
+
+                x, a = checkpoint(block, x, use_reentrant=False)
+            else:
+                x, a = block(x, cache, i, decode, prefill)
+            if a is not None:
+                aux.append(a)
         if cache is not None:
             cache.index = cache.index + 1 if decode else t
         x = self.LayerNorm_0(x)
-        if return_hidden:
-            return x
-        return self.lm_head(x)
+        out = x if return_hidden else self.lm_head(x)
+        return (out, aux) if return_aux else out
 
 
 def gpt_loss(logits, token_ids):
@@ -451,6 +586,35 @@ def gpt_seq_loss(model: GPTLM, token_ids, seq_axis=None):
     return total * ax.size / (b * (t - 1))
 
 
+def _head_ce(model: GPTLM, hidden, token_ids, residual: bool, mesh,
+             data_axis: str, model_axis: str):
+    """The fused losses' head: the next-token CE of `hidden` through
+    `ops.fused_ce.fused_cross_entropy` (K2), or vocab-sharded through
+    `parallel.vocab_ce.vocab_sharded_fused_ce` with `mesh`."""
+    b, t, h = hidden.shape
+    flat_h = hidden[:, :-1].reshape(b * (t - 1), h)
+    flat_t = token_ids[:, 1:].reshape(-1)
+    head = model.lm_head
+    if mesh is not None:
+        from ..parallel.vocab_ce import vocab_sharded_fused_ce
+
+        return vocab_sharded_fused_ce(
+            flat_h, head.kernel, head.bias, flat_t, mesh=mesh,
+            data_axis=data_axis, model_axis=model_axis, residual=residual)
+    from ..ops.fused_ce import fused_cross_entropy
+
+    return fused_cross_entropy(flat_h, head.kernel, head.bias, flat_t,
+                               residual=residual)
+
+
+def _trunk(model: GPTLM, token_ids, mesh, **kw):
+    """The model's forward, inside ``with mesh:`` when a mesh is given."""
+    if mesh is None:
+        return model(token_ids, **kw)
+    with mesh:
+        return model(token_ids, **kw)
+
+
 def gpt_fused_loss(model: GPTLM, token_ids, residual: bool = True,
                    mesh=None, data_axis: str = "data",
                    model_axis: str = "model"):
@@ -469,26 +633,42 @@ def gpt_fused_loss(model: GPTLM, token_ids, residual: bool = True,
     `token_ids` are this rank's data shard, and the loss is its share,
     whose pmean over `data_axis` is the global mean (as
     `build_gspmd_train_step` with the mesh takes it)."""
-    if mesh is not None:
-        from ..parallel.vocab_ce import vocab_sharded_fused_ce
+    hidden = _trunk(model, token_ids, mesh, return_hidden=True)
+    return _head_ce(model, hidden, token_ids, residual, mesh, data_axis,
+                    model_axis)
 
-        with mesh:
-            hidden = model(token_ids, return_hidden=True)
-            b, t, h = hidden.shape
-            return vocab_sharded_fused_ce(
-                hidden[:, :-1].reshape(b * (t - 1), h),
-                model.lm_head.kernel, model.lm_head.bias,
-                token_ids[:, 1:].reshape(-1), mesh=mesh,
-                data_axis=data_axis, model_axis=model_axis,
-                residual=residual)
-    from ..ops.fused_ce import fused_cross_entropy
 
-    hidden = model(token_ids, return_hidden=True)
-    b, t, h = hidden.shape
-    return fused_cross_entropy(hidden[:, :-1].reshape(b * (t - 1), h),
-                               model.lm_head.kernel, model.lm_head.bias,
-                               token_ids[:, 1:].reshape(-1),
-                               residual=residual)
+def gpt_loss_with_aux(model: GPTLM, token_ids, fused: bool = True,
+                      mesh=None, data_axis: str = "data",
+                      model_axis: str = "model"):
+    """``(total_loss, metrics)``: the next-token cross entropy plus the
+    MoE router losses, ``ce + moe_aux_coef * load_balance + moe_z_coef *
+    z_loss``. `metrics` holds ``ce`` and, for a MoE config, each router
+    signal averaged over the layers: ``load_balance``, ``z_loss``,
+    ``dropped_frac`` and ``expert_load [E]``. A dense config's total is
+    the cross entropy alone. Train a MoE config with this, not bare
+    `gpt_loss`, or the router collapses onto few experts.
+
+    ``fused=True`` runs the head inside K2 (`gpt_fused_loss`'s head, the
+    residual backward; vocab-sharded with `mesh`, as there); ``fused=
+    False`` the f32 Dense head and `gpt_loss`."""
+    c = model.config
+    if fused:
+        hidden, aux = _trunk(model, token_ids, mesh, return_hidden=True,
+                             return_aux=True)
+        ce = _head_ce(model, hidden, token_ids, True, mesh, data_axis,
+                      model_axis)
+    else:
+        logits, aux = _trunk(model, token_ids, mesh, return_aux=True)
+        ce = gpt_loss(logits, token_ids)
+    metrics = {"ce": ce}
+    total = ce
+    if c.num_experts:
+        for k in ("load_balance", "z_loss", "dropped_frac", "expert_load"):
+            metrics[k] = torch.stack([a[k] for a in aux]).mean(dim=0)
+        total = (ce + c.moe_aux_coef * metrics["load_balance"]
+                 + c.moe_z_coef * metrics["z_loss"])
+    return total, metrics
 
 
 @torch.no_grad()
@@ -520,3 +700,159 @@ def gpt_generate(model: GPTLM, prompt: torch.Tensor,
         tok = logits[:, 0].argmax(-1)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline axis: the blocks stacked by stage, the edges outside
+# ---------------------------------------------------------------------------
+
+def stack_gpt_blocks(params, num_stages: int):
+    """Split a GPT's parameters (a `GPTLM`, or its ``name -> tensor``
+    mapping, e.g. a state dict) into ``(outer, stacked)``: `outer` the
+    edges' tensors by their names (``wte.embedding``, ``wpe.embedding``,
+    ``LayerNorm_0.*``, ``lm_head.*``), `stacked` every Block's tensors by
+    their name inside the block, under leading ``[num_stages,
+    layers_per_stage]`` dims (stage s holds blocks ``s * per ... (s + 1) *
+    per - 1``; `rules.gpt_pp_rules` places the first dim over ``pipe``).
+    Raises ValueError when the blocks do not divide the stages."""
+    from ..parallel.pipeline import stack_stage_params
+
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    blocks = sorted({k.split(".", 1)[0] for k in params
+                     if k.startswith("Block_")},
+                    key=lambda k: int(k.split("_")[1]))
+    if len(blocks) % num_stages:
+        raise ValueError(
+            f"{len(blocks)} blocks do not divide {num_stages} stages")
+    per = len(blocks) // num_stages
+    trees = [{k.split(".", 1)[1]: v for k, v in params.items()
+              if k.split(".", 1)[0] == b} for b in blocks]
+    stacked = stack_stage_params(
+        [stack_stage_params(trees[s * per:(s + 1) * per])
+         for s in range(num_stages)])
+    outer = {k: v for k, v in params.items()
+             if not k.startswith("Block_")}
+    return outer, stacked
+
+
+class _Edges:
+    """The GPT's edge modules on the meta device, applied with given
+    tensors (`torch.func.functional_call`): the embeddings, a block, the
+    final LayerNorm and the lm_head of `cfg`."""
+
+    def __init__(self, cfg: GPTConfig):
+        c = cfg
+        self.cfg = c
+        self.wte = Embed(c.vocab_size, c.hidden_size, c.dtype, "meta",
+                         c.param_dtype)
+        self.wpe = Embed(c.max_position, c.hidden_size, c.dtype, "meta",
+                         c.param_dtype)
+        self.block = Block(c, "meta")
+        self.ln = LayerNorm(c.hidden_size, c.dtype, device="meta")
+        self.head = DenseGeneral((c.hidden_size,), (c.vocab_size,),
+                                 torch.float32, "meta")
+
+    @staticmethod
+    def call(module, outer, prefix, *args):
+        from torch.func import functional_call
+
+        n = len(prefix) + 1
+        return functional_call(module, {k[n:]: v for k, v in outer.items()
+                                        if k.startswith(prefix + ".")},
+                               args)
+
+    def embed(self, outer, tokens):
+        """Token plus position embeddings of ``tokens [mb, T]``."""
+        t = tokens.shape[-1]
+        pos = torch.arange(t, device=tokens.device)[None, :]
+        return (self.call(self.wte, outer, "wte", tokens)
+                + self.call(self.wpe, outer, "wpe", pos))
+
+    def stage(self, stage_blocks, h):
+        """This stage's blocks (``[layers_per_stage, ...]`` tensors by
+        their name in a block) applied in order."""
+        from torch.func import functional_call
+
+        per = next(iter(stage_blocks.values())).shape[0]
+        for layer in range(per):
+            h, _ = functional_call(
+                self.block, {k: v[layer] for k, v in stage_blocks.items()},
+                (h,))
+        return h
+
+    def norm(self, outer, h):
+        return self.call(self.ln, outer, "LayerNorm_0", h)
+
+
+def _check_batch(cfg: GPTConfig, tokens, m: int):
+    b, t = tokens.shape
+    if b % m:
+        raise ValueError(f"batch {b} % microbatches {m} != 0")
+    if t > cfg.max_position:
+        raise ValueError(f"sequence {t} exceeds max_position "
+                         f"{cfg.max_position}")
+    return b, t
+
+
+def gpt_pipeline_forward(cfg: GPTConfig, outer, stage_blocks, tokens,
+                         axis_name, num_microbatches: int):
+    """GPipe forward of a GPT over the axis `axis_name` (a name of the
+    current `ProcessMesh`, or an `Axis`).
+
+    - `outer`: the edges' tensors from `stack_gpt_blocks`, the same on
+      every rank;
+    - `stage_blocks`: THIS stage's ``[layers_per_stage, ...]`` block
+      tensors (row ``rank`` of `stack_gpt_blocks`' `stacked`);
+    - `tokens`: ``[B, T]``, B % num_microbatches == 0, the same on every
+      rank.
+
+    The embeddings and the head run on every rank; the blocks stream the
+    microbatches stage to stage through `parallel.pipeline.
+    pipeline_apply`. Returns the ``[B, T, vocab]`` f32 logits, the same
+    on every rank; differentiable (each rank scoring the same logits)."""
+    from ..parallel.pipeline import pipeline_apply
+
+    m = num_microbatches
+    b, t = _check_batch(cfg, tokens, m)
+    e = _Edges(cfg)
+    x = e.embed(outer, tokens).reshape(m, b // m, t, cfg.hidden_size)
+    x = pipeline_apply(e.stage, stage_blocks, x, axis_name,
+                       num_microbatches=m)
+    x = e.norm(outer, x.reshape(b, t, cfg.hidden_size))
+    return _Edges.call(e.head, outer, "lm_head", x)
+
+
+def gpt_pipeline_train_step(cfg: GPTConfig, outer, stage_blocks, tokens,
+                            axis_name, num_microbatches: int):
+    """1F1B pipelined loss and gradients of a GPT over the axis
+    `axis_name` (`parallel.pipeline.pipeline_train_step_1f1b`): the
+    embedding is stage 0's enter edge, the final LayerNorm and the head
+    with its cross entropy (`ops.fused_ce.fused_cross_entropy`, K2, the
+    residual backward, a microbatch at a time) stage P - 1's exit edge,
+    and the blocks of this stage (K1 under ``attention="flash"``) the
+    trunk, one forward and one backward microbatch in flight a rank
+    after the warm-up. Only the int `tokens` are the same on every rank;
+    an activation lives on one stage.
+
+    `outer` / `stage_blocks` as in `gpt_pipeline_forward`, tensors that
+    require a gradient. Returns ``(loss, g_outer, g_stage)``: the mean
+    loss, the edges' gradients (the same on every rank) and this stage's
+    gradients in `stage_blocks`' layout."""
+    from ..ops.fused_ce import fused_cross_entropy
+    from ..parallel.pipeline import pipeline_train_step_1f1b
+
+    m = num_microbatches
+    b, t = _check_batch(cfg, tokens, m)
+    e = _Edges(cfg)
+
+    def exit_fn(op, h, mb_tokens):
+        x = e.norm(op, h)
+        mb, tt, hd = x.shape
+        return fused_cross_entropy(
+            x[:, :-1].reshape(mb * (tt - 1), hd), op["lm_head.kernel"],
+            op["lm_head.bias"], mb_tokens[:, 1:].reshape(-1))
+
+    return pipeline_train_step_1f1b(
+        e.stage, e.embed, exit_fn, stage_blocks, outer,
+        tokens.reshape(m, b // m, t), axis_name)

@@ -541,27 +541,14 @@ def _gpt_dryrun_config(num_layers: int = 2):
 def _template_gpt(num_experts: int = 0) -> Dict[str, Tuple[int, ...]]:
     """The dp x tp dry run's GPT (vocab 251: deliberately non-divisible,
     covered by the catch-all). With `num_experts`, each block's dense MLP
-    is the JAX package's Switch MoE layer (``moe/router [H, E]``,
-    ``moe/w_up [E, H, F]``, ``moe/w_down [E, F, H]``; the port has no MoE
-    FFN yet, so its leaves are written here)."""
+    is the Switch MoE layer (``moe/router [H, E]``, ``moe/w_up [E, H,
+    F]``, ``moe/w_down [E, F, H]``)."""
+    from dataclasses import replace
+
     from ..models.gpt import GPTLM
 
-    cfg = _gpt_dryrun_config()
-    shapes = _shapes(GPTLM(cfg, device="meta"))
-    if not num_experts:
-        return shapes
-    h, f, e = cfg.hidden_size, cfg.intermediate_size, num_experts
-    out = {}
-    for path, shape in shapes.items():
-        scope, _, rest = path.partition("/")
-        if scope.startswith("Block_") and rest.startswith("Dense_"):
-            if rest == "Dense_0/kernel":
-                out[f"{scope}/moe/router"] = (h, e)
-                out[f"{scope}/moe/w_up"] = (e, h, f)
-                out[f"{scope}/moe/w_down"] = (e, f, h)
-            continue
-        out[path] = shape
-    return out
+    cfg = replace(_gpt_dryrun_config(), num_experts=num_experts)
+    return _shapes(GPTLM(cfg, device="meta"))
 
 
 @lru_cache(maxsize=8)

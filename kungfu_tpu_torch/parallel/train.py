@@ -25,12 +25,14 @@ from ..optimizers.sync_sgd import bucketed_all_reduce_mean
 
 
 def build_gspmd_train_step(loss_fn: Callable, optimizer, mesh=None,
-                           data_axis: str = "data"):
+                           data_axis: str = "data", has_aux: bool = False):
     """``step(batch) -> loss`` (detached) runs the forward and the
     backward of `loss_fn(batch)`, then ``optimizer.step()``; the loss
     stays a device tensor, so the step does not wait for the card. The
     counterpart of the JAX builder (`build_gspmd_train_step`,
-    `train.py:116`).
+    `train.py:116`). With `has_aux`, `loss_fn` returns ``(loss, aux)``
+    (a mapping of tensors) and the step ``(loss, aux)``, aux detached and
+    this rank's own.
 
     Without `mesh`: one process, one device. With `mesh` (a
     ``(data, model)`` `parallel.mesh.ProcessMesh`): `loss_fn` runs
@@ -44,16 +46,22 @@ def build_gspmd_train_step(loss_fn: Callable, optimizer, mesh=None,
     bucket a run of one dtype, skipped for an axis of one rank. GSPMD
     derives all of this from placements in the JAX package."""
 
+    def run(batch):
+        out = loss_fn(batch)
+        loss, aux = out if has_aux else (out, None)
+        loss.backward()
+        if aux is not None:
+            aux = {k: v.detach() for k, v in aux.items()}
+        return loss, aux
+
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
-            loss = loss_fn(batch)
-            loss.backward()
+            loss, aux = run(batch)
             optimizer.step()
-            return loss.detach()
+            return (loss.detach(), aux) if has_aux else loss.detach()
         with mesh:
-            loss = loss_fn(batch)
-            loss.backward()
+            loss, aux = run(batch)
         loss = loss.detach().reshape(1).clone()
         if mesh.size(data_axis) > 1:
             grads = [p.grad for g in optimizer.param_groups
@@ -62,7 +70,7 @@ def build_gspmd_train_step(loss_fn: Callable, optimizer, mesh=None,
                 bucketed_all_reduce_mean(grads + [loss],
                                          mesh.axis(data_axis), None)
         optimizer.step()
-        return loss[0]
+        return (loss[0], aux) if has_aux else loss[0]
 
     return step
 

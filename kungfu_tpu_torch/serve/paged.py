@@ -45,10 +45,19 @@ from ..models.gpt import GPTLM, KVCache
 from ..ops import paged_attn
 
 
+def _supported(cfg) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "paged decode serves dense GPT configs; MoE decode routing "
+            "is not implemented")
+
+
 def init_pool_tensors(cfg, num_blocks: int, block_tokens: int, device):
     """(k, v) pool tensors [L, num_blocks+1, block_tokens, H, D] in
     the config dtype on `device` (+1: block 0 is the allocator's
-    scratch block)."""
+    scratch block). Raises NotImplementedError for a MoE config, as the
+    JAX function does."""
+    _supported(cfg)
     shape = (cfg.num_layers, num_blocks + 1, block_tokens, cfg.num_heads,
              cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -99,6 +108,7 @@ def decode_step(model: GPTLM, pool_k, pool_v, tables, lengths, tokens,
     independent: a row's logits depend only on its own table, length
     and token."""
     cfg = model.config
+    _supported(cfg)
     dtype = cfg.dtype
     nbp1 = pool_k.shape[1]                  # pool blocks + scratch
     bt = pool_k.shape[2]
@@ -208,6 +218,7 @@ def prefill(model: GPTLM, prompt):
     the prompt to a block bucket read the logits at the last REAL
     position (causal masking keeps positions < T independent of the
     padding behind them)."""
+    _supported(model.config)
     b, t = prompt.shape
     cache = KVCache.zeros(model.config, b, t, prompt.device)
     logits = model(prompt, cache=cache, prefill=True)

@@ -15,6 +15,13 @@ package's (`benchmarks/lm.py::measure_decode_rate`,
   summation orders); at the card's defaults the plan is resident, 8
   splits of 16 blocks.
 - the entry points print one JSON line with the JAX metric name.
+- the expert and pipeline axes: `measure_lm_rate(experts=4, moe_bf16=
+  True)` and `measure_pp_rate` at pp 1 and 2 on the CPU carry the JAX
+  rows' meta keys (`kungfu_tpu/benchmarks/lm.py:207-247`, `:319-327`;
+  written out here: the JAX MoE row takes ~37 s on this CPU, and the
+  JAX `measure_pp_rate` raises before its step — its local ``stacked``
+  shadows `rules.stacked`), the refusals of the JAX CLI, and the dry
+  run's phases 4 (pp) and 5 (ep) on 4 CPU ranks.
 """
 
 import json
@@ -138,10 +145,110 @@ def test_paged_defaults_plan_resident_eight_splits():
       "cpu"], "gpt_decode_tokens_per_sec"),
     (["-m", "kungfu_tpu_torch.benchmarks.throughput", "--adamw", "flat",
       "--device", "cpu"], "gpt_adamw_update_ms"),
-], ids=["paged", "decode", "adamw"])
+    (["-m", "kungfu_tpu_torch.benchmarks.lm", "--pp", "1", "--device",
+      "cpu"], "gpt_pp_tokens_per_sec"),
+    (["-m", "kungfu_tpu_torch.benchmarks.lm", "--microbatch-bound",
+      "--device", "cpu"], "gpt_microbatch_bound_tokens_per_sec"),
+], ids=["paged", "decode", "adamw", "pp", "microbatch_bound"])
 def test_entry_points_print_the_jax_metric(argv, metric):
     out = subprocess.run([sys.executable, *argv], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          check=True)
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["metric"] == metric and line["value"] > 0
+
+
+#: the JAX MoE row's meta keys at one device (`lm.py:207-247`; its
+#: ``mfu_vs_v5e_bf16_peak`` is the port's ``mfu``)
+JAX_MOE_KEYS = {"platform", "devices", "tp", "size", "per_data_batch", "seq",
+                "attention", "step_time_ms", "iters", "device_kind",
+                "fused_ce", "num_experts", "moe_group_size",
+                "loss_includes_router_aux", "moe_param_dtype",
+                "moe_dropped_frac"}
+#: the JAX pp row's (`lm.py:319-327`)
+JAX_PP_KEYS = {"platform", "devices", "pp", "size", "batch", "seq",
+               "microbatches", "schedule", "step_time_ms", "iters"}
+
+
+def test_moe_rate_meta_matches_jax():
+    rate, meta = lm.measure_lm_rate(device="cpu", experts=4, moe_bf16=True,
+                                    iters=2)
+    assert rate > 0
+    assert JAX_MOE_KEYS | {"mfu"} <= set(meta)
+    assert meta["num_experts"] == 4 and meta["moe_param_dtype"] == "bfloat16"
+    # tiny at the CPU shape: 2 x 128 tokens, the auto group clamped to them
+    assert meta["moe_group_size"] == 256
+    assert meta["loss_includes_router_aux"] is True
+    assert 0 <= meta["moe_dropped_frac"] < 1
+    assert abs(sum(meta["moe_expert_load"]) - 1) < 1e-6
+    assert all(np.isfinite(meta["losses"]))
+    assert meta["losses"][-1] < meta["losses"][0]
+
+
+def test_remat_rate_at_tp2():
+    """remat reaches the tp ranks' model: the row says so and trains."""
+    rate, meta = lm.measure_lm_rate(device="cpu", tp=2, remat=True, iters=1)
+    assert rate > 0 and meta["remat"] is True and meta["tp"] == 2
+    assert all(np.isfinite(meta["losses"]))
+    assert meta["losses"][-1] < meta["losses"][0]
+
+
+def test_moe_rate_refusals():
+    """The JAX function's refusal of a non-residual CE variant with
+    experts; MoE at tp > 1 is not ported."""
+    with pytest.raises(SystemExit, match="does not plumb"):
+        lm.measure_lm_rate(device="cpu", experts=4, ce_variant="recompute")
+    with pytest.raises(NotImplementedError, match="tp > 1"):
+        lm.measure_lm_rate(device="cpu", experts=4, tp=2)
+
+
+@pytest.fixture(scope="module")
+def pp_one():
+    return lm.measure_pp_rate(pp=1, device="cpu", iters=2)
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+def test_pp_rate_meta_matches_jax(pp, pp_one):
+    """pp 1 in process (gradient accumulation), pp 2 on two gloo ranks:
+    the JAX keys, and the same losses (f32 master weights, the same
+    step)."""
+    rate, meta = (pp_one if pp == 1 else
+                  lm.measure_pp_rate(pp=pp, device="cpu", iters=2))
+    assert rate > 0
+    assert JAX_PP_KEYS | {"mfu"} <= set(meta)
+    assert (meta["size"], meta["batch"], meta["seq"], meta["microbatches"],
+            meta["schedule"], meta["pp"]) == ("tiny", 4, 128, 2, "1F1B", pp)
+    assert all(np.isfinite(meta["losses"]))
+    assert meta["losses"][-1] < meta["losses"][0]
+    np.testing.assert_allclose(meta["losses"], pp_one[1]["losses"],
+                               rtol=1e-5)
+    ranks = meta.get("ranks", [meta])
+    # K2 (its plain version on the CPU) on the last stage only, a
+    # microbatch a step, forward and residual backward
+    steps = len(meta["losses"])
+    k2 = [r["k2"]["plain"] for r in ranks]
+    assert k2[-1] == 2 * 2 * steps and not any(k2[:-1])
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--pp", "2", "--remat"], "not plumbed"),
+    (["--microbatch-bound", "--pp", "2"], "non-pipelined"),
+    (["--microbatch-bound", "--batch", "6", "--microbatches", "4"],
+     "must divide"),
+], ids=["pp_remat", "bound_pp", "bound_divide"])
+def test_cli_refusals(argv, message):
+    out = subprocess.run([sys.executable, "-m",
+                          "kungfu_tpu_torch.benchmarks.lm", "--device", "cpu",
+                          *argv], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and message in out.stderr
+
+
+def test_dryrun_phases_4_and_5():
+    from kungfu_tpu_torch.dryrun import dryrun
+
+    res = dryrun(4, "cpu", phases=(4, 5))
+    assert [x.split(" n=")[0] for x in res["lines"]] == [
+        "dryrun: phase 4 (pp)", "dryrun: phase 5 (ep)"]
+    assert res["lines"][0].startswith("dryrun: phase 4 (pp) n=4 mesh=1x4")
+    assert "experts=8" in res["lines"][1]

@@ -1631,3 +1631,79 @@ def test_dcp_checkpoint_manager_on_the_card(cuda, tmp_path):
     assert torch.equal(back["w"], tree["w"])
     assert torch.equal(back["b"], tree["b"])
     assert torch.equal(back["opt"][0], tree["opt"][0])
+
+
+def _moe_gpt(remat, device, experts=4):
+    from kungfu_tpu_torch.models.gpt import GPTConfig, GPTLM
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, max_position=256,
+                    dtype=torch.bfloat16, param_dtype=torch.float32,
+                    attention="flash", num_experts=experts,
+                    moe_param_dtype=torch.bfloat16, remat=remat)
+    return GPTLM(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+
+@pytest.mark.parametrize("experts", [0, 4], ids=["dense", "moe"])
+def test_remat_relaunches_k1_forward_same_gradients(cuda, experts):
+    """Under remat each block's training forward runs again in the
+    backward: K1's forward launches twice a layer, dq and dkv once, K2
+    once; the loss, the router metrics and every gradient are the ones
+    without remat, bit for bit."""
+    from kungfu_tpu_torch.models.gpt import gpt_loss_with_aux
+    from kungfu_tpu_torch.ops import flash as fl
+    from kungfu_tpu_torch.ops import fused_ce as fc
+
+    toks = torch.randint(0, 512, (2, 256),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    out = {}
+    for remat in (False, True):
+        model = _moe_gpt(remat, cuda, experts)
+        fl.reset_launches()
+        fc.reset_launches()
+        loss, metrics = gpt_loss_with_aux(model, toks)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), metrics, dict(fl.LAUNCHES),
+                      dict(fc.LAUNCHES),
+                      [p.grad for p in model.parameters()])
+    for remat, (_, _, k1, k2, _) in out.items():
+        assert k1 == {"fwd": 2 * (2 if remat else 1), "dq": 2, "dkv": 2,
+                      "plain": 0}
+        assert k2["fwd"] == k2["residual_d"] == 1 and k2["plain"] == 0
+    (l0, m0, _, _, g0), (l1, m1, _, _, g1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_pp1_launches_k1_and_k2_per_microbatch(cuda):
+    """`gpt_pipeline_train_step` at one stage (gradient accumulation):
+    K1's forward, dq and dkv once a layer a microbatch, K2's forward and
+    residual backward once a microbatch, no plain call; its loss is the
+    whole batch's through `gpt_fused_loss` within bf16's noise."""
+    from kungfu_tpu_torch.models.gpt import (gpt_fused_loss,
+                                             gpt_pipeline_train_step,
+                                             stack_gpt_blocks)
+    from kungfu_tpu_torch.ops import flash as fl
+    from kungfu_tpu_torch.ops import fused_ce as fc
+    from kungfu_tpu_torch.parallel.mesh import Axis
+
+    model = _moe_gpt(False, cuda, experts=0)
+    toks = torch.randint(0, 512, (4, 256),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    outer, stacked = stack_gpt_blocks(model, 1)
+    outer = {k: v.detach().requires_grad_() for k, v in outer.items()}
+    blocks = {k: v[0].detach().requires_grad_() for k, v in stacked.items()}
+    fl.reset_launches()
+    fc.reset_launches()
+    loss, g_outer, g_stage = gpt_pipeline_train_step(
+        model.config, outer, blocks, toks, Axis("pipe", None, 1, 0), 4)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": 8, "dq": 8, "dkv": 8, "plain": 0}
+    assert (fc.LAUNCHES["fwd"], fc.LAUNCHES["residual_d"],
+            fc.LAUNCHES["plain"]) == (4, 4, 0)
+    whole = float(gpt_fused_loss(model, toks).detach())
+    assert abs(float(loss) - whole) <= 2e-3 * abs(whole)
+    assert all(bool(torch.isfinite(g).all()) for g in g_outer.values())
+    assert all(float(g.abs().sum()) > 0 for g in g_stage.values())

@@ -557,7 +557,7 @@ def test_measure_lm_rate_defaults_to_the_card():
 @pytest.mark.parametrize("kw,what", [
     ({"attention": "ring"}, "parallel-axes"),
     ({"attention": "ulysses"}, "parallel-axes"),
-    ({"experts": 4}, "parallel-axes"), ({"remat": True}, "remat")])
+    ({"experts": 4, "tp": 2}, "parallel-axes")])
 def test_measure_lm_rate_names_the_slice_of_what_is_not_ported(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         measure_lm_rate(device="cpu", **kw)
